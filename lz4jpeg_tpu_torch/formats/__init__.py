@@ -1,0 +1,1 @@
+"""formats of lz4jpeg_tpu_torch."""

@@ -1,0 +1,1 @@
+"""models of lz4jpeg_tpu_torch."""

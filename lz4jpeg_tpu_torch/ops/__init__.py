@@ -1,0 +1,1 @@
+"""ops of lz4jpeg_tpu_torch."""

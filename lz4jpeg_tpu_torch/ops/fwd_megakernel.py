@@ -1,0 +1,165 @@
+"""The forward megakernel: color + DCT + sparse RLE in one CUDA pass.
+
+Port of ``lz4jpeg_tpu/ops/pallas_fwd.py``.  ``forward_combined`` maps a
+(B, H, W, 3) uint8 image batch to the (B·bpc·bpr, 128) int16 combined
+sparse-delta streams (lanes: 64 luma + 32 Cr + 32 Cb slots per block;
+frames outermost, then block-row-major).  On a CUDA tensor it launches the
+hand-written Hopper kernel ``csrc/fwd_megakernel.cu``; on a CPU tensor it
+runs ``forward_combined_ref``, the plain torch version of the same function
+(the JAX package's tile chain, ``models/jpeg.py:365-376``).  There is no
+fallback between the two: a CUDA call launches the kernel or raises.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+
+import numpy as np
+import torch
+
+from lz4jpeg_tpu_torch.kernels.build import load_cuda_library
+from lz4jpeg_tpu_torch.ops.color import (
+    chroma_subsample_422,
+    rgb_to_ycbcr,
+    split_mcus,
+)
+from lz4jpeg_tpu_torch.ops.fused import _table_key, forward_basis, fused_forward
+from lz4jpeg_tpu_torch.ops.rle import rle_encode_sparse16
+
+# Combined-output lane ranges: [0, 64) luma, [64, 96) Cr, [96, 128) Cb.
+COMBINED_LANES = 128
+LUM_SLICE = slice(0, 64)
+CR_SLICE = slice(64, 96)
+CB_SLICE = slice(96, 128)
+CHANNEL_SLICES = {"lum": LUM_SLICE, "r": CR_SLICE, "b": CB_SLICE}
+
+
+@functools.lru_cache(maxsize=None)
+def kt_bases(lum_key: bytes, chr_key: bytes):
+    """(my (64,64), mc64 (64,64 zero-padded), offs (128,1)) f32 numpy.
+
+    ``mc64`` folds the 4:2:2 odd-column subsample into the chroma forward
+    basis: chroma block position (r, c') reads full-res tile column 2c'+1
+    (JPEG.c:327-333).  Rows 32..63 are zero padding.  A copy of
+    ``lz4jpeg_tpu/ops/pallas_fwd.py::_kt_bases``."""
+    my, offy = forward_basis(8, 8, lum_key)
+    mc, offc = forward_basis(4, 8, chr_key)
+    mc64 = np.zeros((64, 64))
+    k_idx = np.arange(32)[:, None, None]
+    r_idx = np.arange(8)[None, :, None]
+    c_idx = np.arange(4)[None, None, :]
+    mc64[k_idx, r_idx * 8 + 2 * c_idx + 1] = mc.reshape(32, 8, 4)[
+        k_idx, r_idx, c_idx
+    ]
+    offs = np.concatenate([offy, offc, offc])[:, None]
+    return (
+        my.astype(np.float32),
+        mc64.astype(np.float32),
+        offs.astype(np.float32),
+    )
+
+
+def _blocks(rgb: torch.Tensor):
+    """Validate a (B, H, W, 3) uint8 contiguous batch; return (B, bpc, bpr)."""
+    if rgb.dtype != torch.uint8:
+        raise TypeError(f"expected uint8 RGB, got {rgb.dtype}")
+    if rgb.dim() != 4 or rgb.shape[-1] != 3:
+        raise ValueError(f"expected a (B, H, W, 3) batch, got {tuple(rgb.shape)}")
+    if not rgb.is_contiguous():
+        raise ValueError("RGB batch must be contiguous")
+    b, h, w, _ = rgb.shape
+    return b, -(-h // 8), -(-w // 8)
+
+
+def forward_combined_ref(
+    rgb: torch.Tensor, lum_table: np.ndarray, chr_table: np.ndarray
+) -> torch.Tensor:
+    """Plain torch version: color → 4:2:2 → ``split_mcus`` → fused basis
+    matmul per channel → ``rle_encode_sparse16``, concatenated to
+    (B·bpc·bpr, 128) int16."""
+    _blocks(rgb)
+    y, cr, cb = rgb_to_ycbcr(rgb)
+    lum, r, b = split_mcus(
+        y, chroma_subsample_422(cr), chroma_subsample_422(cb)
+    )
+    parts = []
+    for tiles, table, width in ((lum, lum_table, 8), (r, chr_table, 4),
+                                (b, chr_table, 4)):
+        zz = fused_forward(tiles, table, width, 8)
+        sp, _ = rle_encode_sparse16(zz.to(torch.int16))
+        parts.append(sp)
+    return torch.cat(parts, dim=1)
+
+
+@functools.lru_cache(maxsize=None)
+def load_kernel() -> ctypes.CDLL:
+    """Build ``csrc/fwd_megakernel.cu`` (at first use), load and bind it."""
+    lib = load_cuda_library("fwd_megakernel")
+    lib.fwd_megakernel_launch.restype = ctypes.c_int
+    lib.fwd_megakernel_launch.argtypes = [
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+        ctypes.c_int64, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+        ctypes.c_int, ctypes.c_void_p,
+    ]
+    lib.fwd_megakernel_error_string.restype = ctypes.c_char_p
+    lib.fwd_megakernel_error_string.argtypes = [ctypes.c_int]
+    return lib
+
+
+@functools.lru_cache(maxsize=None)
+def _device_bases(lum_key: bytes, chr_key: bytes, device: torch.device):
+    """The kernel's (128, 64) lane basis and (128,) offsets on ``device``."""
+    my, mc64, offs = kt_bases(lum_key, chr_key)
+    basis = np.concatenate([my, mc64[:32], mc64[:32]])
+    return (
+        torch.from_numpy(np.ascontiguousarray(basis)).to(device),
+        torch.from_numpy(offs.reshape(-1).copy()).to(device),
+    )
+
+
+def forward_combined(
+    rgb: torch.Tensor, lum_table: np.ndarray, chr_table: np.ndarray
+) -> torch.Tensor:
+    """(B, H, W, 3) uint8 → (B·bpc·bpr, 128) int16 combined sparse streams.
+
+    A CPU tensor runs ``forward_combined_ref``.  A CUDA tensor launches the
+    Hopper kernel on the current stream and adds one to
+    ``forward_combined.launches``; a refused launch raises."""
+    b, bpc, bpr = _blocks(rgb)
+    if rgb.device.type == "cpu":
+        return forward_combined_ref(rgb, lum_table, chr_table)
+    if rgb.device.type != "cuda":
+        raise ValueError(f"unsupported device {rgb.device}")
+    n = b * bpc * bpr
+    out = torch.empty((n, COMBINED_LANES), dtype=torch.int16, device=rgb.device)
+    if n == 0:
+        return out
+    basis, offs = _device_bases(
+        _table_key(lum_table), _table_key(chr_table), rgb.device
+    )
+    lib = load_kernel()
+    with torch.cuda.device(rgb.device):
+        stream = torch.cuda.current_stream(rgb.device).cuda_stream
+        rc = lib.fwd_megakernel_launch(
+            rgb.data_ptr(), out.data_ptr(), basis.data_ptr(), offs.data_ptr(),
+            n, rgb.shape[1], rgb.shape[2], bpc, bpr, stream,
+        )
+    if rc != 0:
+        msg = lib.fwd_megakernel_error_string(rc).decode()
+        raise RuntimeError(f"fwd_megakernel launch failed: {msg} ({rc})")
+    forward_combined.launches += 1
+    return out
+
+
+forward_combined.launches = 0
+
+
+def sparse_lengths(combined: torch.Tensor) -> dict:
+    """(N, 128) combined sparse streams → per-channel symbol lengths
+    ((N,) int32 each, 2·runs — the ``rle_encode_sparse16`` side channel)."""
+    nz = (combined != 0).to(torch.int32)
+    return {
+        c: 2 * nz[:, sl].sum(dim=1, dtype=torch.int32)
+        for c, sl in CHANNEL_SLICES.items()
+    }

@@ -1,0 +1,1 @@
+"""utils of lz4jpeg_tpu_torch."""

@@ -1,0 +1,146 @@
+"""The port's numpy copies and parameters, held equal to the JAX package.
+
+Tables, quality scaling, the zigzag permutation and every basis the two
+packages build must be exactly equal (``np.array_equal``), for the
+reference tables (quality None) and a scaled setting (75).  The quant
+tables are the codec's parameters: ``tables_from_numpy`` carries the JAX
+pipeline's ``_tables`` into the port, whose bases must then equal the JAX
+package's.
+"""
+
+import numpy as np
+import pytest
+
+from lz4jpeg_tpu.config import JPEGConfig as JaxJPEGConfig
+from lz4jpeg_tpu.models.jpeg import JPEGPipeline as JaxJPEGPipeline
+from lz4jpeg_tpu.ops import fused as jax_fused
+from lz4jpeg_tpu.ops.pallas_fwd import _kt_bases as jax_kt_bases
+from lz4jpeg_tpu.ops.quantize import scale_table as jax_scale_table
+from lz4jpeg_tpu.oracle import jpeg_oracle
+
+from lz4jpeg_tpu_torch import JPEGConfig, JPEGPipeline, tables_from_numpy
+from lz4jpeg_tpu_torch.ops import fused, quantize
+from lz4jpeg_tpu_torch.ops.fwd_megakernel import kt_bases
+
+QUALITIES = (None, 75)
+SHAPES = ((8, 8), (4, 8))  # (width, height) of the luma and chroma blocks
+
+
+def _jax_tables(quality):
+    return {
+        c: np.asarray(t)
+        for c, t in JaxJPEGPipeline(JaxJPEGConfig(quality=quality))._tables.items()
+    }
+
+
+def test_reference_tables_equal():
+    assert np.array_equal(
+        quantize.LUMINANCE_QUANTIZATION_TABLE,
+        jpeg_oracle.LUMINANCE_QUANTIZATION_TABLE,
+    )
+    assert np.array_equal(
+        quantize.CHROMINANCE_QUANTIZATION_TABLE,
+        jpeg_oracle.CHROMINANCE_QUANTIZATION_TABLE,
+    )
+
+
+@pytest.mark.parametrize("quality", [None, 1, 25, 50, 75, 90, 100])
+def test_scale_table_equal(quality):
+    for table in (
+        jpeg_oracle.LUMINANCE_QUANTIZATION_TABLE,
+        jpeg_oracle.CHROMINANCE_QUANTIZATION_TABLE,
+    ):
+        assert np.array_equal(
+            quantize.scale_table(table, quality),
+            jax_scale_table(table, quality),
+        )
+
+
+@pytest.mark.parametrize("width,height", [(8, 8), (4, 8), (3, 5), (8, 4)])
+def test_zigzag_indices_equal(width, height):
+    assert np.array_equal(
+        quantize.zigzag_indices(width, height),
+        jpeg_oracle.zigzag_indices(width, height),
+    )
+
+
+@pytest.mark.parametrize("quality", QUALITIES)
+@pytest.mark.parametrize("name", ["forward_basis", "inverse_basis",
+                                  "inverse_suffix_basis"])
+def test_bases_equal(quality, name):
+    tables = _jax_tables(quality)
+    for (width, height), table in zip(SHAPES, (tables["lum"], tables["r"])):
+        key = jax_fused._table_key(table)
+        assert key == fused._table_key(table)
+        ours = getattr(fused, name)(width, height, key)
+        theirs = getattr(jax_fused, name)(width, height, key)
+        if name == "forward_basis":  # (M, offset)
+            assert all(map(np.array_equal, ours, theirs))
+        else:
+            assert np.array_equal(ours, theirs)
+
+
+@pytest.mark.parametrize("quality", QUALITIES)
+def test_kt_bases_equal(quality):
+    tables = _jax_tables(quality)
+    keys = (fused._table_key(tables["lum"]), fused._table_key(tables["r"]))
+    for ours, theirs in zip(kt_bases(*keys), jax_kt_bases(*keys)):
+        assert ours.dtype == theirs.dtype == np.float32
+        assert np.array_equal(ours, theirs)
+
+
+@pytest.mark.parametrize("quality", QUALITIES)
+def test_tables_from_numpy_carries_jax_parameters(quality):
+    jax_tables = _jax_tables(quality)
+    tables = tables_from_numpy(jax_tables)
+    for c in ("lum", "r", "b"):
+        assert tables[c].dtype == np.int64
+        assert np.array_equal(tables[c], jax_tables[c])
+    pipe = JPEGPipeline(JPEGConfig(quality=quality), device="cpu", tables=tables)
+    bases = pipe.bases()
+    keys = {c: jax_fused._table_key(jax_tables[c]) for c in ("lum", "r", "b")}
+    for ours, theirs in zip(bases["forward"], jax_kt_bases(keys["lum"], keys["r"])):
+        assert np.array_equal(ours, theirs)
+    for c, width in (("lum", 8), ("r", 4), ("b", 4)):
+        assert np.array_equal(
+            bases["inverse"][c],
+            jax_fused.inverse_suffix_basis(width, 8, keys[c]),
+        )
+
+
+def test_tables_from_numpy_rejects_bad_tables():
+    good = _jax_tables(None)
+    with pytest.raises(ValueError):
+        tables_from_numpy({**good, "lum": good["lum"][:32]})
+    with pytest.raises(ValueError):
+        tables_from_numpy({**good, "r": good["r"] + 0.5})
+    with pytest.raises(KeyError):
+        tables_from_numpy({"lum": good["lum"], "r": good["r"]})
+    # Tables that do not belong to the config's quality would write
+    # containers that decode with other tables.
+    with pytest.raises(ValueError):
+        JPEGPipeline(JPEGConfig(quality=None), device="cpu",
+                     tables=_jax_tables(75))
+
+
+@pytest.mark.parametrize("kwargs", [
+    {"precision": "exact"},
+    {"entropy": "per_block"},
+    {"quality": 100},
+    {"quality": 95},
+])
+def test_unported_modes_raise(kwargs):
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        JPEGConfig(**kwargs)
+
+
+@pytest.mark.parametrize("quality", [1, 50, 75, 85, 90, 95, 100])
+def test_sparse16_eligibility_matches_jax(quality):
+    """The port accepts a quality exactly when the JAX pipeline takes the
+    sparse16 layout for it."""
+    try:
+        JPEGConfig(quality=quality)
+        accepted = True
+    except NotImplementedError:
+        accepted = False
+    assert accepted == JaxJPEGPipeline(JaxJPEGConfig(quality=quality))._sparse16

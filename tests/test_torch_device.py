@@ -1,0 +1,122 @@
+"""Where the port runs, and what it imports.
+
+* A CUDA pipeline on a machine without a card raises; it never runs on
+  the CPU instead.
+* ``forward_combined.launches`` counts kernel launches only: CPU tensors
+  run the plain version and leave it at 0.
+* No module of ``lz4jpeg_tpu_torch`` (nor ``chip_smoke.py``) imports
+  ``jax`` or ``lz4jpeg_tpu``, by an AST scan and by a subprocess that
+  blocks both names and still runs a round trip.
+"""
+
+import ast
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+from lz4jpeg_tpu_torch import JPEGConfig, JPEGPipeline
+from lz4jpeg_tpu_torch.ops.fwd_megakernel import forward_combined
+from lz4jpeg_tpu_torch.ops.quantize import (
+    CHROMINANCE_QUANTIZATION_TABLE as CHR,
+    LUMINANCE_QUANTIZATION_TABLE as LUM,
+)
+
+REPO = Path(__file__).resolve().parent.parent
+BLOCKED = ("jax", "lz4jpeg_tpu")
+
+
+def test_cuda_pipeline_raises_without_a_card():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present; the refusal is for CPU hosts")
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        JPEGPipeline(JPEGConfig(), device="cuda")
+
+
+def test_pipeline_requires_cpu_or_cuda():
+    with pytest.raises(ValueError, match="unsupported device"):
+        JPEGPipeline(JPEGConfig(), device="meta")
+
+
+def test_pipeline_turns_tf32_off():
+    torch.backends.cuda.matmul.allow_tf32 = True
+    JPEGPipeline(JPEGConfig(), device="cpu")
+    assert torch.backends.cuda.matmul.allow_tf32 is False
+    assert torch.backends.cudnn.allow_tf32 is False
+
+
+def test_cpu_tensors_never_count_launches():
+    forward_combined.launches = 0
+    rgb = torch.from_numpy(
+        np.random.default_rng(0).integers(0, 256, size=(2, 16, 24, 3),
+                                          dtype=np.uint8)
+    )
+    forward_combined(rgb, LUM, CHR)
+    JPEGPipeline(JPEGConfig(), device="cpu").encode_batch(rgb.numpy())
+    assert forward_combined.launches == 0
+
+
+@pytest.mark.parametrize("bad", [
+    torch.zeros((1, 8, 8, 3), dtype=torch.int32),           # dtype
+    torch.zeros((8, 8, 3), dtype=torch.uint8),              # rank
+    torch.zeros((1, 8, 8, 4), dtype=torch.uint8),           # channels
+    torch.zeros((1, 8, 16, 3), dtype=torch.uint8)[:, :, ::2],  # strides
+    torch.zeros((1, 8, 8, 3), dtype=torch.uint8, device="meta"),  # device
+])
+def test_wrapper_checks_its_input(bad):
+    with pytest.raises((TypeError, ValueError)):
+        forward_combined(bad, LUM, CHR)
+
+
+def _imported_roots(path: Path):
+    for node in ast.walk(ast.parse(path.read_text(), str(path))):
+        if isinstance(node, ast.Import):
+            for alias in node.names:
+                yield alias.name.split(".")[0]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module.split(".")[0]
+
+
+def test_no_jax_import_anywhere_in_the_port():
+    files = sorted((REPO / "lz4jpeg_tpu_torch").rglob("*.py"))
+    files.append(REPO / "chip_smoke.py")
+    assert len(files) > 10
+    for path in files:
+        roots = set(_imported_roots(path))
+        assert not roots & set(BLOCKED), f"{path} imports {roots & set(BLOCKED)}"
+
+
+_BLOCKED_RUN = """
+import importlib.abc, sys
+import numpy as np
+
+class Block(importlib.abc.MetaPathFinder):
+    def find_spec(self, name, path=None, target=None):
+        if name.split(".")[0] in {blocked!r}:
+            raise ImportError("blocked import of " + name)
+        return None
+
+sys.meta_path.insert(0, Block())
+sys.path.insert(0, {repo!r})
+from lz4jpeg_tpu_torch import JPEGConfig, JPEGPipeline
+from lz4jpeg_tpu_torch.formats.jpeg_container import pack_container, unpack_container
+pipe = JPEGPipeline(JPEGConfig(), device="cpu")
+rgb = np.random.default_rng(0).integers(0, 256, size=(16, 16, 3), dtype=np.uint8)
+out = pipe.decode(unpack_container(pack_container(pipe.encode(rgb))))
+assert out.shape == rgb.shape and out.dtype == np.uint8
+assert "jax" not in sys.modules and "lz4jpeg_tpu" not in sys.modules
+print("ok")
+"""
+
+
+def test_round_trip_with_jax_blocked(tmp_path):
+    code = _BLOCKED_RUN.format(blocked=BLOCKED, repo=str(REPO))
+    proc = subprocess.run(
+        [sys.executable, "-c", code], capture_output=True, text=True,
+        timeout=300, cwd=str(tmp_path),
+    )
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip() == "ok"
