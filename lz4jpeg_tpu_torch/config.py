@@ -1,10 +1,14 @@
-"""Configuration of the PyTorch JPEG pipeline.
+"""Configuration of the PyTorch codecs.
 
-Mirrors ``lz4jpeg_tpu/config.py::JPEGConfig``.  The port carries the fast
-sparse16 path only: ``precision="exact"``, ``entropy="per_block"`` and
-quality settings whose tables force the int16 pair layout raise
-``NotImplementedError`` naming the ROADMAP item that ports them.  They never
-fall back to another path.
+``JPEGConfig`` mirrors ``lz4jpeg_tpu/config.py::JPEGConfig``.  The port
+carries the fast sparse16 path only: ``precision="exact"``,
+``entropy="per_block"`` and quality settings whose tables force the int16
+pair layout raise ``NotImplementedError`` naming the ROADMAP item that ports
+them.  They never fall back to another path.
+
+``LZ4Config`` is a copy of ``lz4jpeg_tpu/config.py::LZ4Config``: the same
+fields, defaults and validation.  ``models/lz4.py::LZ4Codec`` refuses what
+the port does not carry yet (``mode="parity"``, ``log_path``).
 """
 
 from __future__ import annotations
@@ -73,3 +77,51 @@ class JPEGConfig:
     def torch_dtype(self) -> torch.dtype:
         """Compute dtype of the transforms: float32 (the fast path)."""
         return torch.float32
+
+
+@dataclasses.dataclass(frozen=True)
+class LZ4Config:
+    """Knobs of the LZ4-style block codec.
+
+    Defaults reproduce the reference constants
+    (``Algorithms/sequential/LZ4/LZ4.c:20-23``).
+    """
+
+    block_length: int = 300          # DEFAULT_BLOCK_LENGTH
+    min_match_length: int = 4        # MIN_MATCH_LENGTH
+    max_match_length: int = 1024     # MAX_MATCH_LENGTH
+    window_size: int = 65535         # WINDOW_SIZE
+    # "parity" replicates every reference quirk bit-for-bit; "fast" is the
+    # LZ4T frame (64 KiB blocks on the host, 16 KiB on the device).
+    mode: str = "parity"
+    # Append-mode encode log (the reference's encoding_log.txt).  None
+    # disables logging.
+    log_path: Optional[str] = None
+    # Device match finder for fast mode: "fused" is the single-kernel
+    # matcher (ops/fused_match.py: the Hopper kernel on a CUDA device, its
+    # plain torch version on the CPU); "sort" is the two-sort formulation
+    # (ops/lz4_fast.py).
+    matcher: str = "fused"
+    # Anchor stride for the fused matcher: matches may start only every
+    # N-th byte.  1 = full quality; 2/4 trade ratio for throughput.
+    match_stride: int = 1
+    # Suffix words carried through the matcher's lcp verification (the
+    # in-parse match-length cap is 4·words bytes; emission extends past it).
+    match_lcp_words: int = 4
+
+    def __post_init__(self):
+        # The reference rejects this exact value (LZ4.c:672-677, :1040-1045).
+        if self.block_length == 500:
+            raise ValueError("block length cannot have the value 500")
+        if self.mode not in ("parity", "fast"):
+            raise ValueError(f"unknown LZ4 mode: {self.mode!r}")
+        if self.matcher not in ("sort", "fused"):
+            raise ValueError(f"unknown matcher: {self.matcher!r}")
+        if self.match_stride not in (1, 2, 4):
+            raise ValueError(
+                f"match_stride must be 1, 2 or 4: {self.match_stride}"
+            )
+        if self.match_lcp_words not in (1, 2, 4):
+            raise ValueError(
+                f"match_lcp_words must be 1, 2 or 4: {self.match_lcp_words}"
+            )

@@ -1,13 +1,16 @@
-"""The host entropy runtime: ctypes bindings of three native functions.
+"""The host runtime: ctypes bindings of nine native functions.
 
 The C++ source is the JAX package's own ``lz4jpeg_tpu/native/lz4core.cpp``,
 compiled here with the flags of its Makefile (``native/Makefile:3``) into
-the port's build directory, so both packages run the same entropy code and
-write byte-identical containers.  The bindings are copies of
-``lz4jpeg_tpu/native/__init__.py`` (same argtypes); the port binds only the
-sparse16 walkers of its main path.  A failed build raises (no Python
-fallback): ``tests/test_torch_container.py`` holds the results equal to the
-JAX package's.
+the port's build directory, so both packages run the same host code and
+write byte-identical containers and frames.  The bindings are copies of
+``lz4jpeg_tpu/native/__init__.py`` (same argtypes): the sparse16 entropy
+walkers of the JPEG path, and the LZ4T fast encoder/decoder, batched block
+emitter, chunk codec and device-decode copy-program builder.  A failed
+build raises (no Python fallback; the Python spec paths are reached only
+through ``engine="python"``): ``tests/test_torch_container.py`` and
+``tests/test_torch_lz4_frame.py`` hold the results equal to the JAX
+package's.
 """
 
 from __future__ import annotations
@@ -27,6 +30,40 @@ CXXFLAGS = ("-O3", "-march=native", "-std=c++17", "-fPIC", "-Wall", "-Wextra")
 class NativeBackend:
     def __init__(self, lib: ctypes.CDLL):
         self._lib = lib
+        lib.lz4_encode_fast.restype = ctypes.c_ssize_t
+        lib.lz4_encode_fast.argtypes = [
+            ctypes.c_char_p, ctypes.c_size_t,
+            ctypes.c_char_p, ctypes.c_size_t,
+        ]
+        lib.lz4_decode_fast.restype = ctypes.c_ssize_t
+        lib.lz4_decode_fast.argtypes = [
+            ctypes.c_char_p, ctypes.c_size_t,
+            ctypes.c_char_p, ctypes.c_size_t,
+        ]
+        lib.lz4t_emit_blocks.restype = ctypes.c_int64
+        lib.lz4t_emit_blocks.argtypes = [
+            ctypes.c_char_p, ctypes.c_int64, ctypes.c_int64,
+            ctypes.c_void_p, ctypes.c_char_p,
+            ctypes.c_void_p, ctypes.c_void_p,
+            ctypes.c_char_p, ctypes.c_size_t, ctypes.c_void_p,
+        ]
+        lib.lz4t_encode_chunk.restype = ctypes.c_int64
+        lib.lz4t_encode_chunk.argtypes = [
+            ctypes.c_char_p, ctypes.c_size_t, ctypes.c_int,
+            ctypes.c_char_p, ctypes.c_size_t, ctypes.c_void_p,
+        ]
+        lib.lz4t_decode_chunk.restype = ctypes.c_int64
+        lib.lz4t_decode_chunk.argtypes = [
+            ctypes.c_char_p, ctypes.c_size_t,
+            ctypes.c_void_p, ctypes.c_int64, ctypes.c_int,
+            ctypes.c_uint64, ctypes.c_char_p, ctypes.c_size_t,
+        ]
+        lib.lz4t_build_copy_program.restype = ctypes.c_int64
+        lib.lz4t_build_copy_program.argtypes = [
+            ctypes.c_char_p, ctypes.c_size_t,
+            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+            ctypes.c_int64, ctypes.c_void_p,
+        ]
         lib.rle_symbol_hist_sparse16.restype = ctypes.c_int64
         lib.rle_symbol_hist_sparse16.argtypes = [
             ctypes.c_void_p, ctypes.c_size_t, ctypes.c_size_t,
@@ -47,6 +84,104 @@ class NativeBackend:
             ctypes.c_int64, ctypes.c_int64, ctypes.c_size_t,
             ctypes.c_size_t, ctypes.c_void_p, ctypes.c_void_p,
         ]
+
+    def encode_fast(self, data: bytes) -> bytes:
+        out = ctypes.create_string_buffer(len(data) + len(data) // 32 + 4096)
+        n = self._lib.lz4_encode_fast(data, len(data), out, len(out))
+        if n < 0:
+            raise RuntimeError(f"native fast encode failed ({n})")
+        return out.raw[:n]
+
+    def decode_fast(self, data: bytes, max_out: int) -> bytes:
+        out = ctypes.create_string_buffer(max_out)
+        n = self._lib.lz4_decode_fast(data, len(data), out, len(out))
+        if n < 0:
+            raise RuntimeError(f"native fast decode failed ({n})")
+        return out.raw[:n]
+
+    def emit_blocks(self, data, lengths, is_match, emit_len, emit_dist):
+        """Batched LZ4T payloads from (B, P) parse arrays — one native call.
+
+        ``data`` is the padded (B, P) uint8 block matrix; ``lengths`` the
+        valid prefix per row.  Returns a list of B payload ``bytes``.
+        """
+        data = np.ascontiguousarray(data, np.uint8)
+        b, p = data.shape
+        lengths = np.ascontiguousarray(lengths, np.int32)
+        is_match = np.ascontiguousarray(is_match, np.uint8)
+        emit_len = np.ascontiguousarray(emit_len, np.int32)
+        emit_dist = np.ascontiguousarray(emit_dist, np.int32)
+        cap = int(lengths.astype(np.int64).sum()) + b * (p // 128 + 64)
+        out = ctypes.create_string_buffer(cap)
+        sizes = np.zeros(b, np.int64)
+        total = self._lib.lz4t_emit_blocks(
+            data.ctypes.data_as(ctypes.c_char_p), b, p,
+            lengths.ctypes.data,
+            is_match.ctypes.data_as(ctypes.c_char_p),
+            emit_len.ctypes.data, emit_dist.ctypes.data,
+            out, cap, sizes.ctypes.data,
+        )
+        if total < 0:
+            raise RuntimeError(f"native batched emit failed ({total})")
+        buf = out.raw[:total]
+        offsets = np.concatenate([[0], np.cumsum(sizes)])
+        return [buf[offsets[i] : offsets[i + 1]] for i in range(b)]
+
+    def encode_chunk(self, data: bytes, block_log: int):
+        """Compress a chunk as consecutive 2**block_log blocks in one
+        native call (the streaming ``encode_file`` granularity).  Returns
+        ``(payload_bytes, size_records uint32[count])`` with RAW_FLAG
+        semantics matching the frame writer."""
+        block_size = 1 << block_log
+        count = max(0, -(-len(data) // block_size))
+        sizes = np.zeros(max(count, 1), np.uint32)
+        cap = len(data) + count * (block_size // 255 + 64) + 64
+        out = ctypes.create_string_buffer(cap)
+        n = self._lib.lz4t_encode_chunk(
+            data, len(data), block_log, out, cap, sizes.ctypes.data
+        )
+        if n < 0:
+            raise RuntimeError(f"native chunk encode failed ({n})")
+        return out.raw[:n], sizes[:count]
+
+    def decode_chunk(
+        self, payloads: bytes, recs, block_log: int, raw_total: int
+    ) -> bytes:
+        """Decode consecutive block payloads in one native call (the
+        streaming ``decode_file`` granularity; no per-block sub-frames)."""
+        recs = np.ascontiguousarray(recs, np.uint32)
+        out = ctypes.create_string_buffer(max(raw_total, 1))
+        n = self._lib.lz4t_decode_chunk(
+            payloads, len(payloads),
+            recs.ctypes.data, len(recs), block_log,
+            raw_total, out, max(raw_total, 1),
+        )
+        if n < 0:
+            raise RuntimeError(f"native chunk decode failed ({n})")
+        return out.raw[:n]
+
+    def build_copy_program(
+        self, frame: bytes, block_count: int, block_size: int,
+        depth_cap: int = 4,
+    ):
+        """LZ4T frame → device-decode copy program.
+
+        Returns ``(lit (B, P) uint8, src (B, P) int32, raw_sizes (B,) int64,
+        max_depth int)`` with ``src == -1`` at literal positions; chains
+        deeper than ``depth_cap`` are pre-rooted host-side.  See
+        ``lz4core.cpp::lz4t_build_copy_program``."""
+        lit = np.zeros((block_count, block_size), np.uint8)
+        src = np.full((block_count, block_size), -1, np.int32)
+        sizes = np.zeros(block_count, np.int64)
+        depth = np.zeros(1, np.int64)
+        got = self._lib.lz4t_build_copy_program(
+            frame, len(frame),
+            lit.ctypes.data, src.ctypes.data, sizes.ctypes.data,
+            depth_cap, depth.ctypes.data,
+        )
+        if got != block_count:
+            raise RuntimeError(f"native copy-program build failed ({got})")
+        return lit, src, sizes, int(depth[0])
 
     def rle_symbol_hist_sparse16(
         self, sparse, col_off: int, row_len: int, offset: int, nbins: int

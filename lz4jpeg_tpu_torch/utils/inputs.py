@@ -1,13 +1,64 @@
-"""Random benchmark inputs (copy of ``lz4jpeg_tpu/utils/inputs.py``):
-per-pixel uniform RGB noise, as the reference's generator makes
-(``Experiment/random_image.c:58-77``)."""
+"""Random benchmark inputs.
+
+* ``generate_noise_image`` — per-pixel uniform RGB noise, as the
+  reference's generator makes (``Experiment/random_image.c:58-77``); a
+  copy of ``lz4jpeg_tpu/utils/inputs.py``'s;
+* ``generate_text`` — seeded text for the LZ4 codecs: Zipf-distributed
+  words of a seeded lowercase vocabulary, joined by spaces.  It stands in
+  for the reference's text corpus, which the repository does not carry;
+  uniform noise has no matches and only exercises the raw-stored path.
+"""
 
 from __future__ import annotations
 
 import numpy as np
+
+TEXT_VOCABULARY = 4096  # distinct words
+TEXT_MAX_WORD = 10      # letters per word, at most
+TEXT_ZIPF_S = 1.1       # word rank r is drawn with weight r**-s
 
 
 def generate_noise_image(
     height: int, width: int, rng: np.random.Generator
 ) -> np.ndarray:
     return rng.integers(0, 256, size=(height, width, 3), dtype=np.uint8)
+
+
+def generate_text(n_bytes: int, rng: np.random.Generator) -> bytes:
+    """``n_bytes`` of lowercase words separated by single spaces.
+
+    The vocabulary (word lengths 1..``TEXT_MAX_WORD``) and the word stream
+    both come from ``rng``, so one seed gives the same bytes everywhere.
+    Word ranks follow a Zipf law of exponent ``TEXT_ZIPF_S``, so frequent
+    words repeat at short distances as in natural text."""
+    if n_bytes < 0:
+        raise ValueError(f"n_bytes must be ≥ 0: {n_bytes}")
+    lens = rng.integers(1, TEXT_MAX_WORD + 1, TEXT_VOCABULARY)
+    letters = rng.integers(ord("a"), ord("z") + 1, int(lens.sum()),
+                           dtype=np.uint8)
+    # Vocabulary as one byte string: each word followed by a space.
+    word_len = lens + 1
+    word_end = np.cumsum(word_len)
+    word_start = word_end - word_len
+    vocab = np.full(int(word_end[-1]), ord(" "), np.uint8)
+    letter_start = np.cumsum(lens) - lens
+    for_letters = np.repeat(word_start - letter_start, lens) + np.arange(
+        int(lens.sum())
+    )
+    vocab[for_letters] = letters
+
+    weights = np.arange(1, TEXT_VOCABULARY + 1, dtype=np.float64) ** -TEXT_ZIPF_S
+    p = weights / weights.sum()
+    mean_len = float((p * word_len).sum())
+    parts, total = [], 0
+    while total < n_bytes:
+        n_words = int((n_bytes - total) / mean_len * 1.05) + 16
+        idx = rng.choice(TEXT_VOCABULARY, size=n_words, p=p)
+        wl = word_len[idx]
+        ends = np.cumsum(wl)
+        pos = np.repeat(word_start[idx] - (ends - wl), wl) + np.arange(
+            int(ends[-1])
+        )
+        parts.append(vocab[pos])
+        total += int(ends[-1])
+    return np.concatenate(parts)[:n_bytes].tobytes() if parts else b""

@@ -6,7 +6,8 @@
   run the plain version and leave it at 0.
 * No module of ``lz4jpeg_tpu_torch`` (nor ``chip_smoke.py``) imports
   ``jax`` or ``lz4jpeg_tpu``, by an AST scan and by a subprocess that
-  blocks both names and still runs a round trip.
+  blocks both names and still runs a JPEG round trip and an LZ4T
+  ``engine="device"`` round trip.
 """
 
 import ast
@@ -107,6 +108,13 @@ pipe = JPEGPipeline(JPEGConfig(), device="cpu")
 rgb = np.random.default_rng(0).integers(0, 256, size=(16, 16, 3), dtype=np.uint8)
 out = pipe.decode(unpack_container(pack_container(pipe.encode(rgb))))
 assert out.shape == rgb.shape and out.dtype == np.uint8
+from lz4jpeg_tpu_torch import LZ4Codec, LZ4Config
+from lz4jpeg_tpu_torch.utils.inputs import generate_text
+text = generate_text(40000, np.random.default_rng(0))
+codec = LZ4Codec(LZ4Config(mode="fast"), device="cpu")
+frame = codec.encode(text, engine="device")
+assert codec.decode(frame, engine="device") == text
+assert codec.decode(frame, engine="native") == text
 assert "jax" not in sys.modules and "lz4jpeg_tpu" not in sys.modules
 print("ok")
 """
