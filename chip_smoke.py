@@ -2,10 +2,10 @@
 """Smoke run of the PyTorch port (lz4jpeg_tpu_torch) on one CUDA card.
 
 Run from the repository root with no arguments: ``python3 chip_smoke.py``.
-It needs one card.  At first use it builds the three Hopper kernels (one
-nvcc per source, all started together, sm_90a) and the native runtime
-(g++) into ``lz4jpeg_tpu_torch/_build/``, then runs eight phases and fails
-(non-zero exit, no result line) if any of them fails:
+It needs one card.  At first use it builds the seven Hopper kernels (one
+nvcc per source file, five files, all started together, sm_90a) and the
+native runtime (g++) into ``lz4jpeg_tpu_torch/_build/``, then runs twelve
+phases and fails (non-zero exit, no result line) if any of them fails:
 
 1. the card's name and power limit, the torch and CUDA versions, and the
    build seconds;
@@ -39,7 +39,26 @@ nvcc per source, all started together, sm_90a) and the native runtime
    bytes must be identical;
 8. LZ4T times on the card: K2 at 2048 × 16 KiB (stride 1, lcp 4) and K3 at
    128 MiB, kernel against plain as in phase 4; encode and decode MB/s of
-   the main path, each with a staged split.
+   the main path, each with a staged split;
+9. the packed16 kernels K4-K7 against their plain versions on the card:
+   each channel's zigzag values of eight 2048² frames with duplicated
+   columns (from the K1 buffer), their plane (KT) views, and crafted rows
+   for the decoders (lengths shorter than the nonzero words, count sums
+   below and above K, value -512 with count 1); identical outputs;
+10. the packed16 path: phase 3's frames through ``to_packed16`` (K4), the
+    entropy stage and ``pack_container`` (byte-identical to phase 3's
+    containers) and ``decode_batch`` (K6); the plane chain
+    ``fused_forward_plane`` → K5 (equal to K4's words) → K7 →
+    ``fused_inverse_plane`` → ``ycbcr_planes_to_rgb``; every decode within
+    the envelope of phase 3's and of the CPU port's; each of K4-K7
+    launched in this phase's run; a container ending one block early
+    takes the packed16 tier of ``unpack_container`` and decodes on the card;
+11. quality 90 (the int16 pair layout, torch ops and cuBLAS, no kernel):
+    encode, container, decode of the four frames; containers equal the CPU
+    pipeline's up to phase 2's flips, decodes within the envelope;
+12. times: K4-K7 against plain on the luma of 2048², batch 64 (4,194,304
+    blocks), as in phase 4; the round trip of one 2048² frame through the
+    packed16 path and at quality 90, each with a staged split.
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -63,10 +82,26 @@ MATCH_SOURCE = "lz4jpeg_tpu_torch/csrc/match_kernel.cu"
 MATCH_REPLACES = "lz4jpeg_tpu/ops/pallas_match.py:87"
 RESOLVE_SOURCE = "lz4jpeg_tpu_torch/csrc/resolve_kernel.cu"
 RESOLVE_REPLACES = "lz4jpeg_tpu/ops/lz4t_decode.py:235"
+PACK_SOURCE = "lz4jpeg_tpu_torch/csrc/pack16_kernel.cu"
+EXPAND_SOURCE = "lz4jpeg_tpu_torch/csrc/expand16_kernel.cu"
+# (record name, wrapper in ops/pack16.py, source, the TPU kernel it replaces)
+PAIR_KERNELS = (
+    ("pack16_rows", "pack16_encode", PACK_SOURCE,
+     "lz4jpeg_tpu/ops/pallas_rle.py:75"),
+    ("pack16_kt", "pack16_encode_kt", PACK_SOURCE,
+     "lz4jpeg_tpu/ops/pallas_rle.py:191"),
+    ("expand16_rows", "pack16_decode", EXPAND_SOURCE,
+     "lz4jpeg_tpu/ops/pallas_rle.py:443"),
+    ("expand16_plane", "pack16_decode_plane", EXPAND_SOURCE,
+     "lz4jpeg_tpu/ops/pallas_rle.py:478"),
+)
 MIB = 1 << 20
 MATCH_BLOCKS = 2048  # 16 KiB blocks of text in phase 5 (the last ragged)
 MAIN_BYTES = 32 * MIB  # the LZ4T main path's input (2048 × 16 KiB)
 TEXT_BYTES = 128 * MIB  # the natively encoded input of phases 7-8
+SIDE = 2048  # frame side of phases 9 and 12
+CHECK_FRAMES = 8  # frames of phase 9
+TIME_FRAMES = 64  # frames of phase 12's kernel times
 
 
 def check(cond: bool, msg: str) -> None:
@@ -94,9 +129,10 @@ def timed_runs(fn, x, warmup: int = 2, runs: int = 10):
         start.record()
         out = fn(x)
         end.record()
-        sums.append(out.sum(dtype=torch.int64))
+        outs = out if isinstance(out, tuple) else (out,)
+        sums.append(sum(t.sum(dtype=torch.int64) for t in outs))
         events.append((start, end))
-        del out
+        del out, outs
     torch.cuda.synchronize()
     ms = [s.elapsed_time(e) for s, e in events]
     return ms, {int(s) for s in sums}
@@ -137,12 +173,19 @@ def build_all():
     from concurrent.futures import ThreadPoolExecutor
 
     from lz4jpeg_tpu_torch.native import native_backend
-    from lz4jpeg_tpu_torch.ops import fused_match, fwd_megakernel, lz4t_decode
+    from lz4jpeg_tpu_torch.ops import (
+        fused_match,
+        fwd_megakernel,
+        lz4t_decode,
+        pack16,
+    )
 
     builds = {
         "nvcc fwd_megakernel": fwd_megakernel.load_kernel,
         "nvcc match_kernel": fused_match.load_kernel,
         "nvcc resolve_kernel": lz4t_decode.load_kernel,
+        "nvcc pack16_kernel": pack16.load_pack_kernels,
+        "nvcc expand16_kernel": pack16.load_expand_kernels,
         "g++ lz4core": native_backend,
     }
 
@@ -365,6 +408,336 @@ def lz4_phases(dev):
     }]
 
 
+def envelope(label: str, got, want):
+    """Max |Δ| and the largest share of differing pixels of each pair of
+    decoded frames; fails outside the fast-path envelope (≤ 3, ≤ 2e-3)."""
+    worst, share = 0, 0.0
+    for a, b in zip(got, want):
+        a, b = np.asarray(a), np.asarray(b)
+        check(a.shape == b.shape, f"{label}: shapes {a.shape} vs {b.shape}")
+        diff = np.abs(a.astype(np.int32) - b.astype(np.int32))
+        worst = max(worst, int(diff.max()))
+        share = max(share, float((diff != 0).mean()))
+    check(worst <= 3 and share <= 2e-3,
+          f"{label}: max |d| {worst}, differing share {share:.3g}")
+    return f"max |d| {worst}, differing share {share:.3g}"
+
+
+def pair_phases(dev, frames, containers, decoded):
+    """Phases 9-12 (the pair layouts); returns the K4-K7 kernel records.
+    ``frames``, ``containers`` and ``decoded`` are phase 3's four 2048²
+    frames, their sparse16 containers and the card's decode of them."""
+    import dataclasses
+
+    import torch
+
+    from lz4jpeg_tpu_torch import JPEGConfig, JPEGPipeline
+    from lz4jpeg_tpu_torch.formats.jpeg_container import (
+        pack_container,
+        unpack_container,
+    )
+    from lz4jpeg_tpu_torch.models.jpeg import (
+        CHANNELS,
+        _CHANNEL_SHAPES,
+        _layout_of,
+        scaled_tables,
+    )
+    from lz4jpeg_tpu_torch.ops import pack16
+    from lz4jpeg_tpu_torch.ops.color import (
+        chroma_subsample_422,
+        rgb_to_ycbcr,
+        ycbcr_planes_to_rgb,
+        ycbcr_to_rgb_mcus,
+    )
+    from lz4jpeg_tpu_torch.ops.fused import (
+        fused_forward_plane,
+        fused_inverse,
+        fused_inverse_plane,
+    )
+    from lz4jpeg_tpu_torch.ops.fwd_megakernel import (
+        CHANNEL_SLICES,
+        forward_combined,
+    )
+    from lz4jpeg_tpu_torch.ops.rle import (
+        packed16_to_sparse16,
+        rle_decode_packed16,
+        rle_decode_sparse16,
+    )
+    from lz4jpeg_tpu_torch.utils.inputs import crafted_packed16_rows
+    from lz4jpeg_tpu_torch.utils.parity import combined_of, sum_order_flips
+
+    rng = np.random.default_rng(SEED + 9)
+    tables = scaled_tables(None)
+    lum, chroma = tables["lum"], tables["r"]
+    wrappers = {name: getattr(pack16, attr) for name, attr, _, _ in PAIR_KERNELS}
+    refs = {name: getattr(pack16, f"{attr}_ref") for name, attr, _, _ in PAIR_KERNELS}
+    errs = dict.fromkeys(wrappers, 0)
+
+    def same(name, what, *args):
+        got, want = wrappers[name](*args), refs[name](*args)
+        got = got if isinstance(got, tuple) else (got,)
+        want = want if isinstance(want, tuple) else (want,)
+        torch.cuda.synchronize()
+        err = max(int((g.long() - w.long()).abs().max()) for g, w in zip(got, want))
+        ok = all(g.dtype == w.dtype and torch.equal(g, w) for g, w in zip(got, want))
+        errs[name] = max(errs[name], err)
+        print(f"phase 9: {name} {what}: kernel vs plain "
+              f"{'identical' if ok else 'DIFFERENT'} (max |d| {err})")
+        check(ok, f"{name} differs from its plain version on {what}")
+        return got
+
+    # ---- phase 9: K4-K7 against plain, on the card -------------------------
+    x = torch.from_numpy(noise(CHECK_FRAMES, SIDE, SIDE, rng, runs=True)).to(dev)
+    comb = forward_combined(x, lum, chroma)
+    del x
+    bw = SIDE // 8
+    for c in CHANNELS:
+        sl = CHANNEL_SLICES[c]
+        k = sl.stop - sl.start
+        vals = rle_decode_sparse16(comb[:, sl]).to(torch.int16)
+        n = vals.shape[0]
+        words, lens = same("pack16_rows", f"{c} {n}x{k} int16", vals)
+        same("pack16_rows", f"{c} {n}x{k} int32", vals.int())
+        kt = vals.reshape(n // bw, bw, k).transpose(1, 2).contiguous()
+        kt_words, kt_lens = same("pack16_kt", f"{c} KT {tuple(kt.shape)}", kt)
+        check(torch.equal(kt_words, words) and torch.equal(kt_lens, lens),
+              f"{c}: K5 words differ from K4's")
+        (dec,) = same("expand16_rows", f"{c} {n}x{k}", words, lens, k)
+        check(torch.equal(dec, vals.int()), f"{c}: K6 does not give K4's input")
+        same("expand16_plane", f"{c} plane bw {bw}", words, lens, bw)
+        cw, cl = crafted_packed16_rows(k, rng, n_random=4084)
+        cw, cl = torch.from_numpy(cw).to(dev), torch.from_numpy(cl).to(dev)
+        for out_size in sorted({k, k // 2, min(64, k + 9)}):
+            same("expand16_rows", f"{c} crafted rows, out_size {out_size}",
+                 cw, cl, out_size)
+        same("expand16_plane", f"{c} crafted rows, bw 64", cw, cl, 64)
+    del comb, vals, words, lens, kt, kt_words, kt_lens, dec
+    print(f"phase 9: ok, max |d| {errs}")
+
+    # ---- phase 10: the packed16 path ---------------------------------------
+    pipe = JPEGPipeline(JPEGConfig(), device=dev)
+    cpu = JPEGPipeline(JPEGConfig(), device="cpu")
+    encs = pipe.encode_batch(frames, entropy=False)
+    for w in wrappers.values():
+        w.launches = 0
+    packed = [pipe.entropy_encode(e) for e in pipe.to_packed16(encs)]
+    p_containers = [pack_container(e) for e in packed]
+    p_decoded = pipe.decode_batch(packed)
+    x = torch.from_numpy(frames).to(dev)
+    y, cr, cb = rgb_to_ycbcr(x)
+    planes = {"lum": y, "r": chroma_subsample_422(cr), "b": chroma_subsample_422(cb)}
+    b, h, w = frames.shape[:3]
+    plane_out, plane_sparse = {}, []
+    for c in CHANNELS:
+        tw = _CHANNEL_SHAPES[c][1]
+        zz_kt = fused_forward_plane(planes[c], tables[c], tw).to(torch.int16)
+        kt_words, kt_lens = pack16.pack16_encode_kt(zz_kt)
+        back = pack16.pack16_decode_plane(kt_words, kt_lens, zz_kt.shape[2])
+        plane_out[c] = fused_inverse_plane(
+            back, tables[c], tw, upsample_cols=(c != "lum")).reshape(b, h, w)
+        plane_sparse.append((kt_words.cpu(), kt_lens.cpu()))
+    plane_rgb = ycbcr_planes_to_rgb(
+        plane_out["lum"], plane_out["r"], plane_out["b"], h, w).cpu().numpy()
+    torch.cuda.synchronize()
+    launches = {name: wr.launches for name, wr in wrappers.items()}
+    del x, y, cr, cb, planes, zz_kt, back, plane_out
+    print(f"phase 10: launches {launches}")
+    for name, count in launches.items():
+        check(count > 0, f"the packed16 path never launched {name}")
+    check(p_containers == containers,
+          "packed16 containers differ from phase 3's sparse16 containers")
+    print("phase 10: packed16 containers byte-identical to phase 3's sparse16 "
+          f"containers ({sum(map(len, p_containers))} bytes)")
+    cpu_p_decoded = cpu.decode_batch(packed)
+    print("phase 10: packed16 decode (K6) vs the CPU port's packed16 decode: "
+          + envelope("packed16 vs CPU packed16", p_decoded, cpu_p_decoded))
+    print("phase 10: packed16 decode vs phase 3's sparse16 decode: "
+          + envelope("packed16 vs phase 3", p_decoded, decoded))
+    # K5 on the plane forward (cuBLAS) against K4 on K1's coefficients:
+    # identical, or apart only by admissible sum-order flips.
+    k4_words = {c: np.concatenate([e.rle[c] for e in packed]) for c in CHANNELS}
+    same_words = all(
+        np.array_equal(words.numpy().view(np.uint16), k4_words[c])
+        for c, (words, _) in zip(CHANNELS, plane_sparse))
+    plane_comb = torch.cat(
+        [packed16_to_sparse16(*wl)[0] for wl in plane_sparse], dim=1).numpy()
+    flips = sum_order_flips(
+        frames, plane_comb, np.concatenate([e.rle_combined for e in encs]),
+        lum, chroma)
+    check(same_words or flips <= MAX_FLIP_SHARE * plane_comb.size,
+          f"K5 words differ from K4's by {flips} flips")
+    # A flipped coefficient moves its block by up to a table step, so the
+    # plane decode (K7 → plane inverse) is held against the staged decode of
+    # the same K5 words; against phase 3 only where no coefficient flipped.
+    kt_encs = [dataclasses.replace(
+        e, entropy_mode=None, shared_streams=None,
+        rle={c: wl[0].numpy().view(np.uint16).reshape(b, -1, wl[0].shape[1])[i]
+             for c, wl in zip(CHANNELS, plane_sparse)},
+        rle_lengths={c: wl[1].numpy().reshape(b, -1)[i]
+                     for c, wl in zip(CHANNELS, plane_sparse)},
+    ) for i, e in enumerate(packed)]
+    staged = cpu.decode_batch(kt_encs)
+    print(f"phase 10: plane chain, K5 words vs K4 words "
+          f"{'identical' if same_words else f'{flips} admissible flips'}; "
+          "plane decode (K7) vs the CPU staged decode of the same words: "
+          + envelope("plane chain vs staged", plane_rgb, staged))
+    if same_words:
+        print("phase 10: plane decode vs phase 3: "
+              + envelope("plane chain vs phase 3", plane_rgb, decoded))
+    else:
+        diff = np.abs(np.stack(plane_rgb).astype(np.int32) - np.stack(decoded))
+        print(f"phase 10: plane decode vs phase 3 (apart by the flips): max "
+              f"|d| {int(diff.max())}, differing share {float((diff != 0).mean()):.3g}")
+    del plane_sparse, plane_comb, kt_encs, staged
+
+    forced = dataclasses.replace(packed[0], rle_lengths=dict(packed[0].rle_lengths))
+    forced.rle_lengths["lum"] = forced.rle_lengths["lum"].copy()
+    forced.rle_lengths["lum"][-1] = 0  # the stream ends one block early
+    data = pack_container(pipe.entropy_encode(forced))
+    card_enc = unpack_container(data)
+    check(_layout_of(card_enc) == "packed16",
+          f"the early-ending container took the {_layout_of(card_enc)} tier")
+    before = pack16.pack16_decode.launches
+    forced_rgb = pipe.decode(card_enc)
+    check(pack16.pack16_decode.launches > before, "its decode never ran K6")
+    print("phase 10: a container ending one block early takes the packed16 "
+          "tier; card decode (K6) vs the CPU's: " + envelope(
+              "forced tier", [forced_rgb], [cpu.decode(unpack_container(data))]))
+
+    # ---- phase 11: quality 90, the int16 pair layout -----------------------
+    q90 = JPEGPipeline(JPEGConfig(quality=90), device=dev)
+    cpu90 = JPEGPipeline(JPEGConfig(quality=90), device="cpu")
+    t90 = scaled_tables(90)
+    encs90 = q90.encode_batch(frames)
+    c90 = [pack_container(e) for e in encs90]
+    un90 = [unpack_container(d) for d in c90]
+    d90 = [q90.decode(u) for u in un90]
+    direct90 = q90.decode_batch(encs90)
+    torch.cuda.synchronize()
+    check(all(_layout_of(e) == "pairs" for e in encs90),
+          "quality 90 did not encode in the pair layout")
+    cpu_encs90 = cpu90.encode_batch(frames)
+    flips90 = 0
+    for i, (e, ce) in enumerate(zip(encs90, cpu_encs90)):
+        if c90[i] != pack_container(ce):
+            flips90 += sum_order_flips(frames[i : i + 1], combined_of(e),
+                                       combined_of(ce), t90["lum"], t90["r"])
+    check(flips90 <= MAX_FLIP_SHARE * b * (h // 8) * (w // 8) * 128,
+          f"{flips90} flips between the card's and the CPU's q90 containers")
+    tiers = [_layout_of(u) for u in un90]
+    print(f"phase 11: quality 90 containers "
+          + ("byte-identical to the CPU pipeline's" if flips90 == 0 else
+             f"equal up to {flips90} admissible flips")
+          + f" ({sum(map(len, c90))} bytes for 4 frames; container tiers {tiers})")
+    print("phase 11: card decode of the containers vs the CPU's: " + envelope(
+        "q90", d90, [cpu90.decode(u) for u in un90]))
+    print("phase 11: card decode of the pair encodes vs of the containers: "
+          + envelope("q90 direct", direct90, d90))
+    mse = float(np.mean((np.stack(d90).astype(np.float64) - frames) ** 2))
+    print(f"phase 11: PSNR vs input {10 * np.log10(255.0 ** 2 / mse):.3f} dB "
+          "(uniform noise)")
+    del encs90, cpu_encs90, un90, d90, direct90
+
+    # ---- phase 12: times on the card ----------------------------------------
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    big = torch.randint(0, 256, (TIME_FRAMES, SIDE, SIDE, 3), dtype=torch.uint8,
+                        device=dev, generator=gen)
+    comb = forward_combined(big, lum, chroma)
+    del big
+    vals = rle_decode_sparse16(comb[:, :64]).to(torch.int16)
+    del comb
+    words, lens = pack16.pack16_encode(vals)
+    kt = vals.reshape(-1, SIDE // 8, 64).transpose(1, 2).contiguous()
+    n = vals.shape[0]
+    io = {  # bytes each kernel must move
+        "pack16_rows": n * 64 * 2 * 2 + n * 4,
+        "pack16_kt": n * 64 * 2 * 2 + n * 4,
+        "expand16_rows": n * 64 * 2 + n * 4 + n * 64 * 4,
+        "expand16_plane": n * 64 * 2 + n * 4 + n * 64 * 2,
+    }
+    args = {"pack16_rows": (vals,), "pack16_kt": (kt,),
+            "expand16_rows": (words, lens, 64),
+            "expand16_plane": (words, lens, SIDE // 8)}
+    times = {}
+    for name, a in args.items():
+        times[name] = kernel_vs_plain(
+            f"phase 12: {name} luma {SIDE}x{SIDE} b{TIME_FRAMES} ({n} blocks)",
+            lambda t, f=wrappers[name]: f(*t), lambda t, f=refs[name]: f(*t),
+            a, identical=True)
+        ms, plain_ms = times[name]
+        print(f"phase 12: {name}: kernel {ms:.4f} ms "
+              f"({io[name] / ms / 1e6:.1f} GB/s of {io[name]} bytes), "
+              f"plain {plain_ms:.4f} ms")
+    del vals, words, lens, kt, args
+
+    frame = frames[:1]
+    for label, trip in (
+        ("packed16", lambda: pipe.decode(pipe.entropy_encode(
+            pipe.to_packed16(pipe.encode_batch(frame, entropy=False))[0]))),
+        ("quality 90", lambda: q90.decode(unpack_container(pack_container(
+            q90.encode(frame[0]))))),
+    ):
+        runs = []
+        for _ in range(6):
+            t = time.perf_counter()
+            trip()
+            runs.append((time.perf_counter() - t) * 1e3)
+        runs = sorted(runs[1:])
+        print(f"phase 12: round trip {label} 2048x2048: median "
+              f"{runs[len(runs) // 2]:.3f} ms (runs {[round(r, 3) for r in runs]})")
+
+    split = Stopwatch()
+    (enc,) = pipe.encode_batch(frame, entropy=False)
+    split.mark("K1 forward + D2H")
+    (p,) = pipe.to_packed16([enc])
+    split.mark("H2D + K4 + D2H")
+    pipe.entropy_encode(p)
+    split.mark("entropy encode (host)")
+    pack_container(p)
+    split.mark("container")
+    rle, lengths = pipe.entropy_decode(p)
+    split.mark("entropy decode (host)")
+    rle_d = {c: torch.from_numpy(rle[c].view(np.int16)).to(dev) for c in CHANNELS}
+    len_d = {c: torch.from_numpy(lengths[c]).to(dev) for c in CHANNELS}
+    split.mark("H2D")
+    zz = {c: rle_decode_packed16(rle_d[c], len_d[c], rle_d[c].shape[1])
+          for c in CHANNELS}
+    split.mark("K6")
+    tiles = {c: fused_inverse(zz[c], tables[c], _CHANNEL_SHAPES[c][1], 8)
+             for c in CHANNELS}
+    rgb = ycbcr_to_rgb_mcus(tiles["lum"], tiles["r"], tiles["b"],
+                            enc.blocks_per_col, enc.blocks_per_row, h, w)
+    split.mark("inverse + color")
+    rgb = rgb.cpu().numpy()
+    split.mark("D2H")
+    split.report("phase 12: packed16 round trip 2048x2048 staged ms")
+    envelope("staged packed16", [rgb], [p_decoded[0]])
+
+    split = Stopwatch()
+    (e90,) = q90.encode_batch(frame, entropy=False)
+    split.mark("H2D + forward + pair RLE + D2H")
+    q90.entropy_encode(e90)
+    split.mark("entropy encode (host)")
+    data = pack_container(e90)
+    split.mark("container")
+    u90 = unpack_container(data)
+    split.mark(f"unpack ({_layout_of(u90)} tier)")
+    q90.decode(u90)
+    split.mark("decode")
+    split.report("phase 12: quality 90 round trip 2048x2048 staged ms")
+
+    return [{
+        "name": name,
+        "route": "cuda",
+        "source": source,
+        "replaces": replaces,
+        "launches": launches[name],
+        "max_abs_err": errs[name],
+        "ms": times[name][0],
+        "plain_ms": times[name][1],
+    } for name, _, source, replaces in PAIR_KERNELS]
+
+
 class Stopwatch:
     """Host-clock split of a staged run; every mark synchronises the card
     first, so a stage's device work lands in its own span."""
@@ -499,7 +872,7 @@ def main() -> int:
     psnr = 10 * np.log10(255.0 ** 2 / mse)
     print(f"phase 3: decode vs CPU decode max |d| {worst}, differing share "
           f"{differing:.3g}; PSNR vs input {psnr:.3f} dB (uniform noise)")
-    del encs, decoded, cpu_decoded, cpu_encs
+    del encs, cpu_decoded, cpu_encs
 
     # ---- phase 4: times on the card ---------------------------------------
     gen = torch.Generator(device=dev).manual_seed(SEED)
@@ -535,6 +908,7 @@ def main() -> int:
           f"(runs {[round(t, 3) for t in trips]})")
 
     lz4 = lz4_phases(dev)
+    pairs = pair_phases(dev, frames, containers, decoded)
 
     print(json.dumps({"kernels": [{
         "name": "fwd_megakernel",
@@ -545,7 +919,7 @@ def main() -> int:
         "max_abs_err": max_abs_err,
         "ms": kernel_ms,
         "plain_ms": plain_ms,
-    }, *lz4]}))
+    }, *lz4, *pairs]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",
         "kind": torch.cuda.get_device_name(0),

@@ -1,10 +1,13 @@
 """Configuration of the PyTorch codecs.
 
 ``JPEGConfig`` mirrors ``lz4jpeg_tpu/config.py::JPEGConfig``.  The port
-carries the fast sparse16 path only: ``precision="exact"``,
-``entropy="per_block"`` and quality settings whose tables force the int16
-pair layout raise ``NotImplementedError`` naming the ROADMAP item that ports
-them.  They never fall back to another path.
+carries ``precision="fast"`` with ``entropy="shared"`` at every quality:
+``sparse16_eligible`` picks the layout from the quant tables, as the JAX
+pipeline's ``_pack16``/``_sparse16`` do (sparse16 when every entry is at
+least 3, the int16 pair layout below that: quality 80 to 100).
+``precision="exact"`` and ``entropy="per_block"`` raise
+``NotImplementedError`` naming the ROADMAP item that ports them; they never
+fall back to another path.
 
 ``LZ4Config`` is a copy of ``lz4jpeg_tpu/config.py::LZ4Config``: the same
 fields, defaults and validation.  ``models/lz4.py::LZ4Codec`` refuses what
@@ -19,18 +22,12 @@ from typing import Optional
 import numpy as np
 import torch
 
-from lz4jpeg_tpu_torch.ops.quantize import (
-    CHROMINANCE_QUANTIZATION_TABLE,
-    LUMINANCE_QUANTIZATION_TABLE,
-    scale_table,
-)
-
 # Smallest quant-table entry for which |quantized value| ≤ 511 holds, so the
 # sparse-delta uint16 layout can carry every coefficient (models/jpeg.py of
 # the JAX package, the ``_pack16`` gate).
 SPARSE16_MIN_TABLE = 3
 
-_REMAINING_MODES = "ROADMAP.md queue 1, item 'JPEG remaining modes'"
+_REMAINING_MODES = "ROADMAP.md queue 1, item 6 'JPEG remaining modes'"
 
 
 def sparse16_eligible(tables) -> bool:
@@ -61,16 +58,6 @@ class JPEGConfig:
         if self.entropy == "per_block":
             raise NotImplementedError(
                 f'entropy="per_block" is not ported yet ({_REMAINING_MODES})'
-            )
-        tables = (
-            scale_table(LUMINANCE_QUANTIZATION_TABLE, self.quality),
-            scale_table(CHROMINANCE_QUANTIZATION_TABLE, self.quality),
-        )
-        if not sparse16_eligible(tables):
-            raise NotImplementedError(
-                f"quality={self.quality} gives a quant table below "
-                f"{SPARSE16_MIN_TABLE}, which needs the int16 pair layout; "
-                f"not ported yet ({_REMAINING_MODES})"
             )
 
     @property

@@ -14,10 +14,10 @@ tables decode it.  ``checksum`` (v2) is CRC32 of the header's first 14 bytes
 plus everything after the checksum field, folded into [1, 0xFFFF]; v1
 containers (no checksum) still decode.
 
-``unpack_container`` decodes into the sparse16 layout only.  A stream that
-the native sparse16 walker rejects raises ``JPEGContainerError``; the JAX
-package's packed16 and int32-pair fallbacks are not ported yet (ROADMAP.md
-queue 1, "JPEG remaining modes").
+``unpack_container`` decodes into the sparse16 layout where the strict
+native walker takes every channel, and falls back, as the JAX container
+does, to packed16 pairs, then to int32 pairs (the native walker, then the
+Python ``unpack_symbols`` path), keeping all channels in one layout.
 """
 
 from __future__ import annotations
@@ -29,7 +29,7 @@ from typing import TYPE_CHECKING
 import numpy as np
 
 from lz4jpeg_tpu_torch.formats.fast_frame import content_checksum16
-from lz4jpeg_tpu_torch.ops.huffman import CanonicalCodebook
+from lz4jpeg_tpu_torch.ops.huffman import CanonicalCodebook, unpack_symbols
 
 if TYPE_CHECKING:
     from lz4jpeg_tpu_torch.models.jpeg import JPEGEncoded
@@ -71,7 +71,15 @@ def pack_container(enc: "JPEGEncoded") -> bytes:
 
 
 def unpack_container(data: bytes) -> "JPEGEncoded":
-    from lz4jpeg_tpu_torch.models.jpeg import _CHANNEL_SHAPES, JPEGEncoded
+    """Container bytes → JPEGEncoded in the first layout whose native
+    walker takes every channel: sparse16 (the combined buffer), then packed16
+    pairs, then int32 pairs (native, else ``unpack_symbols`` and the host
+    re-blocking), as the JAX container does."""
+    from lz4jpeg_tpu_torch.models.jpeg import (
+        _CHANNEL_SHAPES,
+        JPEGEncoded,
+        _split_symbols,
+    )
     from lz4jpeg_tpu_torch.native import native_backend
     from lz4jpeg_tpu_torch.ops.fwd_megakernel import (
         CHANNEL_SLICES,
@@ -119,37 +127,64 @@ def unpack_container(data: bytes) -> "JPEGEncoded":
     if p != len(data):
         raise JPEGContainerError("trailing bytes after container")
 
+    header = dict(
+        quality=quality or None, height=height, width=width,
+        blocks_per_col=bpc, blocks_per_row=bpr, entropy_mode="shared",
+        shared_streams=shared,
+    )
     native = native_backend()
+
+    def walk(unpack, extra):
+        """Every channel through one native walker (``extra(channel, block
+        size)`` gives its last arguments); None if it rejects a channel."""
+        out = {}
+        for c in ("lum", "r", "b"):
+            codebook, packed, nbits = shared[c]
+            h, w = _CHANNEL_SHAPES[c]
+            try:
+                got = unpack(packed, nbits, codebook, h * w, num_blocks,
+                             *extra(c, h * w))
+            except ValueError as e:
+                raise JPEGContainerError(f"corrupt channel {c!r}: {e}") from e
+            if got is None:
+                return None
+            out[c] = got
+        return out
+
     combined = np.zeros((num_blocks, COMBINED_LANES), np.uint16)
-    lengths = {}
+    got = walk(native.huff_unpack_sparse16,
+               lambda c, k: (combined, CHANNEL_SLICES[c].start))
+    if got is not None:
+        return JPEGEncoded(
+            rle={c: combined[:, sl] for c, sl in CHANNEL_SLICES.items()},
+            rle_lengths={c: got[c][1] for c in got},
+            rle_sparse16=True,
+            rle_combined=combined,
+            **header,
+        )
+    got = walk(native.huff_unpack_pairs16, lambda c, k: (k,))
+    if got is not None:
+        return JPEGEncoded(
+            rle={c: v[0] for c, v in got.items()},
+            rle_lengths={c: v[1] for c, v in got.items()},
+            rle_packed16=True,
+            **header,
+        )
+    rle, lengths = {}, {}
     for c in ("lum", "r", "b"):
         codebook, packed, nbits = shared[c]
         h, w = _CHANNEL_SHAPES[c]
         try:
-            got = native.huff_unpack_sparse16(
-                packed, nbits, codebook, h * w, num_blocks,
-                out_sparse=combined, col_off=CHANNEL_SLICES[c].start,
+            pairs = native.huff_unpack_pairs(
+                packed, nbits, codebook, h * w, num_blocks, 2 * h * w
             )
-        except ValueError as e:
+            if pairs is None:
+                symbols = unpack_symbols(packed, nbits, codebook)
+                pairs = _split_symbols(symbols, num_blocks, 2 * h * w, h * w)
+        except (ValueError, IndexError, RuntimeError) as e:
             raise JPEGContainerError(f"corrupt channel {c!r}: {e}") from e
-        if got is None:
-            raise JPEGContainerError(
-                f"channel {c!r} is not a canonical sparse16 stream (the "
-                "pair-layout fallbacks are not ported)"
-            )
-        lengths[c] = got[1]
-    return JPEGEncoded(
-        quality=quality or None,
-        height=height,
-        width=width,
-        blocks_per_col=bpc,
-        blocks_per_row=bpr,
-        rle={c: combined[:, sl] for c, sl in CHANNEL_SLICES.items()},
-        rle_lengths=lengths,
-        entropy_mode="shared",
-        rle_combined=combined,
-        shared_streams=shared,
-    )
+        rle[c], lengths[c] = pairs
+    return JPEGEncoded(rle=rle, rle_lengths=lengths, **header)
 
 
 def is_jpeg_container(data: bytes) -> bool:

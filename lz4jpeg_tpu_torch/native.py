@@ -1,11 +1,12 @@
-"""The host runtime: ctypes bindings of nine native functions.
+"""The host runtime: ctypes bindings of fifteen native functions.
 
 The C++ source is the JAX package's own ``lz4jpeg_tpu/native/lz4core.cpp``,
 compiled here with the flags of its Makefile (``native/Makefile:3``) into
 the port's build directory, so both packages run the same host code and
 write byte-identical containers and frames.  The bindings are copies of
-``lz4jpeg_tpu/native/__init__.py`` (same argtypes): the sparse16 entropy
-walkers of the JPEG path, and the LZ4T fast encoder/decoder, batched block
+``lz4jpeg_tpu/native/__init__.py`` (same argtypes): the sparse16, int32-pair
+and packed16 entropy walkers of the JPEG path (histogram, pack, unpack for
+each layout), and the LZ4T fast encoder/decoder, batched block
 emitter, chunk codec and device-decode copy-program builder.  A failed
 build raises (no Python fallback; the Python spec paths are reached only
 through ``engine="python"``): ``tests/test_torch_container.py`` and
@@ -84,6 +85,32 @@ class NativeBackend:
             ctypes.c_int64, ctypes.c_int64, ctypes.c_size_t,
             ctypes.c_size_t, ctypes.c_void_p, ctypes.c_void_p,
         ]
+        # The pair layouts: int32 (N, 2L) pairs and packed16 (N, L) words
+        # take the same arguments.
+        for suffix in ("", "16"):
+            hist = getattr(lib, f"rle_symbol_hist{suffix}")
+            hist.restype = ctypes.c_int64
+            hist.argtypes = [
+                ctypes.c_void_p, ctypes.c_void_p,
+                ctypes.c_size_t, ctypes.c_size_t, ctypes.c_int64,
+                ctypes.c_void_p, ctypes.c_size_t,
+            ]
+            pack = getattr(lib, f"huff_pack_pairs{suffix}")
+            pack.restype = ctypes.c_int64
+            pack.argtypes = [
+                ctypes.c_void_p, ctypes.c_void_p,
+                ctypes.c_size_t, ctypes.c_size_t, ctypes.c_int64,
+                ctypes.c_void_p, ctypes.c_void_p, ctypes.c_size_t,
+                ctypes.c_char_p, ctypes.c_size_t, ctypes.c_void_p,
+            ]
+            unpack = getattr(lib, f"huff_unpack_pairs{suffix}")
+            unpack.restype = ctypes.c_int64
+            unpack.argtypes = [
+                ctypes.c_char_p, ctypes.c_uint64,
+                ctypes.c_char_p, ctypes.c_void_p, ctypes.c_size_t,
+                ctypes.c_int64, ctypes.c_int64, ctypes.c_int64,
+                ctypes.c_void_p, ctypes.c_void_p,
+            ]
 
     def encode_fast(self, data: bytes) -> bytes:
         out = ctypes.create_string_buffer(len(data) + len(data) // 32 + 4096)
@@ -226,6 +253,107 @@ class NativeBackend:
         if n < 0:
             raise RuntimeError(f"native sparse16 pack failed ({n})")
         return out.raw[:n], int(nbits.value)
+
+    def _hist(self, fn, rows, dtype, lengths, offset: int, nbins: int):
+        rows = np.ascontiguousarray(rows, dtype)
+        lengths = np.ascontiguousarray(lengths, np.int32)
+        counts = np.zeros(nbins, np.int64)
+        total = fn(
+            rows.ctypes.data, lengths.ctypes.data,
+            rows.shape[0], rows.shape[1], offset,
+            counts.ctypes.data, nbins,
+        )
+        if total < 0:
+            raise RuntimeError(f"native symbol hist failed ({total})")
+        return counts, int(total)
+
+    def rle_symbol_hist(self, pairs, lengths, offset: int, nbins: int):
+        """Histogram of the valid symbols of padded (N, 2L) int32 RLE pairs,
+        shifted by ``offset`` into [0, nbins).  Returns (counts int64[nbins],
+        total symbols)."""
+        return self._hist(self._lib.rle_symbol_hist, pairs, np.int32,
+                          lengths, offset, nbins)
+
+    def rle_symbol_hist16(self, packed, lengths, offset: int, nbins: int):
+        """``rle_symbol_hist`` over (N, L) packed16 words (one uint16 per
+        [count, value] pair; lengths still count symbols)."""
+        return self._hist(self._lib.rle_symbol_hist16, packed, np.uint16,
+                          lengths, offset, nbins)
+
+    def _pack(self, fn, rows, dtype, lengths, codebook) -> tuple:
+        rows = np.ascontiguousarray(rows, dtype)
+        lengths = np.ascontiguousarray(lengths, np.int32)
+        base = int(codebook.symbols.min())
+        size = int(codebook.symbols.max()) - base + 1
+        lut_codes = np.zeros(size, np.uint32)
+        lut_lens = np.zeros(size, np.uint8)  # 0 = unseen: the C++ refuses it
+        lut_codes[codebook.symbols - base] = codebook.codes
+        lut_lens[codebook.symbols - base] = codebook.lengths
+        cap = int(lengths.astype(np.int64).sum()) * 4 + 16  # ≤32 bits/symbol
+        out = ctypes.create_string_buffer(cap)
+        nbits = ctypes.c_uint64(0)
+        n = fn(
+            rows.ctypes.data, lengths.ctypes.data,
+            rows.shape[0], rows.shape[1], base,
+            lut_codes.ctypes.data, lut_lens.ctypes.data, size,
+            out, cap, ctypes.byref(nbits),
+        )
+        if n < 0:
+            raise RuntimeError(f"native pair pack failed ({n})")
+        return out.raw[:n], int(nbits.value)
+
+    def huff_pack_pairs(self, pairs, lengths, codebook) -> tuple:
+        """Map + MSB-first pack the valid symbols of padded (N, 2L) int32
+        pairs through a CanonicalCodebook.  Returns (packed bytes, bits)."""
+        return self._pack(self._lib.huff_pack_pairs, pairs, np.int32,
+                          lengths, codebook)
+
+    def huff_pack_pairs16(self, packed_pairs, lengths, codebook) -> tuple:
+        """``huff_pack_pairs`` over (N, L) packed16 words."""
+        return self._pack(self._lib.huff_pack_pairs16, packed_pairs,
+                          np.uint16, lengths, codebook)
+
+    def _unpack(self, fn, dtype, packed: bytes, nbits: int, codebook,
+                block_size: int, num_blocks: int, pad_width: int):
+        if (nbits + 7) // 8 > len(packed):
+            raise ValueError(
+                f"bit count {nbits} exceeds packed buffer of {len(packed)} bytes"
+            )
+        lengths = np.ascontiguousarray(codebook.lengths, np.uint8)
+        symbols = np.ascontiguousarray(codebook.symbols, np.int32)
+        out_rows = np.zeros((num_blocks, pad_width), dtype)
+        out_lengths = np.zeros(num_blocks, np.int32)
+        n = fn(
+            packed, nbits,
+            lengths.tobytes(), symbols.ctypes.data, len(symbols),
+            block_size, num_blocks, pad_width,
+            out_rows.ctypes.data, out_lengths.ctypes.data,
+        )
+        if n < 0:
+            return None
+        return out_rows, out_lengths
+
+    def huff_unpack_pairs(
+        self, packed: bytes, nbits: int, codebook,
+        block_size: int, num_blocks: int, pad_width: int,
+    ):
+        """Canonical decode + re-blocking into (N, pad_width) int32 pairs: a
+        pair belongs to the block where its running count total lands.
+        Returns (pairs, lengths), or None when the strict walker rejects the
+        stream."""
+        return self._unpack(self._lib.huff_unpack_pairs, np.int32, packed,
+                            nbits, codebook, block_size, num_blocks, pad_width)
+
+    def huff_unpack_pairs16(
+        self, packed: bytes, nbits: int, codebook,
+        block_size: int, num_blocks: int, pad_pairs: int,
+    ):
+        """Decode + re-block into (N, pad_pairs) packed16 words.  Returns
+        (words uint16, lengths), or None when a pair does not fit the word
+        (count > 64, |value| > 511 with -512 allowed) or the walker rejects
+        the stream."""
+        return self._unpack(self._lib.huff_unpack_pairs16, np.uint16, packed,
+                            nbits, codebook, block_size, num_blocks, pad_pairs)
 
     def huff_unpack_sparse16(
         self, packed: bytes, nbits: int, codebook,

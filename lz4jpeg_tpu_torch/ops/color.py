@@ -6,8 +6,9 @@ Port of ``lz4jpeg_tpu/ops/color.py`` with the reference's semantics:
   truncated via ``(int)`` then clamped (JPEG.c:157, :180, :132-139);
 * ``chroma_subsample_422``: horizontal 4:2:2 keeping odd columns
   (JPEG.c:327-333);
-* ``ycbcr_planes_to_rgb``: per-term ``(int)`` truncation with the
-  1.402 / 0.344136 / 0.714136 / 1.772 coefficients (JPEG.c:598-604).
+* ``ycbcr_planes_to_rgb`` and ``ycbcr_to_rgb_mcus`` (which first merges
+  MCU tiles into planes, ``merge_mcus``): per-term ``(int)`` truncation with
+  the 1.402 / 0.344136 / 0.714136 / 1.772 coefficients (JPEG.c:598-604).
 
 Every function takes leading batch dimensions: a plane is ``(..., H, W)``.
 """
@@ -71,6 +72,38 @@ def split_mcus(y: torch.Tensor, cr_sub: torch.Tensor, cb_sub: torch.Tensor):
     return tile(y, 8, 8), tile(cr_sub, 8, 4), tile(cb_sub, 8, 4)
 
 
+def merge_mcus(tiles: torch.Tensor, bpc: int, bpr: int) -> torch.Tensor:
+    """(..., bpc·bpr, th, tw) tiles → (..., bpc·th, bpr·tw) planes (the
+    inverse of ``split_mcus``)."""
+    *lead, _, th, tw = tiles.shape
+    return (
+        tiles.reshape(*lead, bpc, bpr, th, tw)
+        .transpose(-3, -2)
+        .reshape(*lead, bpc * th, bpr * tw)
+    )
+
+
+def ycbcr_to_rgb_mcus(
+    lum: torch.Tensor,
+    r: torch.Tensor,
+    b: torch.Tensor,
+    bpc: int,
+    bpr: int,
+    height: int,
+    width: int,
+) -> torch.Tensor:
+    """MCU tiles (..., N, 8, 8) luma and (..., N, 8, 4) chroma → (...,
+    height, width, 3) uint8 RGB (``assemble_image``).  Chroma columns are
+    duplicated (4:2:2 upsampling: each sample serves columns 2k and 2k+1,
+    JPEG.c:590-595), then the planes merge as in ``ycbcr_planes_to_rgb``."""
+    return ycbcr_planes_to_rgb(
+        merge_mcus(lum, bpc, bpr),
+        torch.repeat_interleave(merge_mcus(r, bpc, bpr), 2, dim=-1),
+        torch.repeat_interleave(merge_mcus(b, bpc, bpr), 2, dim=-1),
+        height, width,
+    )
+
+
 def ycbcr_planes_to_rgb(
     y_plane: torch.Tensor,
     cr_plane: torch.Tensor,
@@ -79,9 +112,10 @@ def ycbcr_planes_to_rgb(
     width: int,
 ) -> torch.Tensor:
     """Plane-view YCbCr → (..., height, width, 3) uint8 RGB
-    (``assemble_image``, JPEG.c:598-604).  The chroma planes come full
-    width: the decode folds the 4:2:2 upsample into the inverse basis
-    (``ops/fused.py``), the JAX package's ``chroma_upsampled=True``."""
+    (``assemble_image``, JPEG.c:598-604): per-term ``(int)`` truncation,
+    each channel clamped.  The chroma planes come full width: the decode
+    folds the 4:2:2 upsample into the inverse basis (``ops/fused.py``), the
+    JAX package's ``chroma_upsampled=True``."""
     y = y_plane.to(torch.int32)
     cr = cr_plane.to(torch.float32)
     cb = cb_plane.to(torch.float32)

@@ -112,6 +112,73 @@ def fused_forward(
     return _snap_trunc(x @ mt - offs, 1e-5)
 
 
+def fused_forward_plane(
+    plane: torch.Tensor, table: np.ndarray, width: int
+) -> torch.Tensor:
+    """Plane-view fused forward: (..., H, Wp) uint8 channel planes →
+    (bh, 8·width, bw) float32 quantized zigzag coefficients in the KT layout
+    (block positions along the middle axis), with no 8×8 tile relayout.
+    Leading dimensions stack as block rows (bh = frames · H / 8).  Requires
+    H % 8 == 0 and Wp % width == 0.  The coefficients equal ``fused_forward``
+    of the same tiles up to sum order."""
+    m, off = forward_basis(width, 8, _table_key(table))
+    h, wp = plane.shape[-2:]
+    if h % 8 or wp % width:
+        raise ValueError(f"plane {h}x{wp} is not a whole number of 8x{width} blocks")
+    bh, bw = plane.numel() // (8 * wp), wp // width
+    x = plane.reshape(bh, 8, bw, width).to(torch.float32)
+    mt = torch.from_numpy(m.reshape(8 * width, 8, width).astype(np.float32))
+    offs = torch.from_numpy(off.astype(np.float32)).to(x.device)
+    ratio = torch.einsum("krc,arbc->akb", mt.to(x.device), x)
+    return _snap_trunc(ratio - offs[None, :, None], 1e-5)
+
+
+def _round_clamp(pix: torch.Tensor) -> torch.Tensor:
+    """C ``round`` (half away from zero, JPEG.c:443), clamp to [0, 255],
+    uint8."""
+    rounded = torch.sign(pix) * torch.floor(pix.abs() + 0.5)
+    return torch.clamp(rounded, 0, 255).to(torch.uint8)
+
+
+def fused_inverse(
+    zz: torch.Tensor, table: np.ndarray, width: int, height: int
+) -> torch.Tensor:
+    """(N, HW) zigzag quantized coefficients → (N, H, W) uint8 pixels: one
+    matmul against ``inverse_basis``, +128, C round, clamp (the staged tile
+    inverse of the pair layouts)."""
+    minv = inverse_basis(width, height, _table_key(table))
+    mt = torch.from_numpy(minv.T.astype(np.float32)).to(zz.device)
+    pix = zz.to(torch.float32) @ mt + 128.0
+    return _round_clamp(pix).reshape(zz.shape[0], height, width)
+
+
+def fused_inverse_plane(
+    zz_kt: torch.Tensor, table: np.ndarray, width: int,
+    upsample_cols: bool = False,
+) -> torch.Tensor:
+    """Plane-view fused inverse: (bh, HW, bw) KT-layout zigzag coefficients
+    → (8·bh, width·bw, or 2·width·bw with ``upsample_cols``) uint8 plane,
+    with no tile relayout.  ``upsample_cols`` duplicates each basis column,
+    so the 4:2:2 horizontal upsample happens inside the product."""
+    mi_np = inverse_basis(width, 8, _table_key(table)).T.reshape(-1, 8, width)
+    return _plane_product(zz_kt, mi_np, width, upsample_cols)
+
+
+def _plane_product(
+    coef_kt: torch.Tensor, mi_np: np.ndarray, width: int, upsample_cols: bool
+) -> torch.Tensor:
+    """One ``akb,kuv->aubv`` einsum of KT coefficients against a (HW, 8,
+    width) basis, +128, C round, clamp, as an (8·bh, out_w·bw) plane."""
+    bh, _, bw = coef_kt.shape
+    out_w = width
+    if upsample_cols:
+        mi_np = np.repeat(mi_np, 2, axis=2)
+        out_w = 2 * width
+    mi = torch.from_numpy(mi_np.astype(np.float32)).to(coef_kt.device)
+    pix = torch.einsum("akb,kuv->aubv", coef_kt.to(torch.float32), mi) + 128.0
+    return _round_clamp(pix).reshape(8 * bh, out_w * bw)
+
+
 def fused_inverse_plane_sparse(
     d_kt: torch.Tensor, table: np.ndarray, width: int,
     upsample_cols: bool = False,
@@ -129,17 +196,4 @@ def fused_inverse_plane_sparse(
     fast-path envelope, ``lz4jpeg_tpu/ops/fused.py``).
     """
     m2 = inverse_suffix_basis(width, 8, _table_key(table))
-    bh, hw, bw = d_kt.shape
-    mi_np = m2.T.reshape(hw, 8, width)
-    out_w = width
-    if upsample_cols:
-        mi_np = np.repeat(mi_np, 2, axis=2)
-        out_w = 2 * width
-    mi = torch.from_numpy(mi_np.astype(np.float32)).to(d_kt.device)
-    pix = torch.einsum("akb,kuv->aubv", d_kt.to(torch.float32), mi) + 128.0
-    rounded = torch.sign(pix) * torch.floor(pix.abs() + 0.5)
-    return (
-        torch.clamp(rounded, 0, 255)
-        .to(torch.uint8)
-        .reshape(8 * bh, out_w * bw)
-    )
+    return _plane_product(d_kt, m2.T.reshape(-1, 8, width), width, upsample_cols)

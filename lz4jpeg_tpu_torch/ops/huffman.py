@@ -1,7 +1,8 @@
 """Canonical Huffman codebooks of the shared entropy mode.
 
 Copy of ``lz4jpeg_tpu/ops/huffman.py`` (``CanonicalCodebook``,
-``_canonical_codes``, ``build_canonical_codebook_from_counts``): one
+``_canonical_codes``, ``build_canonical_codebook_from_counts``, the Python
+walk of ``unpack_symbols``): one
 canonical codebook per channel, built from global symbol statistics and
 serializable in a few bytes per symbol.  ``tests/test_torch_container.py``
 holds the containers it writes byte-identical to the JAX package's.
@@ -105,3 +106,43 @@ def build_canonical_codebook_from_counts(
     return CanonicalCodebook(
         values[order].astype(np.int32), lengths, _canonical_codes(lengths)
     )
+
+
+def unpack_symbols(
+    packed: bytes, total_bits: int, codebook: CanonicalCodebook
+) -> np.ndarray:
+    """Table-driven canonical decode (first-code arithmetic per length): the
+    executable spec and the container's last fallback tier.  Raises
+    ``ValueError`` when the bit count exceeds the buffer or trailing bits
+    form no codeword."""
+    if total_bits == 0:
+        return np.zeros(0, np.int32)
+    if (total_bits + 7) // 8 > len(packed):
+        raise ValueError(
+            f"bit count {total_bits} exceeds packed buffer of "
+            f"{len(packed)} bytes"
+        )
+    bits = np.unpackbits(np.frombuffer(packed, np.uint8))[:total_bits]
+    lengths = codebook.lengths.astype(np.int64)
+    first_code = {}
+    first_index = {}
+    for l in np.unique(lengths):
+        idx = int(np.searchsorted(lengths, l))
+        first_code[int(l)] = int(codebook.codes[idx])
+        first_index[int(l)] = idx
+    count_per_len = {l: int((lengths == l).sum()) for l in first_code}
+    out: List[int] = []
+    code = 0
+    code_len = 0
+    symbols = codebook.symbols
+    for bit in bits.tolist():
+        code = (code << 1) | bit
+        code_len += 1
+        fc = first_code.get(code_len)
+        if fc is not None and fc <= code < fc + count_per_len[code_len]:
+            out.append(int(symbols[first_index[code_len] + (code - fc)]))
+            code = 0
+            code_len = 0
+    if code_len != 0:
+        raise ValueError("trailing bits do not form a codeword")
+    return np.asarray(out, np.int32)

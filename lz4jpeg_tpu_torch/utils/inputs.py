@@ -6,7 +6,9 @@
 * ``generate_text`` — seeded text for the LZ4 codecs: Zipf-distributed
   words of a seeded lowercase vocabulary, joined by spaces.  It stands in
   for the reference's text corpus, which the repository does not carry;
-  uniform noise has no matches and only exercises the raw-stored path.
+  uniform noise has no matches and only exercises the raw-stored path;
+* ``crafted_packed16_rows`` — packed16 run words and lengths that no
+  canonical encoder writes but the decoders must take as the spec does.
 """
 
 from __future__ import annotations
@@ -62,3 +64,36 @@ def generate_text(n_bytes: int, rng: np.random.Generator) -> bytes:
         parts.append(vocab[pos])
         total += int(ends[-1])
     return np.concatenate(parts)[:n_bytes].tobytes() if parts else b""
+
+
+def crafted_packed16_rows(k: int, rng: np.random.Generator, n_random: int = 40):
+    """(rows, k) packed16 words (int16 bits) and int32 symbol lengths: lengths
+    shorter than the nonzero words, count sums below and above k, value -512
+    with count 1 (word 0) mid-row and in every slot, the value limits ±511,
+    odd, negative and oversized lengths, no valid slot; then ``n_random``
+    random words with lengths in [-2, 2k + 2]."""
+    def word(count, value):
+        return ((count - 1) << 10) | (value + 512)
+
+    full = [word(1, int(v)) for v in rng.integers(-511, 512, size=k)]
+    rows = [
+        (full, 6),
+        ([word(5, 3), word(5, -4), word(5, 7)], 6),
+        ([word(40, 3), word(40, -9)], 4),
+        ([word(64, 11), word(3, 2)], 4),
+        ([word(9, 5), 0, word(20, -1)], 6),
+        ([0], 2),
+        ([0] * k, 2 * k),
+        ([word(2, 511), word(3, -511)], 4),
+        (full, 7),
+        (full, -3),
+        (full, 2 * k + 10),
+        ([word(1, 0)] * k, 0),
+    ]
+    words = rng.integers(0, 1 << 16, size=(len(rows) + n_random, k))
+    lengths = rng.integers(-2, 2 * k + 3, size=len(rows) + n_random)
+    for i, (w, n) in enumerate(rows):
+        words[i] = 0
+        words[i, : len(w)] = w[:k]
+        lengths[i] = n
+    return words.astype(np.uint16).view(np.int16), lengths.astype(np.int32)

@@ -7,6 +7,8 @@ truncation may land one step apart.  ``sum_order_flips`` accepts exactly
 those differences: a coefficient off by 1 whose float64 ratio, recomputed in
 numpy from the same pixels, lies within ``eps`` of an integer.  Anything
 else raises.  Callers bound the count (at most 1e-5 of the coefficients).
+``combined_of`` brings pair and packed16 encodes to the same buffer, so the
+rule covers the int16 pair layout's forward (cuBLAS on a card) too.
 """
 
 from __future__ import annotations
@@ -21,7 +23,30 @@ from lz4jpeg_tpu_torch.ops.color import (
 )
 from lz4jpeg_tpu_torch.ops.fused import _table_key, forward_basis
 from lz4jpeg_tpu_torch.ops.fwd_megakernel import CHANNEL_SLICES
-from lz4jpeg_tpu_torch.ops.rle import rle_decode_sparse16
+from lz4jpeg_tpu_torch.ops.rle import (
+    rle_decode_batched,
+    rle_decode_packed16,
+    rle_decode_sparse16,
+    rle_encode_sparse16,
+)
+
+
+def combined_of(enc) -> np.ndarray:
+    """A pair or packed16 ``JPEGEncoded``'s runs as the (N, 128) int16
+    sparse-delta buffer ``sum_order_flips`` compares (the deltas of values
+    past ±511 still fit int16)."""
+    parts = []
+    for c, sl in CHANNEL_SLICES.items():
+        arr = np.ascontiguousarray(enc.rle[c])
+        rle = torch.from_numpy(arr.view(np.int16) if enc.rle_packed16 else arr)
+        lengths = torch.from_numpy(np.asarray(enc.rle_lengths[c], np.int32))
+        k = sl.stop - sl.start
+        if enc.rle_packed16:
+            zz = rle_decode_packed16(rle, lengths, k)
+        else:
+            zz = rle_decode_batched(rle, lengths, k)
+        parts.append(rle_encode_sparse16(zz)[0])
+    return torch.cat(parts, dim=1).numpy()
 
 
 def sum_order_flips(

@@ -2,10 +2,10 @@
 
 Tables, quality scaling, the zigzag permutation and every basis the two
 packages build must be exactly equal (``np.array_equal``), for the
-reference tables (quality None) and a scaled setting (75).  The quant
-tables are the codec's parameters: ``tables_from_numpy`` carries the JAX
-pipeline's ``_tables`` into the port, whose bases must then equal the JAX
-package's.
+reference tables (quality None) and scaled settings (75; 80, 90 and 100,
+which take the int16 pair layout).  The quant tables are the codec's
+parameters: ``tables_from_numpy`` carries the JAX pipeline's ``_tables``
+into the port, whose bases must then equal the JAX package's.
 """
 
 import numpy as np
@@ -123,6 +123,25 @@ def test_tables_from_numpy_rejects_bad_tables():
                      tables=_jax_tables(75))
 
 
+@pytest.mark.parametrize("quality", [80, 90, 100])
+def test_tables_from_numpy_pair_layout(quality):
+    """Quality 80–100 tables (an entry below 3) carry across too; the
+    pipeline then runs the per-channel forward and inverse bases of the
+    pair layout, equal to the JAX package's."""
+    jax_tables = _jax_tables(quality)
+    assert min(int(t.min()) for t in jax_tables.values()) < 3
+    pipe = JPEGPipeline(JPEGConfig(quality=quality), device="cpu",
+                        tables=tables_from_numpy(jax_tables))
+    assert not pipe.sparse16
+    bases = pipe.bases()
+    for c, width in (("lum", 8), ("r", 4), ("b", 4)):
+        key = jax_fused._table_key(jax_tables[c])
+        assert all(map(np.array_equal, bases["forward"][c],
+                       jax_fused.forward_basis(width, 8, key)))
+        assert np.array_equal(bases["inverse"][c],
+                              jax_fused.inverse_basis(width, 8, key))
+
+
 @pytest.mark.parametrize("kwargs", [
     {"precision": "exact"},
     {"entropy": "per_block"},
@@ -130,17 +149,38 @@ def test_tables_from_numpy_rejects_bad_tables():
     {"quality": 95},
 ])
 def test_unported_modes_raise(kwargs):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        JPEGConfig(**kwargs)
+    """``precision="exact"`` and ``entropy="per_block"`` still raise, naming
+    ROADMAP item 6.  Quality 100 and 95, once refused, now encode in the
+    int16 pair layout and write the JAX package's container bytes."""
+    if "quality" not in kwargs:
+        with pytest.raises(NotImplementedError, match="ROADMAP.*item 6"):
+            JPEGConfig(**kwargs)
+        return
+    from lz4jpeg_tpu.formats.jpeg_container import pack_container as jax_pack
+
+    from lz4jpeg_tpu_torch.formats.jpeg_container import pack_container
+
+    rgb = np.random.default_rng(kwargs["quality"]).integers(
+        0, 256, size=(24, 40, 3), dtype=np.uint8)
+    enc = JPEGPipeline(JPEGConfig(**kwargs), device="cpu").encode(rgb)
+    jax_enc = JaxJPEGPipeline(JaxJPEGConfig(**kwargs)).encode(rgb)
+    assert not enc.rle_sparse16 and not enc.rle_packed16
+    assert not jax_enc.rle_sparse16 and not jax_enc.rle_packed16
+    for c in ("lum", "r", "b"):
+        assert np.array_equal(enc.rle[c], np.asarray(jax_enc.rle[c]))
+        assert np.array_equal(enc.rle_lengths[c], np.asarray(jax_enc.rle_lengths[c]))
+    assert pack_container(enc) == jax_pack(jax_enc)
 
 
 @pytest.mark.parametrize("quality", [1, 50, 75, 85, 90, 95, 100])
 def test_sparse16_eligibility_matches_jax(quality):
-    """The port accepts a quality exactly when the JAX pipeline takes the
-    sparse16 layout for it."""
-    try:
-        JPEGConfig(quality=quality)
-        accepted = True
-    except NotImplementedError:
-        accepted = False
-    assert accepted == JaxJPEGPipeline(JaxJPEGConfig(quality=quality))._sparse16
+    """The port picks the JAX pipeline's layout at every quality: sparse16
+    where the JAX pipeline does, int16 pairs elsewhere."""
+    pipe = JPEGPipeline(JPEGConfig(quality=quality), device="cpu")
+    jax_pipe = JaxJPEGPipeline(JaxJPEGConfig(quality=quality))
+    assert pipe.sparse16 == jax_pipe._sparse16
+    rgb = np.zeros((8, 8, 3), np.uint8)
+    enc = pipe.encode(rgb, entropy=False)
+    jax_enc = jax_pipe.encode(rgb, entropy=False)
+    assert (enc.rle_sparse16, enc.rle_packed16) == (
+        jax_enc.rle_sparse16, jax_enc.rle_packed16)

@@ -189,12 +189,18 @@ def test_corrupt_containers_raise():
 
 
 def test_non_canonical_stream_raises_typed_error():
-    """A stream the native sparse16 walker rejects (a run longer than its
-    block) raises JPEGContainerError: the port has no pair-layout fallback."""
+    """A run longer than its one-block image ([65, 0]) passes no tier: the
+    sparse16 and packed16 walkers refuse a count of 65, the native int32
+    walker a pair past the last block, and the Python re-blocking indexes
+    past it.  The JAX container raises JPEGContainerError for it; so does
+    the port's."""
     _, pipe = _pipes()
     enc = pipe.encode(_image(8, 8, seed=9))
     cb = CanonicalCodebook(np.array([0, 65], np.int32), np.array([1, 1], np.uint8),
                            np.array([0, 1], np.uint32))
     enc.shared_streams["lum"] = (cb, bytes([0b10000000]), 2)  # [65, 0]
-    with pytest.raises(JPEGContainerError, match="sparse16"):
-        unpack_container(pack_container(enc))
+    data = pack_container(enc)
+    with pytest.raises(jax_container.JPEGContainerError, match="'lum'"):
+        jax_container.unpack_container(data)
+    with pytest.raises(JPEGContainerError, match="'lum'"):
+        unpack_container(data)

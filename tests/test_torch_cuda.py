@@ -11,9 +11,12 @@ Tolerance of the forward kernel: identity, except sum-order flips
 lies within 1e-4 of an integer, at most 1e-5 of the coefficients.  The
 kernel sums its 64 products in a fixed FMA order; cuBLAS in its own.
 
-The LZ4 match kernel (K2) and the rooted-resolve kernel (K3) compute on
-integers: identity, no tolerance.  The LZ4T frame of a CUDA codec must
-equal the CPU codec's byte for byte.
+The LZ4 match kernel (K2), the rooted-resolve kernel (K3) and the packed16
+kernels (K4-K7) compute on integers: identity, no tolerance.  The LZ4T
+frame of a CUDA codec must equal the CPU codec's byte for byte; the packed16
+containers of a CUDA pipeline equal the CPU pipeline's; quality 90 (int16
+pairs, cuBLAS forward) equals it up to the sum-order flips above; decoded
+RGB stays within max |Δ| ≤ 3 on ≤ 2e-3 of pixels of the CPU decode.
 """
 
 import numpy as np
@@ -33,7 +36,7 @@ from lz4jpeg_tpu_torch.ops.lz4t_decode import (
     resolve_rooted_ref,
     root_program,
 )
-from lz4jpeg_tpu_torch.utils.inputs import generate_text
+from lz4jpeg_tpu_torch.utils.inputs import crafted_packed16_rows, generate_text
 from lz4jpeg_tpu_torch.formats.jpeg_container import pack_container, unpack_container
 from lz4jpeg_tpu_torch.ops.fwd_megakernel import (
     forward_combined,
@@ -43,7 +46,9 @@ from lz4jpeg_tpu_torch.ops.quantize import (
     CHROMINANCE_QUANTIZATION_TABLE as CHR,
     LUMINANCE_QUANTIZATION_TABLE as LUM,
 )
-from lz4jpeg_tpu_torch.utils.parity import sum_order_flips
+from lz4jpeg_tpu_torch.models.jpeg import scaled_tables
+from lz4jpeg_tpu_torch.ops import pack16
+from lz4jpeg_tpu_torch.utils.parity import combined_of, sum_order_flips
 
 MAX_FLIP_SHARE = 1e-5
 
@@ -154,6 +159,106 @@ def test_resolve_kernel_matches_plain_version(cuda, source):
     torch.cuda.synchronize()
     assert resolve_rooted.launches == before + 1
     assert torch.equal(got, resolve_rooted_ref(lit_d, root_d))
+
+
+def _runny_values(n, k, seed):
+    rng = np.random.default_rng(seed)
+    vals = rng.integers(-511, 512, size=(n, k))
+    vals[::2] = np.repeat(rng.integers(-511, 512, size=(n, (k + 3) // 4)), 4,
+                          axis=1)[::2, :k]
+    vals[1], vals[3, -1] = 511, -511
+    return torch.from_numpy(vals.astype(np.int16))
+
+
+@pytest.mark.parametrize("k", [64, 32, 16, 1])
+@pytest.mark.parametrize("dtype", [torch.int16, torch.int32])
+def test_pack16_kernels_match_plain_versions(cuda, k, dtype):
+    """K4 and K5 against their plain versions (any N, C), identical."""
+    vals = _runny_values(1000, k, seed=k).to(dtype).to(cuda)
+    before = pack16.pack16_encode.launches
+    got = pack16.pack16_encode(vals)
+    torch.cuda.synchronize()
+    assert pack16.pack16_encode.launches == before + 1
+    want = pack16.pack16_encode_ref(vals)
+    assert all(torch.equal(g, w) for g, w in zip(got, want))
+    kt = vals[:960].reshape(24, 40, k).transpose(1, 2).contiguous()
+    before = pack16.pack16_encode_kt.launches
+    got_kt = pack16.pack16_encode_kt(kt)
+    torch.cuda.synchronize()
+    assert pack16.pack16_encode_kt.launches == before + 1
+    assert all(torch.equal(g, w) for g, w in
+               zip(got_kt, pack16.pack16_encode_kt_ref(kt)))
+    assert all(torch.equal(g, w[:960]) for g, w in zip(got_kt, got))
+
+
+@pytest.mark.parametrize("k", [64, 32, 8])
+def test_expand16_kernels_match_plain_versions(cuda, k):
+    """K6 and K7 against their plain versions on canonical and crafted rows,
+    identical (they honour lengths; a valid word 0 is -512 × 1)."""
+    words, lengths = pack16.pack16_encode_ref(_runny_values(500, k, seed=k))
+    cw, cl = map(torch.from_numpy,
+                 crafted_packed16_rows(k, np.random.default_rng(k), n_random=288))
+    for w, l in ((words, lengths), (cw, cl)):
+        w, l = w.to(cuda), l.to(cuda)
+        for out_size in sorted({k, max(1, k // 2), min(64, k + 9)}):
+            before = pack16.pack16_decode.launches
+            got = pack16.pack16_decode(w, l, out_size)
+            torch.cuda.synchronize()
+            assert pack16.pack16_decode.launches == before + 1
+            assert torch.equal(got, pack16.pack16_decode_ref(w, l, out_size))
+        for bw in (50, 20, 1):
+            before = pack16.pack16_decode_plane.launches
+            got = pack16.pack16_decode_plane(w[:300], l[:300], bw)
+            torch.cuda.synchronize()
+            assert pack16.pack16_decode_plane.launches == before + 1
+            assert torch.equal(
+                got, pack16.pack16_decode_plane_ref(w[:300], l[:300], bw))
+
+
+def _envelope(got, want):
+    for a, b in zip(got, want):
+        diff = np.abs(a.astype(np.int32) - b.astype(np.int32))
+        assert diff.max() <= 3 and (diff != 0).mean() <= 2e-3
+
+
+def test_cuda_packed16_pipeline_matches_cpu_pipeline(cuda):
+    rgbs = _batch(2, 96, 80, seed=5)
+    gpu = JPEGPipeline(JPEGConfig(), device=cuda)
+    cpu = JPEGPipeline(JPEGConfig(), device="cpu")
+    sparse = cpu.encode_batch(rgbs)
+    k4, k6 = pack16.pack16_encode.launches, pack16.pack16_decode.launches
+    g_packed = [gpu.entropy_encode(e) for e in gpu.to_packed16(sparse)]
+    c_packed = [cpu.entropy_encode(e) for e in cpu.to_packed16(sparse)]
+    assert pack16.pack16_encode.launches == k4 + 3  # one per channel
+    for g, c, s in zip(g_packed, c_packed, sparse):
+        assert pack_container(g) == pack_container(c) == pack_container(s)
+    g_rgb = gpu.decode_batch(g_packed)
+    assert pack16.pack16_decode.launches == k6 + 3
+    _envelope(g_rgb, cpu.decode_batch(c_packed))
+    _envelope(g_rgb, cpu.decode_batch(sparse))
+
+
+def test_cuda_quality90_matches_cpu(cuda):
+    """Uniform noise at 512 × 384: large enough that the 1e-5 flip share
+    admits a few flips (two 96 × 80 frames with duplicated columns gave
+    one admissible flip in 15,360 coefficients on an H100, over the share;
+    four 2048² frames gave none)."""
+    rgbs = np.random.default_rng(9).integers(0, 256, size=(2, 512, 384, 3),
+                                             dtype=np.uint8)
+    gpu = JPEGPipeline(JPEGConfig(quality=90), device=cuda)
+    cpu = JPEGPipeline(JPEGConfig(quality=90), device="cpu")
+    tables = scaled_tables(90)
+    g_encs, c_encs = gpu.encode_batch(rgbs), cpu.encode_batch(rgbs)
+    for rgb, g, c in zip(rgbs, g_encs, c_encs):
+        assert not g.rle_sparse16 and not g.rle_packed16
+        if pack_container(g) != pack_container(c):
+            flips = sum_order_flips(rgb[None], combined_of(g), combined_of(c),
+                                    tables["lum"], tables["r"])
+            assert flips <= MAX_FLIP_SHARE * combined_of(g).size
+    _envelope(gpu.decode_batch(g_encs), cpu.decode_batch(g_encs))
+    containers = [unpack_container(pack_container(e)) for e in g_encs]
+    _envelope([gpu.decode(e) for e in containers],
+              [cpu.decode(e) for e in containers])
 
 
 def test_cuda_codec_frame_matches_cpu_codec(cuda):

@@ -6,7 +6,8 @@
   run the plain version and leave it at 0.
 * No module of ``lz4jpeg_tpu_torch`` (nor ``chip_smoke.py``) imports
   ``jax`` or ``lz4jpeg_tpu``, by an AST scan and by a subprocess that
-  blocks both names and still runs a JPEG round trip and an LZ4T
+  blocks both names and still runs JPEG round trips (sparse16, its
+  packed16 twin, and quality 90 in the int16 pair layout) and an LZ4T
   ``engine="device"`` round trip.
 """
 
@@ -108,6 +109,15 @@ pipe = JPEGPipeline(JPEGConfig(), device="cpu")
 rgb = np.random.default_rng(0).integers(0, 256, size=(16, 16, 3), dtype=np.uint8)
 out = pipe.decode(unpack_container(pack_container(pipe.encode(rgb))))
 assert out.shape == rgb.shape and out.dtype == np.uint8
+(packed,) = pipe.to_packed16([pipe.encode(rgb)])
+pipe.entropy_encode(packed)
+assert pack_container(packed) == pack_container(pipe.encode(rgb))
+assert np.abs(pipe.decode(packed).astype(np.int32) - out).max() <= 3
+q90 = JPEGPipeline(JPEGConfig(quality=90), device="cpu")
+enc = q90.encode(rgb)
+assert not enc.rle_sparse16 and not enc.rle_packed16
+assert q90.decode(unpack_container(pack_container(enc))).shape == rgb.shape
+assert q90.decode(enc).shape == rgb.shape
 from lz4jpeg_tpu_torch import LZ4Codec, LZ4Config
 from lz4jpeg_tpu_torch.utils.inputs import generate_text
 text = generate_text(40000, np.random.default_rng(0))
