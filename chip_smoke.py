@@ -2,9 +2,9 @@
 """Smoke run of the PyTorch port (lz4jpeg_tpu_torch) on one CUDA card.
 
 Run from the repository root with no arguments: ``python3 chip_smoke.py``.
-It needs one card.  At first use it builds the seven Hopper kernels (one
-nvcc per source file, five files, all started together, sm_90a) and the
-native runtime (g++) into ``lz4jpeg_tpu_torch/_build/``, then runs twelve
+It needs one card.  At first use it builds the eight Hopper kernels (one
+nvcc per source file, six files, all started together, sm_90a) and the
+native runtime (g++) into ``lz4jpeg_tpu_torch/_build/``, then runs sixteen
 phases and fails (non-zero exit, no result line) if any of them fails:
 
 1. the card's name and power limit, the torch and CUDA versions, and the
@@ -58,7 +58,30 @@ phases and fails (non-zero exit, no result line) if any of them fails:
     pipeline's up to phase 2's flips, decodes within the envelope;
 12. times: K4-K7 against plain on the luma of 2048², batch 64 (4,194,304
     blocks), as in phase 4; the round trip of one 2048² frame through the
-    packed16 path and at quality 90, each with a staged split.
+    packed16 path and at quality 90, each with a staged split;
+13. the lane-dense packed16 decode kernel K8 against its plain version on
+    phase 9's frames (luma K = 64 and chroma K = 32 words from K4) and on
+    crafted rows, and against K6 (cast to int16) on phase 10's packed16
+    words; phase 10's packed16 decode rebuilt from K8's values through
+    ``fused_inverse`` and ``ycbcr_to_rgb_mcus`` (the run whose K8 launches
+    are counted) identical to phase 10's K6 decode; K8, K6 and plain times
+    on luma and chroma of 2048², batch 64, as in phase 12;
+14. exact precision (float64) on the card: ``forward_stages`` and
+    ``roundtrip`` identical to the numpy oracle at 64², 37×53 and 256²;
+    at one 2048² frame the coefficients and containers identical to the
+    CPU port's exact pipeline (tie differences counted by
+    ``utils/parity.py::assert_quantized_parity``); a quality-75 container
+    decoded in float64 from its sparse16 tier; encode and decode times;
+15. per-block entropy, exact and fast: bitstrings identical to the oracle's
+    at 64² and to the CPU port's at one 2048² frame; compressed bytes; the
+    time of the native per-block pass;
+16. the encode entry points on one 2048² frame: the overlapped ``encode``
+    against the one-shot ``encode_batch`` and the CPU's (containers
+    byte-identical), median times of both with the overlapped encode's
+    staged split; ``encode_bucketed``/``decode_bucketed`` against
+    ``encode``/``decode`` at 2048², 1000×1500 and 37×53 (admissible flips
+    counted; decodes within the envelope); ``warmup``, after which an
+    encode builds no library.
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -84,6 +107,8 @@ RESOLVE_SOURCE = "lz4jpeg_tpu_torch/csrc/resolve_kernel.cu"
 RESOLVE_REPLACES = "lz4jpeg_tpu/ops/lz4t_decode.py:235"
 PACK_SOURCE = "lz4jpeg_tpu_torch/csrc/pack16_kernel.cu"
 EXPAND_SOURCE = "lz4jpeg_tpu_torch/csrc/expand16_kernel.cu"
+WIDE_SOURCE = "lz4jpeg_tpu_torch/csrc/expand16_wide_kernel.cu"
+WIDE_REPLACES = "lz4jpeg_tpu/ops/pallas_rle.py:552"
 # (record name, wrapper in ops/pack16.py, source, the TPU kernel it replaces)
 PAIR_KERNELS = (
     ("pack16_rows", "pack16_encode", PACK_SOURCE,
@@ -101,7 +126,10 @@ MAIN_BYTES = 32 * MIB  # the LZ4T main path's input (2048 × 16 KiB)
 TEXT_BYTES = 128 * MIB  # the natively encoded input of phases 7-8
 SIDE = 2048  # frame side of phases 9 and 12
 CHECK_FRAMES = 8  # frames of phase 9
-TIME_FRAMES = 64  # frames of phase 12's kernel times
+TIME_FRAMES = 64  # frames of phase 12's and phase 13's kernel times
+ORACLE_SHAPES = ((64, 64), (37, 53), (256, 256))  # phase 14 (numpy oracle)
+BUCKET_SHAPES = ((2048, 2048), (1000, 1500), (37, 53))  # phase 16
+ENCODE_RUNS = 11  # timed encodes of each entry point in phase 16
 
 
 def check(cond: bool, msg: str) -> None:
@@ -143,15 +171,15 @@ def trimmed_mean(ms):
     return sum(kept) / len(kept)
 
 
-def kernel_vs_plain(label: str, kernel, plain, x, identical: bool):
-    """Phase-4 method: plain, kernel, kernel, plain blocks of ``timed_runs``;
-    returns (kernel ms, plain ms), each the mean of its two trimmed means,
-    after checking that every run of a version gave one checksum (and, if
-    ``identical``, the same checksum for both versions)."""
+def time_versions(label: str, fns: dict, x, identical: bool = True):
+    """Phase-4 method for versions of one function: blocks of ``timed_runs``
+    in the order given, then in reverse (plain, kernel, kernel, plain);
+    returns each version's mean of its two trimmed means, after checking
+    that every run of a version gave one checksum and, if ``identical``,
+    that all versions gave the same one."""
     blocks = {}
-    for name, fn in (("plain", plain), ("kernel", kernel),
-                     ("kernel", kernel), ("plain", plain)):
-        ms, sums = timed_runs(fn, x)
+    for name in [*fns, *reversed(list(fns))]:
+        ms, sums = timed_runs(fns[name], x)
         blocks.setdefault(name, []).append((trimmed_mean(ms), sums))
         print(f"{label} {name}: trimmed mean {trimmed_mean(ms):.4f} ms "
               f"(runs {[round(t, 4) for t in ms]})")
@@ -161,10 +189,9 @@ def kernel_vs_plain(label: str, kernel, plain, x, identical: bool):
         check(len(sums) == 1, f"{label}: {name} output changed: {sums}")
         checksums[name] = sums.pop()
     print(f"{label}: output checksums {checksums}")
-    check(not identical or checksums["kernel"] == checksums["plain"],
-          f"{label}: kernel and plain checksums differ")
-    return (sum(t for t, _ in blocks["kernel"]) / 2,
-            sum(t for t, _ in blocks["plain"]) / 2)
+    check(not identical or len(set(checksums.values())) == 1,
+          f"{label}: versions' checksums differ")
+    return {name: sum(t for t, _ in runs) / 2 for name, runs in blocks.items()}
 
 
 def build_all():
@@ -186,6 +213,7 @@ def build_all():
         "nvcc resolve_kernel": lz4t_decode.load_kernel,
         "nvcc pack16_kernel": pack16.load_pack_kernels,
         "nvcc expand16_kernel": pack16.load_expand_kernels,
+        "nvcc expand16_wide_kernel": pack16.load_wide_kernel,
         "g++ lz4core": native_backend,
     }
 
@@ -315,21 +343,24 @@ def lz4_phases(dev):
     padded, lengths = pad_blocks_fast(data)
     main_in = (torch.from_numpy(padded.astype(np.uint8)).to(dev),
                torch.from_numpy(lengths).to(dev))
-    k2_ms, k2_plain_ms = kernel_vs_plain(
+    t = time_versions(
         "phase 8: K2 2048x16KiB stride 1 lcp 4",
-        lambda t: match_candidates(t[0], t[1], 1, 4),
-        lambda t: match_candidates_ref(t[0], t[1], 1, 4),
-        main_in, identical=True,
+        {"plain": lambda t: match_candidates_ref(t[0], t[1], 1, 4),
+         "kernel": lambda t: match_candidates(t[0], t[1], 1, 4)},
+        main_in,
     )
+    k2_ms, k2_plain_ms = t["kernel"], t["plain"]
     mb = len(data) / 1e6
     print(f"phase 8: K2 2048x16KiB: kernel {k2_ms:.4f} ms "
           f"({mb / k2_ms * 1e3:.1f} MB/s), plain {k2_plain_ms:.4f} ms "
           f"({mb / k2_plain_ms * 1e3:.1f} MB/s)")
-    k3_ms, k3_plain_ms = kernel_vs_plain(
+    t = time_versions(
         "phase 8: K3 128 MiB (2048x64KiB)",
-        lambda t: resolve_rooted(*t), lambda t: resolve_rooted_ref(*t),
-        (big_lit, root_big), identical=True,
+        {"plain": lambda t: resolve_rooted_ref(*t),
+         "kernel": lambda t: resolve_rooted(*t)},
+        (big_lit, root_big),
     )
+    k3_ms, k3_plain_ms = t["kernel"], t["plain"]
     big_mb = big_lit.numel() / 1e6
     print(f"phase 8: K3 128 MiB: kernel {k3_ms:.4f} ms "
           f"({big_mb / k3_ms * 1e3:.1f} MB/s), plain {k3_plain_ms:.4f} ms "
@@ -424,9 +455,10 @@ def envelope(label: str, got, want):
 
 
 def pair_phases(dev, frames, containers, decoded):
-    """Phases 9-12 (the pair layouts); returns the K4-K7 kernel records.
-    ``frames``, ``containers`` and ``decoded`` are phase 3's four 2048²
-    frames, their sparse16 containers and the card's decode of them."""
+    """Phases 9-12 (the pair layouts); returns the K4-K7 kernel records,
+    phase 10's packed16 encodes and their K6 decode.  ``frames``,
+    ``containers`` and ``decoded`` are phase 3's four 2048² frames, their
+    sparse16 containers and the card's decode of them."""
     import dataclasses
 
     import torch
@@ -660,11 +692,11 @@ def pair_phases(dev, frames, containers, decoded):
             "expand16_plane": (words, lens, SIDE // 8)}
     times = {}
     for name, a in args.items():
-        times[name] = kernel_vs_plain(
+        t = time_versions(
             f"phase 12: {name} luma {SIDE}x{SIDE} b{TIME_FRAMES} ({n} blocks)",
-            lambda t, f=wrappers[name]: f(*t), lambda t, f=refs[name]: f(*t),
-            a, identical=True)
-        ms, plain_ms = times[name]
+            {"plain": lambda t, f=refs[name]: f(*t),
+             "kernel": lambda t, f=wrappers[name]: f(*t)}, a)
+        times[name] = ms, plain_ms = t["kernel"], t["plain"]
         print(f"phase 12: {name}: kernel {ms:.4f} ms "
               f"({io[name] / ms / 1e6:.1f} GB/s of {io[name]} bytes), "
               f"plain {plain_ms:.4f} ms")
@@ -735,7 +767,407 @@ def pair_phases(dev, frames, containers, decoded):
         "max_abs_err": errs[name],
         "ms": times[name][0],
         "plain_ms": times[name][1],
-    } for name, _, source, replaces in PAIR_KERNELS]
+    } for name, _, source, replaces in PAIR_KERNELS], packed, p_decoded
+
+
+def wide_phase(dev, packed, p_decoded):
+    """Phase 13 (K8); returns its kernel record.  ``packed`` and
+    ``p_decoded`` are phase 10's packed16 encodes and their K6 decode."""
+    import torch
+
+    from lz4jpeg_tpu_torch.models.jpeg import (
+        CHANNELS,
+        _CHANNEL_SHAPES,
+        scaled_tables,
+    )
+    from lz4jpeg_tpu_torch.ops import pack16
+    from lz4jpeg_tpu_torch.ops.color import ycbcr_to_rgb_mcus
+    from lz4jpeg_tpu_torch.ops.fused import fused_inverse
+    from lz4jpeg_tpu_torch.ops.fwd_megakernel import (
+        CHANNEL_SLICES,
+        forward_combined,
+    )
+    from lz4jpeg_tpu_torch.ops.rle import rle_decode_sparse16
+    from lz4jpeg_tpu_torch.utils.inputs import crafted_packed16_rows
+
+    tables = scaled_tables(None)
+    wide, wide_ref = pack16.pack16_decode_wide, pack16.pack16_decode_wide_ref
+    err = 0
+
+    def same(what, got, want):
+        nonlocal err
+        torch.cuda.synchronize()
+        d = int((got.int() - want.int()).abs().max())
+        err = max(err, d)
+        ok = got.dtype == want.dtype == torch.int16 and torch.equal(got, want)
+        print(f"phase 13: K8 {what}: {'identical' if ok else 'DIFFERENT'} "
+              f"(max |d| {d})")
+        check(ok, f"K8 differs on {what}")
+
+    # Phase 9's frames (same seed, same draw) and crafted rows: word 0 valid
+    # mid-row, count sums below and above K (runs that start past the last
+    # slot), lengths shorter than the nonzero words.
+    rng = np.random.default_rng(SEED + 9)
+    x = torch.from_numpy(noise(CHECK_FRAMES, SIDE, SIDE, rng, runs=True)).to(dev)
+    comb = forward_combined(x, tables["lum"], tables["r"])
+    del x
+    for c in CHANNELS:
+        sl = CHANNEL_SLICES[c]
+        k = sl.stop - sl.start
+        vals = rle_decode_sparse16(comb[:, sl]).to(torch.int16)
+        words, lens = pack16.pack16_encode(vals)
+        got = wide(words, lens)
+        same(f"{c} {vals.shape[0]}x{k} vs plain", got, wide_ref(words, lens))
+        check(torch.equal(got, vals), f"{c}: K8 does not give K4's input")
+        cw, cl = crafted_packed16_rows(k, rng, n_random=4084)
+        cw, cl = torch.from_numpy(cw).to(dev), torch.from_numpy(cl).to(dev)
+        same(f"{c} crafted rows vs plain", wide(cw, cl), wide_ref(cw, cl))
+        same(f"{c} crafted rows vs K6", wide(cw, cl),
+             pack16.pack16_decode(cw, cl, k).to(torch.int16))
+    del comb, vals, words, lens, got
+
+    # Phase 10's real packed16 words, against K6.
+    inputs = {}
+    for c in CHANNELS:
+        words = torch.from_numpy(
+            np.concatenate([e.rle[c] for e in packed]).view(np.int16)).to(dev)
+        lens = torch.from_numpy(np.concatenate(
+            [e.rle_lengths[c] for e in packed]).astype(np.int32)).to(dev)
+        same(f"{c} phase 10 words {tuple(words.shape)} vs K6", wide(words, lens),
+             pack16.pack16_decode(words, lens, words.shape[1]).to(torch.int16))
+        inputs[c] = (words, lens)
+
+    # Phase 10's packed16 decode rebuilt from K8's values: K8's path, the
+    # run whose launches are counted.
+    e0 = packed[0]
+    wide.launches = 0
+    tiles = {}
+    for c in CHANNELS:
+        th, tw = _CHANNEL_SHAPES[c]
+        tiles[c] = fused_inverse(wide(*inputs[c]), tables[c], tw, th).reshape(
+            len(packed), e0.num_blocks, th, tw)
+    rgb = ycbcr_to_rgb_mcus(tiles["lum"], tiles["r"], tiles["b"],
+                            e0.blocks_per_col, e0.blocks_per_row,
+                            e0.height, e0.width).cpu().numpy()
+    torch.cuda.synchronize()
+    launches = wide.launches
+    check(launches > 0, "the K8 decode never launched K8")
+    check(all(np.array_equal(a, b) for a, b in zip(rgb, p_decoded)),
+          "the K8 decode differs from phase 10's K6 decode")
+    print(f"phase 13: launches K8 {launches}; packed16 decode through K8 "
+          "identical to phase 10's K6 decode")
+    del inputs, tiles, rgb
+
+    # Times: luma (K = 64) and chroma (K = 32) of 2048², batch 64.
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    big = torch.randint(0, 256, (TIME_FRAMES, SIDE, SIDE, 3), dtype=torch.uint8,
+                        device=dev, generator=gen)
+    comb = forward_combined(big, tables["lum"], tables["r"])
+    del big
+    times = {}
+    for c, label in (("lum", "luma"), ("r", "chroma")):
+        sl = CHANNEL_SLICES[c]
+        k = sl.stop - sl.start
+        words, lens = pack16.pack16_encode(
+            rle_decode_sparse16(comb[:, sl]).to(torch.int16))
+        n = words.shape[0]
+        times[label] = t = time_versions(
+            f"phase 13: {label} {SIDE}x{SIDE} b{TIME_FRAMES} ({n}x{k})",
+            {"plain": lambda a: wide_ref(*a), "K8": lambda a: wide(*a),
+             "K6": lambda a, k=k: pack16.pack16_decode(*a, k)},
+            (words, lens))
+        io_k8 = n * k * 2 + n * 4 + n * k * 2  # words, lengths in; int16 out
+        io_k6 = n * k * 2 + n * 4 + n * k * 4  # int32 out
+        print(f"phase 13: {label}: K8 {t['K8']:.4f} ms ({io_k8 / t['K8'] / 1e6:.1f}"
+              f" GB/s of {io_k8} bytes), K6 {t['K6']:.4f} ms "
+              f"({io_k6 / t['K6'] / 1e6:.1f} GB/s of {io_k6} bytes), plain "
+              f"{t['plain']:.4f} ms")
+        del words, lens
+    del comb
+    return {
+        "name": "expand16_wide",
+        "route": "cuda",
+        "source": WIDE_SOURCE,
+        "replaces": WIDE_REPLACES,
+        "launches": launches,
+        "max_abs_err": err,
+        "ms": times["luma"]["K8"],
+        "plain_ms": times["luma"]["plain"],
+    }
+
+
+def median_ms(fn, runs: int):
+    """Host-clock ms of ``runs`` calls of ``fn`` (each ending on the host);
+    returns (median, sorted runs)."""
+    ms = []
+    for _ in range(runs):
+        t = time.perf_counter()
+        fn()
+        ms.append((time.perf_counter() - t) * 1e3)
+    ms.sort()
+    return ms[len(ms) // 2], ms
+
+
+def exact_phase(dev, frame):
+    """Phase 14: exact precision (float64) on the card."""
+    import torch
+
+    from lz4jpeg_tpu_torch import JPEGConfig, JPEGPipeline
+    from lz4jpeg_tpu_torch.formats.jpeg_container import (
+        pack_container,
+        unpack_container,
+    )
+    from lz4jpeg_tpu_torch.models.jpeg import (
+        CHANNELS,
+        _CHANNEL_SHAPES,
+        _layout_of,
+        scaled_tables,
+    )
+    from lz4jpeg_tpu_torch.ops.color import (
+        chroma_subsample_422,
+        rgb_to_ycbcr,
+        split_mcus,
+    )
+    from lz4jpeg_tpu_torch.ops.dct import dct2_batched
+    from lz4jpeg_tpu_torch.ops.quantize import zigzag_indices
+    from lz4jpeg_tpu_torch.ops.zigzag import zigzag
+    from lz4jpeg_tpu_torch.oracle import jpeg_oracle
+    from lz4jpeg_tpu_torch.utils.parity import assert_quantized_parity
+
+    rng = np.random.default_rng(SEED + 14)
+    pipe = JPEGPipeline(JPEGConfig(precision="exact"), dev)
+    cpu = JPEGPipeline(JPEGConfig(precision="exact"), "cpu")
+    for h, w in ORACLE_SHAPES:
+        img = noise(1, h, w, rng)[0]
+        t = time.perf_counter()
+        rec, ref = jpeg_oracle.jpeg_roundtrip_oracle(img, snap_ties=True)
+        oracle_s = time.perf_counter() - t
+        stages = pipe.forward_stages(img)
+        for c in CHANNELS:
+            check(stages[c]["zz"].dtype == np.float64
+                  and np.array_equal(stages[c]["zz"], ref[f"zz_{c}"]),
+                  f"exact {h}x{w} {c}: coefficients differ from the oracle's")
+        check(np.array_equal(pipe.roundtrip(img), rec),
+              f"exact {h}x{w}: round trip differs from the oracle's")
+        print(f"phase 14: exact {h}x{w} on the card: forward_stages (float64) "
+              f"and roundtrip identical to the oracle (oracle {oracle_s:.2f} s)")
+
+    h, w = frame.shape[:2]
+    stages, cpu_stages = pipe.forward_stages(frame), cpu.forward_stages(frame)
+    tables = scaled_tables(None)
+    y, cr, cb = rgb_to_ycbcr(torch.from_numpy(frame), torch.float64)
+    ties = 0
+    for c, tiles in zip(CHANNELS, split_mcus(y, chroma_subsample_422(cr),
+                                             chroma_subsample_422(cb))):
+        th, tw = _CHANNEL_SHAPES[c]
+        coef = zigzag(dct2_batched(tiles, torch.float64), tw, th).numpy()
+        table = np.asarray(tables[c])[zigzag_indices(tw, th)]
+        ties += assert_quantized_parity(stages[c]["zz"], cpu_stages[c]["zz"],
+                                        coef, table)
+    enc, cpu_enc = pipe.encode(frame), cpu.encode(frame)
+    data = pack_container(enc)
+    same = data == pack_container(cpu_enc)
+    check(same or ties > 0, "exact containers differ with no tie difference")
+    dec = pipe.decode(enc)
+    check(ties > 0 or np.array_equal(dec, cpu.decode(cpu_enc)),
+          "exact decode differs from the CPU port's")
+    print(f"phase 14: exact {h}x{w}: coefficients vs the CPU port's: {ties} "
+          f"tie differences; containers "
+          f"{'byte-identical' if same else 'apart by the ties'} "
+          f"({len(data)} bytes); decode identical to the CPU's")
+
+    q75 = JPEGPipeline(JPEGConfig(precision="exact", quality=75), dev)
+    cpu75 = JPEGPipeline(JPEGConfig(precision="exact", quality=75), "cpu")
+    img = noise(1, 256, 256, rng)[0]
+    e75 = q75.encode(img)
+    d75 = pack_container(e75)
+    check(d75 == pack_container(cpu75.encode(img)),
+          "q75 exact containers differ from the CPU's")
+    un = unpack_container(d75)
+    got = q75.decode(un)
+    check(np.array_equal(got, q75.decode(e75))
+          and np.array_equal(got, cpu75.decode(unpack_container(d75))),
+          "q75 exact container decode differs")
+    print(f"phase 14: quality 75 exact container ({_layout_of(un)} tier) "
+          "decodes in float64 on the card identically to the encode's own "
+          "decode and to the CPU port's")
+
+    enc_ms, enc_runs = median_ms(lambda: pipe.encode(frame), 5)
+    dec_ms, dec_runs = median_ms(lambda: pipe.decode(enc), 5)
+    print(f"phase 14: exact {h}x{w}: encode median {enc_ms:.3f} ms (runs "
+          f"{[round(t, 3) for t in enc_runs]}), decode median {dec_ms:.3f} ms "
+          f"(runs {[round(t, 3) for t in dec_runs]})")
+
+
+def per_block_phase(dev, frame):
+    """Phase 15: per-block entropy, exact and fast."""
+    from lz4jpeg_tpu_torch import JPEGConfig, JPEGPipeline
+    from lz4jpeg_tpu_torch.models.jpeg import CHANNELS
+    from lz4jpeg_tpu_torch.native import native_backend
+    from lz4jpeg_tpu_torch.ops.quantize import (
+        CHROMINANCE_QUANTIZATION_TABLE as CHR,
+        LUMINANCE_QUANTIZATION_TABLE as LUM,
+    )
+    from lz4jpeg_tpu_torch.oracle import jpeg_oracle
+    from lz4jpeg_tpu_torch.utils.parity import combined_of, sum_order_flips
+
+    rng = np.random.default_rng(SEED + 15)
+    img = noise(1, 64, 64, rng)[0]
+    _, ref = jpeg_oracle.jpeg_roundtrip_oracle(img, snap_ties=True)
+    for precision in ("exact", "fast"):
+        pipe = JPEGPipeline(JPEGConfig(precision=precision,
+                                       entropy="per_block"), dev)
+        enc = pipe.encode(img)
+        check(enc.entropy_mode == "per_block" and not enc.rle_sparse16,
+              f"{precision} per_block encode is {enc.entropy_mode}")
+        apart = 0
+        for c in CHANNELS:
+            for i, bits in enumerate(enc.per_block_bits[c]):
+                rle = [int(v) for v in enc.rle[c][i, : enc.rle_lengths[c][i]]]
+                if bits != ref["huff_bits"][c][i]:
+                    # Only where the runs differ (a float32 flip).
+                    check(rle != ref[f"rle_{c}"][i],
+                          f"{precision} {c} block {i}: bits differ on equal runs")
+                    apart += 1
+        check(precision == "fast" or apart == 0,
+              f"exact per_block bits differ from the oracle's in {apart} blocks")
+        print(f"phase 15: {precision} per_block 64x64: bitstrings identical "
+              f"to the oracle's huff_bits in all but {apart} blocks (of "
+              f"{3 * enc.num_blocks}; differences only where float32 runs "
+              f"differ); {enc.compressed_bytes()} bytes")
+
+    native = native_backend()
+    for precision in ("exact", "fast"):
+        cfg = JPEGConfig(precision=precision, entropy="per_block")
+        enc = JPEGPipeline(cfg, dev).encode(frame)
+        cpu_enc = JPEGPipeline(cfg, "cpu").encode(frame)
+        flips = sum_order_flips(frame[None], combined_of(enc),
+                                combined_of(cpu_enc), LUM, CHR)
+        check(precision == "fast" or flips == 0, "exact runs differ from the CPU's")
+        check(flips <= MAX_FLIP_SHARE * enc.num_blocks * 128,
+              f"{flips} flips between the card's and the CPU's runs")
+        for c in CHANNELS:
+            same_rows = (enc.rle[c] == cpu_enc.rle[c]).all(axis=1)
+            for i in np.nonzero(same_rows)[0]:
+                check(enc.per_block_bits[c][i] == cpu_enc.per_block_bits[c][i],
+                      f"{precision} {c} block {i}: bits differ from the CPU's")
+        print(f"phase 15: {precision} per_block {frame.shape[0]}x"
+              f"{frame.shape[1]}: bitstrings identical to the CPU port's "
+              f"({flips} admissible flips in the runs); compressed_bytes "
+              f"{enc.compressed_bytes()}")
+        if precision == "exact":
+            ms, runs = median_ms(lambda: [native.huff_per_block(
+                enc.rle[c], enc.rle_lengths[c]) for c in CHANNELS], 3)
+            print(f"phase 15: native per-block pass, 3 channels of "
+                  f"{enc.num_blocks} blocks: median {ms:.3f} ms (runs "
+                  f"{[round(t, 3) for t in runs]})")
+
+
+def entry_phase(dev, frame):
+    """Phase 16: the encode entry points."""
+    import torch
+
+    from lz4jpeg_tpu_torch import JPEGConfig, JPEGPipeline
+    from lz4jpeg_tpu_torch.formats.jpeg_container import pack_container
+    from lz4jpeg_tpu_torch.native import native_backend
+    from lz4jpeg_tpu_torch.ops import fwd_megakernel
+    from lz4jpeg_tpu_torch.ops.quantize import (
+        CHROMINANCE_QUANTIZATION_TABLE as CHR,
+        LUMINANCE_QUANTIZATION_TABLE as LUM,
+    )
+    from lz4jpeg_tpu_torch.utils.parity import sum_order_flips
+
+    pipe = JPEGPipeline(JPEGConfig(), dev)
+    cpu = JPEGPipeline(JPEGConfig(), "cpu")
+    h, w = frame.shape[:2]
+    bpc, bpr = -(-h // 8), -(-w // 8)
+    check(bpc * bpr >= pipe._OVERLAP_MIN_BLOCKS,
+          f"{h}x{w} does not take the overlapped encode")
+    over = pipe.encode(frame)
+    one = pipe.encode_batch(frame[None])[0]
+    cpu_enc = cpu.encode(frame)
+    check(pack_container(over) == pack_container(one),
+          "overlapped and one-shot containers differ")
+    flips = 0
+    if pack_container(one) != pack_container(cpu_enc):
+        flips = sum_order_flips(frame[None], one.rle_combined,
+                                cpu_enc.rle_combined, LUM, CHR)
+    check(flips <= MAX_FLIP_SHARE * bpc * bpr * 128,
+          f"{flips} flips between the card's and the CPU's containers")
+    print(f"phase 16: {h}x{w}: overlapped encode container byte-identical to "
+          "the one-shot encode_batch's; to the CPU's "
+          + ("byte-identical" if flips == 0 else f"up to {flips} admissible flips"))
+
+    fns = {"overlapped": lambda: pipe.encode(frame),
+           "one-shot": lambda: pipe.encode_batch(frame[None])[0]}
+    ms = {name: [] for name in fns}
+    for _ in range(ENCODE_RUNS):  # in turns
+        for name, fn in fns.items():
+            t = time.perf_counter()
+            fn()
+            ms[name].append((time.perf_counter() - t) * 1e3)
+    for name, runs in ms.items():
+        runs.sort()
+        print(f"phase 16: {name} encode {h}x{w}: median "
+              f"{runs[len(runs) // 2]:.3f} ms (runs {[round(t, 3) for t in runs]})")
+
+    x = torch.from_numpy(frame)[None].to(dev).contiguous()
+    splits = []
+    for _ in range(ENCODE_RUNS):
+        spans, seen = {}, {}
+        last = [time.perf_counter()]
+
+        def mark(name):
+            now = time.perf_counter()
+            if name in ("wait", "walk"):  # one span per band
+                seen[name] = seen.get(name, -1) + 1
+                name = f"{name} band {seen[name]}"
+            spans[name] = spans.get(name, 0.0) + (now - last[0]) * 1e3
+            last[0] = now
+
+        pipe._encode_overlapped(x, bpc, bpr, mark)
+        splits.append(spans)
+    print("phase 16: overlapped encode staged ms (median of "
+          f"{ENCODE_RUNS} runs, host clock, no device synchronise): "
+          + ", ".join(f"{k} {float(np.median([s[k] for s in splits])):.3f}"
+                      for k in splits[0]))
+    split = Stopwatch()
+    (enc,) = pipe.encode_batch(frame[None], entropy=False)
+    split.mark("K1 forward + D2H")
+    pipe.entropy_encode(enc)
+    split.mark("entropy encode (host)")
+    split.report(f"phase 16: one-shot encode {h}x{w} staged ms")
+
+    rng = np.random.default_rng(SEED + 16)
+    n_flips = n_coeffs = 0
+    for bh, bw_ in BUCKET_SHAPES:
+        img = frame if (bh, bw_) == (h, w) else noise(1, bh, bw_, rng)[0]
+        e = pipe.encode(img)
+        eb = pipe.encode_bucketed(img)
+        f = 0
+        if pack_container(eb) != pack_container(e):
+            f = sum_order_flips(img[None], eb.rle_combined, e.rle_combined, LUM, CHR)
+        n_flips += f
+        n_coeffs += e.num_blocks * 128
+        print(f"phase 16: {bh}x{bw_}: encode_bucketed (cuBLAS forward) vs "
+              f"encode (K1): {f} admissible flips; decode_bucketed vs decode: "
+              + envelope(f"bucketed {bh}x{bw_}", [pipe.decode_bucketed(e)],
+                         [pipe.decode(e)]))
+    check(n_flips <= MAX_FLIP_SHARE * n_coeffs,
+          f"{n_flips} flips between encode_bucketed and encode")
+
+    loaders = {"native": native_backend, "K1": fwd_megakernel.load_kernel}
+    for loader in loaders.values():
+        loader.cache_clear()
+    fresh = JPEGPipeline(JPEGConfig(), dev)
+    fresh.warmup([(h, w)])
+    warm = {k: f.cache_info().misses for k, f in loaders.items()}
+    fresh.encode(frame)
+    after = {k: f.cache_info().misses for k, f in loaders.items()}
+    check(warm == after and set(warm.values()) == {1},
+          f"warmup left builds to the encode: {warm} -> {after}")
+    print(f"phase 16: warmup built {warm}; the encode after it built nothing "
+          f"more ({after})")
 
 
 class Stopwatch:
@@ -887,9 +1319,9 @@ def main() -> int:
         return forward_combined_ref(x, LUM, CHR)
 
     # Sum-order flips (phase 2) may part the two checksums: not checked.
-    kernel_ms, plain_ms = kernel_vs_plain(
-        "phase 4: forward 2048x2048 b64", kernel, plain, big, identical=False
-    )
+    t = time_versions("phase 4: forward 2048x2048 b64",
+                      {"plain": plain, "kernel": kernel}, big, identical=False)
+    kernel_ms, plain_ms = t["kernel"], t["plain"]
     print(f"phase 4: forward 2048x2048 b64: kernel {kernel_ms:.4f} ms "
           f"({mpix / kernel_ms * 1e3:.1f} MPix/s), plain {plain_ms:.4f} ms "
           f"({mpix / plain_ms * 1e3:.1f} MPix/s)")
@@ -908,7 +1340,12 @@ def main() -> int:
           f"(runs {[round(t, 3) for t in trips]})")
 
     lz4 = lz4_phases(dev)
-    pairs = pair_phases(dev, frames, containers, decoded)
+    pairs, packed, p_decoded = pair_phases(dev, frames, containers, decoded)
+    wide = wide_phase(dev, packed, p_decoded)
+    del packed, p_decoded
+    exact_phase(dev, frames[0])
+    per_block_phase(dev, frames[0])
+    entry_phase(dev, frames[0])
 
     print(json.dumps({"kernels": [{
         "name": "fwd_megakernel",
@@ -919,7 +1356,7 @@ def main() -> int:
         "max_abs_err": max_abs_err,
         "ms": kernel_ms,
         "plain_ms": plain_ms,
-    }, *lz4, *pairs]}))
+    }, *lz4, *pairs, wide]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",
         "kind": torch.cuda.get_device_name(0),

@@ -1,13 +1,14 @@
 """Configuration of the PyTorch codecs.
 
-``JPEGConfig`` mirrors ``lz4jpeg_tpu/config.py::JPEGConfig``.  The port
-carries ``precision="fast"`` with ``entropy="shared"`` at every quality:
-``sparse16_eligible`` picks the layout from the quant tables, as the JAX
-pipeline's ``_pack16``/``_sparse16`` do (sparse16 when every entry is at
-least 3, the int16 pair layout below that: quality 80 to 100).
-``precision="exact"`` and ``entropy="per_block"`` raise
-``NotImplementedError`` naming the ROADMAP item that ports them; they never
-fall back to another path.
+``JPEGConfig`` mirrors ``lz4jpeg_tpu/config.py::JPEGConfig``: precision
+"fast" (float32, the fused basis products and the K1 kernel) or "exact"
+(float64, the staged DCT → quantize → zigzag path, coefficient-exact against
+the oracle), entropy "shared" (one canonical codebook per channel) or
+"per_block" (the reference's quirk-exact tree per block per channel).
+``dtype`` is the transforms' torch dtype.  ``sparse16_eligible`` is the
+table half of the layout gate (sparse16 needs every entry at least 3); the
+pipeline adds the mode half: sparse16 only for fast, shared pipelines, as
+the JAX pipeline's ``_pack16`` does.
 
 ``LZ4Config`` is a copy of ``lz4jpeg_tpu/config.py::LZ4Config``: the same
 fields, defaults and validation.  ``models/lz4.py::LZ4Codec`` refuses what
@@ -26,9 +27,6 @@ import torch
 # sparse-delta uint16 layout can carry every coefficient (models/jpeg.py of
 # the JAX package, the ``_pack16`` gate).
 SPARSE16_MIN_TABLE = 3
-
-_REMAINING_MODES = "ROADMAP.md queue 1, item 6 'JPEG remaining modes'"
-
 
 def sparse16_eligible(tables) -> bool:
     """True when every table's smallest entry keeps coefficients in 10 bits."""
@@ -51,19 +49,12 @@ class JPEGConfig:
             raise ValueError(f"unknown entropy mode: {self.entropy!r}")
         if self.quality is not None and not 1 <= self.quality <= 100:
             raise ValueError(f"quality must be in [1, 100]: {self.quality}")
-        if self.precision == "exact":
-            raise NotImplementedError(
-                f'precision="exact" is not ported yet ({_REMAINING_MODES})'
-            )
-        if self.entropy == "per_block":
-            raise NotImplementedError(
-                f'entropy="per_block" is not ported yet ({_REMAINING_MODES})'
-            )
 
     @property
-    def torch_dtype(self) -> torch.dtype:
-        """Compute dtype of the transforms: float32 (the fast path)."""
-        return torch.float32
+    def dtype(self) -> torch.dtype:
+        """Compute dtype of the transforms: float64 for "exact" (real
+        float64 on every device), float32 for "fast"."""
+        return torch.float64 if self.precision == "exact" else torch.float32
 
 
 @dataclasses.dataclass(frozen=True)

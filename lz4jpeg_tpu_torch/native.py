@@ -1,4 +1,4 @@
-"""The host runtime: ctypes bindings of fifteen native functions.
+"""The host runtime: ctypes bindings of seventeen native functions.
 
 The C++ source is the JAX package's own ``lz4jpeg_tpu/native/lz4core.cpp``,
 compiled here with the flags of its Makefile (``native/Makefile:3``) into
@@ -6,7 +6,8 @@ the port's build directory, so both packages run the same host code and
 write byte-identical containers and frames.  The bindings are copies of
 ``lz4jpeg_tpu/native/__init__.py`` (same argtypes): the sparse16, int32-pair
 and packed16 entropy walkers of the JPEG path (histogram, pack, unpack for
-each layout), and the LZ4T fast encoder/decoder, batched block
+each layout), the codeword packer of ``pack_symbols``, the per-block parity
+Huffman (``huff_per_block``), and the LZ4T fast encoder/decoder, batched block
 emitter, chunk codec and device-decode copy-program builder.  A failed
 build raises (no Python fallback; the Python spec paths are reached only
 through ``engine="python"``): ``tests/test_torch_container.py`` and
@@ -84,6 +85,17 @@ class NativeBackend:
             ctypes.c_char_p, ctypes.c_void_p, ctypes.c_size_t,
             ctypes.c_int64, ctypes.c_int64, ctypes.c_size_t,
             ctypes.c_size_t, ctypes.c_void_p, ctypes.c_void_p,
+        ]
+        lib.huff_pack.restype = ctypes.c_ssize_t
+        lib.huff_pack.argtypes = [
+            ctypes.c_void_p, ctypes.c_char_p, ctypes.c_size_t,
+            ctypes.c_char_p, ctypes.c_size_t,
+        ]
+        lib.huff_per_block_ascii.restype = ctypes.c_int64
+        lib.huff_per_block_ascii.argtypes = [
+            ctypes.c_void_p, ctypes.c_void_p,
+            ctypes.c_int64, ctypes.c_int64,
+            ctypes.c_char_p, ctypes.c_size_t, ctypes.c_void_p,
         ]
         # The pair layouts: int32 (N, 2L) pairs and packed16 (N, L) words
         # take the same arguments.
@@ -253,6 +265,51 @@ class NativeBackend:
         if n < 0:
             raise RuntimeError(f"native sparse16 pack failed ({n})")
         return out.raw[:n], int(nbits.value)
+
+    def huff_pack(self, codes, lengths) -> tuple:
+        """(uint32 codes, uint8 lengths) → (MSB-first packed bytes, total
+        bits)."""
+        codes = np.ascontiguousarray(codes, np.uint32)
+        lengths = np.ascontiguousarray(lengths, np.uint8)
+        cap = int(lengths.astype(np.int64).sum()) // 8 + 8
+        out = ctypes.create_string_buffer(cap)
+        nbits = self._lib.huff_pack(
+            codes.ctypes.data, lengths.tobytes(), len(codes), out, cap
+        )
+        if nbits < 0:
+            raise RuntimeError(f"native huffman pack failed ({nbits})")
+        return out.raw[: (nbits + 7) // 8], int(nbits)
+
+    def huff_per_block(self, pairs, lengths):
+        """Per-block parity Huffman (the reference's JPEG.c:844-1097, with
+        the oracle's quirk-exact heap): padded (N, W) int32 RLE symbols +
+        (N,) valid lengths → N ASCII '0'/'1' bitstrings, in one C++ pass.
+        Returns None on input the native pass refuses (a length outside
+        [0, W] or a symbol outside its range): the caller then runs the
+        oracle's ``encode_huffman_oracle``, as the JAX pipeline does."""
+        pairs = np.ascontiguousarray(pairs, np.int32)
+        lengths = np.ascontiguousarray(lengths, np.int32)
+        n, w = pairs.shape
+        # ≤ ~32 bits per symbol is the practical worst case, but the quirky
+        # heap can emit code lengths up to (#unique − 1) ≤ 127 for wide
+        # blocks: on output-full (-1) retry with a doubled buffer.
+        cap = int(lengths.astype(np.int64).sum()) * 64 + 1024
+        counts = np.zeros(n, np.int64)
+        total = -1
+        for _ in range(3):
+            out = ctypes.create_string_buffer(cap)
+            total = self._lib.huff_per_block_ascii(
+                pairs.ctypes.data, lengths.ctypes.data, n, w,
+                out, cap, counts.ctypes.data,
+            )
+            if total != -1:  # success, or bad input (-2): stop retrying
+                break
+            cap *= 2
+        if total < 0:
+            return None
+        buf = out.raw[:total].decode("ascii")
+        offsets = np.concatenate([[0], np.cumsum(counts)])
+        return [buf[offsets[i] : offsets[i + 1]] for i in range(n)]
 
     def _hist(self, fn, rows, dtype, lengths, offset: int, nbins: int):
         rows = np.ascontiguousarray(rows, dtype)

@@ -31,11 +31,12 @@ def _snap_trunc(x: torch.Tensor, eps: float = 1e-4) -> torch.Tensor:
     return torch.trunc(torch.where((x - nearest).abs() <= eps, nearest, x))
 
 
-def rgb_to_ycbcr(rgb: torch.Tensor):
-    """(..., H, W, 3) uint8 → (Y, Cr, Cb) (..., H, W) uint8 planes."""
-    r = rgb[..., 0].to(torch.float32)
-    g = rgb[..., 1].to(torch.float32)
-    b = rgb[..., 2].to(torch.float32)
+def rgb_to_ycbcr(rgb: torch.Tensor, dtype=torch.float32):
+    """(..., H, W, 3) uint8 → (Y, Cr, Cb) (..., H, W) uint8 planes, computed
+    in ``dtype`` (float64 for the exact path)."""
+    r = rgb[..., 0].to(dtype)
+    g = rgb[..., 1].to(dtype)
+    b = rgb[..., 2].to(dtype)
     y = _snap_trunc(0.299 * r + 0.587 * g + 0.114 * b)
     cr = torch.clamp(_snap_trunc(0.439 * r - 0.368 * g - 0.071 * b + 128), 0, 255)
     cb = torch.clamp(_snap_trunc(-0.148 * r - 0.291 * g + 0.439 * b + 128), 0, 255)
@@ -91,6 +92,7 @@ def ycbcr_to_rgb_mcus(
     bpr: int,
     height: int,
     width: int,
+    dtype=torch.float32,
 ) -> torch.Tensor:
     """MCU tiles (..., N, 8, 8) luma and (..., N, 8, 4) chroma → (...,
     height, width, 3) uint8 RGB (``assemble_image``).  Chroma columns are
@@ -100,7 +102,7 @@ def ycbcr_to_rgb_mcus(
         merge_mcus(lum, bpc, bpr),
         torch.repeat_interleave(merge_mcus(r, bpc, bpr), 2, dim=-1),
         torch.repeat_interleave(merge_mcus(b, bpc, bpr), 2, dim=-1),
-        height, width,
+        height, width, dtype,
     )
 
 
@@ -110,15 +112,16 @@ def ycbcr_planes_to_rgb(
     cb_plane: torch.Tensor,
     height: int,
     width: int,
+    dtype=torch.float32,
 ) -> torch.Tensor:
     """Plane-view YCbCr → (..., height, width, 3) uint8 RGB
     (``assemble_image``, JPEG.c:598-604): per-term ``(int)`` truncation,
     each channel clamped.  The chroma planes come full width: the decode
     folds the 4:2:2 upsample into the inverse basis (``ops/fused.py``), the
-    JAX package's ``chroma_upsampled=True``."""
+    JAX package's ``chroma_upsampled=True``.  The products run in ``dtype``."""
     y = y_plane.to(torch.int32)
-    cr = cr_plane.to(torch.float32)
-    cb = cb_plane.to(torch.float32)
+    cr = cr_plane.to(dtype)
+    cb = cb_plane.to(dtype)
 
     cr_term = torch.trunc(1.402 * (cr - 128)).to(torch.int32)
     g_cb = torch.trunc(0.344136 * (cb - 128)).to(torch.int32)

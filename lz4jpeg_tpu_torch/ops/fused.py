@@ -10,7 +10,8 @@ final truncation, so the chain folds into one matrix (JPEG.c:451-494,
 
 The numpy basis builders are copies of ``lz4jpeg_tpu/ops/fused.py``
 (``tests/test_torch_basis.py`` holds them equal); the transforms are torch
-ops in float32.  Every matmul here must run in IEEE float32: TF32 keeps
+ops in float32 (``fused_forward`` and ``fused_inverse`` take another dtype,
+as the JAX functions do).  Every matmul here must run in IEEE float32: TF32 keeps
 about three decimal digits and would flip quantized coefficients across
 truncation boundaries, as bf16 multiplies did on the TPU.  ``JPEGPipeline``
 turns TF32 off where it is built.
@@ -97,18 +98,20 @@ def _table_key(table: np.ndarray) -> bytes:
 
 
 def fused_forward(
-    tiles: torch.Tensor, table: np.ndarray, width: int, height: int
+    tiles: torch.Tensor, table: np.ndarray, width: int, height: int,
+    dtype=torch.float32,
 ) -> torch.Tensor:
-    """(N, H, W) uint8 tiles → (N, HW) float32 quantized zigzag coefficients.
+    """(N, H, W) uint8 tiles → (N, HW) quantized zigzag coefficients in
+    ``dtype`` (float32 on the fast path).
 
     Truncation toward zero with tie snapping: ratios within 1e-5 of an
     integer snap first (``lz4jpeg_tpu/ops/quantize.py``).
     """
     m, off = forward_basis(width, height, _table_key(table))
     n = tiles.shape[0]
-    x = tiles.reshape(n, height * width).to(torch.float32)
-    mt = torch.from_numpy(m.T.astype(np.float32)).to(x.device)
-    offs = torch.from_numpy(off.astype(np.float32)).to(x.device)
+    x = tiles.reshape(n, height * width).to(dtype)
+    mt = torch.from_numpy(m.T).to(device=x.device, dtype=dtype)
+    offs = torch.from_numpy(off).to(device=x.device, dtype=dtype)
     return _snap_trunc(x @ mt - offs, 1e-5)
 
 
@@ -141,14 +144,15 @@ def _round_clamp(pix: torch.Tensor) -> torch.Tensor:
 
 
 def fused_inverse(
-    zz: torch.Tensor, table: np.ndarray, width: int, height: int
+    zz: torch.Tensor, table: np.ndarray, width: int, height: int,
+    dtype=torch.float32,
 ) -> torch.Tensor:
     """(N, HW) zigzag quantized coefficients → (N, H, W) uint8 pixels: one
-    matmul against ``inverse_basis``, +128, C round, clamp (the staged tile
-    inverse of the pair layouts)."""
+    matmul against ``inverse_basis`` in ``dtype``, +128, C round, clamp (the
+    staged tile inverse of the fast pair layouts)."""
     minv = inverse_basis(width, height, _table_key(table))
-    mt = torch.from_numpy(minv.T.astype(np.float32)).to(zz.device)
-    pix = zz.to(torch.float32) @ mt + 128.0
+    mt = torch.from_numpy(minv.T).to(device=zz.device, dtype=dtype)
+    pix = zz.to(dtype) @ mt + 128.0
     return _round_clamp(pix).reshape(zz.shape[0], height, width)
 
 

@@ -1,11 +1,14 @@
 """Canonical Huffman codebooks of the shared entropy mode.
 
-Copy of ``lz4jpeg_tpu/ops/huffman.py`` (``CanonicalCodebook``,
-``_canonical_codes``, ``build_canonical_codebook_from_counts``, the Python
-walk of ``unpack_symbols``): one
-canonical codebook per channel, built from global symbol statistics and
-serializable in a few bytes per symbol.  ``tests/test_torch_container.py``
-holds the containers it writes byte-identical to the JAX package's.
+Port of ``lz4jpeg_tpu/ops/huffman.py``: one canonical codebook per channel,
+built from global symbol statistics and serializable in a few bytes per
+symbol.  ``CanonicalCodebook``, the codebook builders, ``pack_symbols`` (the
+native packer), the Python walk of ``unpack_symbols`` and
+``concat_bitstreams`` are copies; ``pack_symbols_device`` packs with torch
+ops on the symbols' device.  ``tests/test_torch_container.py`` and
+``tests/test_torch_entropy_modes.py`` hold their bytes equal to the JAX
+package's.  The per-block parity mode lives in the oracle copy
+(``oracle/jpeg_oracle.py``) and its native twin (``native.huff_per_block``).
 """
 
 from __future__ import annotations
@@ -15,6 +18,7 @@ import heapq
 from typing import List, Tuple
 
 import numpy as np
+import torch
 
 
 @dataclasses.dataclass
@@ -57,6 +61,14 @@ def _canonical_codes(lengths: np.ndarray) -> np.ndarray:
         codes[i] = code
         code += 1
     return codes
+
+
+def build_canonical_codebook(symbols: np.ndarray) -> CanonicalCodebook:
+    """Optimal code lengths via Huffman (stable heap), then canonical codes,
+    from a symbol stream.  A single-symbol alphabet gets a 1-bit code (the
+    reference emits an empty code there, JPEG.c:963-975)."""
+    values, counts = np.unique(np.asarray(symbols, np.int64), return_counts=True)
+    return build_canonical_codebook_from_counts(values, counts)
 
 
 def build_canonical_codebook_from_counts(
@@ -146,3 +158,95 @@ def unpack_symbols(
     if code_len != 0:
         raise ValueError("trailing bits do not form a codeword")
     return np.asarray(out, np.int32)
+
+
+def _codebook_rows(symbols: np.ndarray, codebook: CanonicalCodebook) -> np.ndarray:
+    """Row of each symbol in the codebook; raises on a symbol outside it."""
+    sym_order = np.argsort(codebook.symbols, kind="stable")
+    sorted_syms = codebook.symbols[sym_order]
+    idx = np.minimum(np.searchsorted(sorted_syms, symbols), len(sorted_syms) - 1)
+    rows = sym_order[idx]
+    if not np.array_equal(codebook.symbols[rows], symbols):
+        raise ValueError("symbol outside codebook")
+    return rows
+
+
+def pack_symbols(
+    symbols: np.ndarray, codebook: CanonicalCodebook
+) -> Tuple[bytes, int]:
+    """Symbols → (MSB-first packed bytes, total bit count): a searchsorted
+    gather of each symbol's codeword, then the native bit packer."""
+    from lz4jpeg_tpu_torch.native import native_backend
+
+    symbols = np.asarray(symbols, np.int32)
+    if len(symbols) == 0:
+        return b"", 0
+    rows = _codebook_rows(symbols, codebook)
+    return native_backend().huff_pack(codebook.codes[rows],
+                                      codebook.lengths[rows])
+
+
+def pack_symbols_device(
+    symbols, codebook: CanonicalCodebook, pad_bits: int
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``pack_symbols`` as torch ops on the symbols' device.
+
+    Every output bit finds its source symbol with one ``searchsorted`` over
+    the exclusive bit-offset prefix sum and extracts its bit of the
+    codeword; the bits fold to bytes.  ``pad_bits`` is the output capacity
+    in bits (a multiple of 8).  Returns ``(packed uint8[pad_bits // 8],
+    total_bits)``, both on the device; bits past ``total_bits`` are zero,
+    as ``np.packbits`` leaves them.
+
+    If ``total_bits > pad_bits`` the buffer holds only a truncated prefix:
+    the caller must compare the returned ``total_bits`` with its capacity
+    (``unpack_symbols`` of a truncated buffer fails).  Symbols outside the
+    codebook are not checked here (the JAX op clamps their gather too)."""
+    if pad_bits % 8:
+        raise ValueError("pad_bits must be a multiple of 8")
+    symbols = torch.as_tensor(symbols, dtype=torch.int32)
+    dev = symbols.device
+    n = symbols.shape[0]
+    if n == 0:
+        return (torch.zeros(pad_bits // 8, dtype=torch.uint8, device=dev),
+                torch.zeros((), dtype=torch.int64, device=dev))
+    sym_order = np.argsort(codebook.symbols, kind="stable")
+    sorted_syms = torch.from_numpy(
+        codebook.symbols[sym_order].astype(np.int32)).to(dev)
+    row_of_sorted = torch.from_numpy(sym_order.astype(np.int64)).to(dev)
+    idx = torch.searchsorted(sorted_syms, symbols).clamp(max=len(sym_order) - 1)
+    rows = row_of_sorted[idx]
+    lengths = torch.from_numpy(codebook.lengths.astype(np.int64)).to(dev)[rows]
+    codes = torch.from_numpy(codebook.codes.astype(np.int64)).to(dev)[rows]
+    offsets = torch.cumsum(lengths, 0) - lengths  # exclusive prefix
+    total_bits = offsets[-1] + lengths[-1]
+    j = torch.arange(pad_bits, dtype=torch.int64, device=dev)
+    s = (torch.searchsorted(offsets, j, right=True) - 1).clamp(0, n - 1)
+    shift = (lengths[s] - 1 - (j - offsets[s])).clamp(min=0)
+    bits = torch.where(j < total_bits, (codes[s] >> shift) & 1, 0)
+    weights = torch.tensor([128, 64, 32, 16, 8, 4, 2, 1], device=dev)
+    packed = (bits.reshape(-1, 8) * weights).sum(dim=1).to(torch.uint8)
+    return packed, total_bits
+
+
+def concat_bitstreams(pieces):
+    """Concatenate MSB-first bitstreams: ``[(packed bytes, nbits), ...]`` →
+    ``(packed bytes, total_bits)``.
+
+    Each piece is ``np.packbits``-style (bit 0 = MSB of byte 0, zero padding
+    in the final partial byte).  The banded encode joins its per-band
+    substreams, which end at arbitrary bit offsets, with it."""
+    val = 0
+    total = 0
+    for data, nbits in pieces:
+        if nbits == 0:
+            continue
+        nbytes = (nbits + 7) // 8
+        if nbytes > len(data):
+            raise ValueError("bit count exceeds piece buffer")
+        piece = int.from_bytes(data[:nbytes], "big") >> (8 * nbytes - nbits)
+        val = (val << nbits) | piece
+        total += nbits
+    if total % 8:
+        val <<= 8 - (total % 8)
+    return val.to_bytes((total + 7) // 8, "big"), total

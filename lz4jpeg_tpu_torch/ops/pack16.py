@@ -13,10 +13,13 @@ version of the same function:
 * ``pack16_decode``: packed words + lengths → (N, out_size) int32 values
   (K6, ``_rle_decode_kt_kernel``);
 * ``pack16_decode_plane``: the same into the plane layout (bh, K, bw) int16
-  (K7, ``_rle_decode_kt_plane_kernel``).
+  (K7, ``_rle_decode_kt_plane_kernel``);
+* ``pack16_decode_wide``: K6 with out_size = K, int16 out, lane-dense over
+  the flat word stream (K8, ``_rle_decode_wide_kernel``).
 
 A CPU tensor runs the plain version; a CUDA tensor launches the Hopper kernel
-(``csrc/pack16_kernel.cu``, ``csrc/expand16_kernel.cu``) or raises.  Packed
+(``csrc/pack16_kernel.cu``, ``csrc/expand16_kernel.cu``,
+``csrc/expand16_wide_kernel.cu``) or raises.  Packed
 words are int16 tensors holding the uint16 bit patterns (``torch.uint16``
 supports few operations), viewed as uint16 only at the numpy boundary.
 
@@ -25,8 +28,8 @@ input: validity comes from ``lengths // 2`` (a word of 0 is value -512 with
 count 1 when it is valid), runs past ``out_size`` are cut, and positions no
 run covers are 0.  The Pallas decoders ignore ``lengths`` and treat word 0 as
 padding; the two agree on canonical streams.  The TPU's 128-lane gates (row
-padding, ``C % 128``, ``N % 128``, ``bw % 128``) are gone: any N, C and bw
-work.  Only the format's own limit stays: a segment is a power of two of at
+padding, ``C % 128``, ``N % 128``, ``bw % 128``, K8's ``N·K % 2048``) are
+gone: any N, C and bw work.  Only the format's own limit stays: a segment is a power of two of at
 most 64 slots, because the count field has 6 bits.
 """
 
@@ -183,6 +186,14 @@ def pack16_decode_plane_ref(packed: torch.Tensor, lengths: torch.Tensor,
     return zz.reshape(n // bw, bw, k).transpose(1, 2).contiguous().to(torch.int16)
 
 
+def pack16_decode_wide_ref(packed: torch.Tensor,
+                           lengths: torch.Tensor) -> torch.Tensor:
+    """Plain version of K8: (N, K) packed words + (N,) lengths → (N, K)
+    int16 values, K6's plain version at out_size = K."""
+    packed, lengths = _packed(packed, lengths)
+    return pack16_decode_ref(packed, lengths, packed.shape[1]).to(torch.int16)
+
+
 # ---------------------------------------------------------------------------
 # Kernels
 # ---------------------------------------------------------------------------
@@ -223,6 +234,20 @@ def load_expand_kernels() -> ctypes.CDLL:
     ]
     lib.expand16_kernel_error_string.restype = ctypes.c_char_p
     lib.expand16_kernel_error_string.argtypes = [ctypes.c_int]
+    return lib
+
+
+@functools.lru_cache(maxsize=None)
+def load_wide_kernel() -> ctypes.CDLL:
+    """Build ``csrc/expand16_wide_kernel.cu`` (K8) at first use and bind it."""
+    lib = load_cuda_library("expand16_wide_kernel")
+    lib.expand16_wide_launch.restype = ctypes.c_int
+    lib.expand16_wide_launch.argtypes = [
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64,
+        ctypes.c_int, ctypes.c_void_p,
+    ]
+    lib.expand16_wide_error_string.restype = ctypes.c_char_p
+    lib.expand16_wide_error_string.argtypes = [ctypes.c_int]
     return lib
 
 
@@ -329,6 +354,29 @@ def pack16_decode_plane(packed: torch.Tensor, lengths: torch.Tensor,
     return out
 
 
+def pack16_decode_wide(packed: torch.Tensor,
+                       lengths: torch.Tensor) -> torch.Tensor:
+    """(N, K) packed words + (N,) lengths → (N, K) int16 values, K a power
+    of two ≤ 64: ``pack16_decode`` at out_size = K, read lane-dense.
+
+    A CPU tensor runs ``pack16_decode_wide_ref``.  A CUDA tensor launches K8
+    and adds one to ``pack16_decode_wide.launches``."""
+    packed, lengths = _packed(packed, lengths)
+    dev = _check_device(packed, lengths)
+    if dev.type == "cpu":
+        return pack16_decode_wide_ref(packed, lengths)
+    if packed.data_ptr() % 16:  # the kernel loads up to 16 bytes a lane
+        packed = packed.clone()
+    n, seg = packed.shape
+    out = torch.empty((n, seg), dtype=torch.int16, device=dev)
+    if n:
+        _launch(load_wide_kernel(), "expand16_wide_launch",
+                "expand16_wide_error_string", dev, packed.data_ptr(),
+                lengths.data_ptr(), out.data_ptr(), n, seg)
+        pack16_decode_wide.launches += 1
+    return out
+
+
 for _wrapper in (pack16_encode, pack16_encode_kt, pack16_decode,
-                 pack16_decode_plane):
+                 pack16_decode_plane, pack16_decode_wide):
     _wrapper.launches = 0

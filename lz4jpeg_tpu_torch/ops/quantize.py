@@ -1,43 +1,37 @@
-"""Quantization tables, quality scaling and the zigzag permutation.
+"""Quantization ops, quant tables, quality scaling and the zigzag permutations.
 
-numpy copies of the JAX package's framework-free code:
-``lz4jpeg_tpu/oracle/jpeg_oracle.py`` (the two tables, ``zigzag_indices``)
-and ``lz4jpeg_tpu/ops/quantize.py::scale_table``.  The reference divides by
-the table and truncates toward zero (``Quantize``, JPEG.c:621-629); the
-64-entry luminance table is JPEG.c:12-20 and the 32-entry chrominance table
-(8×4 chroma block) JPEG.c:22-27.  ``tests/test_torch_basis.py`` holds every
-copy equal to its original.
+Port of ``lz4jpeg_tpu/ops/quantize.py``.  The reference divides by the table
+and truncates toward zero via an ``(int)`` cast; it does NOT round
+(``Quantize``, JPEG.c:621-629).  The 64-entry luminance table (JPEG.c:12-20),
+the 32-entry chrominance table of the 8×4 chroma block (JPEG.c:22-27) and
+the two zigzag permutations are re-exported from the oracle copy
+(``oracle/jpeg_oracle.py``), their one source in the port, as the JAX package
+does.
+
+**Tie snapping.**  For integer pixel inputs some DCT coefficients are exact
+multiples of their table entry; there ``trunc(c / q)`` sits on a truncation
+boundary and flips with ±1-ulp summation noise.  ``quantize`` snaps ratios
+within ``eps`` of an integer to it before truncating, which makes the result
+the same for every dtype and summation order (``utils/parity.py`` of the
+JAX package holds the tie-aware comparison against the C oracle).
 """
 
 from __future__ import annotations
 
-from typing import List
-
 import numpy as np
+import torch
 
-LUMINANCE_QUANTIZATION_TABLE = np.array(
-    [
-        8, 6, 6, 8, 10, 14, 18, 22,
-        6, 6, 7, 9, 12, 20, 22, 20,
-        6, 7, 8, 10, 14, 22, 25, 22,
-        8, 9, 10, 14, 18, 28, 27, 22,
-        10, 12, 14, 18, 22, 35, 33, 26,
-        14, 18, 22, 22, 27, 33, 36, 30,
-        18, 22, 26, 28, 33, 40, 40, 34,
-        22, 26, 28, 30, 36, 34, 35, 33,
-    ],
-    dtype=np.int64,
+from lz4jpeg_tpu_torch.oracle.jpeg_oracle import (  # noqa: F401  (re-export)
+    CHROMINANCE_QUANTIZATION_TABLE,
+    LUMINANCE_QUANTIZATION_TABLE,
+    reverse_zigzag_indices,
+    zigzag_indices,
 )
 
-CHROMINANCE_QUANTIZATION_TABLE = np.array(
-    [
-        17, 18, 24, 47, 18, 21, 26, 66,
-        24, 26, 56, 99, 47, 66, 99, 99,
-        66, 99, 99, 99, 99, 99, 99, 99,
-        99, 99, 99, 99, 99, 99, 99, 99,
-    ],
-    dtype=np.int64,
-)
+# Snap thresholds: generous against each dtype's DCT rounding noise (~1e-7
+# relative for float32 over coefficients up to 2^10, ~1e-13 for float64),
+# tight against any non-tie ratio.
+SNAP_EPS = {torch.float32: 1e-4, torch.float64: 1e-9}
 
 
 def scale_table(table, quality):
@@ -54,19 +48,21 @@ def scale_table(table, quality):
     return np.clip((t * s + 50) // 100, 1, 255)
 
 
-def zigzag_indices(width: int, height: int) -> np.ndarray:
-    """Gather permutation of the reference's generalized zigzag
-    (``zigzag_pattern``, JPEG.c:693-728): ``out[k] = flat_input[perm[k]]``."""
-    perm: List[int] = []
-    for s in range(width + height - 1):
-        start_row = 0 if s < width else s - width + 1
-        end_row = s if s < height else height - 1
-        if s % 2 == 0:
-            rows = range(end_row, start_row - 1, -1)
-        else:
-            rows = range(start_row, end_row + 1)
-        for row in rows:
-            col = s - row
-            if 0 <= col < width:
-                perm.append(row * width + col)
-    return np.array(perm, dtype=np.int64)
+def quantize(coefficients: torch.Tensor, table, snap: bool = True) -> torch.Tensor:
+    """Elementwise divide + truncate toward zero, in the coefficients' dtype.
+    ``table`` broadcasts over the batch: flat for (N, L) inputs, shaped for
+    (N, H, W)."""
+    t = torch.as_tensor(np.asarray(table), dtype=coefficients.dtype,
+                        device=coefficients.device)
+    ratio = coefficients / t
+    if snap:
+        eps = SNAP_EPS.get(coefficients.dtype, 1e-4)
+        nearest = torch.round(ratio)
+        ratio = torch.where((ratio - nearest).abs() <= eps, nearest, ratio)
+    return torch.trunc(ratio)
+
+
+def dequantize(coefficients: torch.Tensor, table) -> torch.Tensor:
+    t = torch.as_tensor(np.asarray(table), dtype=coefficients.dtype,
+                        device=coefficients.device)
+    return coefficients * t

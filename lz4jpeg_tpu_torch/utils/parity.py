@@ -1,4 +1,15 @@
-"""The admissible-difference rule between two forward buffers.
+"""Admissible differences between two forward results.
+
+Exact precision (float64): ``assert_quantized_parity`` and
+``quantization_tie_mask`` are copies of ``lz4jpeg_tpu/utils/parity.py``.
+The C reference's ``(int)(coeff / table)`` (JPEG.c:626-627) is
+order-dependent at quantization ties, coefficients that are exact integer
+multiples of their table entry; the pipelines snap those ties.  Two results
+must be equal everywhere the float64 ratio is not within ``eps`` of an
+integer; at ties they may differ by at most 1, and ``ours`` must hold the
+snapped value.
+
+Fast precision (float32), the rule between two forward buffers:
 
 Two float32 evaluations of the forward basis product that sum in different
 orders (the CUDA kernel's FMA chain, cuBLAS, a CPU BLAS) agree except where
@@ -94,3 +105,40 @@ def sum_order_flips(
             )
         flips += int(r_idx.size)
     return flips
+
+
+def quantization_tie_mask(
+    coefficients64: np.ndarray, table: np.ndarray, eps: float = 1e-9
+) -> np.ndarray:
+    """True where coeff / table is within ``eps`` of an integer (from
+    float64 coefficients)."""
+    ratio = coefficients64 / table.astype(np.float64)
+    return np.abs(ratio - np.round(ratio)) <= eps
+
+
+def assert_quantized_parity(
+    ours: np.ndarray,
+    oracle_vals: np.ndarray,
+    coefficients64: np.ndarray,
+    table: np.ndarray,
+    eps: float = 1e-9,
+) -> int:
+    """Raise AssertionError unless ``ours`` equals ``oracle_vals`` up to
+    quantization ties; return the number of tie differences."""
+    ties = quantization_tie_mask(coefficients64, table, eps)
+    mismatch = ours != oracle_vals
+    bad = mismatch & ~ties
+    if np.any(bad):
+        idx = np.argwhere(bad)[:5]
+        raise AssertionError(
+            f"non-tie quantized mismatch at {idx.tolist()}: "
+            f"ours={ours[bad][:5]}, oracle={oracle_vals[bad][:5]}"
+        )
+    if np.any(mismatch):
+        ratio = coefficients64 / table.astype(np.float64)
+        snapped = np.round(ratio)
+        if not np.all(ours[mismatch] == snapped[mismatch]):
+            raise AssertionError("tie mismatch is not the snapped value")
+        if np.abs(ours[mismatch] - oracle_vals[mismatch]).max() > 1:
+            raise AssertionError("tie mismatch exceeds one quantization step")
+    return int(mismatch.sum())

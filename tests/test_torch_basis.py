@@ -148,19 +148,16 @@ def test_tables_from_numpy_pair_layout(quality):
     {"quality": 100},
     {"quality": 95},
 ])
-def test_unported_modes_raise(kwargs):
-    """``precision="exact"`` and ``entropy="per_block"`` still raise, naming
-    ROADMAP item 6.  Quality 100 and 95, once refused, now encode in the
-    int16 pair layout and write the JAX package's container bytes."""
-    if "quality" not in kwargs:
-        with pytest.raises(NotImplementedError, match="ROADMAP.*item 6"):
-            JPEGConfig(**kwargs)
-        return
+def test_every_mode_encodes_like_jax(kwargs):
+    """Every mode builds and encodes as the JAX pipeline does: exact
+    precision gives the JAX exact pipeline's int32 RLE (and container),
+    per-block entropy its bitstrings, quality 100 and 95 the int16 pair
+    layout with the JAX package's container bytes."""
     from lz4jpeg_tpu.formats.jpeg_container import pack_container as jax_pack
 
     from lz4jpeg_tpu_torch.formats.jpeg_container import pack_container
 
-    rgb = np.random.default_rng(kwargs["quality"]).integers(
+    rgb = np.random.default_rng(kwargs.get("quality", len(str(kwargs)))).integers(
         0, 256, size=(24, 40, 3), dtype=np.uint8)
     enc = JPEGPipeline(JPEGConfig(**kwargs), device="cpu").encode(rgb)
     jax_enc = JaxJPEGPipeline(JaxJPEGConfig(**kwargs)).encode(rgb)
@@ -169,18 +166,26 @@ def test_unported_modes_raise(kwargs):
     for c in ("lum", "r", "b"):
         assert np.array_equal(enc.rle[c], np.asarray(jax_enc.rle[c]))
         assert np.array_equal(enc.rle_lengths[c], np.asarray(jax_enc.rle_lengths[c]))
-    assert pack_container(enc) == jax_pack(jax_enc)
+    if kwargs.get("entropy") == "per_block":
+        assert enc.entropy_mode == jax_enc.entropy_mode == "per_block"
+        assert enc.per_block_bits == jax_enc.per_block_bits
+    else:
+        assert pack_container(enc) == jax_pack(jax_enc)
 
 
 @pytest.mark.parametrize("quality", [1, 50, 75, 85, 90, 95, 100])
 def test_sparse16_eligibility_matches_jax(quality):
-    """The port picks the JAX pipeline's layout at every quality: sparse16
-    where the JAX pipeline does, int16 pairs elsewhere."""
-    pipe = JPEGPipeline(JPEGConfig(quality=quality), device="cpu")
-    jax_pipe = JaxJPEGPipeline(JaxJPEGConfig(quality=quality))
-    assert pipe.sparse16 == jax_pipe._sparse16
+    """The port picks the JAX pipeline's layout at every quality and in
+    every mode: sparse16 where the JAX pipeline does (fast, shared, every
+    table entry ≥ 3), int16 pairs elsewhere; an exact or per-block
+    pipeline never encodes sparse16."""
     rgb = np.zeros((8, 8, 3), np.uint8)
-    enc = pipe.encode(rgb, entropy=False)
-    jax_enc = jax_pipe.encode(rgb, entropy=False)
-    assert (enc.rle_sparse16, enc.rle_packed16) == (
-        jax_enc.rle_sparse16, jax_enc.rle_packed16)
+    for mode in ({}, {"precision": "exact"}, {"entropy": "per_block"}):
+        pipe = JPEGPipeline(JPEGConfig(quality=quality, **mode), device="cpu")
+        jax_pipe = JaxJPEGPipeline(JaxJPEGConfig(quality=quality, **mode))
+        assert pipe.sparse16 == jax_pipe._sparse16
+        assert not (mode and pipe.sparse16)
+        enc = pipe.encode(rgb, entropy=False)
+        jax_enc = jax_pipe.encode(rgb, entropy=False)
+        assert (enc.rle_sparse16, enc.rle_packed16) == (
+            jax_enc.rle_sparse16, jax_enc.rle_packed16)

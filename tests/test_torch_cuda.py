@@ -272,3 +272,60 @@ def test_cuda_codec_frame_matches_cpu_codec(cuda):
     assert gpu.decode(frame, engine="device") == data
     assert resolve_rooted.launches == k3 + 1
     assert gpu.decode(frame, engine="native") == data
+
+
+@pytest.mark.parametrize("k", [64, 32, 16, 8, 4, 2, 1])
+def test_wide_expand_kernel_matches_plain_version_and_k6(cuda, k):
+    """K8 against its plain version and K6 (cast to int16) on canonical
+    words, crafted rows (a valid word 0, count sums past K) and a view that
+    starts one row in (not 16-byte aligned: the wrapper copies it)."""
+    words, lengths = pack16.pack16_encode_ref(_runny_values(501, k, seed=k))
+    cw, cl = map(torch.from_numpy,
+                 crafted_packed16_rows(k, np.random.default_rng(k), n_random=288))
+    for w, l in ((words, lengths), (cw, cl), (cw[1:], cl[1:])):
+        w, l = w.to(cuda), l.to(cuda)
+        before = pack16.pack16_decode_wide.launches
+        got = pack16.pack16_decode_wide(w, l)
+        torch.cuda.synchronize()
+        assert pack16.pack16_decode_wide.launches == before + 1
+        assert got.dtype == torch.int16 and got.shape == w.shape
+        assert torch.equal(got, pack16.pack16_decode_wide_ref(w, l))
+        assert torch.equal(got, pack16.pack16_decode(w, l, k).to(torch.int16))
+
+
+@pytest.mark.parametrize("shape", [(16, 16), (37, 53)])
+def test_cuda_exact_pipeline_matches_oracle(cuda, shape):
+    """Exact precision runs real float64 on the card: coefficients, RLE and
+    the round trip identical to the numpy oracle (snapped ties)."""
+    from lz4jpeg_tpu_torch.oracle import jpeg_oracle
+
+    img = np.random.default_rng(sum(shape)).integers(
+        0, 256, size=(*shape, 3), dtype=np.uint8)
+    pipe = JPEGPipeline(JPEGConfig(precision="exact"), device=cuda)
+    rec, ref = jpeg_oracle.jpeg_roundtrip_oracle(img, snap_ties=True)
+    stages = pipe.forward_stages(img)
+    for c in ("lum", "r", "b"):
+        assert stages[c]["zz"].dtype == np.float64
+        assert np.array_equal(stages[c]["zz"], ref[f"zz_{c}"])
+        for i, row in enumerate(ref[f"rle_{c}"]):
+            n = int(stages[c]["rle_lengths"][i])
+            assert list(stages[c]["rle"][i, :n]) == row
+    assert np.array_equal(pipe.roundtrip(img), rec)
+
+
+def test_cuda_overlapped_encode_matches_one_shot(cuda):
+    """The banded encode (side stream, pinned bands) writes the one-shot
+    container byte for byte, and a second encode leaves the first's host
+    buffer as it was."""
+    rng = np.random.default_rng(11)
+    a, b = (rng.integers(0, 256, size=(96, 80, 3), dtype=np.uint8)
+            for _ in range(2))
+    pipe = JPEGPipeline(JPEGConfig(), device=cuda)
+    banded = JPEGPipeline(JPEGConfig(), device=cuda)
+    banded._OVERLAP_MIN_BLOCKS = 1
+    enc_a = banded.encode(a)
+    kept = enc_a.rle_combined.copy()
+    assert pack_container(enc_a) == pack_container(pipe.encode_batch(a[None])[0])
+    enc_b = banded.encode(b)
+    assert pack_container(enc_b) == pack_container(pipe.encode_batch(b[None])[0])
+    assert np.array_equal(enc_a.rle_combined, kept)

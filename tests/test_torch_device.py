@@ -4,10 +4,12 @@
   the CPU instead.
 * ``forward_combined.launches`` counts kernel launches only: CPU tensors
   run the plain version and leave it at 0.
-* No module of ``lz4jpeg_tpu_torch`` (nor ``chip_smoke.py``) imports
-  ``jax`` or ``lz4jpeg_tpu``, by an AST scan and by a subprocess that
-  blocks both names and still runs JPEG round trips (sparse16, its
-  packed16 twin, and quality 90 in the int16 pair layout) and an LZ4T
+* No module of ``lz4jpeg_tpu_torch`` (the oracle copy included) nor
+  ``chip_smoke.py`` imports ``jax`` or ``lz4jpeg_tpu``, by an AST scan and
+  by a subprocess that blocks both names and still runs JPEG round trips
+  (sparse16, its packed16 twin, quality 90 in the int16 pair layout, exact
+  precision against the oracle copy, per-block entropy, the overlapped
+  and bucketed encodes, K8's plain version) and an LZ4T
   ``engine="device"`` round trip.
 """
 
@@ -85,6 +87,7 @@ def _imported_roots(path: Path):
 def test_no_jax_import_anywhere_in_the_port():
     files = sorted((REPO / "lz4jpeg_tpu_torch").rglob("*.py"))
     files.append(REPO / "chip_smoke.py")
+    assert REPO / "lz4jpeg_tpu_torch" / "oracle" / "jpeg_oracle.py" in files
     assert len(files) > 10
     for path in files:
         roots = set(_imported_roots(path))
@@ -118,6 +121,20 @@ enc = q90.encode(rgb)
 assert not enc.rle_sparse16 and not enc.rle_packed16
 assert q90.decode(unpack_container(pack_container(enc))).shape == rgb.shape
 assert q90.decode(enc).shape == rgb.shape
+from lz4jpeg_tpu_torch.oracle import jpeg_oracle
+exact = JPEGPipeline(JPEGConfig(precision="exact"), device="cpu")
+ref, stages = jpeg_oracle.jpeg_roundtrip_oracle(rgb, snap_ties=True)
+assert np.array_equal(exact.roundtrip(rgb), ref)
+parity = JPEGPipeline(JPEGConfig(precision="exact", entropy="per_block"), device="cpu")
+assert parity.encode(rgb).per_block_bits == stages["huff_bits"]
+banded = JPEGPipeline(JPEGConfig(), device="cpu")
+banded._OVERLAP_MIN_BLOCKS = 1
+assert pack_container(banded.encode(rgb)) == pack_container(pipe.encode(rgb))
+assert pack_container(pipe.encode_bucketed(rgb)) == pack_container(pipe.encode(rgb))
+import torch
+from lz4jpeg_tpu_torch.ops import pack16
+words, lengths = pack16.pack16_encode(torch.full((4, 64), 7, dtype=torch.int16))
+assert (pack16.pack16_decode_wide(words, lengths) == 7).all()
 from lz4jpeg_tpu_torch import LZ4Codec, LZ4Config
 from lz4jpeg_tpu_torch.utils.inputs import generate_text
 text = generate_text(40000, np.random.default_rng(0))

@@ -210,6 +210,52 @@ def test_k7_plain_matches_spec(k, bw):
         got.numpy(), want.reshape(n // bw, bw, k).transpose(0, 2, 1))
 
 
+# ---- K8 ---------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("shape", [(256, 64), (512, 32)])
+def test_k8_plain_matches_pallas(shape):
+    """Canonical streams from the JAX encoder (as tests/test_pallas_rle.py
+    holds the wide kernel to K6): the plain version equals the
+    interpret-mode lane-dense kernel, which reads validity from nonzero
+    words."""
+    n, k = shape
+    rng = np.random.default_rng(n + k)
+    vals = _runny(rng, n, k)
+    vals[3] = 0  # constant-zero block
+    vals[4] = 7  # single-run block
+    words, lengths = _spec_encode(vals)
+    want = jax_pallas.rle_decode_packed16_pallas_wide(jnp.asarray(words),
+                                                      interpret=True)
+    got = pack16.pack16_decode_wide(_t(words.view(np.int16)), _t(lengths))
+    assert got.dtype == torch.int16 and got.shape == (n, k)
+    assert np.array_equal(got.numpy(), np.asarray(want))
+    assert np.array_equal(got.numpy(), vals)
+
+
+@pytest.mark.parametrize("k", [64, 32, 8, 1])
+def test_k8_plain_matches_k6_on_crafted_rows(k):
+    """Valid word 0, count sums below and above K, short and negative
+    lengths: K6's plain version at out_size = K, cast to int16."""
+    words, lengths = _crafted(k, np.random.default_rng(5 * k))
+    got = pack16.pack16_decode_wide(_t(words), _t(lengths))
+    want = pack16.pack16_decode(_t(words), _t(lengths), k).to(torch.int16)
+    assert torch.equal(got, want)
+    assert np.array_equal(got.numpy(),
+                          _spec_decode(words, lengths, k).astype(np.int16))
+
+
+def test_k8_takes_shapes_the_tpu_gate_refused():
+    """N·K % 2048 != 0 is refused by the TPU wrapper, not by the port."""
+    rng = np.random.default_rng(8)
+    vals = _runny(rng, 100, 64)
+    words, lengths = _spec_encode(vals)
+    with pytest.raises(ValueError):
+        jax_pallas.rle_decode_packed16_pallas_wide(jnp.asarray(words))
+    got = pack16.pack16_decode_wide(_t(words.view(np.int16)), _t(lengths))
+    assert np.array_equal(got.numpy(), vals)
+
+
 # ---- gates and counters -----------------------------------------------------
 
 
@@ -225,6 +271,8 @@ def test_wrappers_reject_bad_segments(k):
         pack16.pack16_decode(z16, torch.zeros(4, dtype=torch.int32), 32)
     with pytest.raises(ValueError, match="power of two"):
         pack16.pack16_decode_plane(z16, torch.zeros(4, dtype=torch.int32), 2)
+    with pytest.raises(ValueError, match="power of two"):
+        pack16.pack16_decode_wide(z16, torch.zeros(4, dtype=torch.int32))
     with pytest.raises(ValueError):
         jax_pallas.rle_encode_packed16_pallas(
             jnp.zeros((4, k), jnp.int16), interpret=True)
@@ -244,13 +292,20 @@ def test_wrappers_check_their_inputs():
     with pytest.raises(ValueError):
         pack16.pack16_decode_plane(z, lens, 3)
     with pytest.raises(ValueError):
+        pack16.pack16_decode_wide(z, torch.zeros(3, dtype=torch.int32))
+    with pytest.raises(TypeError):
+        pack16.pack16_decode_wide(z.to(torch.int32), lens)
+    with pytest.raises(ValueError):
+        pack16.pack16_decode_wide(z, lens.to("meta"))
+    with pytest.raises(ValueError):
         pack16.pack16_encode(torch.zeros((4, 64), dtype=torch.int16,
                                          device="meta"))
 
 
 def test_cpu_tensors_never_count_launches():
     wrappers = (pack16.pack16_encode, pack16.pack16_encode_kt,
-                pack16.pack16_decode, pack16.pack16_decode_plane)
+                pack16.pack16_decode, pack16.pack16_decode_plane,
+                pack16.pack16_decode_wide)
     for w in wrappers:
         w.launches = 0
     vals = torch.zeros((6, 64), dtype=torch.int16)
@@ -258,8 +313,9 @@ def test_cpu_tensors_never_count_launches():
     pack16.pack16_encode_kt(torch.zeros((2, 64, 3), dtype=torch.int16))
     pack16.pack16_decode(words, lengths, 64)
     pack16.pack16_decode_plane(words, lengths, 3)
+    pack16.pack16_decode_wide(words, lengths)
     rle.rle_decode_packed16(words, lengths, 64)
-    assert [w.launches for w in wrappers] == [0, 0, 0, 0]
+    assert [w.launches for w in wrappers] == [0, 0, 0, 0, 0]
 
 
 # ---- the rest of ops/rle.py -------------------------------------------------
