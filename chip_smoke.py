@@ -5,15 +5,22 @@ Run from the repository root with no arguments: ``python3 chip_smoke.py``.
 It needs one card.  At first use it builds the eight Hopper kernels (one
 nvcc per source file, six files, all started together, sm_90a) and the
 native runtime (g++) into ``lz4jpeg_tpu_torch/_build/``, then runs sixteen
-phases and fails (non-zero exit, no result line) if any of them fails:
+phases and fails (non-zero exit, no result line) if any of them fails.
+``ab_kernels.py`` times K1 and K2 in turns with another checkout's.
 
 1. the card's name and power limit, the torch and CUDA versions, and the
    build seconds;
-2. the JPEG forward kernel against its plain torch version on the card, at
-   2048×2048 (batch 8, duplicated columns for runs) and the ragged shapes
-   2047×1531, 37×53 and 8×8.  Identity is expected; the only admissible
-   difference is a sum-order flip (``lz4jpeg_tpu_torch/utils/parity.py``),
-   at most 1e-5 of the coefficients;
+2. the JPEG forward kernel (K1: persistent CTAs over bands of 64 tiles,
+   cp.async band loads, colour on CUDA cores, the basis product as three
+   bf16 mma.sync passes on the tensor cores) against its plain torch
+   version (cuBLAS) on the card, at 2048×2048 (batch 8, duplicated columns
+   for runs), the ragged shapes 2047×1531, 37×53 and 8×8 (direct-read
+   route: W·3 % 16 ≠ 0), 2×512×1040 (banded route, a last band of 2
+   tiles), 1×61×1040 and 2×1023×512 (banded route, a last block row
+   past H), 4×48×528 with quality-75 tables, and an unaligned view of one
+   256² frame (direct reads).  The only admissible difference is a
+   sum-order flip (``lz4jpeg_tpu_torch/utils/parity.py``), at most 1e-5
+   of the coefficients;
 3. the JPEG main path: ``JPEGPipeline(JPEGConfig(), device="cuda")``,
    ``encode_batch`` of four 2048² frames, ``pack_container``,
    ``unpack_container``, ``decode_batch``.  The kernel must have launched;
@@ -22,12 +29,21 @@ phases and fails (non-zero exit, no result line) if any of them fails:
    envelope of the CPU path's decode (max |Δ| ≤ 3 on ≤ 2e-3 of pixels);
 4. JPEG times on the card: the forward at 2048², batch 64, kernel against
    plain (CUDA events, 2 warm-up runs, 10 runs with min and max dropped,
-   each run fenced by a checksum over its full output), and the encode →
-   container → decode round trip of one 2048² frame;
-5. the LZ4 match kernel (K2) against its plain version on the card: 2048
+   each run fenced by a checksum over its full output), the kernel alone at
+   batch 256, and the encode → container → decode round trip of one 2048²
+   frame;
+5. the LZ4 match kernel (K2: a bitonic sort of the keys held 16 per thread
+   in registers, every stride in registers through three register layouts
+   but one shuffle stage per merge, 11 CTA barriers at Pa = 16,384)
+   against its plain version on the card: 2048
    16 KiB blocks of generated text (the last one ragged) plus one block of
-   uniform noise, strides 1, 2, 4 × lcp words 2, 4; the packed int32 words
-   must be identical;
+   uniform noise, strides 1, 2, 4 × lcp words 2, 4, and the crafted blocks
+   of ``utils/inputs.py::crafted_match_blocks`` (one repeated byte, a
+   4-byte period, a block shorter than a window, zeros, a zero-length
+   padding block, a ragged block) at strides 1, 2, 4 × lcp words 1, 4,
+   at 16 KiB and, with blocks of text, at 512, 256, 16 and 2 anchors per
+   block (below 512 the sort pads to 512 slots; below 4 the row is stored
+   word by word); the packed int32 words must be identical;
 6. the LZ4T main path: ``LZ4Codec(LZ4Config(mode="fast"), device="cuda")``
    ``.encode(data, engine="device")`` of 32 MiB of generated text, then
    ``.decode(frame, engine="device")``.  Both kernels must have launched;
@@ -83,8 +99,13 @@ phases and fails (non-zero exit, no result line) if any of them fails:
     counted; decodes within the envelope); ``warmup``, after which an
     encode builds no library.
 
-The line before the last is the kernels' JSON record; the last line is
-``{"ok": true, "device": {...}}``.
+The line before the last is the kernels' JSON record: per kernel its
+launches on the main path, its error against the plain version, its time,
+the plain version's, its bound (the larger of the bytes it must move over
+3.35 TB/s and, for K1, its bf16 tensor-core operations over 989 TFLOP/s;
+the H100 SXM data sheet's rates) and the time of one PyTorch call that
+computes the same function where there is one (K3: ``torch.gather``).  The
+last line is ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -122,6 +143,7 @@ PAIR_KERNELS = (
 )
 MIB = 1 << 20
 MATCH_BLOCKS = 2048  # 16 KiB blocks of text in phase 5 (the last ragged)
+SMALL_ANCHORS = (512, 256, 16, 2)  # anchors per block of phase 5's small blocks
 MAIN_BYTES = 32 * MIB  # the LZ4T main path's input (2048 × 16 KiB)
 TEXT_BYTES = 128 * MIB  # the natively encoded input of phases 7-8
 SIDE = 2048  # frame side of phases 9 and 12
@@ -130,6 +152,11 @@ TIME_FRAMES = 64  # frames of phase 12's and phase 13's kernel times
 ORACLE_SHAPES = ((64, 64), (37, 53), (256, 256))  # phase 14 (numpy oracle)
 BUCKET_SHAPES = ((2048, 2048), (1000, 1500), (37, 53))  # phase 16
 ENCODE_RUNS = 11  # timed encodes of each entry point in phase 16
+HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3 (NVIDIA data sheet)
+BF16_FLOP_PER_S = 989e12  # H100 SXM dense bf16 tensor cores (data sheet)
+# K1's tensor-core work per 8x8 tile: three bf16 passes of a 64-deep luma
+# and two 32-deep chroma products, 2 operations per multiply-add.
+K1_FLOP_PER_TILE = 3 * 2 * (64 * 64 + 2 * 32 * 32)
 
 
 def check(cond: bool, msg: str) -> None:
@@ -164,6 +191,15 @@ def timed_runs(fn, x, warmup: int = 2, runs: int = 10):
     torch.cuda.synchronize()
     ms = [s.elapsed_time(e) for s, e in events]
     return ms, {int(s) for s in sums}
+
+
+def bound(n_bytes: float, flops: float = 0.0):
+    """(bound_ms, bound_by): the least time the card could take for the
+    work, the larger of ``n_bytes`` over the HBM rate and ``flops`` bf16
+    tensor-core operations over their peak."""
+    by_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+    by_ops = flops / BF16_FLOP_PER_S * 1e3
+    return (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops, "operations")
 
 
 def trimmed_mean(ms):
@@ -255,7 +291,11 @@ def lz4_phases(dev):
         resolve_rooted_ref,
         root_program,
     )
-    from lz4jpeg_tpu_torch.utils.inputs import generate_text
+    from lz4jpeg_tpu_torch.utils.inputs import (
+        MATCH_BLOCK_KINDS,
+        crafted_match_blocks,
+        generate_text,
+    )
 
     rng = np.random.default_rng(SEED)
     t = time.perf_counter()
@@ -288,6 +328,39 @@ def lz4_phases(dev):
                   f"{int((got != 0).sum())} candidates, max |d| {err})")
             check(torch.equal(got, want),
                   f"K2 differs from plain at stride {stride} lcp {words}")
+    # The crafted blocks at 16 KiB, then with blocks of text at P = anchors ·
+    # stride for SMALL_ANCHORS anchors per block.
+    crafted = crafted_match_blocks(p, np.random.default_rng(SEED + 5))
+    small_rng = np.random.default_rng(SEED + 6)
+    for stride in (1, 2, 4):
+        sets = [(p, *crafted)]
+        for anchors in SMALL_ANCHORS:
+            q = anchors * stride
+            c, c_lens = crafted_match_blocks(q, small_rng)
+            t, t_lens = pad_blocks_fast(generate_text(3 * q + 1, small_rng),
+                                        q.bit_length() - 1)
+            sets.append((q, np.concatenate([c, t.astype(np.uint8)]),
+                         np.concatenate([c_lens, t_lens])))
+        for q, blocks_q, lens_q in sets:
+            x = torch.from_numpy(blocks_q).to(dev)
+            lens = torch.from_numpy(lens_q).to(dev)
+            for words in (1, 4):
+                got = match_candidates(x, lens, stride, words)
+                want = match_candidates_ref(x, lens, stride, words)
+                torch.cuda.synchronize()
+                err = int((got.long() - want.long()).abs().max())
+                k2_err = max(k2_err, err)
+                counts = (got != 0).sum(dim=1).tolist()
+                kinds = dict(zip(MATCH_BLOCK_KINDS, counts))
+                if q != p:
+                    kinds["text"] = counts[len(MATCH_BLOCK_KINDS):]
+                print(f"phase 5: K2 crafted blocks P {q} ({q // stride} anchors) "
+                      f"stride {stride} lcp {words}: "
+                      f"{'identical' if torch.equal(got, want) else 'DIFFERENT'} "
+                      f"(candidates per block {kinds}, max |d| {err})")
+                check(torch.equal(got, want),
+                      f"K2 differs from plain on crafted blocks of {q} bytes at "
+                      f"stride {stride} lcp {words}")
     del x, lens, got, want
 
     # ---- phase 6: the LZ4T main path --------------------------------------
@@ -351,21 +424,31 @@ def lz4_phases(dev):
     )
     k2_ms, k2_plain_ms = t["kernel"], t["plain"]
     mb = len(data) / 1e6
+    pa = main_in[0].shape[1]
+    k2_bound = bound(main_in[0].numel() + main_in[1].numel() * 4
+                     + main_in[0].shape[0] * pa * 4)
     print(f"phase 8: K2 2048x16KiB: kernel {k2_ms:.4f} ms "
           f"({mb / k2_ms * 1e3:.1f} MB/s), plain {k2_plain_ms:.4f} ms "
-          f"({mb / k2_plain_ms * 1e3:.1f} MB/s)")
+          f"({mb / k2_plain_ms * 1e3:.1f} MB/s); bound {k2_bound[0]:.4f} ms "
+          f"({k2_bound[1]}), "
+          f"{k2_bound[0] / k2_ms:.1%} of it")
+    root_long = root_big.long()
     t = time_versions(
         "phase 8: K3 128 MiB (2048x64KiB)",
         {"plain": lambda t: resolve_rooted_ref(*t),
+         "library": lambda t: torch.gather(t[0], 1, root_long),
          "kernel": lambda t: resolve_rooted(*t)},
         (big_lit, root_big),
     )
-    k3_ms, k3_plain_ms = t["kernel"], t["plain"]
+    k3_ms, k3_plain_ms, k3_lib_ms = t["kernel"], t["plain"], t["library"]
     big_mb = big_lit.numel() / 1e6
+    k3_bound = bound(big_lit.numel() * 2 + root_big.numel() * 4)
     print(f"phase 8: K3 128 MiB: kernel {k3_ms:.4f} ms "
           f"({big_mb / k3_ms * 1e3:.1f} MB/s), plain {k3_plain_ms:.4f} ms "
-          f"({big_mb / k3_plain_ms * 1e3:.1f} MB/s)")
-    del main_in, big_lit, root_big
+          f"({big_mb / k3_plain_ms * 1e3:.1f} MB/s), torch.gather "
+          f"{k3_lib_ms:.4f} ms; bound {k3_bound[0]:.4f} ms ({k3_bound[1]}), "
+          f"{k3_bound[0] / k3_ms:.1%} of it")
+    del main_in, big_lit, root_big, root_long
 
     for label, fn in (("encode", lambda: codec.encode(data, engine="device")),
                       ("decode", lambda: codec.decode(frame, engine="device"))):
@@ -427,6 +510,9 @@ def lz4_phases(dev):
         "max_abs_err": k2_err,
         "ms": k2_ms,
         "plain_ms": k2_plain_ms,
+        "bound_ms": k2_bound[0],
+        "bound_by": k2_bound[1],
+        "library_ms": None,
     }, {
         "name": "resolve_kernel",
         "route": "cuda",
@@ -436,6 +522,9 @@ def lz4_phases(dev):
         "max_abs_err": k3_err,
         "ms": k3_ms,
         "plain_ms": k3_plain_ms,
+        "bound_ms": k3_bound[0],
+        "bound_by": k3_bound[1],
+        "library_ms": k3_lib_ms,
     }]
 
 
@@ -699,7 +788,8 @@ def pair_phases(dev, frames, containers, decoded):
         times[name] = ms, plain_ms = t["kernel"], t["plain"]
         print(f"phase 12: {name}: kernel {ms:.4f} ms "
               f"({io[name] / ms / 1e6:.1f} GB/s of {io[name]} bytes), "
-              f"plain {plain_ms:.4f} ms")
+              f"plain {plain_ms:.4f} ms; bound {bound(io[name])[0]:.4f} ms, "
+              f"{bound(io[name])[0] / ms:.1%} of it")
     del vals, words, lens, kt, args
 
     frame = frames[:1]
@@ -767,6 +857,9 @@ def pair_phases(dev, frames, containers, decoded):
         "max_abs_err": errs[name],
         "ms": times[name][0],
         "plain_ms": times[name][1],
+        "bound_ms": bound(io[name])[0],
+        "bound_by": bound(io[name])[1],
+        "library_ms": None,
     } for name, _, source, replaces in PAIR_KERNELS], packed, p_decoded
 
 
@@ -864,7 +957,7 @@ def wide_phase(dev, packed, p_decoded):
                         device=dev, generator=gen)
     comb = forward_combined(big, tables["lum"], tables["r"])
     del big
-    times = {}
+    times, io = {}, {}
     for c, label in (("lum", "luma"), ("r", "chroma")):
         sl = CHANNEL_SLICES[c]
         k = sl.stop - sl.start
@@ -878,10 +971,12 @@ def wide_phase(dev, packed, p_decoded):
             (words, lens))
         io_k8 = n * k * 2 + n * 4 + n * k * 2  # words, lengths in; int16 out
         io_k6 = n * k * 2 + n * 4 + n * k * 4  # int32 out
+        io[label] = io_k8
         print(f"phase 13: {label}: K8 {t['K8']:.4f} ms ({io_k8 / t['K8'] / 1e6:.1f}"
               f" GB/s of {io_k8} bytes), K6 {t['K6']:.4f} ms "
               f"({io_k6 / t['K6'] / 1e6:.1f} GB/s of {io_k6} bytes), plain "
-              f"{t['plain']:.4f} ms")
+              f"{t['plain']:.4f} ms; K8 bound {bound(io_k8)[0]:.4f} ms, "
+              f"{bound(io_k8)[0] / t['K8']:.1%} of it")
         del words, lens
     del comb
     return {
@@ -893,6 +988,9 @@ def wide_phase(dev, packed, p_decoded):
         "max_abs_err": err,
         "ms": times["luma"]["K8"],
         "plain_ms": times["luma"]["plain"],
+        "bound_ms": bound(io["luma"])[0],
+        "bound_by": bound(io["luma"])[1],
+        "library_ms": None,
     }
 
 
@@ -1211,6 +1309,7 @@ def main() -> int:
     from lz4jpeg_tpu_torch.ops.quantize import (
         CHROMINANCE_QUANTIZATION_TABLE as CHR,
         LUMINANCE_QUANTIZATION_TABLE as LUM,
+        scale_table,
     )
     from lz4jpeg_tpu_torch.utils.inputs import generate_noise_image
     from lz4jpeg_tpu_torch.utils.parity import sum_order_flips
@@ -1234,20 +1333,33 @@ def main() -> int:
     rng = np.random.default_rng(SEED)
 
     # ---- phase 2: kernel against plain, on the card ---------------------
+    q50, q75 = (LUM, CHR), (scale_table(LUM, 75), scale_table(CHR, 75))
     cases = [
-        ("2048x2048 b8 runs", noise(8, 2048, 2048, rng, runs=True)),
-        ("2047x1531", noise(1, 2047, 1531, rng)),
-        ("37x53", noise(1, 37, 53, rng)),
-        ("8x8", noise(1, 8, 8, rng)),
+        ("2048x2048 b8 runs", noise(8, 2048, 2048, rng, runs=True), q50),
+        ("2047x1531", noise(1, 2047, 1531, rng), q50),
+        ("37x53", noise(1, 37, 53, rng), q50),
+        ("8x8", noise(1, 8, 8, rng), q50),
+    ]
+    band_rng = np.random.default_rng(SEED + 2)
+    cases += [
+        ("2x512x1040 banded, last band 2 tiles", noise(2, 512, 1040, band_rng), q50),
+        ("1x61x1040 banded, rows past H", noise(1, 61, 1040, band_rng), q50),
+        ("2x1023x512 banded, rows past H", noise(2, 1023, 512, band_rng), q50),
+        ("4x48x528 quality 75", noise(4, 48, 528, band_rng), q75),
+        ("256x256 unaligned view", noise(1, 256, 256, band_rng), q50),
     ]
     n_coeffs = n_flips = 0
-    for name, rgb in cases:
+    for name, rgb, (lum, chroma) in cases:
         x = torch.from_numpy(rgb).to(dev)
-        got = forward_combined(x, LUM, CHR)
-        want = forward_combined_ref(x, LUM, CHR)
+        if "unaligned" in name:  # one byte in: the direct-read route
+            buf = torch.empty(x.numel() + 1, dtype=torch.uint8, device=dev)
+            x = buf[1:].copy_(x.reshape(-1)).view(x.shape)
+            check(x.data_ptr() % 16 != 0, "the view is 16-byte aligned")
+        got = forward_combined(x, lum, chroma)
+        want = forward_combined_ref(x, lum, chroma)
         torch.cuda.synchronize()
         g, w = got.cpu().numpy(), want.cpu().numpy()
-        flips = sum_order_flips(rgb, g, w, LUM, CHR)
+        flips = sum_order_flips(rgb, g, w, lum, chroma)
         n_coeffs += g.size
         n_flips += flips
         verdict = "identical" if np.array_equal(g, w) else f"{flips} sum-order flips"
@@ -1318,13 +1430,30 @@ def main() -> int:
     def plain(x):
         return forward_combined_ref(x, LUM, CHR)
 
-    # Sum-order flips (phase 2) may part the two checksums: not checked.
-    t = time_versions("phase 4: forward 2048x2048 b64",
-                      {"plain": plain, "kernel": kernel}, big, identical=False)
+    # Sum-order flips (phase 2) may part the checksums: not checked.
+    versions = {"plain": plain, "kernel": kernel}
+    t = time_versions("phase 4: forward 2048x2048 b64", versions, big,
+                      identical=False)
     kernel_ms, plain_ms = t["kernel"], t["plain"]
+    n_tiles = 64 * 256 * 256
+    k1_bound = bound(big.numel() + n_tiles * 128 * 2, n_tiles * K1_FLOP_PER_TILE)
     print(f"phase 4: forward 2048x2048 b64: kernel {kernel_ms:.4f} ms "
           f"({mpix / kernel_ms * 1e3:.1f} MPix/s), plain {plain_ms:.4f} ms "
-          f"({mpix / plain_ms * 1e3:.1f} MPix/s)")
+          f"({mpix / plain_ms * 1e3:.1f} MPix/s); bound {k1_bound[0]:.4f} ms "
+          f"({k1_bound[1]}), "
+          f"{k1_bound[0] / kernel_ms:.1%} of it")
+    del big
+    big = torch.randint(0, 256, (256, 2048, 2048, 3), dtype=torch.uint8,
+                        device=dev, generator=gen)
+    del versions["plain"]  # kernel only: the plain version's temporaries
+    t = time_versions("phase 4: forward 2048x2048 b256", versions, big,
+                      identical=False)
+    b256_bound = bound(big.numel() + 4 * n_tiles * 128 * 2,
+                       4 * n_tiles * K1_FLOP_PER_TILE)
+    print(f"phase 4: forward 2048x2048 b256: kernel {t['kernel']:.4f} ms "
+          f"({4 * mpix / t['kernel'] * 1e3:.1f} MPix/s); bound "
+          f"{b256_bound[0]:.4f} ms ({b256_bound[1]}), "
+          f"{b256_bound[0] / t['kernel']:.1%} of it")
     del big
 
     frame = frames[0]
@@ -1356,6 +1485,9 @@ def main() -> int:
         "max_abs_err": max_abs_err,
         "ms": kernel_ms,
         "plain_ms": plain_ms,
+        "bound_ms": k1_bound[0],
+        "bound_by": k1_bound[1],
+        "library_ms": None,
     }, *lz4, *pairs, wide]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

@@ -98,24 +98,44 @@ def load_kernel() -> ctypes.CDLL:
     lib = load_cuda_library("fwd_megakernel")
     lib.fwd_megakernel_launch.restype = ctypes.c_int
     lib.fwd_megakernel_launch.argtypes = [
-        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-        ctypes.c_int64, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-        ctypes.c_int, ctypes.c_void_p,
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
+        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+        ctypes.c_void_p,
     ]
     lib.fwd_megakernel_error_string.restype = ctypes.c_char_p
     lib.fwd_megakernel_error_string.argtypes = [ctypes.c_int]
     return lib
 
 
+def split_basis(m: np.ndarray) -> np.ndarray:
+    """(3, *m.shape) float32 parts hi, mid, lo of the float32 basis ``m``:
+    each part holds bf16 values only (round to nearest even of the rest),
+    and hi + mid + lo equals ``m.astype(np.float32)`` exactly.  An f32
+    significand has 24 bits and each part takes the next 8 (one more through
+    the rounding's sign), so three parts always suffice; raises otherwise."""
+    rest = np.asarray(m, dtype=np.float32)
+    parts = []
+    for _ in range(3):
+        bits = rest.view(np.uint32).astype(np.uint64)
+        bits = (bits + 0x7FFF + ((bits >> 16) & 1)) & 0xFFFF0000
+        part = bits.astype(np.uint32).view(np.float32)
+        parts.append(part)
+        rest = rest - part  # exact: the rounding error of a float32
+    if np.any(rest != 0):
+        raise ValueError("basis is not the sum of three bf16 parts")
+    return np.stack(parts)
+
+
 @functools.lru_cache(maxsize=None)
 def _device_bases(lum_key: bytes, chr_key: bytes, device: torch.device):
-    """The kernel's (128, 64) lane basis and (128,) offsets on ``device``."""
-    my, mc64, offs = kt_bases(lum_key, chr_key)
-    basis = np.concatenate([my, mc64[:32], mc64[:32]])
-    return (
-        torch.from_numpy(np.ascontiguousarray(basis)).to(device),
-        torch.from_numpy(offs.reshape(-1).copy()).to(device),
-    )
+    """The kernel's basis operand on ``device``: the bf16 bits of
+    ``split_basis`` of the luma basis (64, 64), then of the chroma basis
+    (32, 32) (no pick folded in: the kernel's chroma operand is already the
+    32 odd-column samples), as one int16 vector."""
+    bases = (forward_basis(8, 8, lum_key)[0], forward_basis(4, 8, chr_key)[0])
+    bits = [(split_basis(b).view(np.uint32) >> 16).astype(np.uint16).ravel()
+            for b in bases]
+    return torch.from_numpy(np.concatenate(bits).view(np.int16)).to(device)
 
 
 def forward_combined(
@@ -125,7 +145,10 @@ def forward_combined(
 
     A CPU tensor runs ``forward_combined_ref``.  A CUDA tensor launches the
     Hopper kernel on the current stream and adds one to
-    ``forward_combined.launches``; a refused launch raises."""
+    ``forward_combined.launches``; a refused launch raises.  The kernel
+    stages bands with 16-byte asynchronous copies when the batch's address
+    and row stride ``W·3`` are 16-byte aligned, and reads the bytes directly
+    otherwise (both routes are the same kernel)."""
     b, bpc, bpr = _blocks(rgb)
     if rgb.device.type == "cpu":
         return forward_combined_ref(rgb, lum_table, chr_table)
@@ -135,15 +158,17 @@ def forward_combined(
     out = torch.empty((n, COMBINED_LANES), dtype=torch.int16, device=rgb.device)
     if n == 0:
         return out
-    basis, offs = _device_bases(
+    parts = _device_bases(
         _table_key(lum_table), _table_key(chr_table), rgb.device
     )
+    h, w = rgb.shape[1:3]
+    staged = rgb.data_ptr() % 16 == 0 and (w * 3) % 16 == 0
     lib = load_kernel()
     with torch.cuda.device(rgb.device):
         stream = torch.cuda.current_stream(rgb.device).cuda_stream
         rc = lib.fwd_megakernel_launch(
-            rgb.data_ptr(), out.data_ptr(), basis.data_ptr(), offs.data_ptr(),
-            n, rgb.shape[1], rgb.shape[2], bpc, bpr, stream,
+            rgb.data_ptr(), out.data_ptr(), parts.data_ptr(), b, h, w, bpc,
+            bpr, int(staged), stream,
         )
     if rc != 0:
         msg = lib.fwd_megakernel_error_string(rc).decode()

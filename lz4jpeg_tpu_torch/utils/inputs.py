@@ -8,7 +8,8 @@
   for the reference's text corpus, which the repository does not carry;
   uniform noise has no matches and only exercises the raw-stored path;
 * ``crafted_packed16_rows`` — packed16 run words and lengths that no
-  canonical encoder writes but the decoders must take as the spec does.
+  canonical encoder writes but the decoders must take as the spec does;
+* ``crafted_match_blocks`` — LZ4 blocks at the edges of the matcher's sort.
 """
 
 from __future__ import annotations
@@ -97,3 +98,24 @@ def crafted_packed16_rows(k: int, rng: np.random.Generator, n_random: int = 40):
         words[i, : len(w)] = w[:k]
         lengths[i] = n
     return words.astype(np.uint16).view(np.int16), lengths.astype(np.int32)
+
+
+MATCH_BLOCK_KINDS = ("one_byte", "period4", "short", "zeros", "padding",
+                     "ragged")
+
+
+def crafted_match_blocks(p: int, rng: np.random.Generator):
+    """(6, p) uint8 blocks and (6,) int32 lengths, in ``MATCH_BLOCK_KINDS``
+    order: one repeated byte (every valid anchor in one hash bucket); a
+    4-byte period; 3 bytes of text, shorter than a hash window; a full block
+    of zeros; an all-zero padding block of length 0; and text that ends at
+    p/2 + 3 before zero padding.  No length exceeds p."""
+    text = np.frombuffer(generate_text(p, rng), np.uint8)
+    blocks = np.zeros((len(MATCH_BLOCK_KINDS), p), np.uint8)
+    blocks[0] = ord("a")
+    blocks[1] = np.resize(np.frombuffer(b"abcd", np.uint8), p)
+    short, half = min(3, p), min(p // 2 + 3, p)
+    blocks[2, :short] = text[:short]
+    blocks[5, :half] = text[:half]
+    lengths = np.array([p, p, short, p, 0, half], np.int32)
+    return blocks, lengths

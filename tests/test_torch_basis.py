@@ -20,7 +20,7 @@ from lz4jpeg_tpu.oracle import jpeg_oracle
 
 from lz4jpeg_tpu_torch import JPEGConfig, JPEGPipeline, tables_from_numpy
 from lz4jpeg_tpu_torch.ops import fused, quantize
-from lz4jpeg_tpu_torch.ops.fwd_megakernel import kt_bases
+from lz4jpeg_tpu_torch.ops.fwd_megakernel import kt_bases, split_basis
 
 QUALITIES = (None, 75)
 SHAPES = ((8, 8), (4, 8))  # (width, height) of the luma and chroma blocks
@@ -189,3 +189,23 @@ def test_sparse16_eligibility_matches_jax(quality):
         jax_enc = jax_pipe.encode(rgb, entropy=False)
         assert (enc.rle_sparse16, enc.rle_packed16) == (
             jax_enc.rle_sparse16, jax_enc.rle_packed16)
+
+
+@pytest.mark.parametrize("quality", [10, 50, 75])
+@pytest.mark.parametrize("name", ["lum", "chr"])
+def test_split_basis_sums_to_the_f32_basis(quality, name):
+    """The K1 operand: three parts, each of bf16 values (low 16 bits of the
+    float32 zero), whose float64 sum is exactly the float32 basis."""
+    table = quantize.scale_table(
+        quantize.LUMINANCE_QUANTIZATION_TABLE if name == "lum"
+        else quantize.CHROMINANCE_QUANTIZATION_TABLE, quality)
+    m, _ = fused.forward_basis(8 if name == "lum" else 4, 8,
+                               fused._table_key(table))
+    parts = split_basis(m)
+    assert parts.shape == (3, *m.shape) and parts.dtype == np.float32
+    assert not np.any(parts.view(np.uint32) & 0xFFFF)
+    total = parts.astype(np.float64).sum(axis=0)
+    assert np.array_equal(total, m.astype(np.float32).astype(np.float64))
+    # hi carries the magnitude; the parts shrink by at least 2^8 each.
+    assert np.all(np.abs(parts[1]) <= np.abs(parts[0]) * 2.0 ** -8)
+    assert np.all(np.abs(parts[2]) <= np.abs(parts[1]) * 2.0 ** -8)

@@ -9,7 +9,8 @@ JAX nor ``lz4jpeg_tpu``, so it also runs on a machine without them:
 Tolerance of the forward kernel: identity, except sum-order flips
 (``utils/parity.py``): a coefficient off by exactly 1 whose float64 ratio
 lies within 1e-4 of an integer, at most 1e-5 of the coefficients.  The
-kernel sums its 64 products in a fixed FMA order; cuBLAS in its own.
+kernel sums three bf16 tensor-core passes (exact products) in float32;
+cuBLAS sums in its own order.
 
 The LZ4 match kernel (K2), the rooted-resolve kernel (K3) and the packed16
 kernels (K4-K7) compute on integers: identity, no tolerance.  The LZ4T
@@ -36,7 +37,11 @@ from lz4jpeg_tpu_torch.ops.lz4t_decode import (
     resolve_rooted_ref,
     root_program,
 )
-from lz4jpeg_tpu_torch.utils.inputs import crafted_packed16_rows, generate_text
+from lz4jpeg_tpu_torch.utils.inputs import (
+    crafted_match_blocks,
+    crafted_packed16_rows,
+    generate_text,
+)
 from lz4jpeg_tpu_torch.formats.jpeg_container import pack_container, unpack_container
 from lz4jpeg_tpu_torch.ops.fwd_megakernel import (
     forward_combined,
@@ -45,6 +50,7 @@ from lz4jpeg_tpu_torch.ops.fwd_megakernel import (
 from lz4jpeg_tpu_torch.ops.quantize import (
     CHROMINANCE_QUANTIZATION_TABLE as CHR,
     LUMINANCE_QUANTIZATION_TABLE as LUM,
+    scale_table,
 )
 from lz4jpeg_tpu_torch.models.jpeg import scaled_tables
 from lz4jpeg_tpu_torch.ops import pack16
@@ -81,6 +87,39 @@ def test_kernel_matches_plain_version(cuda, shape):
     want = forward_combined_ref(x, LUM, CHR)
     assert got.shape == want.shape and got.dtype == torch.int16
     flips = sum_order_flips(rgb, got.cpu().numpy(), want.cpu().numpy(), LUM, CHR)
+    assert flips <= MAX_FLIP_SHARE * got.numel()
+
+
+@pytest.mark.parametrize("case,shape,quality", [
+    ("staged, edge band", (2, 64, 1040), None),  # W·3 % 16 == 0; 130 tiles
+    ("staged, q75", (4, 48, 528), 75),           # 66 tiles: 64 + 2
+    ("staged, ragged height", (1, 61, 1040), None),   # rows 61-63 past H
+    ("staged, ragged height, tall", (2, 1023, 512), None),
+    ("generic, ragged", (3, 37, 53), None),      # W·3 % 16 != 0
+    ("generic, tall", (1, 2050, 24), None),      # 257 block rows of 3 tiles
+    ("generic, unaligned view", (1, 64, 64), None),
+])
+def test_kernel_routes_and_band_edges(cuda, case, shape, quality):
+    """K1's two load routes (16-byte cp.async bands when the batch and its
+    row stride W·3 are 16-byte aligned; direct reads otherwise) and its
+    band edges (a last band of a block row with fewer than 64 tiles, rows
+    past H, columns past W), against the plain version."""
+    rgb = np.random.default_rng(sum(shape)).integers(
+        0, 256, size=(*shape, 3), dtype=np.uint8)
+    x = torch.from_numpy(rgb).to(cuda)
+    if case.endswith("unaligned view"):
+        buf = torch.empty(x.numel() + 1, dtype=torch.uint8, device=cuda)[1:]
+        x = buf.copy_(x.reshape(-1)).view(x.shape)
+        assert x.data_ptr() % 16 != 0 and x.is_contiguous()
+    lum, chroma = scale_table(LUM, quality), scale_table(CHR, quality)
+    before = forward_combined.launches
+    got = forward_combined(x, lum, chroma)
+    torch.cuda.synchronize()
+    assert forward_combined.launches == before + 1
+    want = forward_combined_ref(x, lum, chroma)
+    assert got.shape == want.shape and got.dtype == torch.int16
+    flips = sum_order_flips(rgb, got.cpu().numpy(), want.cpu().numpy(),
+                            lum, chroma)
     assert flips <= MAX_FLIP_SHARE * got.numel()
 
 
@@ -126,6 +165,38 @@ def test_match_kernel_matches_plain_version(cuda, stride, lcp_words):
     assert got.shape == (7, 16384 // stride) and got.dtype == torch.int32
     assert torch.equal(got, want)
     assert int((got != 0).sum()) > 1000  # text must give plenty of matches
+
+
+# (P, stride): block_log 14 and 12, then 512, 256, 16 and 2 anchors per
+# block (below 512 the sort pads to 512 slots; below 4 the row is stored
+# word by word), each at strides 1, 2 and 4.
+CRAFTED_MATCH_SHAPES = (
+    [(p, s) for p in (16384, 4096) for s in (1, 2, 4)]
+    + [(a * s, s) for a in (512, 256, 16, 2) for s in (1, 2, 4)])
+
+
+@pytest.mark.parametrize("p,stride", CRAFTED_MATCH_SHAPES)
+def test_match_kernel_on_crafted_blocks(cuda, p, stride):
+    """K2 on the sort's edge cases (one bucket for every anchor, a 4-byte
+    period, a block shorter than a window, zeros, a zero-length padding
+    block, a ragged block) and on text: identical to the plain version."""
+    rng = np.random.default_rng(p + stride)
+    crafted, lengths = crafted_match_blocks(p, rng)
+    text, text_lengths = pad_blocks_fast(generate_text(3 * p + 777, rng),
+                                         p.bit_length() - 1)
+    blocks = np.concatenate([crafted, text.astype(np.uint8)])
+    x = torch.from_numpy(blocks).to(cuda)
+    lens = torch.from_numpy(np.concatenate([lengths, text_lengths])).to(cuda)
+    valid = max(0, (p - 4) // stride + 1)  # anchors with a whole window
+    for lcp_words in (1, 4):
+        before = match_candidates.launches
+        got = match_candidates(x, lens, stride, lcp_words)
+        torch.cuda.synchronize()
+        assert match_candidates.launches == before + 1
+        want = match_candidates_ref(x, lens, stride, lcp_words)
+        assert torch.equal(got, want), (stride, lcp_words)
+        # One bucket: every valid anchor but the first matches its 1-back.
+        assert int((got[0] != 0).sum()) == max(0, valid - 1)
 
 
 def _random_program(rows, p, seed):

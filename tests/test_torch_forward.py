@@ -8,6 +8,16 @@ ragged shapes, and to the Pallas megakernel run in interpret mode on the
 product in the same order, so no sum-order flip is admitted here; the
 flip rule (``utils/parity.py``) applies only between the kernel and
 cuBLAS on the card.
+
+The Hopper kernel's split product is emulated here too: centred samples
+(v - 128, exact in bf16) times the three bf16 parts of ``split_basis``, in
+the kernel's two float32 chains (lo then mid in one, hi in the other,
+added once at the end), chroma at depth 32 (the odd-column samples against
+the plain chroma basis).  That sums in another order than the reference,
+so it is held to the card's rule: only admissible sum-order flips, at most
+1e-5 of the coefficients.  It checks the split, the centring and the two
+chains; the order in which the tensor cores sum inside a chain shows only
+in the CUDA tests and ``chip_smoke.py``.
 """
 
 import numpy as np
@@ -27,12 +37,14 @@ from lz4jpeg_tpu.ops.pallas_fwd import (
 )
 
 from lz4jpeg_tpu_torch.ops import color, rle
-from lz4jpeg_tpu_torch.ops.fused import fused_forward
+from lz4jpeg_tpu_torch.ops.color import _snap_trunc
+from lz4jpeg_tpu_torch.ops.fused import _table_key, forward_basis, fused_forward
 from lz4jpeg_tpu_torch.ops.fwd_megakernel import (
     CHANNEL_SLICES,
     forward_combined,
     forward_combined_ref,
     sparse_lengths,
+    split_basis,
 )
 from lz4jpeg_tpu_torch.ops.quantize import (
     CHROMINANCE_QUANTIZATION_TABLE as CHR,
@@ -172,3 +184,49 @@ def test_flip_rule_accepts_identity_and_rejects_other_differences():
     bad[0, 0] += 2
     with pytest.raises(AssertionError, match="not a sum-order flip"):
         sum_order_flips(rgb, bad, comb, LUM, CHR)
+
+
+def _split_product_forward(rgb, lum, chroma):
+    """The kernel's split product, emulated: (N, 128) combined sparse
+    streams."""
+    y, cr, cb = color.rgb_to_ycbcr(torch.from_numpy(rgb))
+    tiles = color.split_mcus(y, color.chroma_subsample_422(cr),
+                             color.chroma_subsample_422(cb))
+    parts = []
+    for t, table, width in zip(tiles, (lum, chroma, chroma), (8, 4, 4)):
+        m, _ = forward_basis(width, 8, _table_key(table))
+        x = t.reshape(t.shape[0], -1).to(torch.float32) - 128
+        assert torch.equal(x, x.to(torch.bfloat16).to(torch.float32))
+        hi, mid, lo = torch.from_numpy(split_basis(m))
+        for part in (hi, mid, lo):
+            assert torch.equal(part, part.to(torch.bfloat16).to(torch.float32))
+        small = x @ lo.T + x @ mid.T  # one chain: lo, then mid
+        large = x @ hi.T              # the other chain
+        zz = _snap_trunc(small + large, 1e-5).to(torch.int16)
+        parts.append(rle.rle_encode_sparse16(zz)[0])
+    return torch.cat(parts, dim=1).numpy()
+
+
+@pytest.mark.parametrize("shape", [(2, 64, 64), (1, 37, 53), (1, 9, 17)])
+@pytest.mark.parametrize("quality", [None, 75])
+def test_split_bf16_product_within_flip_rule(shape, quality):
+    rgb = _batch(*shape, seed=31 + sum(shape), runs=False)
+    lum, chroma = scale_table(LUM, quality), scale_table(CHR, quality)
+    got = _split_product_forward(rgb, lum, chroma)
+    want = forward_combined_ref(torch.from_numpy(rgb), lum, chroma).numpy()
+    flips = sum_order_flips(rgb, got, want, lum, chroma)
+    assert flips <= 1e-5 * got.size
+
+
+def test_integer_colour_matches_on_every_rgb():
+    """K1's colour, exact integer arithmetic (floor(1000·Y) / 1000 etc., as
+    dp4a byte dot products), equals ``rgb_to_ycbcr`` on all 2^24 colours."""
+    v = np.arange(1 << 24, dtype=np.int32)
+    r, g, b = v >> 16, (v >> 8) & 255, v & 255
+    rgb = np.stack([r, g, b], axis=-1).astype(np.uint8).reshape(4096, 4096, 3)
+    y, cr, cb = color.rgb_to_ycbcr(torch.from_numpy(rgb))
+    assert np.array_equal(y.numpy().ravel(), (299 * r + 587 * g + 114 * b) // 1000)
+    assert np.array_equal(cr.numpy().ravel(),
+                          (128000 + 439 * r - 368 * g - 71 * b) // 1000)
+    assert np.array_equal(cb.numpy().ravel(),
+                          (128000 - 148 * r - 291 * g + 439 * b) // 1000)

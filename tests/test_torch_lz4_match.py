@@ -10,6 +10,11 @@
   fused matcher is identical to the JAX sort matcher, as the two JAX
   matchers are to each other.
 * The hash's low 32 bits come out right without uint32 (all-0xFF windows).
+* K2's plain version at stride 1 (through ``fast_match_blocks_fused``) is
+  identical to the JAX sort matcher on each crafted block of
+  ``utils/inputs.py::crafted_match_blocks``: one repeated byte (one bucket
+  for every anchor), a 4-byte period, a block shorter than a hash window,
+  zeros, a zero-length padding block, a ragged text block.
 
 Inputs: generated text with a block of uniform noise and a ragged tail.
 """
@@ -28,7 +33,11 @@ from lz4jpeg_tpu_torch.ops.fused_match import (
     match_candidates,
     match_candidates_ref,
 )
-from lz4jpeg_tpu_torch.utils.inputs import generate_text
+from lz4jpeg_tpu_torch.utils.inputs import (
+    MATCH_BLOCK_KINDS,
+    crafted_match_blocks,
+    generate_text,
+)
 
 
 def _data(n_text, seed):
@@ -97,6 +106,22 @@ def test_fused_stride1_matches_jax_sort_matcher():
     got = fast_match_blocks_fused(*_torch((padded, lengths)), stride=1,
                                   lcp_words=4)
     _assert_identical(got, want)
+
+
+@pytest.mark.parametrize("kind", MATCH_BLOCK_KINDS)
+def test_fused_stride1_matches_jax_sort_matcher_on_crafted_blocks(kind):
+    blocks, lengths = crafted_match_blocks(16384, np.random.default_rng(1))
+    i = MATCH_BLOCK_KINDS.index(kind)
+    padded, lens = blocks[i : i + 1], lengths[i : i + 1]
+    want = jax_fast.fast_match_blocks(
+        jnp.asarray(padded.astype(np.int32)), jnp.asarray(lens), lcp_words=4)
+    got = fast_match_blocks_fused(*_torch((padded, lens)), stride=1,
+                                  lcp_words=4)
+    _assert_identical(got, want)
+    if kind in ("one_byte", "period4", "zeros"):
+        assert int(got[0].sum()) > 1000  # long runs: matches everywhere
+    if kind in ("short", "padding"):
+        assert int(got[0].sum()) == 0
 
 
 @pytest.mark.parametrize("stride,lcp_words", [(2, 2), (4, 4)])
