@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Time this checkout's K1 and K2 in turns with another checkout's, on one
+"""Time this checkout's kernels in turns with another checkout's, on one
 CUDA card.
 
     python3 ab_kernels.py --other DIR
@@ -8,16 +8,20 @@ DIR is the root of another checkout of this repository, for example an
 earlier commit unpacked into a git-ignored directory with
 ``git archive <commit> | tar -x -C DIR``.  Each checkout builds its kernels
 from its own sources into its own ``lz4jpeg_tpu_torch/_build/`` and is
-called through its own wrappers, ``ops/fwd_megakernel.py::forward_combined``
-(K1) and ``ops/fused_match.py::match_candidates`` (K2), whose contracts
-every commit of the port keeps.  The two run in turns, other, this, this,
-other (``chip_smoke.py::time_versions``), on phase 4's and phase 8's
-shapes: K1 on 2048² uniform noise at batch 64 and 256, K2 on 32 MiB of
-generated text in 2048 blocks of 16 KiB (stride 1, lcp 4).  K2's outputs
-must be identical; K1's may differ by sum-order flips, which
+called through its own wrappers, whose contracts every commit of the port
+keeps: ``ops/fwd_megakernel.py::forward_combined`` (K1),
+``ops/fused_match.py::match_candidates`` (K2) and, in ``ops/pack16.py``,
+``pack16_encode`` (K4), ``pack16_encode_kt`` (K5), ``pack16_decode`` (K6)
+and ``pack16_decode_plane`` (K7).  The two run in turns, other, this,
+this, other (``chip_smoke.py::time_versions``), on phase 4's, phase 8's
+and phase 12's shapes: K1 on 2048² uniform noise at batch 64 and 256; K2
+on 32 MiB of generated text in 2048 blocks of 16 KiB (stride 1, lcp 4);
+K4-K7 on the zigzag values of the luma (K = 64) and Cr chroma (K = 32)
+channels of 64 such frames, K4 in int16 and int32.  K2's and K4-K7's
+outputs must be identical; K1's may differ by sum-order flips, which
 ``chip_smoke.py`` phase 2 holds to their limit.  Prints the card's name and
-power limit, each block of runs, and one line per kernel with both times,
-the ratio, the bound and its share.
+power limit, each block of runs, and one line per kernel and shape with
+both times, the ratio, the bound and its share.
 """
 
 from __future__ import annotations
@@ -34,25 +38,30 @@ HERE = Path(__file__).resolve().parent
 PACKAGE = "lz4jpeg_tpu_torch"
 
 
-def load_wrappers(root: Path):
-    """(forward_combined, match_candidates) of the checkout at ``root``, with
-    both kernels built and loaded.  Drops any other checkout's modules from
-    ``sys.modules`` first; the wrappers keep their own modules alive."""
+def load_checkout(root: Path):
+    """The kernel modules (fwd_megakernel, fused_match, pack16) of the
+    checkout at ``root``, with every kernel built and loaded.  Drops any
+    other checkout's modules from ``sys.modules`` first; the modules stay
+    alive through the returned references."""
     for name in [m for m in sys.modules
                  if m == PACKAGE or m.startswith(PACKAGE + ".")]:
         del sys.modules[name]
     sys.path.insert(0, str(root))
     try:
-        fwd = importlib.import_module(PACKAGE + ".ops.fwd_megakernel")
-        match = importlib.import_module(PACKAGE + ".ops.fused_match")
+        mods = [importlib.import_module(f"{PACKAGE}.ops.{name}")
+                for name in ("fwd_megakernel", "fused_match", "pack16")]
     finally:
         sys.path.remove(str(root))
-    for mod in (fwd, match):
+    for mod in mods:
         if not Path(mod.__file__).resolve().is_relative_to(root):
             raise RuntimeError(f"{mod.__name__} came from {mod.__file__}, "
                                f"not from {root}")
-        mod.load_kernel()
-    return fwd.forward_combined, match.match_candidates
+    fwd, match, pack16 = mods
+    fwd.load_kernel()
+    match.load_kernel()
+    pack16.load_pack_kernels()
+    pack16.load_expand_kernels()
+    return fwd, match, pack16
 
 
 def main() -> int:
@@ -67,21 +76,43 @@ def main() -> int:
         print("ab_kernels: no CUDA device", file=sys.stderr)
         return 1
     sys.path.insert(0, str(HERE))
-    from chip_smoke import K1_FLOP_PER_TILE, MAIN_BYTES, SEED, bound, time_versions
+    from chip_smoke import (
+        K1_FLOP_PER_TILE,
+        MAIN_BYTES,
+        SEED,
+        SIDE,
+        TIME_FRAMES,
+        bound,
+        time_versions,
+    )
 
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60,
     ).stdout.strip().splitlines()[0]
     print(f"card: {card}")
-    other_fwd, other_match = load_wrappers(args.other.resolve())
-    this_fwd, this_match = load_wrappers(HERE)
+    other = load_checkout(args.other.resolve())
+    this = load_checkout(HERE)
+    from lz4jpeg_tpu_torch.ops.fwd_megakernel import CHANNEL_SLICES
     from lz4jpeg_tpu_torch.ops.lz4_fast import pad_blocks_fast
     from lz4jpeg_tpu_torch.ops.quantize import (
         CHROMINANCE_QUANTIZATION_TABLE as CHR,
         LUMINANCE_QUANTIZATION_TABLE as LUM,
     )
+    from lz4jpeg_tpu_torch.ops.rle import rle_decode_sparse16
     from lz4jpeg_tpu_torch.utils.inputs import generate_text
+
+    def ab(label, fn, inputs, n_bytes, flops=0.0, identical=True):
+        """Times ``fn(modules, inputs)`` of the other checkout and of this
+        one in turns; prints both times, their ratio, and the bound with
+        this checkout's share of it."""
+        t = time_versions(label, {"other": lambda a: fn(other, a),
+                                  "this": lambda a: fn(this, a)},
+                          inputs, identical=identical)
+        b = bound(n_bytes, flops)
+        print(f"{label}: this {t['this']:.4f} ms, other {t['other']:.4f} ms "
+              f"({t['other'] / t['this']:.2f}x this); bound {b[0]:.4f} ms "
+              f"({b[1]}), this {b[0] / t['this']:.1%} of it")
 
     torch.backends.cuda.matmul.allow_tf32 = False
     dev = torch.device("cuda")
@@ -89,29 +120,47 @@ def main() -> int:
     for batch in (64, 256):
         x = torch.randint(0, 256, (batch, 2048, 2048, 3), dtype=torch.uint8,
                           device=dev, generator=gen)
-        t = time_versions(f"K1 2048x2048 b{batch}",
-                          {"other": lambda x: other_fwd(x, LUM, CHR),
-                           "this": lambda x: this_fwd(x, LUM, CHR)},
-                          x, identical=False)
         tiles = batch * 256 * 256
-        b = bound(x.numel() + tiles * 128 * 2, tiles * K1_FLOP_PER_TILE)
-        print(f"K1 2048x2048 b{batch}: this {t['this']:.4f} ms, other "
-              f"{t['other']:.4f} ms ({t['other'] / t['this']:.2f}x this); bound "
-              f"{b[0]:.4f} ms ({b[1]}), this {b[0] / t['this']:.1%} of it")
+        ab(f"K1 2048x2048 b{batch}",
+           lambda m, x: m[0].forward_combined(x, LUM, CHR), x,
+           x.numel() + tiles * 128 * 2, tiles * K1_FLOP_PER_TILE,
+           identical=False)
+        if batch == 64:
+            comb = this[0].forward_combined(x, LUM, CHR)
         del x
+
+    # K4-K7 on phase 12's values: luma and Cr chroma of the b64 frames.
+    bw = SIDE // 8
+    for channel, c in (("luma", "lum"), ("chroma", "r")):
+        sl = CHANNEL_SLICES[c]
+        k = sl.stop - sl.start
+        vals = rle_decode_sparse16(comb[:, sl]).to(torch.int16)
+        n = vals.shape[0]
+        shape = f"{channel} {SIDE}x{SIDE} b{TIME_FRAMES} ({n}x{k})"
+        for dtype, size in ((torch.int16, 2), (torch.int32, 4)):
+            ab(f"K4 {shape} {str(dtype)[6:]}",
+               lambda m, a: m[2].pack16_encode(a), vals.to(dtype),
+               n * k * (size + 2) + n * 4)
+        words, lens = this[2].pack16_encode(vals)
+        if channel == "luma":
+            kt = vals.reshape(-1, bw, k).transpose(1, 2).contiguous()
+            ab(f"K5 {shape}", lambda m, a: m[2].pack16_encode_kt(a), kt,
+               n * k * 4 + n * 4)
+            del kt
+            ab(f"K6 {shape}", lambda m, a: m[2].pack16_decode(*a, k),
+               (words, lens), n * k * 6 + n * 4)
+        ab(f"K7 {shape}", lambda m, a: m[2].pack16_decode_plane(*a, bw),
+           (words, lens), n * k * 4 + n * 4)
+        del vals, words, lens
+    del comb
 
     padded, lengths = pad_blocks_fast(
         generate_text(MAIN_BYTES, np.random.default_rng(SEED)))
     blocks = torch.from_numpy(padded.astype(np.uint8)).to(dev)
     lens = torch.from_numpy(lengths).to(dev)
-    t = time_versions("K2 2048x16KiB stride 1 lcp 4",
-                      {"other": lambda a: other_match(a[0], a[1], 1, 4),
-                       "this": lambda a: this_match(a[0], a[1], 1, 4)},
-                      (blocks, lens))
-    b = bound(blocks.numel() + lens.numel() * 4 + blocks.numel() * 4)
-    print(f"K2 2048x16KiB stride 1 lcp 4: this {t['this']:.4f} ms, other "
-          f"{t['other']:.4f} ms ({t['other'] / t['this']:.2f}x this); bound "
-          f"{b[0]:.4f} ms ({b[1]}), this {b[0] / t['this']:.1%} of it")
+    ab("K2 2048x16KiB stride 1 lcp 4",
+       lambda m, a: m[1].match_candidates(a[0], a[1], 1, 4), (blocks, lens),
+       blocks.numel() + lens.numel() * 4 + blocks.numel() * 4)
     return 0
 
 

@@ -6,7 +6,7 @@ It needs one card.  At first use it builds the eight Hopper kernels (one
 nvcc per source file, six files, all started together, sm_90a) and the
 native runtime (g++) into ``lz4jpeg_tpu_torch/_build/``, then runs sixteen
 phases and fails (non-zero exit, no result line) if any of them fails.
-``ab_kernels.py`` times K1 and K2 in turns with another checkout's.
+``ab_kernels.py`` times K1, K2 and K4-K7 in turns with another checkout's.
 
 1. the card's name and power limit, the torch and CUDA versions, and the
    build seconds;
@@ -60,7 +60,12 @@ phases and fails (non-zero exit, no result line) if any of them fails.
    each channel's zigzag values of eight 2048² frames with duplicated
    columns (from the K1 buffer), their plane (KT) views, and crafted rows
    for the decoders (lengths shorter than the nonzero words, count sums
-   below and above K, value -512 with count 1); identical outputs;
+   below and above K, value -512 with count 1); the kernels' tiling edges
+   at K = 1, 2, 8, 32, 64: K4 on runny int16 and int32 values at row
+   counts that are no multiple of its rows per warp step and in a view one
+   element off a 16-byte boundary, K7 on crafted rows at plane widths 1, 7,
+   63, 64, 65, 131 (around its 64-block tile), also with words and lengths
+   in such views; identical outputs;
 10. the packed16 path: phase 3's frames through ``to_packed16`` (K4), the
     entropy stage and ``pack_container`` (byte-identical to phase 3's
     containers) and ``decode_batch`` (K6); the plane chain
@@ -73,8 +78,10 @@ phases and fails (non-zero exit, no result line) if any of them fails.
     encode, container, decode of the four frames; containers equal the CPU
     pipeline's up to phase 2's flips, decodes within the envelope;
 12. times: K4-K7 against plain on the luma of 2048², batch 64 (4,194,304
-    blocks), as in phase 4; the round trip of one 2048² frame through the
-    packed16 path and at quality 90, each with a staged split;
+    blocks), as in phase 4, K4 also fed int32 (as ``to_packed16`` feeds
+    it), K4 and K7 also on the Cr chroma (K = 32); the round trip of one
+    2048² frame through the packed16 path and at quality 90, each with a
+    staged split;
 13. the lane-dense packed16 decode kernel K8 against its plain version on
     phase 9's frames (luma K = 64 and chroma K = 32 words from K4) and on
     crafted rows, and against K6 (cast to int16) on phase 10's packed16
@@ -99,7 +106,8 @@ phases and fails (non-zero exit, no result line) if any of them fails.
     counted; decodes within the envelope); ``warmup``, after which an
     encode builds no library.
 
-The line before the last is the kernels' JSON record: per kernel its
+The line before the last is the kernels' JSON record: per kernel (the
+packed16 kernels once per timed channel and input dtype) its
 launches on the main path, its error against the plain version, its time,
 the plain version's, its bound (the larger of the bytes it must move over
 3.35 TB/s and, for K1, its bf16 tensor-core operations over 989 TFLOP/s;
@@ -148,6 +156,12 @@ MAIN_BYTES = 32 * MIB  # the LZ4T main path's input (2048 × 16 KiB)
 TEXT_BYTES = 128 * MIB  # the natively encoded input of phases 7-8
 SIDE = 2048  # frame side of phases 9 and 12
 CHECK_FRAMES = 8  # frames of phase 9
+# Phase 9's tiling edges: segment widths K, K4 row counts that are no
+# multiple of its rows per warp step, K7 plane widths around its 64-block
+# tile (T - 1, T, T + 1, 2T + 3 and below).
+EDGE_SEGS = (1, 2, 8, 32, 64)
+EDGE_ROWS = (1, 17, 999, 4099)
+EDGE_WIDTHS = (1, 7, 63, 64, 65, 131)
 TIME_FRAMES = 64  # frames of phase 12's and phase 13's kernel times
 ORACLE_SHAPES = ((64, 64), (37, 53), (256, 256))  # phase 14 (numpy oracle)
 BUCKET_SHAPES = ((2048, 2048), (1000, 1500), (37, 53))  # phase 16
@@ -169,6 +183,28 @@ def noise(b: int, h: int, w: int, rng: np.random.Generator, runs: bool = False):
     if runs:  # duplicated columns make runs of equal coefficients
         rgb[:, :, 0 : 2 * (w // 2) : 2] = rgb[:, :, 1::2]
     return rgb
+
+
+def runny_values(n: int, k: int, rng: np.random.Generator) -> np.ndarray:
+    """(n, k) int32 values in [-511, 511], each repeating the one before it
+    with probability 0.7, so rows hold runs of every length; row 0 holds the
+    limits ±511."""
+    vals = rng.integers(-511, 512, size=(n, k))
+    repeat = rng.random((n, k)) < 0.7
+    for j in range(1, k):
+        vals[:, j] = np.where(repeat[:, j], vals[:, j - 1], vals[:, j])
+    vals[0, 0], vals[0, -1] = 511, -511
+    return vals.astype(np.int32)
+
+
+def offset_view(x):
+    """``x`` copied into a view one element past a 16-byte boundary."""
+    import torch
+
+    buf = torch.empty(x.numel() + 1, dtype=x.dtype, device=x.device)
+    view = buf[1:].view(x.shape).copy_(x)
+    check(view.data_ptr() % 16 != 0, "the view is 16-byte aligned")
+    return view
 
 
 def timed_runs(fn, x, warmup: int = 2, runs: int = 10):
@@ -633,6 +669,26 @@ def pair_phases(dev, frames, containers, decoded):
                  cw, cl, out_size)
         same("expand16_plane", f"{c} crafted rows, bw 64", cw, cl, 64)
     del comb, vals, words, lens, kt, kt_words, kt_lens, dec
+    # The tiling edges: K4 on row counts off its warp step and on offset
+    # views, in int16 and int32; K7 on widths around its tile, also with
+    # the words and lengths in offset views.
+    for k in EDGE_SEGS:
+        vals = torch.from_numpy(runny_values(max(EDGE_ROWS), k, rng)).to(dev)
+        for dtype in (torch.int16, torch.int32):
+            x = vals.to(dtype)
+            for n in EDGE_ROWS:
+                same("pack16_rows", f"edge {n}x{k} {str(dtype)[6:]}", x[:n])
+            same("pack16_rows", f"edge {n}x{k} {str(dtype)[6:]} offset view",
+                 offset_view(x))
+        cw, cl = crafted_packed16_rows(k, rng, n_random=1300)
+        cw, cl = torch.from_numpy(cw).to(dev), torch.from_numpy(cl).to(dev)
+        for bw in EDGE_WIDTHS:
+            n = (cw.shape[0] // bw) * bw
+            same("expand16_plane", f"edge K {k}, {n} crafted rows, bw {bw}",
+                 cw[:n], cl[:n], bw)
+            same("expand16_plane", f"edge K {k}, bw {bw}, offset views",
+                 offset_view(cw[:n]), offset_view(cl[:n]), bw)
+    del vals, x, cw, cl
     print(f"phase 9: ok, max |d| {errs}")
 
     # ---- phase 10: the packed16 path ---------------------------------------
@@ -765,32 +821,45 @@ def pair_phases(dev, frames, containers, decoded):
                         device=dev, generator=gen)
     comb = forward_combined(big, lum, chroma)
     del big
-    vals = rle_decode_sparse16(comb[:, :64]).to(torch.int16)
-    del comb
-    words, lens = pack16.pack16_encode(vals)
-    kt = vals.reshape(-1, SIDE // 8, 64).transpose(1, 2).contiguous()
-    n = vals.shape[0]
-    io = {  # bytes each kernel must move
-        "pack16_rows": n * 64 * 2 * 2 + n * 4,
-        "pack16_kt": n * 64 * 2 * 2 + n * 4,
-        "expand16_rows": n * 64 * 2 + n * 4 + n * 64 * 4,
-        "expand16_plane": n * 64 * 2 + n * 4 + n * 64 * 2,
-    }
-    args = {"pack16_rows": (vals,), "pack16_kt": (kt,),
-            "expand16_rows": (words, lens, 64),
-            "expand16_plane": (words, lens, SIDE // 8)}
-    times = {}
-    for name, a in args.items():
+    # (record name, channel, input dtype, arguments, bytes it must move):
+    # luma (K = 64) and Cr chroma (K = 32); K4 also fed int32, as
+    # to_packed16 feeds it.
+    cases = []
+    bw = SIDE // 8
+    for channel, c in (("luma", "lum"), ("chroma", "r")):
+        sl = CHANNEL_SLICES[c]
+        k = sl.stop - sl.start
+        vals = rle_decode_sparse16(comb[:, sl]).to(torch.int16)
+        n = vals.shape[0]
+        words, lens = pack16.pack16_encode(vals)
+        cases += [
+            ("pack16_rows", channel, "int16", (vals,), n * k * 4 + n * 4),
+            ("pack16_rows", channel, "int32", (vals.int(),), n * k * 6 + n * 4),
+        ]
+        if channel == "luma":
+            kt = vals.reshape(-1, bw, k).transpose(1, 2).contiguous()
+            cases += [
+                ("pack16_kt", channel, "int16", (kt,), n * k * 4 + n * 4),
+                ("expand16_rows", channel, "int16", (words, lens, k),
+                 n * k * 6 + n * 4),
+            ]
+        cases.append(("expand16_plane", channel, "int16", (words, lens, bw),
+                      n * k * 4 + n * 4))
+    del comb, vals, words, lens, kt
+    times = []
+    for name, channel, dtype, a, io in cases:
+        label = f"{name} {channel} {dtype} {SIDE}x{SIDE} b{TIME_FRAMES}"
         t = time_versions(
-            f"phase 12: {name} luma {SIDE}x{SIDE} b{TIME_FRAMES} ({n} blocks)",
+            f"phase 12: {label}",
             {"plain": lambda t, f=refs[name]: f(*t),
              "kernel": lambda t, f=wrappers[name]: f(*t)}, a)
-        times[name] = ms, plain_ms = t["kernel"], t["plain"]
-        print(f"phase 12: {name}: kernel {ms:.4f} ms "
-              f"({io[name] / ms / 1e6:.1f} GB/s of {io[name]} bytes), "
-              f"plain {plain_ms:.4f} ms; bound {bound(io[name])[0]:.4f} ms, "
-              f"{bound(io[name])[0] / ms:.1%} of it")
-    del vals, words, lens, kt, args
+        ms, plain_ms = t["kernel"], t["plain"]
+        times.append((name, channel, dtype, ms, plain_ms, io))
+        print(f"phase 12: {label}: kernel {ms:.4f} ms "
+              f"({io / ms / 1e6:.1f} GB/s of {io} bytes), "
+              f"plain {plain_ms:.4f} ms; bound {bound(io)[0]:.4f} ms, "
+              f"{bound(io)[0] / ms:.1%} of it")
+    del cases, a
 
     frame = frames[:1]
     for label, trip in (
@@ -848,19 +917,22 @@ def pair_phases(dev, frames, containers, decoded):
     split.mark("decode")
     split.report("phase 12: quality 90 round trip 2048x2048 staged ms")
 
+    source = {name: (src, rep) for name, _, src, rep in PAIR_KERNELS}
     return [{
         "name": name,
         "route": "cuda",
-        "source": source,
-        "replaces": replaces,
+        "source": source[name][0],
+        "replaces": source[name][1],
+        "channel": channel,
+        "dtype": dtype,
         "launches": launches[name],
         "max_abs_err": errs[name],
-        "ms": times[name][0],
-        "plain_ms": times[name][1],
-        "bound_ms": bound(io[name])[0],
-        "bound_by": bound(io[name])[1],
+        "ms": ms,
+        "plain_ms": plain_ms,
+        "bound_ms": bound(io)[0],
+        "bound_by": bound(io)[1],
         "library_ms": None,
-    } for name, _, source, replaces in PAIR_KERNELS], packed, p_decoded
+    } for name, channel, dtype, ms, plain_ms, io in times], packed, p_decoded
 
 
 def wide_phase(dev, packed, p_decoded):

@@ -37,6 +37,9 @@ def sparse16_eligible(tables) -> bool:
 class JPEGConfig:
     """Knobs of the JPEG-style pipeline (8×8 luma MCUs, 4:2:2 chroma)."""
 
+    # The JAX config's first field, kept so both configs carry the same
+    # fields; the pipeline, like the JAX one, reads none of it (8 is fixed).
+    mcu_size: int = 8
     precision: str = "fast"
     entropy: str = "shared"
     # None = the reference's fixed tables; 1–100 scales them (libjpeg curve).

@@ -5,12 +5,19 @@
 // K4, pack16_rows: replaces lz4jpeg_tpu/ops/pallas_rle.py::_rle_pack16_kernel.
 // The TPU kernel built each run's rank with a bf16 MXU prefix matmul and
 // moved the runs to the front on a 6-stage lane-roll butterfly, because
-// Mosaic has no cross-lane scan.  A warp has one: one warp per block row,
-// lane m holds x[m] (and x[m + 32] when L = 64), the run starts are one or
-// two __ballot_sync masks, a start's rank is __popc of the mask below it and
-// its count the distance to the next set bit (__ffsll) or to L.  Each start
-// writes its word to packed[rank] and each slot at or past the run count
-// writes 0, so every output slot is written once, from registers.
+// Mosaic has no cross-lane scan.  A warp has one.  Each lane loads 16 bytes
+// of a block row, V = min(L, 8) int16 or min(L, 4) int32 values, so L / V
+// lanes form the row's segment and one warp instruction reads 32 / (L / V)
+// consecutive rows; a warp issues the loads of kDepth such passes before it
+// decodes any, so several loads a lane are in flight.  A lane finds its run
+// starts in registers (its first value against the previous lane's last,
+// taken by one segmented shuffle), a segmented shuffle scan of the lanes'
+// start counts gives each start's rank, and the starts' (position, value)
+// pairs are compacted by rank into shared memory.  Each lane then reads its
+// V output slots back as vectors: slot m of a row with `runs` runs holds
+// the word of run m, whose count is the gap to the next start (or to L),
+// and 0 past the runs.  The words leave as one 2·V-byte store a lane, the
+// lengths of a pass's rows as one coalesced store.
 //
 // K5, pack16_kt: replaces _rle_pack16_kt_kernel (the same compaction fed
 // the plane layout (R, K, C), K block positions along the middle axis).
@@ -20,11 +27,11 @@
 // output rows as one contiguous run of 32 · K words.
 //
 // What bounds them: one read of the values and one write of the words and
-// lengths, about 2 + 2 + 4/L bytes per int16 value.  At 2048², batch 64
-// (4,194,304 luma blocks of 64) that is 1.09 GB, 0.33 ms at the 3.35 TB/s
-// of an H100 SXM's data sheet (700 W).
-// Both kernels are memory-bound; the integer work per value is a handful of
-// warp instructions.
+// lengths, 2 (int16) or 4 (int32) + 2 + 4/L bytes per value.  At 2048²,
+// batch 64 (4,194,304 luma blocks of 64) that is 1.09 GB in int16, 0.33 ms
+// at the 3.35 TB/s of an H100 SXM's data sheet (700 W), and 1.63 GB in
+// int32, 0.49 ms.  Both kernels are memory-bound; the integer work per value
+// is a handful of warp instructions.
 
 #include <cstdint>
 
@@ -33,7 +40,7 @@
 namespace {
 
 constexpr unsigned kFull = 0xffffffffu;
-constexpr int kRowWarps = 8;  // K4: block rows per 256-thread CTA
+constexpr int kRowWarps = 8;  // K4: warps per 256-thread CTA
 constexpr int kKtWarps = 4;   // K5: 32-column tiles per 128-thread CTA
 constexpr long long kMaxCtas = 1 << 16;
 
@@ -41,48 +48,110 @@ __device__ __forceinline__ uint16_t pack_word(int count, int32_t value) {
   return static_cast<uint16_t>(((count - 1) << 10) | (value + 512));
 }
 
-// Emits slot m's share of a row: its word if it starts a run, a zero if the
-// row has no run of rank m.
-__device__ __forceinline__ void emit(int m, bool start, int32_t v,
-                                     uint64_t mask, int seg, int runs,
-                                     uint16_t* out) {
-  if (start) {
-    const int rank = __popcll(mask & ((1ull << m) - 1));
-    const uint64_t above = m == 63 ? 0ull : mask & (~0ull << (m + 1));
-    const int next = above ? __ffsll(static_cast<long long>(above)) - 1 : seg;
-    out[rank] = pack_word(next - m, v);
-  }
-  if (m < seg && m >= runs) out[m] = 0;
-}
+// V consecutive elements of `bytes` bytes each as a single load or store.
+template <int bytes> struct Raw;
+template <> struct Raw<16> { using type = uint4; };
+template <> struct Raw<8> { using type = uint2; };
+template <> struct Raw<4> { using type = uint32_t; };
+template <> struct Raw<2> { using type = uint16_t; };
 
-template <typename T>
+template <typename T, int V>
+union LaneOf {
+  typename Raw<sizeof(T) * V>::type v;
+  T e[V];
+};
+
+constexpr int kDepth = 4;  // K4: passes whose loads a warp issues at once
+
+template <typename T, int L>
 __global__ void __launch_bounds__(kRowWarps * 32)
     pack16_rows_kernel(const T* __restrict__ values, uint16_t* __restrict__ packed,
-                       int32_t* __restrict__ lengths, long long n_rows, int seg) {
+                       int32_t* __restrict__ lengths, long long n_rows) {
+  constexpr int V0 = 16 / static_cast<int>(sizeof(T));
+  constexpr int V = L < V0 ? L : V0;  // values per lane
+  constexpr int S = L / V;            // lanes per block row
+  constexpr int R = 32 / S;           // block rows per warp pass
+  using In = LaneOf<T, V>;
+  using Out = LaneOf<uint16_t, V>;
+  // Per warp: the starts' positions and values, slot row · L + rank.
+  __shared__ alignas(16) int16_t start_pos[kRowWarps][32 * V];
+  __shared__ alignas(16) int16_t start_val[kRowWarps][32 * V];
+
   const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int sub = lane % S;  // lane within the row's segment
+  const int r = lane / S;    // row within the pass
+  int16_t* pos = start_pos[warp];
+  int16_t* val = start_val[warp];
   const long long step = static_cast<long long>(gridDim.x) * kRowWarps;
-  for (long long row = static_cast<long long>(blockIdx.x) * kRowWarps +
-                       (threadIdx.x >> 5);
-       row < n_rows; row += step) {
-    const T* x = values + row * seg;
-    const bool in0 = lane < seg;
-    const bool in1 = lane + 32 < seg;
-    const int32_t v0 = in0 ? static_cast<int32_t>(x[lane]) : 0;
-    const int32_t v1 = in1 ? static_cast<int32_t>(x[lane + 32]) : 0;
-    const int32_t p0 = __shfl_up_sync(kFull, v0, 1);
-    const int32_t last0 = __shfl_sync(kFull, v0, 31);
-    int32_t p1 = __shfl_up_sync(kFull, v1, 1);
-    if (lane == 0) p1 = last0;
-    const bool s0 = in0 && (lane == 0 || v0 != p0);
-    const bool s1 = in1 && v1 != p1;
-    const uint64_t mask =
-        static_cast<uint64_t>(__ballot_sync(kFull, s0)) |
-        (static_cast<uint64_t>(__ballot_sync(kFull, s1)) << 32);
-    const int runs = __popcll(mask);
-    uint16_t* out = packed + row * seg;
-    emit(lane, s0, v0, mask, seg, runs, out);
-    emit(lane + 32, s1, v1, mask, seg, runs, out);
-    if (lane == 0) lengths[row] = 2 * runs;
+  for (long long group = static_cast<long long>(blockIdx.x) * kRowWarps + warp;
+       group * kDepth * R < n_rows; group += step) {
+    In x[kDepth];
+#pragma unroll
+    for (int d = 0; d < kDepth; ++d) {
+      const long long row = (group * kDepth + d) * R + r;
+      x[d].v = typename Raw<sizeof(T) * V>::type{};
+      if (row < n_rows)
+        x[d].v = *reinterpret_cast<const decltype(x[d].v)*>(values + row * L +
+                                                            sub * V);
+    }
+#pragma unroll
+    for (int d = 0; d < kDepth; ++d) {
+      const long long row = (group * kDepth + d) * R + r;
+      int32_t v[V];
+#pragma unroll
+      for (int j = 0; j < V; ++j) v[j] = static_cast<int32_t>(x[d].e[j]);
+      // The previous lane's last value (a segment's first lane gets its own).
+      const int32_t prev = __shfl_up_sync(kFull, v[V - 1], 1, S);
+      bool start[V];
+      int count = 0;
+#pragma unroll
+      for (int j = 0; j < V; ++j) {
+        start[j] = j == 0 ? sub == 0 || v[0] != prev : v[j] != v[(j + V - 1) % V];
+        count += start[j];
+      }
+      int scan = count;  // segmented inclusive scan of the start counts
+#pragma unroll
+      for (int e = 1; e < S; e <<= 1) {
+        const int t = __shfl_up_sync(kFull, scan, e, S);
+        if (sub >= e) scan += t;
+      }
+      const int runs = __shfl_sync(kFull, scan, S - 1, S);
+      int rank = r * L + scan - count;
+#pragma unroll
+      for (int j = 0; j < V; ++j) {
+        if (start[j]) {
+          pos[rank] = static_cast<int16_t>(sub * V + j);
+          val[rank] = static_cast<int16_t>(v[j]);
+          ++rank;
+        }
+      }
+      __syncwarp();
+      Out p, q;  // this lane's slots' start positions and values
+      p.v = *reinterpret_cast<const decltype(p.v)*>(pos + r * L + sub * V);
+      q.v = *reinterpret_cast<const decltype(q.v)*>(val + r * L + sub * V);
+      // The start of slot sub·V + V, the next lane's first slot.
+      const int after = __shfl_down_sync(kFull, static_cast<int>(
+          static_cast<int16_t>(p.e[0])), 1, S);
+      Out o;
+#pragma unroll
+      for (int j = 0; j < V; ++j) {
+        const int m = sub * V + j;
+        const int next = m + 1 >= runs ? L
+                         : j + 1 < V   ? static_cast<int16_t>(p.e[(j + 1) % V])
+                                       : after;
+        // Only the low 16 bits of value + 512 reach the word, so the value's
+        // int16 bits (all that shared memory keeps of an int32) suffice.
+        o.e[j] = m < runs ? pack_word(next - static_cast<int16_t>(p.e[j]),
+                                      static_cast<int16_t>(q.e[j]))
+                          : 0;
+      }
+      __syncwarp();  // the next pass overwrites the starts
+      if (row < n_rows) {
+        *reinterpret_cast<decltype(o.v)*>(packed + row * L + sub * V) = o.v;
+        if (sub == 0) lengths[row] = 2 * runs;
+      }
+    }
   }
 }
 
@@ -166,30 +235,57 @@ cudaError_t launch_kt(const void* zz, void* packed, void* lengths,
   return cudaGetLastError();
 }
 
+template <typename T, int L>
+cudaError_t launch_rows_seg(const T* values, uint16_t* packed,
+                            int32_t* lengths, long long n_rows,
+                            cudaStream_t s) {
+  constexpr int V0 = 16 / static_cast<int>(sizeof(T));
+  constexpr int R = 32 / (L / (L < V0 ? L : V0));  // rows per warp pass
+  const unsigned grid = grid_for((n_rows + kDepth * R - 1) / (kDepth * R),
+                                 kRowWarps);
+  pack16_rows_kernel<T, L><<<grid, kRowWarps * 32, 0, s>>>(values, packed,
+                                                           lengths, n_rows);
+  return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t launch_rows(const void* values, void* packed, void* lengths,
+                        long long n_rows, int seg, cudaStream_t s) {
+  const T* in = static_cast<const T*>(values);
+  uint16_t* out = static_cast<uint16_t*>(packed);
+  int32_t* lens = static_cast<int32_t*>(lengths);
+  switch (seg) {
+    case 1: return launch_rows_seg<T, 1>(in, out, lens, n_rows, s);
+    case 2: return launch_rows_seg<T, 2>(in, out, lens, n_rows, s);
+    case 4: return launch_rows_seg<T, 4>(in, out, lens, n_rows, s);
+    case 8: return launch_rows_seg<T, 8>(in, out, lens, n_rows, s);
+    case 16: return launch_rows_seg<T, 16>(in, out, lens, n_rows, s);
+    case 32: return launch_rows_seg<T, 32>(in, out, lens, n_rows, s);
+    case 64: return launch_rows_seg<T, 64>(in, out, lens, n_rows, s);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
 }  // namespace
 
 // values: (n_rows, seg) int16 (elem_bytes 2) or int32 (4); packed: (n_rows,
-// seg) uint16; lengths: (n_rows,) int32; all contiguous.  Launches on
+// seg) uint16; lengths: (n_rows,) int32; all contiguous, values and packed
+// 16-byte aligned.  Launches on
 // `stream` and returns cudaGetLastError() (0 on success); never synchronises.
 extern "C" int pack16_rows_launch(const void* values, int elem_bytes,
                                   void* packed, void* lengths,
                                   long long n_rows, int seg, void* stream) {
   if (seg < 1 || seg > 64 || (seg & (seg - 1))) return cudaErrorInvalidValue;
+  if (reinterpret_cast<uintptr_t>(values) % 16 ||
+      reinterpret_cast<uintptr_t>(packed) % 16)
+    return cudaErrorMisalignedAddress;
   if (n_rows <= 0) return cudaSuccess;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const unsigned grid = grid_for(n_rows, kRowWarps);
-  if (elem_bytes == 2) {
-    pack16_rows_kernel<int16_t><<<grid, kRowWarps * 32, 0, s>>>(
-        static_cast<const int16_t*>(values), static_cast<uint16_t*>(packed),
-        static_cast<int32_t*>(lengths), n_rows, seg);
-  } else if (elem_bytes == 4) {
-    pack16_rows_kernel<int32_t><<<grid, kRowWarps * 32, 0, s>>>(
-        static_cast<const int32_t*>(values), static_cast<uint16_t*>(packed),
-        static_cast<int32_t*>(lengths), n_rows, seg);
-  } else {
-    return cudaErrorInvalidValue;
-  }
-  return cudaGetLastError();
+  if (elem_bytes == 2)
+    return launch_rows<int16_t>(values, packed, lengths, n_rows, seg, s);
+  if (elem_bytes == 4)
+    return launch_rows<int32_t>(values, packed, lengths, n_rows, seg, s);
+  return cudaErrorInvalidValue;
 }
 
 // zz: (rows, seg, cols) int16 or int32; packed: (rows · cols, seg) uint16;

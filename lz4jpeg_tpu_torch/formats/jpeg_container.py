@@ -16,8 +16,9 @@ containers (no checksum) still decode.
 
 ``unpack_container`` decodes into the sparse16 layout where the strict
 native walker takes every channel, and falls back, as the JAX container
-does, to packed16 pairs, then to int32 pairs (the native walker, then the
-Python ``unpack_symbols`` path), keeping all channels in one layout.
+does, to packed16 pairs, then to int32 pairs (the native pair walker, then
+``unpack_symbols`` and the host re-blocking), keeping all channels in one
+layout.
 """
 
 from __future__ import annotations

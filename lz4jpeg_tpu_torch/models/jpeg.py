@@ -717,8 +717,8 @@ class JPEGPipeline:
             got = unpack(packed, nbits, codebook, block_size, enc.num_blocks,
                          pad_width)
             if got is None:
-                # The Python spec path: the quirk-compatible handler of
-                # streams the strict native walker rejects.
+                # The quirk-compatible handler of streams the strict native
+                # pair walker rejects: the symbol walker, then host re-blocking.
                 symbols = unpack_symbols(packed, nbits, codebook)
                 sym_pad = 2 * pad_width if enc.rle_packed16 else pad_width
                 pairs, lens = _split_symbols(

@@ -1,4 +1,4 @@
-"""The host runtime: ctypes bindings of seventeen native functions.
+"""The host runtime: ctypes bindings of eighteen native functions.
 
 The C++ source is the JAX package's own ``lz4jpeg_tpu/native/lz4core.cpp``,
 compiled here with the flags of its Makefile (``native/Makefile:3``) into
@@ -6,7 +6,8 @@ the port's build directory, so both packages run the same host code and
 write byte-identical containers and frames.  The bindings are copies of
 ``lz4jpeg_tpu/native/__init__.py`` (same argtypes): the sparse16, int32-pair
 and packed16 entropy walkers of the JPEG path (histogram, pack, unpack for
-each layout), the codeword packer of ``pack_symbols``, the per-block parity
+each layout), the codeword packer of ``pack_symbols`` and the walker of
+``unpack_symbols``, the per-block parity
 Huffman (``huff_per_block``), and the LZ4T fast encoder/decoder, batched block
 emitter, chunk codec and device-decode copy-program builder.  A failed
 build raises (no Python fallback; the Python spec paths are reached only
@@ -90,6 +91,12 @@ class NativeBackend:
         lib.huff_pack.argtypes = [
             ctypes.c_void_p, ctypes.c_char_p, ctypes.c_size_t,
             ctypes.c_char_p, ctypes.c_size_t,
+        ]
+        lib.huff_unpack.restype = ctypes.c_ssize_t
+        lib.huff_unpack.argtypes = [
+            ctypes.c_char_p, ctypes.c_uint64,
+            ctypes.c_char_p, ctypes.c_void_p, ctypes.c_size_t,
+            ctypes.c_void_p, ctypes.c_size_t,
         ]
         lib.huff_per_block_ascii.restype = ctypes.c_int64
         lib.huff_per_block_ascii.argtypes = [
@@ -279,6 +286,24 @@ class NativeBackend:
         if nbits < 0:
             raise RuntimeError(f"native huffman pack failed ({nbits})")
         return out.raw[: (nbits + 7) // 8], int(nbits)
+
+    def huff_unpack(self, packed: bytes, nbits: int, lengths, symbols):
+        """Canonical Huffman decode of ``nbits`` bits through a codebook's
+        (uint8 lengths, int32 symbols) → int32 symbols.  Raises
+        ``RuntimeError`` where the walker rejects the stream (trailing bits
+        that form no codeword, a code longer than 32 bits); the caller
+        checks ``nbits`` against the buffer first."""
+        lengths = np.ascontiguousarray(lengths, np.uint8)
+        symbols = np.ascontiguousarray(symbols, np.int32)
+        out = np.empty(max(nbits, 1), np.int32)
+        n = self._lib.huff_unpack(
+            packed, nbits,
+            lengths.tobytes(), symbols.ctypes.data, len(symbols),
+            out.ctypes.data, len(out),
+        )
+        if n < 0:
+            raise RuntimeError(f"native huffman unpack failed ({n})")
+        return out[:n].copy()
 
     def huff_per_block(self, pairs, lengths):
         """Per-block parity Huffman (the reference's JPEG.c:844-1097, with

@@ -3,8 +3,9 @@
 Port of ``lz4jpeg_tpu/ops/huffman.py``: one canonical codebook per channel,
 built from global symbol statistics and serializable in a few bytes per
 symbol.  ``CanonicalCodebook``, the codebook builders, ``pack_symbols`` (the
-native packer), the Python walk of ``unpack_symbols`` and
-``concat_bitstreams`` are copies; ``pack_symbols_device`` packs with torch
+native packer), ``unpack_symbols`` (the native walker, with the Python walk
+kept as ``unpack_symbols_spec``) and ``concat_bitstreams`` are copies;
+``pack_symbols_device`` packs with torch
 ops on the symbols' device.  ``tests/test_torch_container.py`` and
 ``tests/test_torch_entropy_modes.py`` hold their bytes equal to the JAX
 package's.  The per-block parity mode lives in the oracle copy
@@ -120,20 +121,44 @@ def build_canonical_codebook_from_counts(
     )
 
 
-def unpack_symbols(
-    packed: bytes, total_bits: int, codebook: CanonicalCodebook
-) -> np.ndarray:
-    """Table-driven canonical decode (first-code arithmetic per length): the
-    executable spec and the container's last fallback tier.  Raises
-    ``ValueError`` when the bit count exceeds the buffer or trailing bits
-    form no codeword."""
-    if total_bits == 0:
-        return np.zeros(0, np.int32)
+def _check_bit_count(packed: bytes, total_bits: int) -> None:
+    # A corrupt container could claim more bits than its buffer holds: checked
+    # here so the native walker never reads out of bounds.
     if (total_bits + 7) // 8 > len(packed):
         raise ValueError(
             f"bit count {total_bits} exceeds packed buffer of "
             f"{len(packed)} bytes"
         )
+
+
+def unpack_symbols(
+    packed: bytes, total_bits: int, codebook: CanonicalCodebook
+) -> np.ndarray:
+    """Canonical decode of ``total_bits`` bits through ``codebook`` by the
+    native walker (``native.huff_unpack``), as the JAX package's
+    ``unpack_symbols`` runs it: the container's last fallback tier.  Raises
+    ``ValueError`` when the bit count exceeds the buffer and
+    ``RuntimeError`` when the walker rejects the stream (trailing bits that
+    form no codeword)."""
+    from lz4jpeg_tpu_torch.native import native_backend
+
+    if total_bits == 0:
+        return np.zeros(0, np.int32)
+    _check_bit_count(packed, total_bits)
+    return native_backend().huff_unpack(packed, total_bits, codebook.lengths,
+                                        codebook.symbols)
+
+
+def unpack_symbols_spec(
+    packed: bytes, total_bits: int, codebook: CanonicalCodebook
+) -> np.ndarray:
+    """The executable spec of ``unpack_symbols``: the table-driven canonical
+    decode (first-code arithmetic per length) walked bit by bit in Python.
+    Raises ``ValueError`` when the bit count exceeds the buffer or trailing
+    bits form no codeword."""
+    if total_bits == 0:
+        return np.zeros(0, np.int32)
+    _check_bit_count(packed, total_bits)
     bits = np.unpackbits(np.frombuffer(packed, np.uint8))[:total_bits]
     lengths = codebook.lengths.astype(np.int64)
     first_code = {}

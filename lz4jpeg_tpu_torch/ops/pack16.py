@@ -275,6 +275,8 @@ def pack16_encode(values: torch.Tensor):
     dev = _check_device(x)
     if dev.type == "cpu":
         return pack16_encode_ref(x)
+    if x.data_ptr() % 16:  # the kernel loads 16 bytes a lane
+        x = x.clone()
     n, seg = x.shape
     packed = torch.empty((n, seg), dtype=torch.int16, device=dev)
     lengths = torch.empty((n,), dtype=torch.int32, device=dev)
@@ -345,6 +347,8 @@ def pack16_decode_plane(packed: torch.Tensor, lengths: torch.Tensor,
     dev = _check_device(packed, lengths)
     if dev.type == "cpu":
         return pack16_decode_plane_ref(packed, lengths, bw)
+    if packed.data_ptr() % 16:  # the kernel loads up to 16 bytes a lane
+        packed = packed.clone()
     out = torch.empty((n // bw, seg, bw), dtype=torch.int16, device=dev)
     if n:
         _launch(load_expand_kernels(), "expand16_plane_launch",

@@ -241,17 +241,29 @@ def _runny_values(n, k, seed):
     return torch.from_numpy(vals.astype(np.int16))
 
 
-@pytest.mark.parametrize("k", [64, 32, 16, 1])
+def _offset_view(x):
+    """``x`` in a view one element past a 16-byte boundary."""
+    buf = torch.empty(x.numel() + 1, dtype=x.dtype, device=x.device)
+    view = buf[1:].view(x.shape).copy_(x)
+    assert view.data_ptr() % 16
+    return view
+
+
+@pytest.mark.parametrize("k", [64, 32, 16, 8, 2, 1])
 @pytest.mark.parametrize("dtype", [torch.int16, torch.int32])
 def test_pack16_kernels_match_plain_versions(cuda, k, dtype):
-    """K4 and K5 against their plain versions (any N, C), identical."""
+    """K4 and K5 against their plain versions (any N, C), identical; K4 also
+    on row counts that are no multiple of its rows per warp step and on an
+    input view off a 16-byte boundary."""
     vals = _runny_values(1000, k, seed=k).to(dtype).to(cuda)
-    before = pack16.pack16_encode.launches
+    for x in (vals, vals[:17], vals[:1], vals[:999], _offset_view(vals[:333])):
+        before = pack16.pack16_encode.launches
+        got = pack16.pack16_encode(x)
+        torch.cuda.synchronize()
+        assert pack16.pack16_encode.launches == before + 1
+        want = pack16.pack16_encode_ref(x)
+        assert all(torch.equal(g, w) for g, w in zip(got, want))
     got = pack16.pack16_encode(vals)
-    torch.cuda.synchronize()
-    assert pack16.pack16_encode.launches == before + 1
-    want = pack16.pack16_encode_ref(vals)
-    assert all(torch.equal(g, w) for g, w in zip(got, want))
     kt = vals[:960].reshape(24, 40, k).transpose(1, 2).contiguous()
     before = pack16.pack16_encode_kt.launches
     got_kt = pack16.pack16_encode_kt(kt)
@@ -262,13 +274,14 @@ def test_pack16_kernels_match_plain_versions(cuda, k, dtype):
     assert all(torch.equal(g, w[:960]) for g, w in zip(got_kt, got))
 
 
-@pytest.mark.parametrize("k", [64, 32, 8])
+@pytest.mark.parametrize("k", [64, 32, 8, 2, 1])
 def test_expand16_kernels_match_plain_versions(cuda, k):
     """K6 and K7 against their plain versions on canonical and crafted rows,
-    identical (they honour lengths; a valid word 0 is -512 × 1)."""
+    identical (they honour lengths; a valid word 0 is -512 × 1); K7 on
+    widths below, at and around its 64-block tile and on offset views."""
     words, lengths = pack16.pack16_encode_ref(_runny_values(500, k, seed=k))
     cw, cl = map(torch.from_numpy,
-                 crafted_packed16_rows(k, np.random.default_rng(k), n_random=288))
+                 crafted_packed16_rows(k, np.random.default_rng(k), n_random=488))
     for w, l in ((words, lengths), (cw, cl)):
         w, l = w.to(cuda), l.to(cuda)
         for out_size in sorted({k, max(1, k // 2), min(64, k + 9)}):
@@ -277,13 +290,16 @@ def test_expand16_kernels_match_plain_versions(cuda, k):
             torch.cuda.synchronize()
             assert pack16.pack16_decode.launches == before + 1
             assert torch.equal(got, pack16.pack16_decode_ref(w, l, out_size))
-        for bw in (50, 20, 1):
-            before = pack16.pack16_decode_plane.launches
-            got = pack16.pack16_decode_plane(w[:300], l[:300], bw)
-            torch.cuda.synchronize()
-            assert pack16.pack16_decode_plane.launches == before + 1
-            assert torch.equal(
-                got, pack16.pack16_decode_plane_ref(w[:300], l[:300], bw))
+        for bw in (50, 20, 1, 7, 63, 64, 65, 131):
+            n = (w.shape[0] // bw) * bw
+            for ww, ll in ((w[:n], l[:n]),
+                           (_offset_view(w[:n]), _offset_view(l[:n]))):
+                before = pack16.pack16_decode_plane.launches
+                got = pack16.pack16_decode_plane(ww, ll, bw)
+                torch.cuda.synchronize()
+                assert pack16.pack16_decode_plane.launches == before + 1
+                assert torch.equal(
+                    got, pack16.pack16_decode_plane_ref(ww, ll, bw))
 
 
 def _envelope(got, want):

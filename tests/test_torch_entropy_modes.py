@@ -5,12 +5,15 @@ Tolerance: identity everywhere (bitstrings, bytes and bit counts).  Inputs
 are made from a seed with numpy and fed to both packages.
 """
 
+import dataclasses
+
 import jax
 import numpy as np
 import pytest
 import torch
 
 from lz4jpeg_tpu.config import JPEGConfig as JaxJPEGConfig
+from lz4jpeg_tpu.formats import jpeg_container as jax_container
 from lz4jpeg_tpu.models.jpeg import JPEGPipeline as JaxJPEGPipeline
 from lz4jpeg_tpu.native import native_backend as jax_native_backend
 from lz4jpeg_tpu.ops import huffman as jax_huffman
@@ -20,8 +23,9 @@ from lz4jpeg_tpu_torch import JPEGConfig, JPEGPipeline
 from lz4jpeg_tpu_torch.formats.jpeg_container import (
     JPEGContainerError,
     pack_container,
+    unpack_container,
 )
-from lz4jpeg_tpu_torch.native import native_backend
+from lz4jpeg_tpu_torch.native import NativeBackend, native_backend
 from lz4jpeg_tpu_torch.ops import huffman
 from lz4jpeg_tpu_torch.oracle import jpeg_oracle
 
@@ -171,3 +175,77 @@ def test_per_block_refuses_16_bit_layouts():
     for enc in (sparse, packed):
         with pytest.raises(ValueError, match="int32 pair"):
             parity.entropy_encode(enc)
+
+
+@pytest.mark.parametrize("kwargs", [
+    {},
+    {"mcu_size": 8},
+    {"mcu_size": 16, "quality": 90},
+    {"precision": "exact", "entropy": "per_block"},
+    {"quality": 1, "entropy": "shared"},
+])
+def test_jpeg_config_carries_the_jax_fields(kwargs):
+    assert dataclasses.asdict(JPEGConfig(**kwargs)) == dataclasses.asdict(
+        JaxJPEGConfig(**kwargs))
+    assert [f.name for f in dataclasses.fields(JPEGConfig)] == [
+        f.name for f in dataclasses.fields(JaxJPEGConfig)]
+
+
+@pytest.mark.parametrize("seed,n,lo,hi", [(0, 1000, -50, 50), (1, 257, 0, 10),
+                                         (2, 1, 3, 4), (3, 4000, -2000, 2000),
+                                         (4, 3000, -3, 3)])
+def test_unpack_symbols_runs_the_native_walker_as_jax(seed, n, lo, hi,
+                                                      monkeypatch):
+    """Generated streams: the native walk, the JAX package's and the Python
+    spec give the same symbols, and ``unpack_symbols`` reached the binding."""
+    rng = np.random.default_rng(seed)
+    symbols = rng.integers(lo, hi, size=n).astype(np.int32)
+    cb = huffman.build_canonical_codebook(symbols)
+    packed, nbits = huffman.pack_symbols(symbols, cb)
+    calls = []
+    native_unpack = NativeBackend.huff_unpack
+    monkeypatch.setattr(NativeBackend, "huff_unpack",
+                        lambda self, *a: calls.append(1) or native_unpack(self, *a))
+    got = huffman.unpack_symbols(packed, nbits, cb)
+    assert calls == [1]
+    assert got.dtype == np.int32 and np.array_equal(got, symbols)
+    assert np.array_equal(got, jax_huffman.unpack_symbols(packed, nbits, cb))
+    assert np.array_equal(got, huffman.unpack_symbols_spec(packed, nbits, cb))
+    assert np.array_equal(
+        native_backend().huff_unpack(packed, nbits, cb.lengths, cb.symbols),
+        jax_native_backend().huff_unpack(packed, nbits, cb.lengths, cb.symbols))
+
+
+def _corrupt_stream(kind):
+    """(codebook, bytes, bits) of a luma stream that is valid for two 8×8
+    blocks but for ``kind``: codes 64 → 0, 5 → 10, 9 → 11 over 6 bits."""
+    cb = huffman.build_canonical_codebook(np.array([64, 5, 64, 9], np.int32))
+    packed, nbits = huffman.pack_symbols(np.array([64, 5, 64, 9], np.int32), cb)
+    assert nbits == 6
+    if kind == "trailing_bits":
+        return cb, packed, nbits - 1  # ends inside the code 11
+    return cb, packed, 8 * len(packed) + 3  # the bit count passes the buffer
+
+
+@pytest.mark.parametrize("kind", ["trailing_bits", "bits_past_buffer"])
+def test_corrupt_streams_raise_what_jax_raises(kind):
+    """The same exception type as the JAX package's ``unpack_symbols``, and a
+    container error from both containers."""
+    cb, packed, nbits = _corrupt_stream(kind)
+    with pytest.raises(Exception) as theirs:
+        jax_huffman.unpack_symbols(packed, nbits, cb)
+    with pytest.raises(Exception) as ours:
+        huffman.unpack_symbols(packed, nbits, cb)
+    assert type(ours.value) is type(theirs.value)
+    assert type(ours.value) is (RuntimeError if kind == "trailing_bits"
+                                else ValueError)
+    with pytest.raises(ValueError):
+        huffman.unpack_symbols_spec(packed, nbits, cb)
+
+    enc = JPEGPipeline(JPEGConfig(), device="cpu").encode(_noise(11, 8, 16))
+    enc.shared_streams["lum"] = (cb, packed, nbits)
+    data = pack_container(enc)
+    with pytest.raises(jax_container.JPEGContainerError):
+        jax_container.unpack_container(data)
+    with pytest.raises(JPEGContainerError):
+        unpack_container(data)

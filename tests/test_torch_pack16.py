@@ -87,18 +87,27 @@ def _edge_blocks(k):
     return vals
 
 
-@pytest.mark.parametrize("n", [100, 1, 3])
-@pytest.mark.parametrize("k", [64, 32, 16, 1])
+def _offset_view(x: torch.Tensor) -> torch.Tensor:
+    """``x`` copied into a view that starts one element past its buffer's
+    start (off a 16-byte boundary on the card)."""
+    buf = torch.empty(x.numel() + 1, dtype=x.dtype, device=x.device)
+    return buf[1:].view(x.shape).copy_(x)
+
+
+@pytest.mark.parametrize("n", [100, 1, 3, 17, 130])
+@pytest.mark.parametrize("k", [64, 32, 16, 8, 2, 1])
 def test_k4_plain_matches_spec(n, k):
-    """Row counts the TPU wrapper had to pad (N = 100), narrow segments, the
-    value limits ±511; int16 and int32 inputs."""
+    """Row counts the TPU wrapper had to pad (N = 100) and counts that are no
+    multiple of the kernel's rows per warp step (17, 130), narrow segments,
+    the value limits ±511; int16 and int32 inputs, also as offset views."""
     rng = np.random.default_rng(n * k)
     vals = np.concatenate([_runny(rng, n, k).astype(np.int32), _edge_blocks(k)])
     want_p, want_l = _spec_encode(vals)
     for dtype in (torch.int16, torch.int32):
-        got_p, got_l = pack16.pack16_encode(_t(vals).to(dtype))
-        assert np.array_equal(_words(got_p), want_p)
-        assert np.array_equal(got_l.numpy(), want_l)
+        for x in (_t(vals).to(dtype), _offset_view(_t(vals).to(dtype))):
+            got_p, got_l = pack16.pack16_encode(x)
+            assert np.array_equal(_words(got_p), want_p)
+            assert np.array_equal(got_l.numpy(), want_l)
 
 
 # ---- K5 ---------------------------------------------------------------------
@@ -197,17 +206,26 @@ def test_k7_plain_matches_pallas():
     assert np.array_equal(got.numpy(), np.asarray(want))
 
 
-@pytest.mark.parametrize("k,bw", [(64, 40), (32, 13), (64, 1)])
+# The kernel's tiles are 64 blocks of one block row: widths below, at and
+# around one and two tiles.
+K7_EDGES = [(k, bw) for k in (64, 32, 8, 2, 1) for bw in (1, 7, 63, 64, 65, 131)]
+
+
+@pytest.mark.parametrize("k,bw", [(64, 40), (32, 13)] + K7_EDGES)
 def test_k7_plain_matches_spec(k, bw):
     """Plane widths the TPU kernel refused (bw % 128 != 0), on crafted and
-    random rows: plane[a, :, b] is the spec's row a·bw + b."""
-    words, lengths = _crafted(k, np.random.default_rng(k + bw))
+    random rows, also as offset views: plane[a, :, b] is the spec's row
+    a·bw + b."""
+    rng = np.random.default_rng(k + bw)
+    words, lengths = crafted_packed16_rows(k, rng, n_random=max(40, 3 * bw))
+    words = words.view(np.uint16)
     n = (len(words) // bw) * bw
     words, lengths = words[:n], lengths[:n]
-    want = _spec_decode(words, lengths, k)
-    got = pack16.pack16_decode_plane(_t(words), _t(lengths), bw)
-    assert np.array_equal(
-        got.numpy(), want.reshape(n // bw, bw, k).transpose(0, 2, 1))
+    want = _spec_decode(words, lengths, k).reshape(n // bw, bw, k)
+    for w, l in ((_t(words), _t(lengths)),
+                 (_offset_view(_t(words)), _offset_view(_t(lengths)))):
+        got = pack16.pack16_decode_plane(w, l, bw)
+        assert np.array_equal(got.numpy(), want.transpose(0, 2, 1))
 
 
 # ---- K8 ---------------------------------------------------------------------
