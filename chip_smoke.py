@@ -4,7 +4,7 @@
 Run from the repository root with no arguments: ``python3 chip_smoke.py``.
 It needs one card.  At first use it builds the eight Hopper kernels (one
 nvcc per source file, six files, all started together, sm_90a) and the
-native runtime (g++) into ``lz4jpeg_tpu_torch/_build/``, then runs sixteen
+native runtime (g++) into ``lz4jpeg_tpu_torch/_build/``, then runs eighteen
 phases and fails (non-zero exit, no result line) if any of them fails.
 ``ab_kernels.py`` times K1, K2 and K4-K7 in turns with another checkout's.
 
@@ -104,7 +104,26 @@ phases and fails (non-zero exit, no result line) if any of them fails.
     staged split; ``encode_bucketed``/``decode_bucketed`` against
     ``encode``/``decode`` at 2048², 1000×1500 and 37×53 (admissible flips
     counted; decodes within the envelope); ``warmup``, after which an
-    encode builds no library.
+    encode builds no library;
+17. LZ4 parity mode on the card (``match_tables``, ``greedy_parse`` and the
+    pointer-doubling ``resolve_copies`` as torch ops, no kernel):
+    ``LZ4Codec(LZ4Config(mode="parity"), device="cuda")`` on generated text
+    (seed 0) of 350, 2,000, 20,000 and 30,000 B (the reference experiment's
+    lengths), 76,500 B (255 blocks, the largest frame the format holds) and
+    30,000 B at block length 1,024: every frame byte-identical to the CPU
+    port's, the native ``encode_parity``'s and, up to 2,000 B, the oracle's;
+    ``decode(engine="device")`` returns the input; encode, device decode and
+    native encode medians of 5 (host clock) and staged splits;
+18. the CLI on the card (``lz4jpeg_tpu_torch.cli.main`` in-process):
+    ``lz4 encode`` fast with ``--engine device`` on 32 MiB of generated text
+    and parity with ``--log`` and ``--hexdump`` on 30,000 B, ``lz4 decode
+    --engine device`` of both, ``--text``, ``jpeg encode``/``decode``/
+    ``roundtrip --mse --visualize`` on a 2048² noise PNG the port wrote;
+    every output file equal to the same command's with ``--device cpu``
+    (the container up to phase 2's flips, decoded PNGs within the envelope);
+    K1, K2 and K3 launched; ``lzw encode``/``decode`` and ``lz4 inspect``
+    (host); ``python -m lz4jpeg_tpu_torch`` once in a process of its own on
+    the default device.
 
 The line before the last is the kernels' JSON record: per kernel (the
 packed16 kernels once per timed channel and input dtype) its
@@ -166,6 +185,15 @@ TIME_FRAMES = 64  # frames of phase 12's and phase 13's kernel times
 ORACLE_SHAPES = ((64, 64), (37, 53), (256, 256))  # phase 14 (numpy oracle)
 BUCKET_SHAPES = ((2048, 2048), (1000, 1500), (37, 53))  # phase 16
 ENCODE_RUNS = 11  # timed encodes of each entry point in phase 16
+# Phase 17: (bytes, block length) of generated text; the first four are the
+# reference experiment's text lengths, 76,500 B the largest parity frame
+# (255 blocks: the block count is one byte).
+PARITY_SIZES = ((350, 300), (2000, 300), (20_000, 300), (30_000, 300),
+                (76_500, 300), (30_000, 1024))
+ORACLE_MAX_BYTES = 2000  # phase 17 holds frames up to this size to the oracle
+PARITY_RUNS = 5  # timed runs of each phase-17 stage (median)
+CLI_TEXT_BYTES = 32 * MIB  # phase 18's fast-mode input
+CLI_PARITY_BYTES = 30_000  # phase 18's parity-mode input
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3 (NVIDIA data sheet)
 BF16_FLOP_PER_S = 989e12  # H100 SXM dense bf16 tensor cores (data sheet)
 # K1's tensor-core work per 8x8 tile: three bf16 passes of a 64-deep luma
@@ -1340,6 +1368,254 @@ def entry_phase(dev, frame):
           f"more ({after})")
 
 
+def parity_phase(dev):
+    """Phase 17: LZ4 parity mode on the card (match tables, greedy parse
+    and the pointer-doubling decode as torch ops; no kernel)."""
+    import torch
+
+    from lz4jpeg_tpu_torch import LZ4Codec, LZ4Config
+    from lz4jpeg_tpu_torch.formats.lz4_frame import pack_frame, unpack_frame
+    from lz4jpeg_tpu_torch.models.lz4 import _build_sequences
+    from lz4jpeg_tpu_torch.native import native_backend
+    from lz4jpeg_tpu_torch.ops.lz4_decode import (
+        build_copy_program,
+        doubling_steps,
+        resolve_copies,
+    )
+    from lz4jpeg_tpu_torch.ops.match import greedy_parse, match_tables, pad_blocks
+    from lz4jpeg_tpu_torch.oracle import lz4_encode_oracle
+    from lz4jpeg_tpu_torch.utils.inputs import generate_text
+
+    text = generate_text(max(n for n, _ in PARITY_SIZES),
+                         np.random.default_rng(SEED))
+    native = native_backend()
+
+    def staged_encode(data, block_length):
+        watch = Stopwatch()
+        padded, lengths = pad_blocks(data, block_length)
+        x = torch.from_numpy(padded).to(dev)
+        watch.mark("pad + H2D")
+        best_len, best_dist = match_tables(x)
+        watch.mark("match_tables")
+        is_match, emit_len, emit_dist = greedy_parse(best_len, best_dist)
+        watch.mark("greedy_parse")
+        fields = torch.stack([is_match.int(), emit_len, emit_dist]).cpu().numpy()
+        watch.mark("D2H")
+        blocks = [_build_sequences(data[i * block_length : (i + 1) * block_length],
+                                   *fields[:, i], int(n))
+                  for i, n in enumerate(lengths)]
+        watch.mark("_build_sequences (host)")
+        frame = pack_frame(blocks)
+        watch.mark("pack_frame (host)")
+        return frame, watch.spans
+
+    def staged_decode(frame):
+        watch = Stopwatch()
+        lit, src = build_copy_program(unpack_frame(frame))
+        watch.mark("unpack + copy program (host)")
+        lit_d, src_d = torch.from_numpy(lit).to(dev), torch.from_numpy(src).to(dev)
+        watch.mark("H2D")
+        out = resolve_copies(lit_d, src_d, doubling_steps(len(lit)))
+        watch.mark("resolve_copies")
+        data = out.cpu().numpy().tobytes()
+        watch.mark("D2H")
+        return data, watch.spans
+
+    def median_spans(fn, *args):
+        runs = [fn(*args) for _ in range(PARITY_RUNS)]
+        spans = {k: float(np.median([r[1][k] for r in runs])) for k in runs[0][1]}
+        return runs[0][0], spans
+
+    for n, block_length in PARITY_SIZES:
+        data = text[:n]
+        cfg = LZ4Config(mode="parity", block_length=block_length)
+        codec = LZ4Codec(cfg, dev)
+        frame = codec.encode(data)
+        check(frame == LZ4Codec(cfg, "cpu").encode(data),
+              f"parity {n} B: the card's frame differs from the CPU port's")
+        check(frame == native.encode_parity(data, block_length),
+              f"parity {n} B: the card's frame differs from the native encoder's")
+        if n <= ORACLE_MAX_BYTES:
+            check(frame == lz4_encode_oracle(data, block_length),
+                  f"parity {n} B: the card's frame differs from the oracle's")
+        check(codec.decode(frame, engine="device") == data,
+              f"parity {n} B: the card's decode does not return the input")
+        enc_ms, enc_runs = median_ms(lambda: codec.encode(data), PARITY_RUNS)
+        dec_ms, dec_runs = median_ms(lambda: codec.decode(frame, engine="device"),
+                                     PARITY_RUNS)
+        nat_ms, nat_runs = median_ms(
+            lambda: native.encode_parity(data, block_length), PARITY_RUNS)
+        staged, enc_spans = median_spans(staged_encode, data, block_length)
+        check(staged == frame, f"parity {n} B: staged encode differs")
+        back, dec_spans = median_spans(staged_decode, frame)
+        check(back == data, f"parity {n} B: staged decode differs")
+        same = "CPU port, native" + (", oracle" if n <= ORACLE_MAX_BYTES else "")
+        print(f"phase 17: parity {n} B, block length {block_length} "
+              f"({frame[0]} blocks): frame byte-identical to the {same} "
+              f"({len(frame)} B, ratio {len(frame) / n:.4f}); device decode "
+              "returns the input")
+        print(f"phase 17: parity {n} B/{block_length}: encode median "
+              f"{enc_ms:.3f} ms (runs "
+              f"{[round(t, 3) for t in enc_runs]}), decode (device) median "
+              f"{dec_ms:.3f} ms (runs {[round(t, 3) for t in dec_runs]}), "
+              f"native encode_parity median {nat_ms:.3f} ms")
+        for label, spans in (("encode", enc_spans), ("decode", dec_spans)):
+            print(f"phase 17: parity {n} B/{block_length} {label} staged ms "
+                  f"(median of "
+                  f"{PARITY_RUNS}, synchronised marks): " + ", ".join(
+                      f"{k} {v:.3f}" for k, v in spans.items())
+                  + f"; sum {sum(spans.values()):.3f}")
+
+
+def cli_phase(dev):
+    """Phase 18: ``python -m lz4jpeg_tpu_torch`` on the card against the
+    same commands with ``--device cpu``."""
+    import contextlib
+    import io
+    import tempfile
+
+    from lz4jpeg_tpu_torch.cli import main as cli
+    from lz4jpeg_tpu_torch.formats.jpeg_container import unpack_container
+    from lz4jpeg_tpu_torch.ops.fused_match import match_candidates
+    from lz4jpeg_tpu_torch.ops.fwd_megakernel import forward_combined
+    from lz4jpeg_tpu_torch.ops.lz4t_decode import resolve_rooted
+    from lz4jpeg_tpu_torch.ops.quantize import (
+        CHROMINANCE_QUANTIZATION_TABLE as CHR,
+        LUMINANCE_QUANTIZATION_TABLE as LUM,
+    )
+    from lz4jpeg_tpu_torch.utils.inputs import generate_noise_image, generate_text
+    from lz4jpeg_tpu_torch.utils.io import read_png, write_png
+    from lz4jpeg_tpu_torch.utils.parity import sum_order_flips
+
+    rng = np.random.default_rng(SEED + 18)
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        text, short, png = tmp / "text.txt", tmp / "short.txt", tmp / "in.png"
+        data = generate_text(CLI_TEXT_BYTES, rng)
+        text.write_bytes(data)
+        short.write_bytes(data[:CLI_PARITY_BYTES])
+        rgb = generate_noise_image(SIDE, SIDE, rng)
+        write_png(str(png), rgb)
+        check(np.array_equal(read_png(str(png)), rgb), "PNG round trip differs")
+        card = tmp / "card"
+
+        def commands(d):
+            # Decodes read the card's outputs in both runs: the same command.
+            return {
+                "lz4 encode fast": ["lz4", "encode", text, d / "fast.lz4",
+                                    "--mode", "fast", "--engine", "device",
+                                    "--log", d / "fast.log"],
+                "lz4 decode fast": ["lz4", "decode", card / "fast.lz4",
+                                    d / "fast.out", "--engine", "device"],
+                "lz4 encode parity": ["lz4", "encode", short, d / "parity.lz4",
+                                      "--mode", "parity", "--log",
+                                      d / "parity.log", "--hexdump",
+                                      d / "parity.hex"],
+                "lz4 decode parity": ["lz4", "decode", card / "parity.lz4",
+                                      d / "parity.out", "--engine", "device"],
+                "lz4 decode parity --text": ["lz4", "decode",
+                                             card / "parity.lz4",
+                                             d / "parity.txt", "--text"],
+                "jpeg encode": ["jpeg", "encode", png, d / "out.tjpg"],
+                "jpeg decode": ["jpeg", "decode", card / "out.tjpg",
+                                d / "dec.png"],
+                "jpeg roundtrip": ["jpeg", "roundtrip", png, d / "rec.png",
+                                   "--mse", "--visualize", d / "viz"],
+            }
+
+        said, secs = {}, {}
+        for run, device in (("card", dev.type), ("cpu", "cpu")):
+            (tmp / run).mkdir()
+            if run == "card":
+                for f in (forward_combined, match_candidates, resolve_rooted):
+                    f.launches = 0
+            for name, argv in commands(tmp / run).items():
+                out = io.StringIO()
+                t = time.perf_counter()
+                with contextlib.redirect_stdout(out):
+                    rc = cli([*map(str, argv), "--device", device])
+                secs[run, name] = time.perf_counter() - t
+                check(rc == 0, f"{name} --device {device} exited {rc}")
+                said[run, name] = out.getvalue().strip()
+            if run == "card":
+                launches = {"K1": forward_combined.launches,
+                            "K2": match_candidates.launches,
+                            "K3": resolve_rooted.launches}
+                check(all(launches.values()),
+                      f"the CLI on the card left a kernel unlaunched: {launches}")
+        cpu = tmp / "cpu"
+        same = ["fast.lz4", "fast.log", "fast.out", "parity.lz4", "parity.log",
+                "parity.hex", "parity.out", "parity.txt", "viz/luminance.png",
+                "viz/rChrominance.png", "viz/bChrominance.png"]
+        for name in same:
+            check((card / name).read_bytes() == (cpu / name).read_bytes(),
+                  f"CLI output {name} differs between the card and the CPU")
+        check((card / "fast.out").read_bytes() == data
+              and (card / "parity.out").read_bytes() == data[:CLI_PARITY_BYTES],
+              "the CLI's decodes do not return the input")
+        card_runs, cpu_runs = (unpack_container((d / "out.tjpg").read_bytes())
+                               .rle_combined for d in (card, cpu))
+        flips = sum_order_flips(rgb[None], card_runs, cpu_runs, LUM, CHR)
+        check(flips <= MAX_FLIP_SHARE * (SIDE // 8) ** 2 * 128,
+              f"{flips} flips between the card's and the CPU's containers")
+        # `jpeg decode` decodes the card's container on both devices (phase
+        # 3's rule); `roundtrip` decodes each device's own encode, so it
+        # equals the card's `jpeg decode` and, outside the 8x8 blocks whose
+        # runs a flip changed, the CPU's roundtrip.
+        dec, rec = (read_png(str(card / f)) for f in ("dec.png", "rec.png"))
+        check(np.array_equal(rec, dec),
+              "the card's roundtrip differs from its encode + decode")
+        dec_env = envelope("jpeg decode", [dec], [read_png(str(cpu / "dec.png"))])
+        flipped = np.zeros((SIDE // 8, SIDE // 8), bool)
+        flipped.flat[np.nonzero((card_runs != cpu_runs).any(axis=1))[0]] = True
+        keep = ~np.repeat(np.repeat(flipped, 8, axis=0), 8, axis=1)
+        rec_env = envelope("jpeg roundtrip outside flipped blocks", [rec[keep]],
+                           [read_png(str(cpu / "rec.png"))[keep]])
+
+        # lzw runs on the host only (no --device).
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            check(cli(["lzw", "encode", str(short), str(tmp / "codes.txt")]) == 0
+                  and cli(["lzw", "decode", str(tmp / "codes.txt"),
+                           str(tmp / "lzw.out")]) == 0, "lzw exited non-zero")
+            check(cli(["lz4", "inspect", str(card / "parity.lz4")]) == 0,
+                  "lz4 inspect exited non-zero")
+        check((tmp / "lzw.out").read_bytes() == data[:CLI_PARITY_BYTES],
+              "lzw decode does not return the input")
+        inspect = out.getvalue().splitlines()[2:]
+        check(inspect[0].startswith("parity frame: 100 block(s)"),
+              f"lz4 inspect printed {inspect[:1]}")
+
+        # The module entry point, in a process of its own, on the default
+        # device (cuda).
+        t = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m", "lz4jpeg_tpu_torch", "lz4", "decode",
+             str(card / "parity.lz4"), str(tmp / "main.out"), "--engine",
+             "device"],
+            capture_output=True, text=True, timeout=300,
+            cwd=str(Path(__file__).resolve().parent),
+        )
+        main_s = time.perf_counter() - t
+        check(proc.returncode == 0, f"python -m lz4jpeg_tpu_torch: {proc.stderr}")
+        check((tmp / "main.out").read_bytes() == data[:CLI_PARITY_BYTES],
+              "python -m lz4jpeg_tpu_torch lz4 decode does not return the input")
+
+    print(f"phase 18: CLI launches on the card {launches}; {len(same)} output "
+          "files byte-identical to the --device cpu runs; JPEG container "
+          + ("byte-identical" if flips == 0 else f"up to {flips} admissible flips")
+          + f" ({int(flipped.sum())} blocks); jpeg decode {dec_env}; "
+          f"roundtrip equal to the card's decode, vs the CPU's outside the "
+          f"flipped blocks {rec_env}; lzw round trip and lz4 inspect "
+          f"({len(inspect)} lines) ok; python -m lz4jpeg_tpu_torch on the "
+          f"default device ok ({main_s:.2f} s)")
+    for name in commands(card):
+        print(f"phase 18: {name}: card {secs['card', name]:.3f} s, cpu "
+              f"{secs['cpu', name]:.3f} s; said {said['card', name]!r}")
+    check(said["card", "jpeg roundtrip"].startswith("MSE: "),
+          "jpeg roundtrip --mse printed no MSE")
+
+
 class Stopwatch:
     """Host-clock split of a staged run; every mark synchronises the card
     first, so a stage's device work lands in its own span."""
@@ -1547,6 +1823,8 @@ def main() -> int:
     exact_phase(dev, frames[0])
     per_block_phase(dev, frames[0])
     entry_phase(dev, frames[0])
+    parity_phase(dev)
+    cli_phase(dev)
 
     print(json.dumps({"kernels": [{
         "name": "fwd_megakernel",

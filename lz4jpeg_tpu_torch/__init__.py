@@ -1,6 +1,6 @@
 """lz4jpeg_tpu_torch — the PyTorch + CUDA port of lz4jpeg_tpu.
 
-Two paths on one device:
+Two codecs on one device, and their CLI (``python -m lz4jpeg_tpu_torch``):
 
 * the JPEG codec in every mode (fast float32 or exact float64 precision,
   shared-codebook or per-block entropy, any quality) and its three RLE
@@ -12,9 +12,12 @@ Two paths on one device:
   ``csrc/expand16_wide_kernel.cu``).  The entropy stage runs in the native
   C++ runtime, the inverse transforms as torch ops; ``oracle/`` holds the
   numpy ground truth;
-* the LZ4T fast codec: the fused matcher (``csrc/match_kernel.cu``) and the
-  rooted resolve (``csrc/resolve_kernel.cu``) run as Hopper kernels on a
-  CUDA device, framing and emission in the native runtime.
+* the LZ4 codec: in fast mode (LZ4T) the fused matcher
+  (``csrc/match_kernel.cu``) and the rooted resolve
+  (``csrc/resolve_kernel.cu``) run as Hopper kernels on a CUDA device,
+  framing and emission in the native runtime; in parity mode (the
+  reference's format) the match tables, greedy parse and pointer-doubling
+  decode run as torch ops on the device, framing on the host.
 
 ``lz4jpeg_tpu`` (JAX) is the reference this package is tested against;
 this package imports neither JAX nor it.

@@ -11,8 +11,8 @@ pipeline adds the mode half: sparse16 only for fast, shared pipelines, as
 the JAX pipeline's ``_pack16`` does.
 
 ``LZ4Config`` is a copy of ``lz4jpeg_tpu/config.py::LZ4Config``: the same
-fields, defaults and validation.  ``models/lz4.py::LZ4Codec`` refuses what
-the port does not carry yet (``mode="parity"``, ``log_path``).
+fields, defaults and validation; ``models/lz4.py::LZ4Codec`` takes every
+mode and the encode log.
 """
 
 from __future__ import annotations

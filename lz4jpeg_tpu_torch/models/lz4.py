@@ -1,6 +1,19 @@
-"""The LZ4T fast codec on PyTorch.
+"""The LZ4 block codec on PyTorch: the reference's parity format and the
+LZ4T fast frame.
 
-Port of ``lz4jpeg_tpu/models/lz4.py`` for ``LZ4Config(mode="fast")``:
+Port of ``lz4jpeg_tpu/models/lz4.py``.  ``LZ4Config(mode="parity")``:
+
+* encode (every ``engine`` alike, as in JAX): blocks of ``block_length``
+  bytes padded by ``ops/match.py::pad_blocks`` → per chunk of
+  ``batch_blocks`` blocks, ``match_tables`` and ``greedy_parse`` on the
+  codec's ``device`` → one copy of the three parse fields to the host →
+  ``_build_sequences`` → ``formats/lz4_frame.py::pack_frame``; the frame is
+  byte-identical to the reference encoder's;
+* decode of a parity frame, ``"device"``: ``ops/lz4_decode.py``'s pointer
+  doubling on the codec's device; every other engine:
+  ``decode_frame_bytes`` on the host.
+
+``LZ4Config(mode="fast")``:
 
 * encode, ``engine="device"`` (the JAX package's ``"tpu"`` engine; it runs
   on the codec's ``device``): 16 KiB blocks go up as uint8 → the matcher
@@ -15,8 +28,8 @@ Port of ``lz4jpeg_tpu/models/lz4.py`` for ``LZ4Config(mode="fast")``:
   Hopper rooted-resolve kernel on a CUDA device); ``"native"`` /
   ``"python"`` / ``"auto"`` as for encode.
 
-Parity mode and the encode log are not ported yet: the codec refuses them.
-The codec runs where its ``device`` says and nowhere else.
+``log_path`` appends each encode's record (``_log_encode``) to a file, in
+both modes.  The codec runs where its ``device`` says and nowhere else.
 """
 
 from __future__ import annotations
@@ -43,6 +56,13 @@ from lz4jpeg_tpu_torch.formats.fast_frame import (
     fold_checksum16,
     is_fast_frame,
 )
+from lz4jpeg_tpu_torch.formats.lz4_frame import (
+    Block,
+    Sequence,
+    decode_frame_bytes,
+    describe_frame,
+    pack_frame,
+)
 from lz4jpeg_tpu_torch.native import native_backend
 from lz4jpeg_tpu_torch.ops.fused_match import fast_match_blocks_fused
 from lz4jpeg_tpu_torch.ops.lz4_fast import (
@@ -51,16 +71,19 @@ from lz4jpeg_tpu_torch.ops.lz4_fast import (
     fast_match_blocks,
     pad_blocks_fast,
 )
+from lz4jpeg_tpu_torch.ops.lz4_decode import decode_frame_device
 from lz4jpeg_tpu_torch.ops.lz4t_decode import decode_fast_device
+from lz4jpeg_tpu_torch.ops.match import greedy_parse, match_tables, pad_blocks
+from lz4jpeg_tpu_torch.utils.io import EncodingLog
 
-_PARITY = "ROADMAP.md queue 1, item 8 (LZ4 parity mode on device)"
 ENGINES = ("auto", "device", "native", "python")
 
 
 class LZ4Codec:
-    """LZ4T fast codec with device match finding and device decode."""
+    """Block LZ4 codec (parity or LZ4T) with device match finding and
+    device decode."""
 
-    def __init__(self, config: LZ4Config, device):
+    def __init__(self, config: LZ4Config, device, batch_blocks: int = 256):
         self.device = torch.device(device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError(
@@ -68,16 +91,10 @@ class LZ4Codec:
             )
         if self.device.type not in ("cpu", "cuda"):
             raise ValueError(f"unsupported device {self.device}")
-        if config.mode == "parity":
-            raise NotImplementedError(
-                f'mode="parity" is not ported yet ({_PARITY})'
-            )
-        if config.log_path is not None:
-            raise NotImplementedError(
-                "log_path is not ported yet (describe_frame and EncodingLog "
-                f"come with {_PARITY})"
-            )
         self.config = config
+        # Blocks per parity match batch: bounds the (B, P, P) match tables
+        # (B·P²·4 bytes each).
+        self.batch_blocks = batch_blocks
 
     @staticmethod
     def _engine(engine: str) -> str:
@@ -90,18 +107,68 @@ class LZ4Codec:
     # ------------------------------------------------------------------
 
     def encode(self, data: bytes, engine: str = "auto") -> bytes:
-        """Compress ``data`` into one LZ4T frame.
+        """Compress ``data`` into one frame of the configured mode.
 
-        ``"device"`` runs the matcher on the codec's device (16 KiB
-        blocks), ``"native"`` the C++ host encoder, ``"python"`` the
-        executable spec; ``"auto"`` is native.  Every engine's frame
+        Parity mode matches on the codec's device whatever ``engine`` says.
+        Fast mode: ``"device"`` runs the matcher on the codec's device (16
+        KiB blocks), ``"native"`` the C++ host encoder, ``"python"`` the
+        executable spec; ``"auto"`` is native.  Every engine's LZ4T frame
         decodes with every decoder (match choices differ)."""
         engine = self._engine(engine)
-        if engine == "device":
-            return self._encode_fast_device(data)
-        if engine == "native":
-            return native_backend().encode_fast(data)
-        return encode_fast(data)
+        if self.config.mode == "parity":
+            frame = self._encode_parity(data)
+        elif engine == "device":
+            frame = self._encode_fast_device(data)
+        elif engine == "native":
+            frame = native_backend().encode_fast(data)
+        else:
+            frame = encode_fast(data)
+        return self._log_encode(data, frame)
+
+    def _log_encode(self, data: bytes, frame: bytes) -> bytes:
+        """Append an encode record to the configured log — the role of the
+        reference's ``encoding_log.txt`` + ``print_frame_details``
+        (LZ4.c:24,683 opens the log per encode; :220-287 are the printers).
+        Full per-sequence structure is logged for parity frames (bounded at
+        ≤255 blocks by the format); fast frames get the block-size summary.
+        """
+        if self.config.log_path is None:
+            return frame
+        log = EncodingLog(self.config.log_path)
+        log.write(
+            f"encode mode={self.config.mode} in={len(data)}B "
+            f"out={len(frame)}B ratio={len(frame)/max(len(data),1):.4f}"
+        )
+        detail = describe_frame(frame).splitlines()
+        if len(detail) > 1024:  # keep multi-GB encodes from exploding the log
+            detail = detail[:1024] + [f"... ({len(detail) - 1024} more lines)"]
+        log.write("\n".join(detail))
+        return frame
+
+    def _encode_parity(self, data: bytes) -> bytes:
+        """Parity frame: device match tables and greedy parse per chunk of
+        ``batch_blocks`` blocks, one copy of the parse fields to the host,
+        host sequence building and framing."""
+        block_length = self.config.block_length
+        if len(data) < block_length:
+            raise ValueError("default block length is too high for this input")
+        padded, lengths = pad_blocks(data, block_length)
+        blocks: List[Block] = []
+        for start in range(0, padded.shape[0], self.batch_blocks):
+            chunk = torch.from_numpy(
+                padded[start : start + self.batch_blocks]).to(self.device)
+            best_len, best_dist = match_tables(
+                chunk, max_match=self.config.max_match_length
+            )
+            is_match, emit_len, emit_dist = greedy_parse(best_len, best_dist)
+            fields = torch.stack(
+                [is_match.int(), emit_len, emit_dist]).cpu().numpy()
+            for bi in range(chunk.shape[0]):
+                n = int(lengths[start + bi])
+                offset = (start + bi) * block_length
+                blocks.append(_build_sequences(
+                    data[offset : offset + n], *fields[:, bi], n))
+        return pack_frame(blocks)
 
     def _encode_fast_device(self, data: bytes) -> bytes:
         """Fast-mode encode with device match finding (16 KiB blocks)."""
@@ -164,8 +231,11 @@ class LZ4Codec:
         checksum are backfilled after the payloads.  ``"native"`` compresses
         each chunk in one C++ call, ``"device"`` runs the device matcher per
         chunk (16 KiB blocks), ``"python"`` is the spec loop; ``"auto"`` is
-        native.  Returns the compressed size."""
+        native.  Fast mode only: the parity format caps inputs at 255
+        blocks.  Returns the compressed size."""
         engine = self._engine(engine)
+        if self.config.mode != "fast":
+            raise ValueError("encode_file requires fast mode")
         block_log = TPU_BLOCK_LOG if engine == "device" else DEFAULT_BLOCK_LOG
         block_size = 1 << block_log
         total = os.path.getsize(input_path)
@@ -265,15 +335,19 @@ class LZ4Codec:
         return written
 
     def decode(self, compressed: bytes, engine: str = "auto") -> bytes:
-        """Decompress an LZ4T frame.  ``"device"`` resolves every block's
-        matches on the codec's device (``decode_fast_device``),
-        ``"native"`` runs the C++ decoder, ``"python"`` the spec;
-        ``"auto"`` is native."""
+        """Decompress a parity or LZ4T frame (format auto-detected).
+
+        ``"device"`` resolves the match chains on the codec's device: every
+        LZ4T block's (``decode_fast_device``), or a parity frame's whole
+        output by pointer doubling (``decode_frame_device``).  Otherwise
+        parity frames decode on the host (``decode_frame_bytes``), and LZ4T
+        frames with the C++ decoder (``"native"``, ``"auto"``) or the spec
+        (``"python"``)."""
         engine = self._engine(engine)
         if not is_fast_frame(compressed):
-            raise NotImplementedError(
-                f"parity frames are not ported yet ({_PARITY})"
-            )
+            if engine == "device":
+                return decode_frame_device(compressed, self.device)
+            return decode_frame_bytes(compressed)
         if engine == "device":
             return decode_fast_device(compressed, self.device)
         if engine == "native":
@@ -311,3 +385,31 @@ def densify_records(pos, packed, counts, p: int):
     emit_len[r, c] = packed[slot] >> pos_bits
     emit_dist[r, c] = packed[slot] & (p - 1)
     return is_match, emit_len, emit_dist
+
+
+def _build_sequences(
+    block: bytes,
+    is_match: np.ndarray,
+    emit_len: np.ndarray,
+    emit_dist: np.ndarray,
+    n: int,
+) -> Block:
+    """Parse flags → Sequence list (mirrors block_encode's emission,
+    LZ4.c:516-613): each match closes the pending literal run; a trailing
+    literal run becomes an offset-0 sequence."""
+    seqs: List[Sequence] = []
+    match_positions = np.nonzero(is_match[:n])[0]
+    prev_end = 0
+    for k in match_positions:
+        k = int(k)
+        seqs.append(
+            Sequence(
+                literals=block[prev_end:k],
+                match_offset=int(emit_dist[k]),
+                match_length=int(emit_len[k]),
+            )
+        )
+        prev_end = k + int(emit_len[k])
+    if prev_end < n:
+        seqs.append(Sequence(block[prev_end:n], 0, 0))
+    return Block(seqs)

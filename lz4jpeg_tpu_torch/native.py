@@ -1,4 +1,4 @@
-"""The host runtime: ctypes bindings of eighteen native functions.
+"""The host runtime: ctypes bindings of twenty native functions.
 
 The C++ source is the JAX package's own ``lz4jpeg_tpu/native/lz4core.cpp``,
 compiled here with the flags of its Makefile (``native/Makefile:3``) into
@@ -8,12 +8,13 @@ write byte-identical containers and frames.  The bindings are copies of
 and packed16 entropy walkers of the JPEG path (histogram, pack, unpack for
 each layout), the codeword packer of ``pack_symbols`` and the walker of
 ``unpack_symbols``, the per-block parity
-Huffman (``huff_per_block``), and the LZ4T fast encoder/decoder, batched block
-emitter, chunk codec and device-decode copy-program builder.  A failed
+Huffman (``huff_per_block``), the parity-frame encoder (``encode_parity``),
+and the LZ4T fast encoder/decoder, one-block and batched block emitters,
+chunk codec and device-decode copy-program builder.  A failed
 build raises (no Python fallback; the Python spec paths are reached only
 through ``engine="python"``): ``tests/test_torch_container.py`` and
-``tests/test_torch_lz4_frame.py`` hold the results equal to the JAX
-package's.
+``tests/test_torch_lz4_frame.py`` and ``tests/test_torch_lz4_parity.py``
+hold the results equal to the JAX package's.
 """
 
 from __future__ import annotations
@@ -41,6 +42,19 @@ class NativeBackend:
         lib.lz4_decode_fast.restype = ctypes.c_ssize_t
         lib.lz4_decode_fast.argtypes = [
             ctypes.c_char_p, ctypes.c_size_t,
+            ctypes.c_char_p, ctypes.c_size_t,
+        ]
+        lib.lz4_encode_parity.restype = ctypes.c_ssize_t
+        lib.lz4_encode_parity.argtypes = [
+            ctypes.c_char_p, ctypes.c_size_t,
+            ctypes.c_char_p, ctypes.c_size_t,
+            ctypes.c_size_t,
+        ]
+        lib.lz4t_emit_block.restype = ctypes.c_ssize_t
+        lib.lz4t_emit_block.argtypes = [
+            ctypes.c_char_p, ctypes.c_size_t,
+            ctypes.c_char_p,
+            ctypes.c_void_p, ctypes.c_void_p,
             ctypes.c_char_p, ctypes.c_size_t,
         ]
         lib.lz4t_emit_blocks.restype = ctypes.c_int64
@@ -143,6 +157,36 @@ class NativeBackend:
         n = self._lib.lz4_decode_fast(data, len(data), out, len(out))
         if n < 0:
             raise RuntimeError(f"native fast decode failed ({n})")
+        return out.raw[:n]
+
+    def encode_parity(self, data: bytes, block_length: int = 300) -> bytes:
+        """The reference's parity frame of ``data`` in one C++ pass (the
+        same parse as ``LZ4Codec(LZ4Config(mode="parity"))``)."""
+        out = ctypes.create_string_buffer(2 * len(data) + 65536)
+        n = self._lib.lz4_encode_parity(
+            data, len(data), out, len(out), block_length
+        )
+        if n < 0:
+            raise RuntimeError(f"native parity encode failed ({n})")
+        return out.raw[:n]
+
+    def emit_block(self, data: bytes, is_match, emit_len, emit_dist) -> bytes:
+        """LZ4T payload of one block from its parse arrays (numpy
+        uint8/int32/int32, one entry per byte of ``data``)."""
+        is_match = np.ascontiguousarray(is_match, np.uint8)
+        emit_len = np.ascontiguousarray(emit_len, np.int32)
+        emit_dist = np.ascontiguousarray(emit_dist, np.int32)
+        if not len(is_match) == len(emit_len) == len(emit_dist) == len(data):
+            raise ValueError("parse arrays must have one entry per byte")
+        out = ctypes.create_string_buffer(len(data) + len(data) // 128 + 64)
+        n = self._lib.lz4t_emit_block(
+            data, len(data),
+            is_match.tobytes(),
+            emit_len.ctypes.data, emit_dist.ctypes.data,
+            out, len(out),
+        )
+        if n < 0:
+            raise RuntimeError(f"native block emit failed ({n})")
         return out.raw[:n]
 
     def emit_blocks(self, data, lengths, is_match, emit_len, emit_dist):

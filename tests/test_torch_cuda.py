@@ -18,6 +18,9 @@ frame of a CUDA codec must equal the CPU codec's byte for byte; the packed16
 containers of a CUDA pipeline equal the CPU pipeline's; quality 90 (int16
 pairs, cuBLAS forward) equals it up to the sum-order flips above; decoded
 RGB stays within max |Δ| ≤ 3 on ≤ 2e-3 of pixels of the CPU decode.
+Parity frames of a CUDA codec (torch ops, no kernel) equal the CPU codec's
+and the native encoder's byte for byte; the CLI on the card writes what its
+``--device cpu`` run writes, by the same rules.
 """
 
 import numpy as np
@@ -416,3 +419,70 @@ def test_cuda_overlapped_encode_matches_one_shot(cuda):
     enc_b = banded.encode(b)
     assert pack_container(enc_b) == pack_container(pipe.encode_batch(b[None])[0])
     assert np.array_equal(enc_a.rle_combined, kept)
+
+
+@pytest.mark.parametrize("n,block_length", [(350, 300), (20_000, 300),
+                                            (76_500, 300), (30_000, 1024)])
+def test_cuda_parity_codec_matches_cpu_codec(cuda, n, block_length):
+    """Parity frames of the CUDA codec (match tables and greedy parse on the
+    card) byte-identical to the CPU codec's and the native encoder's; the
+    card's pointer-doubling decode returns the input."""
+    from lz4jpeg_tpu_torch.oracle import lz4_encode_oracle
+
+    data = generate_text(n, np.random.default_rng(n))
+    cfg = LZ4Config(mode="parity", block_length=block_length)
+    gpu = LZ4Codec(cfg, device=cuda)
+    frame = gpu.encode(data)
+    assert frame == LZ4Codec(cfg, device="cpu").encode(data)
+    assert frame == native_backend().encode_parity(data, block_length)
+    if n <= 2000:
+        assert frame == lz4_encode_oracle(data, block_length)
+    assert gpu.decode(frame, engine="device") == data
+
+
+def test_cuda_cli_matches_cpu_cli(cuda, tmp_path):
+    """``lz4`` and ``jpeg`` subcommands on the card write the files their
+    ``--device cpu`` runs write (JPEG containers up to K1's sum-order
+    flips, decoded PNGs within the envelope); K1, K2 and K3 launch."""
+    from lz4jpeg_tpu_torch.cli import main
+    from lz4jpeg_tpu_torch.utils.io import read_png, write_png
+
+    text = tmp_path / "text.txt"
+    text.write_bytes(generate_text(200_000, np.random.default_rng(3)))
+    rgb = _batch(1, 96, 80, seed=3)[0]
+    png = tmp_path / "in.png"
+    write_png(str(png), rgb)
+    launches = {f: f.launches for f in (forward_combined, match_candidates,
+                                        resolve_rooted)}
+    for dev in ("cuda", "cpu"):
+        d = tmp_path / dev
+        d.mkdir()
+        for argv in (
+            ["lz4", "encode", str(text), str(d / "fast.lz4"), "--mode", "fast",
+             "--engine", "device"],
+            ["lz4", "decode", str(d / "fast.lz4"), str(d / "fast.out"),
+             "--engine", "device"],
+            ["lz4", "encode", str(text), str(d / "parity.lz4"), "--mode",
+             "parity", "--block-length", "1024"],
+            ["lz4", "decode", str(d / "parity.lz4"), str(d / "parity.out"),
+             "--engine", "device"],
+            ["jpeg", "encode", str(png), str(d / "out.tjpg")],
+            ["jpeg", "decode", str(d / "out.tjpg"), str(d / "dec.png")],
+        ):
+            assert main([*argv, "--device", dev]) == 0
+    for f, before in launches.items():
+        assert f.launches > before, f.__name__
+    gpu, cpu = tmp_path / "cuda", tmp_path / "cpu"
+    for name in ("fast.lz4", "parity.lz4"):
+        assert (gpu / name).read_bytes() == (cpu / name).read_bytes(), name
+    for name in ("fast.out", "parity.out"):
+        assert (gpu / name).read_bytes() == text.read_bytes(), name
+    g = unpack_container((gpu / "out.tjpg").read_bytes())
+    c = unpack_container((cpu / "out.tjpg").read_bytes())
+    if pack_container(g) != pack_container(c):
+        flips = sum_order_flips(rgb[None], g.rle_combined, c.rle_combined,
+                                LUM, CHR)
+        assert 0 < flips <= MAX_FLIP_SHARE * g.num_blocks * 128
+    diff = np.abs(read_png(str(gpu / "dec.png")).astype(np.int32)
+                  - read_png(str(cpu / "dec.png")))
+    assert diff.max() <= 3 and (diff != 0).mean() <= 2e-3

@@ -9,8 +9,8 @@
   by a subprocess that blocks both names and still runs JPEG round trips
   (sparse16, its packed16 twin, quality 90 in the int16 pair layout, exact
   precision against the oracle copy, per-block entropy, the overlapped
-  and bucketed encodes, K8's plain version) and an LZ4T
-  ``engine="device"`` round trip.
+  and bucketed encodes, K8's plain version), an LZ4T
+  ``engine="device"`` round trip, a parity round trip and one CLI call.
 """
 
 import ast
@@ -142,6 +142,19 @@ codec = LZ4Codec(LZ4Config(mode="fast"), device="cpu")
 frame = codec.encode(text, engine="device")
 assert codec.decode(frame, engine="device") == text
 assert codec.decode(frame, engine="native") == text
+parity = LZ4Codec(LZ4Config(mode="parity"), device="cpu")
+frame = parity.encode(text[:3000])
+assert parity.decode(frame, engine="device") == text[:3000]
+from lz4jpeg_tpu_torch.oracle import lz4_encode_oracle
+assert frame == lz4_encode_oracle(text[:3000])
+from lz4jpeg_tpu_torch.cli import main
+open("in.txt", "wb").write(text[:3000])
+import contextlib, io
+with contextlib.redirect_stdout(io.StringIO()) as said:
+    assert main(["lz4", "encode", "in.txt", "out.lz4", "--mode", "parity",
+                 "--device", "cpu"]) == 0
+assert said.getvalue().startswith("3000 -> ")
+assert open("out.lz4", "rb").read() == frame
 assert "jax" not in sys.modules and "lz4jpeg_tpu" not in sys.modules
 print("ok")
 """

@@ -10,9 +10,10 @@
   codec's, and every frame decodes to the input with every engine of both
   packages.
 * ``encode_file`` / ``decode_file`` round-trip through a temp dir.
-* What the port does not carry yet raises: parity mode, ``log_path``,
-  parity frames; so do ``device="cuda"`` without a card and unknown
-  engines.
+* Bad arguments raise: an unsupported device, an unknown engine,
+  ``encode_file`` in parity mode, a malformed parity frame; so does
+  ``device="cuda"`` without a card.  Parity mode and the encode log are
+  held against JAX in ``tests/test_torch_lz4_parity.py``.
 """
 
 import jax.numpy as jnp
@@ -139,17 +140,21 @@ def test_decode_file_rejects_corrupt_frames(tmp_path):
 
 
 def test_unported_modes_and_bad_arguments_raise():
-    with pytest.raises(NotImplementedError, match="queue 1, item 8"):
-        LZ4Codec(LZ4Config(), device="cpu")
-    with pytest.raises(NotImplementedError, match="log_path"):
-        LZ4Codec(LZ4Config(mode="fast", log_path="x.log"), device="cpu")
+    from lz4jpeg_tpu_torch.formats.lz4_frame import FormatError
+
+    parity = LZ4Codec(LZ4Config(), device="cpu")  # parity is the default mode
+    with pytest.raises(ValueError, match="requires fast mode"):
+        parity.encode_file("unused", "unused")
     with pytest.raises(ValueError, match="unsupported device"):
         LZ4Codec(LZ4Config(mode="fast"), device="meta")
     with pytest.raises(ValueError, match="unknown engine"):
         _codec().encode(b"abc", engine="tpu")
-    parity_frame = bytes([1, 3, 0, 0]) + b"abc"
-    with pytest.raises(NotImplementedError, match="parity frames"):
-        _codec().decode(parity_frame)
+    with pytest.raises(ValueError, match="unknown engine"):
+        parity.encode(b"abc" * 200, engine="tpu")
+    bad_parity_frame = bytes([1, 3, 0, 0]) + b"abc"
+    for engine in ("device", "auto"):
+        with pytest.raises(FormatError):
+            _codec().decode(bad_parity_frame, engine=engine)
 
 
 def test_cuda_codec_raises_without_a_card():
