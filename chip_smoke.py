@@ -4,7 +4,7 @@
 Run from the repository root with no arguments: ``python3 chip_smoke.py``.
 It needs one card.  At first use it builds the eight Hopper kernels (one
 nvcc per source file, six files, all started together, sm_90a) and the
-native runtime (g++) into ``lz4jpeg_tpu_torch/_build/``, then runs eighteen
+native runtime (g++) into ``lz4jpeg_tpu_torch/_build/``, then runs nineteen
 phases and fails (non-zero exit, no result line) if any of them fails.
 ``ab_kernels.py`` times K1, K2 and K4-K7 in turns with another checkout's.
 
@@ -123,7 +123,31 @@ phases and fails (non-zero exit, no result line) if any of them fails.
     (the container up to phase 2's flips, decoded PNGs within the envelope);
     K1, K2 and K3 launched; ``lzw encode``/``decode`` and ``lz4 inspect``
     (host); ``python -m lz4jpeg_tpu_torch`` once in a process of its own on
-    the default device.
+    the default device;
+19. the parallel paths (``lz4jpeg_tpu_torch/parallel/``) on
+    ``codec_mesh(MeshConfig(), "cuda")`` (one shard per card) and on a mesh
+    of four shards of cuda:0, each kernel's count reset before a step and
+    held to one launch per shard after it: ``ShardedSparseJPEG`` forward of
+    one 2048² noise frame (K1 per band) identical to the pipeline's encode,
+    its inverse identical to the pipeline's decode or within max |Δ| ≤ 1 on
+    < 2e-3 of pixels (the differing pixels counted); ``ShardedJPEGForward``,
+    fast and exact, at 512²: stages against the card pipeline's
+    ``forward_stages`` (fast: up to phase 2's flips), the inverse in the
+    pair layout and in packed16 (K6 per shard and channel) against the
+    card's decode of the same streams; ``sharded_fast_parse`` of phase 6's
+    32 MiB (K2 per shard, 2 lcp words) identical to the unsharded kernel,
+    its frame decoding to the input; ``sharded_fast_decode`` of phase 6's
+    frame (K3 per shard); ``sharded_block_parse`` of 76,500 B of parity
+    blocks identical to the unsharded card parse, its psum the match
+    count; an NCCL group of one process in-process: ``multihost_fast_encode``
+    of the 32 MiB equal to the codec's device encode (K2 at 4 lcp words
+    against the sort matcher), ``multihost_jpeg_encode`` of the 2048² frame
+    equal to the pipeline's container, both decodes; two ranks over gloo on
+    cuda:0 in processes of their own (``chip_smoke.py --rank``; NCCL refuses
+    two ranks on one card) whose frames and containers equal the
+    in-process ones; host-clock medians of the sharded forward and inverse
+    against the pipeline's, of the multihost encodes with and without the
+    group, and ``jpeg_scaling_sweep(2048, device="cuda")``.
 
 The line before the last is the kernels' JSON record: per kernel (the
 packed16 kernels once per timed channel and input dtype) its
@@ -194,6 +218,11 @@ ORACLE_MAX_BYTES = 2000  # phase 17 holds frames up to this size to the oracle
 PARITY_RUNS = 5  # timed runs of each phase-17 stage (median)
 CLI_TEXT_BYTES = 32 * MIB  # phase 18's fast-mode input
 CLI_PARITY_BYTES = 30_000  # phase 18's parity-mode input
+PAR_SHARDS = 4  # phase 19's shards of cuda:0
+PAR_STAGED_SIDE = 512  # phase 19's ShardedJPEGForward frame and rank frame
+PAR_PARITY_BYTES = 76_500  # phase 19's parity input (phase 17's largest)
+PAR_RANK_TEXT_BYTES = 2 * MIB  # phase 19's two-rank LZ4T input
+PAR_RUNS = 5  # host-clock runs of each phase-19 time (median)
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3 (NVIDIA data sheet)
 BF16_FLOP_PER_S = 989e12  # H100 SXM dense bf16 tensor cores (data sheet)
 # K1's tensor-core work per 8x8 tile: three bf16 passes of a 64-deep luma
@@ -328,7 +357,8 @@ def build_all():
 
 
 def lz4_phases(dev):
-    """Phases 5-8 (the LZ4T codec); returns the K2 and K3 kernel records."""
+    """Phases 5-8 (the LZ4T codec); returns the K2 and K3 kernel records,
+    phase 6's 32 MiB input and its frame."""
     import torch
 
     from lz4jpeg_tpu_torch import LZ4Codec, LZ4Config
@@ -589,7 +619,7 @@ def lz4_phases(dev):
         "bound_ms": k3_bound[0],
         "bound_by": k3_bound[1],
         "library_ms": k3_lib_ms,
-    }]
+    }], data, frame
 
 
 def envelope(label: str, got, want):
@@ -1616,6 +1646,340 @@ def cli_phase(dev):
           "jpeg roundtrip --mse printed no MSE")
 
 
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def rank_inputs():
+    """The two-rank run's inputs (phase 19): text and a noise frame."""
+    from lz4jpeg_tpu_torch.utils.inputs import generate_noise_image, generate_text
+
+    rng = np.random.default_rng(SEED + 19)
+    return (generate_text(PAR_RANK_TEXT_BYTES, rng),
+            generate_noise_image(PAR_STAGED_SIDE, PAR_STAGED_SIDE, rng))
+
+
+def rank_worker(coordinator: str, rank: int, out: str) -> int:
+    """One of phase 19's two ranks: a gloo group (NCCL refuses two ranks on
+    one card), the work on cuda:0; writes its frame and container to
+    ``out.<rank>.lz4`` and ``out.<rank>.tjpg``."""
+    import torch.distributed as dist
+
+    from lz4jpeg_tpu_torch import JPEGConfig, JPEGPipeline
+    from lz4jpeg_tpu_torch.formats.jpeg_container import unpack_container
+    from lz4jpeg_tpu_torch.parallel import jpeg as pjpeg
+    from lz4jpeg_tpu_torch.parallel import lz4 as plz4
+    from lz4jpeg_tpu_torch.parallel.multihost import initialize
+
+    check(initialize(coordinator, 2, rank, device="cpu") == 2, "world size")
+    try:
+        text, img = rank_inputs()
+        frame = plz4.multihost_fast_encode(text, device="cuda")
+        check(plz4.multihost_fast_decode(frame, device="cuda") == text,
+              f"rank {rank}: multihost_fast_decode does not return the input")
+        container = pjpeg.multihost_jpeg_encode(img, JPEGConfig(), device="cuda")
+        rgb = pjpeg.multihost_jpeg_decode(container, JPEGConfig(), device="cuda")
+        local = JPEGPipeline(JPEGConfig(), "cuda").decode(unpack_container(container))
+        print(f"rank {rank}: jpeg decode vs the pipeline's: "
+              + band_envelope(f"rank {rank} decode", rgb, local))
+        Path(f"{out}.{rank}.lz4").write_bytes(frame)
+        Path(f"{out}.{rank}.tjpg").write_bytes(container)
+    finally:
+        dist.destroy_process_group()
+    return 0
+
+
+def band_envelope(label: str, got, want) -> str:
+    """Identity, or the banded inverse's envelope (max |Δ| ≤ 1 on < 2e-3 of
+    pixels: cuBLAS may sum a band's product in another order than the whole
+    frame's); returns the count of differing pixels as text."""
+    got, want = np.asarray(got), np.asarray(want)
+    check(got.shape == want.shape, f"{label}: shapes {got.shape} vs {want.shape}")
+    diff = np.abs(got.astype(np.int32) - want.astype(np.int32))
+    n = int((diff != 0).sum())
+    check(int(diff.max()) <= 1 and n < 2e-3 * diff.size,
+          f"{label}: max |d| {int(diff.max())}, {n} pixels differ")
+    return "identical" if n == 0 else (
+        f"{n} of {diff.size} values differ by 1 (share {n / diff.size:.3g})")
+
+
+def parallel_phase(dev, card: str, data: bytes, lz4_frame: bytes):
+    """Phase 19: the parallel paths on the card; ``data`` and ``lz4_frame``
+    are phase 6's 32 MiB and its frame."""
+    import tempfile
+
+    import torch
+    import torch.distributed as dist
+
+    from lz4jpeg_tpu_torch import JPEGConfig, JPEGPipeline, LZ4Codec, LZ4Config
+    from lz4jpeg_tpu_torch.bench.scaling import jpeg_scaling_sweep
+    from lz4jpeg_tpu_torch.config import MeshConfig
+    from lz4jpeg_tpu_torch.formats.fast_frame import assemble_frame
+    from lz4jpeg_tpu_torch.formats.jpeg_container import (
+        pack_container,
+        unpack_container,
+    )
+    from lz4jpeg_tpu_torch.models.jpeg import CHANNELS, scaled_tables
+    from lz4jpeg_tpu_torch.native import native_backend
+    from lz4jpeg_tpu_torch.ops import pack16
+    from lz4jpeg_tpu_torch.ops.fused_match import (
+        fast_match_blocks_fused,
+        match_candidates,
+    )
+    from lz4jpeg_tpu_torch.ops.fwd_megakernel import forward_combined
+    from lz4jpeg_tpu_torch.ops.lz4_fast import TPU_BLOCK_LOG, pad_blocks_fast
+    from lz4jpeg_tpu_torch.ops.lz4t_decode import resolve_rooted
+    from lz4jpeg_tpu_torch.ops.match import greedy_parse, match_tables, pad_blocks
+    from lz4jpeg_tpu_torch.ops.rle import rle_encode_sparse16
+    from lz4jpeg_tpu_torch.parallel import (
+        ShardedJPEGForward,
+        ShardedSparseJPEG,
+        codec_mesh,
+        pad_to_devices,
+        sharded_block_parse,
+    )
+    from lz4jpeg_tpu_torch.parallel import jpeg as pjpeg
+    from lz4jpeg_tpu_torch.parallel import lz4 as plz4
+    from lz4jpeg_tpu_torch.parallel import multihost
+    from lz4jpeg_tpu_torch.parallel.mesh import CodecMesh
+    from lz4jpeg_tpu_torch.utils.inputs import generate_noise_image, generate_text
+    from lz4jpeg_tpu_torch.utils.parity import sum_order_flips
+
+    t_phase = time.perf_counter()
+    meshes = {
+        "codec_mesh": codec_mesh(MeshConfig(), dev.type),
+        f"{PAR_SHARDS} shards of cuda:0": CodecMesh(
+            (torch.device(dev.type, 0),) * PAR_SHARDS),
+    }
+    four = list(meshes)[1]
+    launched = {}
+
+    def counted(counter, label: str, want: int, fn):
+        """``fn()`` with ``counter``'s launches counted from 0 just before
+        it and read just after; holds them to ``want``."""
+        counter.launches = 0
+        out = fn()
+        torch.cuda.synchronize()
+        launched[label] = counter.launches
+        check(counter.launches == want,
+              f"phase 19: {label}: {counter.launches} launches, want {want}")
+        return out
+
+    # ---- JPEG sparse16: band-sharded forward (K1) and folded inverse -----
+    frame = generate_noise_image(SIDE, SIDE, np.random.default_rng(SEED))
+    pipe = JPEGPipeline(JPEGConfig(), dev)
+    enc = pipe.encode(frame, entropy=False)
+    ref_dec = pipe.decode(enc, from_entropy=False)
+    nb = SIDE // 8
+    for name, mesh in meshes.items():
+        ssj = ShardedSparseJPEG(mesh)
+        comb = counted(forward_combined, f"K1 ShardedSparseJPEG.forward, {name}",
+                       mesh.size, lambda: ssj.forward(frame))
+        check(np.array_equal(comb, enc.rle_combined),
+              f"phase 19: ShardedSparseJPEG on {name} differs from encode")
+        rec = ssj.inverse(comb, nb, nb, SIDE, SIDE)
+        print(f"phase 19: ShardedSparseJPEG {SIDE}x{SIDE} on {name}: forward "
+              f"identical to the pipeline's encode (K1 x{mesh.size}); inverse "
+              f"vs the pipeline's decode: "
+              + band_envelope(f"sparse inverse on {name}", rec, ref_dec))
+
+    # ---- JPEG staged forward and its inverse (pairs; packed16 with K6) --
+    img = generate_noise_image(PAR_STAGED_SIDE, PAR_STAGED_SIDE,
+                               np.random.default_rng(SEED + 19))
+    side, nb = PAR_STAGED_SIDE, PAR_STAGED_SIDE // 8
+    tables = scaled_tables(None)
+    for precision in ("fast", "exact"):
+        cfg = JPEGConfig(precision=precision)
+        p = JPEGPipeline(cfg, dev)
+        ref = p.forward_stages(img)
+        (packed,) = p.to_packed16([p.encode(img, entropy=False)]) if (
+            precision == "fast") else (None,)
+        for name, mesh in meshes.items():
+            sj = ShardedJPEGForward(mesh, cfg)
+            stages, n = sj(img)
+            same = all(np.array_equal(stages[c][k][:n], ref[c][k])
+                       for c in CHANNELS for k in ("zz", "rle", "rle_lengths"))
+            flips = 0
+            if not same:
+                check(precision == "fast", f"phase 19: exact stages on {name} "
+                      "differ from forward_stages")
+
+                def comb_of(st, rows):
+                    return np.concatenate([rle_encode_sparse16(torch.from_numpy(
+                        np.ascontiguousarray(st[c]["zz"][:rows])).to(torch.int16))[0]
+                        .numpy() for c in CHANNELS], axis=1)
+
+                flips = sum_order_flips(img[None], comb_of(stages, n),
+                                        comb_of(ref, n), tables["lum"], tables["r"])
+                check(flips <= MAX_FLIP_SHARE * n * 128,
+                      f"phase 19: {flips} flips in the staged forward on {name}")
+            pairs = {c: stages[c]["rle"][:n] for c in CHANNELS}
+            lens = {c: stages[c]["rle_lengths"][:n] for c in CHANNELS}
+            want = p.decode(p._wrap_pairs(pairs, lens, side, side, nb, nb),
+                            from_entropy=False)
+            pair_rec = sj.inverse(pairs, lens, nb, nb, side, side)
+            line = (f"phase 19: ShardedJPEGForward {precision} {side}x{side} on "
+                    f"{name}: stages {'identical to' if same else f'{flips} admissible flips from'} "
+                    f"forward_stages; pairs inverse vs the card's staged decode: "
+                    + band_envelope(f"{precision} pairs inverse on {name}",
+                                    pair_rec, want))
+            if packed is not None:
+                got = counted(
+                    pack16.pack16_decode, f"K6 ShardedJPEGForward.inverse, {name}",
+                    len(CHANNELS) * mesh.size, lambda: sj.inverse(
+                        packed.rle, packed.rle_lengths, nb, nb, side, side,
+                        layout="packed16"))
+                line += ("; packed16 inverse (K6) vs the card's packed16 decode: "
+                         + band_envelope(f"packed16 inverse on {name}", got,
+                                         p.decode(packed, from_entropy=False)))
+            print(line)
+
+    # ---- LZ4T: sharded K2 and K3 ------------------------------------------
+    padded, lengths = pad_blocks_fast(data)
+    data_u8 = padded.astype(np.uint8)
+    raws = [data_u8[i, : int(n)].tobytes() for i, n in enumerate(lengths)]
+    want = [f.cpu().numpy() for f in fast_match_blocks_fused(
+        torch.from_numpy(data_u8).to(dev), torch.from_numpy(lengths).to(dev),
+        lcp_words=plz4.FUSED_LCP_WORDS)]
+    native = native_backend()
+    for name, mesh in meshes.items():
+        fields = counted(match_candidates, f"K2 sharded_fast_parse, {name}",
+                         mesh.size,
+                         lambda: plz4.sharded_fast_parse(padded, lengths, mesh))
+        check(all(np.array_equal(g, w) for g, w in zip(fields, want)),
+              f"phase 19: sharded_fast_parse on {name} differs from K2")
+        sframe = assemble_frame(native.emit_blocks(data_u8, lengths, *fields),
+                                raws, len(data), TPU_BLOCK_LOG)
+        check(native.decode_fast(sframe, len(data)) == data,
+              f"phase 19: the sharded parse's frame does not decode")
+        out = counted(resolve_rooted, f"K3 sharded_fast_decode, {name}",
+                      mesh.size, lambda: plz4.sharded_fast_decode(lz4_frame, mesh))
+        check(out == data, f"phase 19: sharded_fast_decode on {name}")
+        print(f"phase 19: LZ4T {len(data)} B on {name}: sharded_fast_parse "
+              f"identical to unsharded K2 (lcp {plz4.FUSED_LCP_WORDS}), its "
+              f"frame ({len(sframe)} B) decodes; sharded_fast_decode returns "
+              "the input")
+
+    # ---- LZ4 parity: sharded match tables + greedy parse, psum ------------
+    text = generate_text(PAR_PARITY_BYTES, np.random.default_rng(SEED))
+    pblocks, _ = pad_blocks(text, 300)
+    pblocks, n_blocks = pad_to_devices(pblocks, PAR_SHARDS, pad_value=-1)
+    want = [t.cpu().numpy() for t in greedy_parse(
+        *match_tables(torch.from_numpy(pblocks).to(dev)))]
+    for name, mesh in meshes.items():
+        got = sharded_block_parse(pblocks, mesh)
+        check(all(np.array_equal(g, w) for g, w in zip(got, want)),
+              f"phase 19: sharded_block_parse on {name} differs")
+        total = int(plz4.sharded_compressed_sizes(got[1], got[0], mesh))
+        check(total == int(got[0].sum()) > 0, f"phase 19: psum {total}")
+        print(f"phase 19: parity {len(text)} B ({n_blocks} blocks, padded to "
+              f"{len(pblocks)}) on {name}: sharded_block_parse identical to "
+              f"the card's parse; psum {total} matches")
+
+    # ---- NCCL, one process -------------------------------------------------
+    codec = LZ4Codec(LZ4Config(mode="fast"), dev)
+    local_frame = codec.encode(data, engine="device")
+    container_local = pack_container(pipe.encode(frame))
+    check(multihost.initialize() == 1, "a process group exists already")
+    secs = {}
+    check(multihost.initialize(f"127.0.0.1:{free_port()}", 1, 0,
+                               device=dev) == 1, "NCCL world size")
+    try:
+        check(dist.get_backend() == "nccl", f"backend {dist.get_backend()}")
+        mh = plz4.multihost_fast_encode(data, device=dev)
+        check(mh == local_frame, "phase 19: NCCL multihost_fast_encode "
+              "differs from the codec's device encode")
+        check(counted(resolve_rooted, "K3 multihost_fast_decode, NCCL", 1,
+                      lambda: plz4.multihost_fast_decode(mh, device=dev)) == data,
+              "phase 19: NCCL multihost_fast_decode")
+        container = counted(forward_combined, "K1 multihost_jpeg_encode, NCCL", 1,
+                            lambda: pjpeg.multihost_jpeg_encode(frame, device=dev))
+        check(container == container_local, "phase 19: NCCL "
+              "multihost_jpeg_encode differs from the pipeline's container")
+        rgb = pjpeg.multihost_jpeg_decode(container, device=dev)
+        check(np.array_equal(rgb, pipe.decode(unpack_container(container))),
+              "phase 19: NCCL multihost_jpeg_decode differs from decode")
+        secs["lz4 nccl"] = median_ms(
+            lambda: plz4.multihost_fast_encode(data, device=dev), 3)
+        secs["jpeg nccl"] = median_ms(
+            lambda: pjpeg.multihost_jpeg_encode(frame, device=dev), PAR_RUNS)
+    finally:
+        dist.destroy_process_group()
+    secs["lz4 no group"] = median_ms(
+        lambda: plz4.multihost_fast_encode(data, device=dev), 3)
+    secs["jpeg no group"] = median_ms(
+        lambda: pjpeg.multihost_jpeg_encode(frame, device=dev), PAR_RUNS)
+    secs["lz4 codec"] = median_ms(lambda: codec.encode(data, engine="device"), 3)
+    secs["jpeg pipeline"] = median_ms(lambda: pipe.encode(frame), PAR_RUNS)
+    print(f"phase 19: NCCL group of one: multihost_fast_encode of {len(data)} B "
+          "equal to the codec's device encode, multihost_fast_decode returns "
+          f"it; multihost_jpeg_encode of {SIDE}x{SIDE} equal to the pipeline's "
+          "container, its decode identical")
+
+    # ---- two ranks on the one card ----------------------------------------
+    text2, img2 = rank_inputs()
+    want_frame = plz4.multihost_fast_encode(text2, device=dev)
+    check(want_frame == codec.encode(text2, engine="device"),
+          "phase 19: in-process multihost encode differs from the codec's")
+    want_container = pack_container(pipe.encode(img2))
+    with tempfile.TemporaryDirectory() as tmp:
+        out = str(Path(tmp) / "rank")
+        addr = f"127.0.0.1:{free_port()}"
+        t = time.perf_counter()
+        procs = [subprocess.Popen(
+            [sys.executable, str(Path(__file__).resolve()), "--rank", addr,
+             str(rank), out],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+            cwd=str(Path(__file__).resolve().parent),
+        ) for rank in range(2)]
+        try:
+            said = [p.communicate(timeout=300)[0] for p in procs]
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+        rank_s = time.perf_counter() - t
+        for rank, (p, text_out) in enumerate(zip(procs, said)):
+            check(p.returncode == 0, f"rank {rank} exited {p.returncode}:\n{text_out}")
+            check(Path(f"{out}.{rank}.lz4").read_bytes() == want_frame,
+                  f"rank {rank}: frame differs from the in-process one")
+            check(Path(f"{out}.{rank}.tjpg").read_bytes() == want_container,
+                  f"rank {rank}: container differs from the in-process one")
+    print(f"phase 19: two gloo ranks on cuda:0 ({rank_s:.2f} s): frames of "
+          f"{len(text2)} B and containers of {PAR_STAGED_SIDE}x{PAR_STAGED_SIDE} "
+          "byte-equal to the in-process ones; "
+          + "; ".join(s.strip().splitlines()[-1] for s in said))
+
+    # ---- times --------------------------------------------------------------
+    print(f"phase 19: times on {card}, host clock, ms, median of {PAR_RUNS} "
+          "(multihost LZ4: of 3):")
+    x = frame[None]
+    fwd = {"pipeline encode_batch(entropy=False)":
+           median_ms(lambda: pipe.encode_batch(x, entropy=False), PAR_RUNS)}
+    inv = {"pipeline decode(from_entropy=False)":
+           median_ms(lambda: pipe.decode(enc, from_entropy=False), PAR_RUNS)}
+    for name, mesh in meshes.items():
+        ssj = ShardedSparseJPEG(mesh)
+        comb = ssj.forward(frame)
+        fwd[f"ShardedSparseJPEG.forward on {name}"] = median_ms(
+            lambda: ssj.forward(frame), PAR_RUNS)
+        inv[f"ShardedSparseJPEG.inverse on {name}"] = median_ms(
+            lambda: ssj.inverse(comb, SIDE // 8, SIDE // 8, SIDE, SIDE), PAR_RUNS)
+    for label, table in (("forward", fwd), ("inverse", inv), ("encode", secs)):
+        for k, (med, runs) in table.items():
+            print(f"phase 19: {label} {SIDE}x{SIDE} / {len(data)} B, {k}: "
+                  f"{med:.3f} (runs {[round(r, 3) for r in runs]})")
+    sweep = jpeg_scaling_sweep(SIDE, device=dev.type)
+    print(f"phase 19: jpeg_scaling_sweep({SIDE}, device='cuda') on {card}: "
+          + json.dumps(sweep))
+    print(f"phase 19: launches {launched}; {time.perf_counter() - t_phase:.1f} s")
+
+
 class Stopwatch:
     """Host-clock split of a staged run; every mark synchronises the card
     first, so a stage's device work lands in its own span."""
@@ -1645,6 +2009,8 @@ def main() -> int:
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
     sys.path.insert(0, str(Path(__file__).resolve().parent))
+    if sys.argv[1:2] == ["--rank"]:  # one rank of phase 19's two
+        return rank_worker(sys.argv[2], int(sys.argv[3]), sys.argv[4])
     from lz4jpeg_tpu_torch import JPEGConfig, JPEGPipeline
     from lz4jpeg_tpu_torch.formats.jpeg_container import (
         pack_container,
@@ -1816,7 +2182,7 @@ def main() -> int:
           f"{trips[len(trips) // 2]:.3f} ms, min {trips[0]:.3f} ms "
           f"(runs {[round(t, 3) for t in trips]})")
 
-    lz4 = lz4_phases(dev)
+    lz4, lz4_data, lz4_frame = lz4_phases(dev)
     pairs, packed, p_decoded = pair_phases(dev, frames, containers, decoded)
     wide = wide_phase(dev, packed, p_decoded)
     del packed, p_decoded
@@ -1825,6 +2191,7 @@ def main() -> int:
     entry_phase(dev, frames[0])
     parity_phase(dev)
     cli_phase(dev)
+    parallel_phase(dev, card, lz4_data, lz4_frame)
 
     print(json.dumps({"kernels": [{
         "name": "fwd_megakernel",

@@ -13,6 +13,9 @@ the JAX pipeline's ``_pack16`` does.
 ``LZ4Config`` is a copy of ``lz4jpeg_tpu/config.py::LZ4Config``: the same
 fields, defaults and validation; ``models/lz4.py::LZ4Codec`` takes every
 mode and the encode log.
+
+``MeshConfig`` is a copy of ``lz4jpeg_tpu/config.py::MeshConfig``, read by
+``parallel/mesh.py::codec_mesh``.
 """
 
 from __future__ import annotations
@@ -106,3 +109,13 @@ class LZ4Config:
             raise ValueError(
                 f"match_lcp_words must be 1, 2 or 4: {self.match_lcp_words}"
             )
+
+
+@dataclasses.dataclass(frozen=True)
+class MeshConfig:
+    """Device mesh of the data-parallel encode and decode: the block/MCU
+    axis is split over ``num_devices`` devices and the results gather back
+    in the original order."""
+
+    data_axis: str = "data"
+    num_devices: Optional[int] = None  # None = every visible device

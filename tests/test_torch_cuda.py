@@ -486,3 +486,100 @@ def test_cuda_cli_matches_cpu_cli(cuda, tmp_path):
     diff = np.abs(read_png(str(gpu / "dec.png")).astype(np.int32)
                   - read_png(str(cpu / "dec.png")))
     assert diff.max() <= 3 and (diff != 0).mean() <= 2e-3
+
+
+def _card_mesh(cuda, shards=4):
+    """``shards`` shards of one card: the band split, the per-shard launches
+    and the ordered gather run as on distinct cards."""
+    from lz4jpeg_tpu_torch.parallel.mesh import CodecMesh
+
+    return CodecMesh((torch.device(cuda.type, 0),) * shards)
+
+
+def test_sharded_sparse_forward_launches_k1_per_band(cuda):
+    from lz4jpeg_tpu_torch.parallel import ShardedSparseJPEG
+
+    rgb = _batch(1, 200, 96, seed=19)[0]  # 25 block rows: the last band padded
+    want = JPEGPipeline(JPEGConfig(), device=cuda).encode(rgb, entropy=False)
+    before = forward_combined.launches
+    got = ShardedSparseJPEG(_card_mesh(cuda)).forward(rgb)
+    assert forward_combined.launches == before + 4
+    assert np.array_equal(got, want.rle_combined)
+
+
+def test_sharded_fast_parse_launches_k2_per_shard(cuda):
+    from lz4jpeg_tpu_torch.ops.fused_match import fast_match_blocks_fused
+    from lz4jpeg_tpu_torch.parallel.lz4 import sharded_fast_parse
+
+    padded, lengths = pad_blocks_fast(
+        generate_text(8 * 16384 - 999, np.random.default_rng(19)))
+    want = fast_match_blocks_fused(
+        torch.from_numpy(padded.astype(np.uint8)).to(cuda),
+        torch.from_numpy(lengths).to(cuda), lcp_words=2)
+    before = match_candidates.launches
+    got = sharded_fast_parse(padded, lengths, _card_mesh(cuda))
+    assert match_candidates.launches == before + 4
+    for g, w in zip(got, want):
+        assert np.array_equal(g, w.cpu().numpy())
+
+
+def test_sharded_fast_decode_launches_k3_per_shard(cuda):
+    from lz4jpeg_tpu_torch.formats.fast_frame import encode_fast
+    from lz4jpeg_tpu_torch.parallel.lz4 import sharded_fast_decode
+
+    data = generate_text(7 * 1024 + 37, np.random.default_rng(19))
+    frame = encode_fast(data, block_log=10)
+    before = resolve_rooted.launches
+    assert sharded_fast_decode(frame, _card_mesh(cuda)) == data
+    assert resolve_rooted.launches == before + 4
+
+
+def test_sharded_packed16_inverse_launches_k6_per_shard(cuda):
+    """K6 once per channel per shard.  The inverse products are cuBLAS
+    calls of another row count than the unsharded decode's: identical, or
+    within the fast-path envelope should cuBLAS sum in another order."""
+    from lz4jpeg_tpu_torch.parallel import ShardedJPEGForward
+
+    rgb = _batch(1, 96, 80, seed=19)[0]
+    pipe = JPEGPipeline(JPEGConfig(), device=cuda)
+    (packed,) = pipe.to_packed16([pipe.encode(rgb, entropy=False)])
+    want = pipe.decode(packed, from_entropy=False)
+    before = pack16.pack16_decode.launches
+    got = ShardedJPEGForward(_card_mesh(cuda)).inverse(
+        packed.rle, packed.rle_lengths, 12, 10, 96, 80, layout="packed16")
+    assert pack16.pack16_decode.launches == before + 3 * 4
+    if not np.array_equal(got, want):
+        diff = np.abs(got.astype(np.int32) - want.astype(np.int32))
+        assert diff.max() <= 1 and (diff != 0).mean() < 2e-3
+
+
+def test_cuda_mesh_refuses_more_devices_than_cards(cuda):
+    from lz4jpeg_tpu_torch.config import MeshConfig
+    from lz4jpeg_tpu_torch.parallel import codec_mesh
+
+    n = torch.cuda.device_count()
+    assert codec_mesh(MeshConfig(), "cuda").size == n
+    with pytest.raises(ValueError, match="visible"):
+        codec_mesh(MeshConfig(num_devices=n + 1), "cuda")
+
+
+def test_nccl_world_of_one_ordered_gather(cuda):
+    import socket
+
+    import torch.distributed as dist
+
+    from lz4jpeg_tpu_torch.parallel import multihost
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    assert multihost.initialize(f"127.0.0.1:{port}", 1, 0, device=cuda) == 1
+    try:
+        assert dist.get_backend() == "nccl"
+        out = multihost.ordered_allgather_payloads(
+            [b"bb", b"", b"c" * 300], [1, 0, 2], 3)
+        assert out == [b"", b"bb", b"c" * 300]
+        with pytest.raises(ValueError, match="missing"):
+            multihost.ordered_allgather_payloads([b"x"], [0], 2)
+    finally:
+        dist.destroy_process_group()
