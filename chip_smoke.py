@@ -140,14 +140,15 @@ phases and fails (non-zero exit, no result line) if any of them fails.
     frame (K3 per shard); ``sharded_block_parse`` of 76,500 B of parity
     blocks identical to the unsharded card parse, its psum the match
     count; an NCCL group of one process in-process: ``multihost_fast_encode``
-    of the 32 MiB equal to the codec's device encode (K2 at 4 lcp words
-    against the sort matcher), ``multihost_jpeg_encode`` of the 2048² frame
+    of the 32 MiB (K2 once, through the codec's ``block_payloads``) equal to
+    the codec's device encode, ``multihost_jpeg_encode`` of the 2048² frame
     equal to the pipeline's container, both decodes; two ranks over gloo on
     cuda:0 in processes of their own (``chip_smoke.py --rank``; NCCL refuses
     two ranks on one card) whose frames and containers equal the
     in-process ones; host-clock medians of the sharded forward and inverse
     against the pipeline's, of the multihost encodes with and without the
-    group, and ``jpeg_scaling_sweep(2048, device="cuda")``.
+    group, and ``jpeg_scaling_sweep(2048, device="cuda")``; K1 alone (CUDA
+    events) on the whole frame and on one of the four-shard mesh's bands.
 
 The line before the last is the kernels' JSON record: per kernel (the
 packed16 kernels once per timed channel and input dtype) its
@@ -1890,7 +1891,8 @@ def parallel_phase(dev, card: str, data: bytes, lz4_frame: bytes):
                                device=dev) == 1, "NCCL world size")
     try:
         check(dist.get_backend() == "nccl", f"backend {dist.get_backend()}")
-        mh = plz4.multihost_fast_encode(data, device=dev)
+        mh = counted(match_candidates, "K2 multihost_fast_encode, NCCL", 1,
+                     lambda: plz4.multihost_fast_encode(data, device=dev))
         check(mh == local_frame, "phase 19: NCCL multihost_fast_encode "
               "differs from the codec's device encode")
         check(counted(resolve_rooted, "K3 multihost_fast_decode, NCCL", 1,
@@ -1974,6 +1976,15 @@ def parallel_phase(dev, card: str, data: bytes, lz4_frame: bytes):
         for k, (med, runs) in table.items():
             print(f"phase 19: {label} {SIDE}x{SIDE} / {len(data)} B, {k}: "
                   f"{med:.3f} (runs {[round(r, 3) for r in runs]})")
+    band = SIDE // PAR_SHARDS
+    for label, rows in (("the frame", SIDE), (f"one band of {band} rows", band)):
+        x_d = torch.from_numpy(np.ascontiguousarray(frame[:rows]))[None].to(dev)
+        ms, _ = timed_runs(
+            lambda t: forward_combined(t, pipe._tables["lum"], pipe._tables["r"]),
+            x_d)
+        print(f"phase 19: K1 alone on {label} ({rows}x{SIDE}), CUDA events: "
+              f"trimmed mean {trimmed_mean(ms):.4f} ms "
+              f"(runs {[round(t, 4) for t in ms]})")
     sweep = jpeg_scaling_sweep(SIDE, device=dev.type)
     print(f"phase 19: jpeg_scaling_sweep({SIDE}, device='cuda') on {card}: "
           + json.dumps(sweep))

@@ -115,7 +115,9 @@ class LZ4Config:
 class MeshConfig:
     """Device mesh of the data-parallel encode and decode: the block/MCU
     axis is split over ``num_devices`` devices and the results gather back
-    in the original order."""
+    in the original order.  ``data_axis`` is kept as the JAX package's
+    config field; the port's one-axis ``CodecMesh`` names no axis and
+    ignores it."""
 
     data_axis: str = "data"
     num_devices: Optional[int] = None  # None = every visible device

@@ -193,30 +193,37 @@ class LZ4Codec:
             )
         return compact_parse(*fields)
 
-    def _device_chunk_payloads(self, data: bytes):
-        """Device match + host emission for consecutive ``TPU_BLOCK_LOG``
-        blocks; returns ``(payloads, raws)`` ready for frame assembly —
-        shared by ``encode`` and ``encode_file(engine="device")``.
+    def block_payloads(self, blocks: np.ndarray, lengths: np.ndarray):
+        """(B, P) uint8 blocks + (B,) int32 lengths → the B fast-mode
+        payloads: device match and compaction, host emission in one native
+        call.
 
         Blocks go up as uint8, and only the compacted match records come
         back: ``max(counts)`` (pos, len·dist) int32 pairs per block instead
-        of the 12·P-byte dense parse fields."""
-        padded, lengths = pad_blocks_fast(data, TPU_BLOCK_LOG)
-        num_blocks, p = padded.shape
-        data_u8 = padded.astype(np.uint8)
+        of the 12·P-byte dense parse fields.  Blocks are independent, so
+        any subset of a frame's blocks gives exactly those blocks' payloads
+        (``parallel/lz4.py::multihost_fast_encode`` passes one process's)."""
+        p = blocks.shape[1]
         pos_sorted, packed, counts = self._device_fast_encode(
-            torch.from_numpy(data_u8).to(self.device),
+            torch.from_numpy(blocks).to(self.device),
             torch.from_numpy(lengths).to(self.device),
         )
         records = fetch_records(pos_sorted, packed, counts, p)
-        payloads = native_backend().emit_blocks(
-            data_u8, lengths, *densify_records(*records, p)
+        return native_backend().emit_blocks(
+            blocks, lengths, *densify_records(*records, p)
         )
+
+    def _device_chunk_payloads(self, data: bytes):
+        """``block_payloads`` of consecutive ``TPU_BLOCK_LOG`` blocks;
+        returns ``(payloads, raws)`` ready for frame assembly — shared by
+        ``encode`` and ``encode_file(engine="device")``."""
+        padded, lengths = pad_blocks_fast(data, TPU_BLOCK_LOG)
+        data_u8 = padded.astype(np.uint8)
         raws = [
             data_u8[bi, : int(lengths[bi])].tobytes()
-            for bi in range(num_blocks)
+            for bi in range(data_u8.shape[0])
         ]
-        return payloads, raws
+        return self.block_payloads(data_u8, lengths), raws
 
     def encode_file(
         self,

@@ -277,27 +277,48 @@ def resolve_rooted(lit: torch.Tensor, root: torch.Tensor) -> torch.Tensor:
 resolve_rooted.launches = 0
 
 
-def decode_fast_device(frame: bytes, device) -> bytes:
-    """Full LZ4T decode with the match resolution on ``device``.
-
-    CUDA: fully rooted program (``depth_cap=1``), literals and roots go up,
-    ``resolve_rooted`` launches the kernel, the bytes come back.  CPU:
-    ``depth_cap=4`` and pointer doubling (``resolve_blocks``)."""
+def device_depth_cap(device) -> int:
+    """Program depth for a decode on ``device``: fully rooted (1) for the
+    kernel on a CUDA device, ``DEVICE_DEPTH_CAP`` for pointer doubling on
+    the CPU."""
     device = torch.device(device)
     if device.type not in ("cpu", "cuda"):
         raise ValueError(f"unsupported device {device}")
-    on_cuda = device.type == "cuda"
+    return 1 if device.type == "cuda" else DEVICE_DEPTH_CAP
+
+
+def resolve_on_device(lit: torch.Tensor, src: torch.Tensor, steps: int):
+    """(B, P) uint8 literals + int32 sources on one device → bytes there.
+
+    CUDA: ``steps`` doublings root the program (none for a program built
+    with ``device_depth_cap``), then ``resolve_rooted`` launches the
+    kernel.  CPU: ``resolve_blocks``."""
+    if lit.device.type != "cuda":
+        return resolve_blocks(lit, src, steps)
+    root = root_program(src)
+    if steps:
+        root = root.long()
+        for _ in range(steps):
+            root = torch.gather(root, 1, root)
+        root = root.to(torch.int32)
+    return resolve_rooted(lit, root.contiguous())
+
+
+def decode_fast_device(frame: bytes, device) -> bytes:
+    """Full LZ4T decode with the match resolution on ``device``: the copy
+    program built to ``device_depth_cap``, literals and sources go up,
+    ``resolve_on_device`` (the kernel on a CUDA device), the bytes come
+    back."""
+    device = torch.device(device)
     lit, src, raw_sizes, p, max_depth = build_copy_program_fast(
-        frame, depth_cap=1 if on_cuda else DEVICE_DEPTH_CAP
+        frame, depth_cap=device_depth_cap(device)
     )
     if lit.shape[0] == 0:
         return b""
-    lit_d = torch.from_numpy(lit).to(device)
-    src_d = torch.from_numpy(src).to(device)
-    if on_cuda:
-        out = resolve_rooted(lit_d, root_program(src_d))
-    else:
-        out = resolve_blocks(lit_d, src_d, depth_to_steps(max_depth))
+    out = resolve_on_device(
+        torch.from_numpy(lit).to(device), torch.from_numpy(src).to(device),
+        depth_to_steps(max_depth),
+    )
     decoded = _trim_rows(out.cpu().numpy(), raw_sizes)
     verify_frame_checksum(frame, decoded)
     return decoded

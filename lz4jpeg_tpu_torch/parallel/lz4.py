@@ -18,13 +18,15 @@ Per shard, on a CUDA mesh:
   sort matcher with ``LCP_WORDS`` (4) words, as JAX runs off a TPU, so the
   fields depend on the platform as the reference's do;
 * ``sharded_resolve_blocks``, ``sharded_fast_decode``,
-  ``multihost_fast_decode``: the rooted-resolve kernel K3
-  (``ops/lz4t_decode.py::resolve_rooted``); on the CPU the pointer doubling
-  of ``resolve_blocks``, as in JAX.
+  ``multihost_fast_decode``: ``ops/lz4t_decode.py::resolve_on_device``,
+  the rooted-resolve kernel K3; on the CPU the pointer doubling of
+  ``resolve_blocks``, as in JAX.
 
 ``multihost_fast_encode`` / ``multihost_fast_decode`` split the blocks over
 the processes of a ``torch.distributed`` group (``parallel/multihost.py``)
-and run on one device per process.
+and run on one device per process.  The encode runs the fast codec's own
+device path (``LZ4Codec.block_payloads``: K2 on a card) on each process's
+blocks.
 """
 
 from __future__ import annotations
@@ -34,11 +36,12 @@ from typing import List, Tuple
 import numpy as np
 import torch
 
+from lz4jpeg_tpu_torch.config import LZ4Config
 from lz4jpeg_tpu_torch.formats.fast_frame import (
     assemble_frame,
     verify_frame_checksum,
 )
-from lz4jpeg_tpu_torch.native import native_backend
+from lz4jpeg_tpu_torch.models.lz4 import LZ4Codec
 from lz4jpeg_tpu_torch.ops.fused_match import fast_match_blocks_fused
 from lz4jpeg_tpu_torch.ops.lz4_fast import (
     TPU_BLOCK_LOG,
@@ -46,13 +49,11 @@ from lz4jpeg_tpu_torch.ops.lz4_fast import (
     pad_blocks_fast,
 )
 from lz4jpeg_tpu_torch.ops.lz4t_decode import (
-    DEVICE_DEPTH_CAP,
     _trim_rows,
     build_copy_program_fast,
     depth_to_steps,
-    resolve_blocks,
-    resolve_rooted,
-    root_program,
+    device_depth_cap,
+    resolve_on_device,
 )
 from lz4jpeg_tpu_torch.ops.match import greedy_parse, match_tables
 from lz4jpeg_tpu_torch.parallel.mesh import (
@@ -133,17 +134,6 @@ def sharded_compressed_sizes(
     return np.asarray(sum(int(x) for x in local), np.int32)
 
 
-def _resolve_shard(lit: torch.Tensor, src: torch.Tensor, steps: int):
-    """One shard's copy program → bytes on its device: K3 after ``steps``
-    doublings on a card, ``resolve_blocks`` on the CPU."""
-    if lit.device.type != "cuda":
-        return resolve_blocks(lit, src, steps)
-    root = root_program(src).long()
-    for _ in range(steps):
-        root = torch.gather(root, 1, root)
-    return resolve_rooted(lit, root.to(torch.int32).contiguous())
-
-
 def sharded_resolve_blocks(
     lit: np.ndarray, src: np.ndarray, mesh: CodecMesh, steps: int = None
 ) -> np.ndarray:
@@ -163,14 +153,9 @@ def sharded_resolve_blocks(
     lit_shards, src_shards = shard_leading_axis(
         [np.asarray(lit, np.uint8), np.asarray(src, np.int32)], mesh
     )
-    parts = [_resolve_shard(l, s, steps) for l, s in zip(lit_shards, src_shards)]
+    parts = [resolve_on_device(l, s, steps)
+             for l, s in zip(lit_shards, src_shards)]
     return gather_shards(parts)
-
-
-def _depth_cap(device_type: str) -> int:
-    """Program depth of the device decode: fully rooted for K3 (as
-    ``decode_fast_device``), ``DEVICE_DEPTH_CAP`` for pointer doubling."""
-    return 1 if device_type == "cuda" else DEVICE_DEPTH_CAP
 
 
 def sharded_fast_decode(frame: bytes, mesh: CodecMesh) -> bytes:
@@ -180,7 +165,7 @@ def sharded_fast_decode(frame: bytes, mesh: CodecMesh) -> bytes:
     the up-front size table), the mesh resolves all match chains in
     parallel, and the frame checksum is verified after the gather."""
     lit, src, raw_sizes, _, max_depth = build_copy_program_fast(
-        frame, depth_cap=_depth_cap(mesh.device_type)
+        frame, depth_cap=device_depth_cap(mesh.devices[0])
     )
     if lit.shape[0] == 0:
         return b""
@@ -208,7 +193,7 @@ def multihost_fast_decode(frame: bytes, device="cuda") -> bytes:
     device = torch.device(device)
     pid, nproc = process_index(), process_count()
     lit, src, raw_sizes, _, max_depth = build_copy_program_fast(
-        frame, depth_cap=_depth_cap(device.type)
+        frame, depth_cap=device_depth_cap(device)
     )
     num_blocks = lit.shape[0]
     if num_blocks == 0:
@@ -216,7 +201,7 @@ def multihost_fast_decode(frame: bytes, device="cuda") -> bytes:
     mine = list(range(pid, num_blocks, nproc))
     local_payloads: List[bytes] = []
     if mine:
-        out = _resolve_shard(
+        out = resolve_on_device(
             torch.from_numpy(lit[mine]).to(device),
             torch.from_numpy(src[mine]).to(device),
             depth_to_steps(max_depth),
@@ -232,38 +217,26 @@ def multihost_fast_decode(frame: bytes, device="cuda") -> bytes:
 
 
 def multihost_fast_encode(data: bytes, device="cuda") -> bytes:
-    """Cross-process fast-mode LZ4 encode: every process matches (the sort
-    matcher on ``device``, as JAX runs on every platform) and emits (the
-    native ``emit_block``) its strided slice of the 16 KiB blocks, the
-    payloads gather in the original block order, and every process returns
-    the identical LZ4T frame.
+    """Cross-process fast-mode LZ4 encode: every process encodes its
+    strided slice of the 16 KiB blocks with the fast codec's device path
+    (``LZ4Codec.block_payloads`` on ``device``), the payloads gather in the
+    original block order, and every process returns the identical LZ4T
+    frame.
 
     The multi-host version of the reference's pre-sized ordered gather
     (``parallel_add_block_to_frame``, Algorithms/parallel/LZ4/LZ4.c:495-514)
     — block independence makes the frame equal to a single-process
     ``LZ4Codec(LZ4Config(mode="fast"), device).encode(data,
     engine="device")``.  Without a process group it encodes locally."""
-    device = torch.device(device)
+    codec = LZ4Codec(LZ4Config(mode="fast"), device)
     pid, nproc = process_index(), process_count()
     padded, lengths = pad_blocks_fast(data, TPU_BLOCK_LOG)
     num_blocks = padded.shape[0]
     mine = list(range(pid, num_blocks, nproc))
     data_u8 = padded.astype(np.uint8)
-
     local_payloads: List[bytes] = []
     if mine:
-        fields = fast_match_blocks(
-            torch.from_numpy(data_u8[mine]).to(device),
-            torch.from_numpy(lengths[mine]).to(device),
-        )
-        is_match, emit_len, emit_dist = (f.cpu().numpy() for f in fields)
-        native = native_backend()
-        for row, bi in enumerate(mine):
-            n = int(lengths[bi])
-            local_payloads.append(native.emit_block(
-                data_u8[bi, :n].tobytes(), is_match[row, :n],
-                emit_len[row, :n], emit_dist[row, :n],
-            ))
+        local_payloads = codec.block_payloads(data_u8[mine], lengths[mine])
     payloads = ordered_allgather_payloads(local_payloads, mine, num_blocks)
     raws = [
         data_u8[bi, : int(lengths[bi])].tobytes() for bi in range(num_blocks)

@@ -27,7 +27,6 @@ class CodecMesh:
     """A 1-D mesh: the devices of the data axis, in shard order."""
 
     devices: Tuple[torch.device, ...]
-    data_axis: str = "data"
 
     def __post_init__(self):
         devices = tuple(torch.device(d) for d in self.devices)
@@ -61,10 +60,10 @@ def codec_mesh(config: MeshConfig = MeshConfig(), device="cuda") -> CodecMesh:
         n = config.num_devices or len(visible)
         if n > len(visible):
             raise ValueError(f"requested {n} devices, only {len(visible)} visible")
-        return CodecMesh(tuple(visible[:n]), config.data_axis)
+        return CodecMesh(tuple(visible[:n]))
     if device.type != "cpu":
         raise ValueError(f"unsupported device {device}")
-    return CodecMesh((device,) * (config.num_devices or 1), config.data_axis)
+    return CodecMesh((device,) * (config.num_devices or 1))
 
 
 def pad_to_devices(

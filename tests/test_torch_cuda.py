@@ -534,6 +534,24 @@ def test_sharded_fast_decode_launches_k3_per_shard(cuda):
     assert resolve_rooted.launches == before + 4
 
 
+def test_multihost_fast_encode_runs_the_codec_path(cuda):
+    """No group: one process encodes every block through the codec's device
+    path, K2 once, and the frame is the codec's and decodes with K3."""
+    from lz4jpeg_tpu_torch.parallel.lz4 import (
+        multihost_fast_decode,
+        multihost_fast_encode,
+    )
+
+    data = generate_text(8 * 16384 - 999, np.random.default_rng(19))
+    want = LZ4Codec(LZ4Config(mode="fast"), cuda).encode(data, engine="device")
+    k2, k3 = match_candidates.launches, resolve_rooted.launches
+    frame = multihost_fast_encode(data, device=cuda)
+    assert match_candidates.launches == k2 + 1
+    assert frame == want
+    assert multihost_fast_decode(frame, device=cuda) == data
+    assert resolve_rooted.launches == k3 + 1
+
+
 def test_sharded_packed16_inverse_launches_k6_per_shard(cuda):
     """K6 once per channel per shard.  The inverse products are cuBLAS
     calls of another row count than the unsharded decode's: identical, or

@@ -108,11 +108,12 @@ def test_mesh_config_fields_equal_jax(num_devices):
 
 def test_codec_mesh_on_the_cpu(mesh, jax_mesh):
     assert mesh.size == jax_mesh.devices.size == SHARDS
-    assert (mesh.data_axis,) == jax_mesh.axis_names
+    assert (MeshConfig().data_axis,) == jax_mesh.axis_names
     assert codec_mesh(MeshConfig(num_devices=SHARDS), "cpu") == mesh
     assert codec_mesh(MeshConfig(), "cpu").devices == (CPU,)
+    # The one-axis mesh names no axis: data_axis changes nothing.
     sub = codec_mesh(MeshConfig(num_devices=4, data_axis="blocks"), "cpu")
-    assert sub.size == 4 and sub.data_axis == "blocks"
+    assert sub.size == 4 and sub == codec_mesh(MeshConfig(num_devices=4), "cpu")
 
 
 def test_cuda_mesh_raises_without_a_card():
