@@ -2,9 +2,9 @@
 """Smoke run of the PyTorch port (lz4jpeg_tpu_torch) on one CUDA card.
 
 Run from the repository root with no arguments: ``python3 chip_smoke.py``.
-It needs one card.  At first use it builds the eight Hopper kernels (one
-nvcc per source file, six files, all started together, sm_90a) and the
-native runtime (g++) into ``lz4jpeg_tpu_torch/_build/``, then runs nineteen
+It needs one card.  At first use it builds the nine Hopper kernels (one
+nvcc per source file, seven files, all started together, sm_90a) and the
+native runtime (g++) into ``lz4jpeg_tpu_torch/_build/``, then runs twenty
 phases and fails (non-zero exit, no result line) if any of them fails.
 ``ab_kernels.py`` times K1, K2 and K4-K7 in turns with another checkout's.
 
@@ -148,7 +148,22 @@ phases and fails (non-zero exit, no result line) if any of them fails.
     in-process ones; host-clock medians of the sharded forward and inverse
     against the pipeline's, of the multihost encodes with and without the
     group, and ``jpeg_scaling_sweep(2048, device="cuda")``; K1 alone (CUDA
-    events) on the whole frame and on one of the four-shard mesh's bands.
+    events) on the whole frame and on one of the four-shard mesh's bands;
+20. the benchmark layer (``lz4jpeg_tpu_torch/bench/``), about a minute:
+    the stream-copy kernel (``csrc/stream_copy_kernel.cu``) identical to
+    ``x.clone()`` on u8, i16 and f32 at 512 MiB in (rows, 2048), at
+    1,000,003 elements and in a view one element off a 16-byte boundary
+    (the byte-wise route); kernel, plain and ``Tensor.copy_`` times at 512
+    MiB u8 (phase 4's method); ``measure_hbm_stream_ceiling`` (its count
+    of copy-kernel launches is the kernel's record); the headline at 2048²,
+    batch 256 (K1 launched 48 times); the sweeps at small scale with
+    ``runs=3`` on 4 MiB of generated text: lz4-device at 64 and 1,024
+    blocks (K2 128 times), lz4t-decode at 1, 4, 16 MB (K3 15 times),
+    jpeg-inverse at 512², 1024², 2048² (batch 256 each; peak device memory
+    printed), jpeg-perblock at 64²–256², entropy-ab at 1024²; both
+    rooflines at their defaults; every artifact naming the device and the
+    card; ``python -m lz4jpeg_tpu_torch bench headline --device cuda`` in a
+    process of its own; the wall time of each suite.
 
 The line before the last is the kernels' JSON record: per kernel (the
 packed16 kernels once per timed channel and input dtype) its
@@ -156,8 +171,11 @@ launches on the main path, its error against the plain version, its time,
 the plain version's, its bound (the larger of the bytes it must move over
 3.35 TB/s and, for K1, its bf16 tensor-core operations over 989 TFLOP/s;
 the H100 SXM data sheet's rates) and the time of one PyTorch call that
-computes the same function where there is one (K3: ``torch.gather``).  The
-last line is ``{"ok": true, "device": {...}}``.
+computes the same function where there is one (K3: ``torch.gather``; the
+copy kernel: ``Tensor.copy_``).  Before it, one line per bytes-bound kernel
+gives its share of the data sheet's bound and of the same bytes over the
+stream ceiling phase 20 measured.  The last line is ``{"ok": true,
+"device": {...}}``.
 """
 
 from __future__ import annotations
@@ -224,6 +242,20 @@ PAR_STAGED_SIDE = 512  # phase 19's ShardedJPEGForward frame and rank frame
 PAR_PARITY_BYTES = 76_500  # phase 19's parity input (phase 17's largest)
 PAR_RANK_TEXT_BYTES = 2 * MIB  # phase 19's two-rank LZ4T input
 PAR_RUNS = 5  # host-clock runs of each phase-19 time (median)
+COPY_SOURCE = "lz4jpeg_tpu_torch/csrc/stream_copy_kernel.cu"
+COPY_REPLACES = "profiles/probe_pallas_copy_ceiling.py:50"
+COPY_BYTES = 512 * MIB  # phase 20's copy arrays, (rows, 2048) as the probe's
+COPY_COLUMNS = 2048
+HEADLINE_SHAPE = (2048, 256)  # phase 20's headline: side, batch
+BENCH_TEXT_BYTES = 4 * MIB  # phase 20's generated corpus for the LZ4 sweeps
+BENCH_RUNS = 3  # timed runs of each phase-20 sweep
+BENCH_LZ4_BATCHES = (64, 1024)
+BENCH_LZ4T_MB = (1, 4, 16)
+BENCH_INVERSE_SIZES = (512, 1024, 2048)
+BENCH_PERBLOCK_SIZES = (64, 128, 256)
+BENCH_ENTROPY_SIDE = 1024
+ROOFLINE_FORWARD = {}  # the suites' defaults: 2048², batch 32, chain 8
+ROOFLINE_INVERSE = {}  # 2048², batch 64, chain 8
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3 (NVIDIA data sheet)
 BF16_FLOP_PER_S = 989e12  # H100 SXM dense bf16 tensor cores (data sheet)
 # K1's tensor-core work per 8x8 tile: three bf16 passes of a 64-deep luma
@@ -335,6 +367,7 @@ def build_all():
         fwd_megakernel,
         lz4t_decode,
         pack16,
+        stream,
     )
 
     builds = {
@@ -344,6 +377,7 @@ def build_all():
         "nvcc pack16_kernel": pack16.load_pack_kernels,
         "nvcc expand16_kernel": pack16.load_expand_kernels,
         "nvcc expand16_wide_kernel": pack16.load_wide_kernel,
+        "nvcc stream_copy_kernel": stream.load_kernel,
         "g++ lz4core": native_backend,
     }
 
@@ -2013,6 +2047,184 @@ class Stopwatch:
             + f"; sum {sum(self.spans.values()):.3f}")
 
 
+def bench_phase(dev):
+    """Phase 20: the copy kernel against its plain version, the stream
+    ceiling, the headline and every benchmark suite of
+    ``lz4jpeg_tpu_torch/bench/`` on the card; returns the copy kernel's
+    record and the measured ceiling in GB/s."""
+    import gc
+    import tempfile
+
+    import torch
+
+    from lz4jpeg_tpu_torch.bench import (
+        entropy_ab,
+        experiments,
+        headline,
+        roofline,
+    )
+    from lz4jpeg_tpu_torch.ops.fused_match import match_candidates
+    from lz4jpeg_tpu_torch.ops.fwd_megakernel import forward_combined
+    from lz4jpeg_tpu_torch.ops.lz4t_decode import resolve_rooted
+    from lz4jpeg_tpu_torch.ops.stream import stream_copy, stream_copy_ref
+    from lz4jpeg_tpu_torch.utils.inputs import generate_text
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    t_phase = time.perf_counter()
+    wall = {}
+
+    # -- the copy kernel against x.clone(): both routes, three dtypes --------
+    gen = torch.Generator(device=dev).manual_seed(SEED + 20)
+    n_err = 0
+    for dtype in (torch.uint8, torch.int16, torch.float32):
+        rows = COPY_BYTES // (COPY_COLUMNS * torch.empty((), dtype=dtype).element_size())
+        big = torch.randint(0, 100, (rows, COPY_COLUMNS), generator=gen,
+                            device=dev, dtype=dtype)
+        small = torch.randint(-100, 100, (1_000_003,), generator=gen,
+                              device=dev).to(dtype)
+        for label, x in ((f"{COPY_BYTES // MIB} MiB", big), ("odd", small),
+                         ("offset view", offset_view(small))):
+            got, want = stream_copy(x), stream_copy_ref(x)
+            torch.cuda.synchronize()
+            same = torch.equal(got, want)
+            n_err += not same
+            print(f"phase 20: copy kernel {dtype} {label} "
+                  f"({x.numel() * x.element_size()} bytes, ptr % 16 = "
+                  f"{x.data_ptr() % 16}): {'identical' if same else 'DIFFERS'}")
+        del big, small, got, want
+    check(n_err == 0, f"the copy kernel differs from x.clone() in {n_err} cases")
+    x = torch.randint(0, 100, (COPY_BYTES // COPY_COLUMNS, COPY_COLUMNS),
+                      generator=gen, device=dev, dtype=torch.uint8)
+    dst = torch.empty_like(x)
+    t = time_versions(
+        f"phase 20: copy {COPY_BYTES // MIB} MiB u8",
+        {"plain": stream_copy_ref, "kernel": stream_copy,
+         "library": lambda x: dst.copy_(x)},
+        x,
+    )
+    copy_bound = bound(2 * x.numel())
+    del x, dst
+
+    stream_copy.launches = 0
+    t0 = time.perf_counter()
+    probe = roofline.measure_hbm_stream_ceiling(COPY_BYTES, device=dev)
+    wall["stream ceiling"] = time.perf_counter() - t0
+    copy_launches = stream_copy.launches
+    check(copy_launches > 0, "the stream probe never launched the copy kernel")
+    ceiling = probe["ceiling_gbs"]
+    for name, v in probe["variants"].items():
+        print(f"phase 20: stream {name}: {v['measured_s'] * 1e3:.4f} ms per "
+              f"iteration, {v['achieved_gbs']:.1f} GB/s")
+    print(f"phase 20: measured stream ceiling {ceiling:.1f} GB/s "
+          f"({probe['ceiling_variant']}), {ceiling / 3350:.1%} of the data "
+          f"sheet's 3,350; copy kernel launches {copy_launches}; card "
+          f"{probe.get('card', probe['device'])}")
+    print(f"phase 20: copy kernel {COPY_BYTES // MIB} MiB u8: {t['kernel']:.4f} ms "
+          f"({2 * COPY_BYTES / t['kernel'] / 1e6:.1f} GB/s), plain "
+          f"{t['plain']:.4f} ms, copy_ {t['library']:.4f} ms; bound "
+          f"{copy_bound[0]:.4f} ms, {copy_bound[0] / t['kernel']:.1%} of it")
+
+    def suite(name, fn):
+        t0 = time.perf_counter()
+        out = fn()
+        wall[name] = time.perf_counter() - t0
+        print(f"phase 20: {name}: {wall[name]:.2f} s", flush=True)
+        return out
+
+    # -- the headline at full size -----------------------------------------
+    forward_combined.launches = 0
+    line = suite("headline", lambda: headline.main(*HEADLINE_SHAPE, device=dev))
+    check(line["metric"] == f"jpeg_forward_throughput_{HEADLINE_SHAPE[0]}_"
+          f"b{HEADLINE_SHAPE[1]}_cuda" and line["value"] > 0,
+          f"headline printed {line}")
+    want = (headline.RUNS + headline.WARMUP) * headline.CHAIN
+    check(forward_combined.launches == want,
+          f"headline launched K1 {forward_combined.launches} times, not {want}")
+
+    # -- every sweep at small scale, on generated text ------------------------
+    corpus = generate_text(BENCH_TEXT_BYTES, np.random.default_rng(SEED + 20))
+    runs = BENCH_RUNS
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        match_candidates.launches = 0
+        got = suite("lz4-device", lambda: experiments.run_lz4_device_experiment(
+            batches=list(BENCH_LZ4_BATCHES), runs=runs, corpus=corpus,
+            device=dev, output=str(tmp / "lz4_device.json")))
+        check(len(got) == 6 * len(BENCH_LZ4_BATCHES), "lz4-device series missing")
+        want = 4 * len(BENCH_LZ4_BATCHES) * (1 + runs) * 4
+        check(match_candidates.launches == want,
+              f"lz4-device launched K2 {match_candidates.launches} times, not {want}")
+        resolve_rooted.launches = 0
+        suite("lz4t-decode", lambda: experiments.run_lz4t_decode_device_experiment(
+            sizes_mb=list(BENCH_LZ4T_MB), runs=runs, corpus=corpus, device=dev,
+            output=str(tmp / "lz4t_decode.json")))
+        want = len(BENCH_LZ4T_MB) * (2 + runs)
+        check(resolve_rooted.launches == want,
+              f"lz4t-decode launched K3 {resolve_rooted.launches} times, not {want}")
+        suite("jpeg-inverse", lambda: experiments.run_jpeg_inverse_device_experiment(
+            sizes=list(BENCH_INVERSE_SIZES), runs=runs, device=dev,
+            output=str(tmp / "jpeg_inverse.json")))
+        suite("jpeg-perblock", lambda: experiments.run_jpeg_perblock_experiment(
+            sizes=list(BENCH_PERBLOCK_SIZES), runs=runs, device=dev,
+            output=str(tmp / "jpeg_perblock.json")))
+        suite("entropy-ab", lambda: entropy_ab.run_entropy_ab(
+            image_size=BENCH_ENTROPY_SIDE, runs=runs, device=dev,
+            output=str(tmp / "entropy_ab.json")))
+        forward_combined.launches = 0
+        fwd = suite("roofline", lambda: roofline.run_jpeg_forward_roofline(
+            **ROOFLINE_FORWARD, device=dev, output=str(tmp / "roofline.json")))
+        check(forward_combined.launches > 0, "the roofline never launched K1")
+        suite("roofline-inverse", lambda: roofline.run_jpeg_inverse_roofline(
+            **ROOFLINE_INVERSE, device=dev,
+            output=str(tmp / "roofline_inverse.json")))
+        for path in sorted(tmp.iterdir()):
+            art = json.loads(path.read_text())
+            entries = art if isinstance(art, list) else [art]
+            check(all(e.get("device") == str(dev) and e.get("card")
+                      for e in entries), f"{path.name} does not name the card")
+        print(f"phase 20: {len(list(tmp.iterdir()))} artifacts, each naming "
+              f"{dev} and the card")
+    k1 = fwd["stages"]["megakernel"]
+    print(f"phase 20: roofline K1 at {ROOFLINE_FORWARD}: "
+          f"{k1['measured_s'] * 1e3:.4f} ms, {k1['sol_fraction']:.1%} of the "
+          f"data sheet's bound, {k1['sol_fraction_measured']:.1%} of the "
+          f"measured ceiling's")
+
+    # -- the CLI's bench headline, in a process of its own --------------------
+    gc.collect()
+    torch.cuda.empty_cache()  # the sweeps' cached blocks would starve it
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "lz4jpeg_tpu_torch", "bench", "headline",
+         "--device", "cuda"],
+        capture_output=True, text=True, timeout=600,
+        cwd=str(Path(__file__).resolve().parent),
+    )
+    wall["python -m ... bench headline"] = time.perf_counter() - t0
+    check(proc.returncode == 0, f"bench headline: {proc.stderr[-2000:]}")
+    cli_line = json.loads(proc.stdout.strip().splitlines()[-1])
+    check(set(cli_line) == {"metric", "value", "unit", "vs_baseline"}
+          and cli_line["metric"] == "jpeg_forward_throughput_2048_b256_cuda",
+          f"bench headline printed {cli_line}")
+    print(f"phase 20: python -m lz4jpeg_tpu_torch bench headline: {cli_line}")
+    print("phase 20: wall s " + ", ".join(f"{k} {v:.2f}" for k, v in wall.items())
+          + f"; phase {time.perf_counter() - t_phase:.2f} s")
+    return {
+        "name": "stream_copy",
+        "route": "cuda",
+        "source": COPY_SOURCE,
+        "replaces": COPY_REPLACES,
+        "launches": copy_launches,
+        "max_abs_err": 0.0,
+        "ms": t["kernel"],
+        "plain_ms": t["plain"],
+        "bound_ms": copy_bound[0],
+        "bound_by": copy_bound[1],
+        "library_ms": t["library"],
+    }, ceiling
+
+
 def main() -> int:
     import torch
 
@@ -2203,8 +2415,10 @@ def main() -> int:
     parity_phase(dev)
     cli_phase(dev)
     parallel_phase(dev, card, lz4_data, lz4_frame)
+    del lz4_data, lz4_frame
+    copy, ceiling = bench_phase(dev)
 
-    print(json.dumps({"kernels": [{
+    records = [{
         "name": "fwd_megakernel",
         "route": "cuda",
         "source": KERNEL_SOURCE,
@@ -2216,7 +2430,14 @@ def main() -> int:
         "bound_ms": k1_bound[0],
         "bound_by": k1_bound[1],
         "library_ms": None,
-    }, *lz4, *pairs, wide]}))
+    }, *lz4, *pairs, wide, copy]
+    for r in records:
+        if r["bound_by"] == "bytes":  # the same bytes over the measured rate
+            measured = r["bound_ms"] * HBM_BYTES_PER_S / (ceiling * 1e9)
+            print(f"share of bound: {r['name']}: {r['bound_ms'] / r['ms']:.1%} "
+                  f"of the data sheet's, {measured / r['ms']:.1%} of the "
+                  f"measured ceiling's ({ceiling:.1f} GB/s)")
+    print(json.dumps({"kernels": records}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",
         "kind": torch.cuda.get_device_name(0),

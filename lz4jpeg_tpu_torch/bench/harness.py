@@ -8,17 +8,69 @@ results serialize to the same JSON shape as ``Experiment/results/*.json``
 with derived throughput fields added.  Each run is a host wall-clock
 measurement around a fully materialized computation: ``fn`` must end on
 the host (``utils/profiling.py::fenced`` for device work).
+
+``bench_device`` and ``device_record`` are the port's own: every suite
+runs on an explicit torch device and every artifact it writes names it.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import json
+import subprocess
 import time
 from typing import Callable, Dict, List, Optional
 
+import torch
+
 from lz4jpeg_tpu_torch.utils.stats import median, trimmed_mean  # noqa: F401
 # (single source of truth for the reference-mirroring statistics)
+
+
+def bench_device(device) -> torch.device:
+    """``device`` as a torch device; raises for ``"cuda"`` without a card
+    (a measurement never falls back to the CPU) and for other types."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(f"device {dev} requested but CUDA is not available")
+    if dev.type not in ("cpu", "cuda"):
+        raise ValueError(f"unsupported device {dev}")
+    return dev
+
+
+def sync(device) -> None:
+    """Wait for ``device``'s queued work (nothing to wait for on the CPU)."""
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def card_name(device) -> str:
+    """The card's name and power limit as ``nvidia-smi --query-gpu=name,
+    power.limit --format=csv,noheader`` prints them, or
+    ``torch.cuda.get_device_name`` where ``nvidia-smi`` is absent."""
+    index = torch.device(device).index
+    index = torch.cuda.current_device() if index is None else index
+    try:
+        proc = subprocess.run(
+            ["nvidia-smi", f"--id={index}", "--query-gpu=name,power.limit",
+             "--format=csv,noheader"],
+            capture_output=True, text=True, timeout=60,
+        )
+    except (FileNotFoundError, subprocess.TimeoutExpired):
+        proc = None
+    if proc is not None and proc.returncode == 0 and proc.stdout.strip():
+        return proc.stdout.strip().splitlines()[0]
+    return torch.cuda.get_device_name(index)
+
+
+def device_record(device) -> Dict[str, str]:
+    """``{"device": "<torch device>"}``, plus ``"card"`` (``card_name``) on
+    CUDA: what every artifact of the suites carries."""
+    dev = torch.device(device)
+    rec = {"device": str(dev)}
+    if dev.type == "cuda":
+        rec["card"] = card_name(dev)
+    return rec
 
 
 @dataclasses.dataclass

@@ -11,8 +11,14 @@ do) wherever a codec runs, and ``device`` for the JAX CLI's ``tpu`` engine:
     python -m lz4jpeg_tpu_torch jpeg decode IN.tjpg OUT.png
     python -m lz4jpeg_tpu_torch jpeg roundtrip IN.png OUT.png [--visualize DIR] [--mse]
     python -m lz4jpeg_tpu_torch lzw {encode,decode} IN OUT
+    python -m lz4jpeg_tpu_torch bench SUITE [--runs N] [--output F] [--device D]
 
-The JAX CLI's ``bench`` subcommand waits for the port's benchmark harness.
+``bench`` runs the suites of ``lz4jpeg_tpu_torch/bench/`` on ``--device``:
+``headline`` (``bench/headline.py``), the sweeps of ``experiments.py``,
+``entropy-ab``, ``roofline``/``roofline-inverse``, ``golden`` and
+``scaling``.  The ``lz4*`` suites read the reference's corpus and
+``golden`` its images (``utils/inputs.py::REFERENCE_ROOT``); without them
+they raise ``FileNotFoundError``.
 """
 
 from __future__ import annotations
@@ -133,6 +139,20 @@ def build_parser() -> argparse.ArgumentParser:
         sp = lzw_sub.add_parser(name)
         sp.add_argument("input")
         sp.add_argument("output")
+
+    bench = sub.add_parser("bench", help="benchmark harness")
+    bench.add_argument(
+        "suite",
+        choices=[
+            "headline", "lz4", "lz4-device", "lz4-file", "lz4t-decode",
+            "jpeg", "jpeg-inverse", "jpeg-perblock", "scaling", "roofline",
+            "entropy-ab", "golden", "roofline-inverse",
+        ],
+        default="headline",
+    )
+    bench.add_argument("--runs", type=int, default=10)
+    bench.add_argument("--output", help="JSON results path")
+    _device_flag(bench)
     return p
 
 
@@ -257,13 +277,78 @@ def _cmd_lzw(args) -> int:
     return 0
 
 
+def _cmd_bench(args) -> int:
+    runs, output, device = args.runs, args.output, args.device
+    if args.suite == "headline":
+        from lz4jpeg_tpu_torch.bench.headline import main as headline
+
+        headline(device=device)
+        return 0
+    if args.suite == "roofline":
+        from lz4jpeg_tpu_torch.bench.roofline import run_jpeg_forward_roofline
+
+        run_jpeg_forward_roofline(output=output, device=device)
+        return 0
+    if args.suite == "roofline-inverse":
+        from lz4jpeg_tpu_torch.bench.roofline import run_jpeg_inverse_roofline
+
+        run_jpeg_inverse_roofline(output=output, device=device)
+        return 0
+    if args.suite == "golden":
+        from lz4jpeg_tpu_torch.bench.golden import run_golden_images
+
+        run_golden_images(runs=runs, output=output, device=device)
+        return 0
+    if args.suite == "entropy-ab":
+        from lz4jpeg_tpu_torch.bench.entropy_ab import run_entropy_ab
+
+        run_entropy_ab(runs=runs, output=output, device=device)
+        return 0
+    if args.suite == "scaling":
+        import torch
+
+        from lz4jpeg_tpu_torch.bench.harness import bench_device
+        from lz4jpeg_tpu_torch.bench.scaling import jpeg_scaling_sweep
+
+        # Device-count printout, the reference's only runtime report of its
+        # parallel resources (Algorithms/parallel/LZ4/LZ4.c:1242-1246).
+        dev = bench_device(device)
+        count = torch.cuda.device_count() if dev.type == "cuda" else 1
+        print(f"devices: {count}")
+        jpeg_scaling_sweep(runs=runs, output=output, device=device)
+        return 0
+    from lz4jpeg_tpu_torch.bench.experiments import (
+        run_jpeg_experiment,
+        run_jpeg_inverse_device_experiment,
+        run_jpeg_perblock_experiment,
+        run_lz4_device_experiment,
+        run_lz4_experiment,
+        run_lz4_file_experiment,
+        run_lz4t_decode_device_experiment,
+    )
+
+    sweep = {
+        "lz4": run_lz4_experiment,
+        "lz4-device": run_lz4_device_experiment,
+        "lz4-file": run_lz4_file_experiment,
+        "lz4t-decode": run_lz4t_decode_device_experiment,
+        "jpeg-inverse": run_jpeg_inverse_device_experiment,
+        "jpeg-perblock": run_jpeg_perblock_experiment,
+        "jpeg": run_jpeg_experiment,
+    }[args.suite]
+    sweep(runs=runs, output=output, device=device)
+    return 0
+
+
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
     if args.command == "lz4":
         return _cmd_lz4(args)
     if args.command == "jpeg":
         return _cmd_jpeg(args)
-    return _cmd_lzw(args)
+    if args.command == "lzw":
+        return _cmd_lzw(args)
+    return _cmd_bench(args)
 
 
 if __name__ == "__main__":

@@ -363,7 +363,7 @@ class JPEGPipeline:
         bpc, bpr = -(-h // 8), -(-w // 8)
         x = x.to(self.device).contiguous()
         if self.sparse16:
-            combined = forward_combined(x, self._tables["lum"], self._tables["r"])
+            combined = self._forward_rle(x)
             host = (
                 combined.cpu().numpy().view(np.uint16)
                 .reshape(b, bpc * bpr, COMBINED_LANES)
@@ -375,6 +375,15 @@ class JPEGPipeline:
             for enc in encs:
                 self.entropy_encode(enc)
         return encs
+
+    def _forward_rle(self, x: torch.Tensor) -> torch.Tensor:
+        """(B, H, W, 3) uint8 on the device → the (B·N, 128) int16 combined
+        buffer a sparse16 ``encode`` ships to the host (JAX
+        ``_forward_rle_impl`` in that layout): ``forward_combined``, K1 on a
+        CUDA device.  The pair layout's forward is ``_forward``."""
+        if not self.sparse16:
+            raise ValueError("_forward_rle is the sparse16 forward; use _forward")
+        return forward_combined(x, self._tables["lum"], self._tables["r"])
 
     def _forward(self, x: torch.Tensor) -> Dict[str, Dict[str, torch.Tensor]]:
         """(B, H, W, 3) uint8 on the device → per channel the quantized
@@ -443,7 +452,7 @@ class JPEGPipeline:
         k = self._OVERLAP_BANDS
         edges = [n * i // k for i in range(k + 1)]
         bands = list(zip(edges, edges[1:]))
-        comb = forward_combined(x, self._tables["lum"], self._tables["r"])
+        comb = self._forward_rle(x)
         if self.device.type == "cuda":
             host = torch.empty((n, COMBINED_LANES), dtype=torch.int16,
                                pin_memory=True)
@@ -762,8 +771,11 @@ class JPEGPipeline:
         """(B, N, 128) sparse deltas → (B, height, width, 3) uint8 RGB: per
         channel one folded-basis einsum, then the color merge."""
         b = combined.shape[0]
-        w16 = combined.to(torch.int32)
-        d = torch.where(w16 != 0, w16 - SPARSE16_DELTA_BIAS, 0)
+        # One name for both int32 buffers, and freed before the merge, so
+        # that at most one 4-byte copy of the batch lives at a time (a
+        # 1-GiPix batch holds 8 GiB in each).
+        d = combined.to(torch.int32)
+        d = torch.where(d != 0, d - SPARSE16_DELTA_BIAS, 0)
         planes = {}
         for name in CHANNELS:
             tw = _CHANNEL_SHAPES[name][1]
@@ -773,6 +785,7 @@ class JPEGPipeline:
                 upsample_cols=(name != "lum"),
             )
             planes[name] = plane.reshape(b, 8 * bpc, 8 * bpr)
+        del d, d_kt
         return ycbcr_planes_to_rgb(
             planes["lum"], planes["r"], planes["b"], height, width
         )

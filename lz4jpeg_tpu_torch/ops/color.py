@@ -128,8 +128,10 @@ def ycbcr_planes_to_rgb(
     g_cr = torch.trunc(0.714136 * (cr - 128)).to(torch.int32)
     cb_term = torch.trunc(1.772 * (cb - 128)).to(torch.int32)
 
-    rr = torch.clamp(y + cr_term, 0, 255)
-    gg = torch.clamp(y - g_cb - g_cr, 0, 255)
-    bb = torch.clamp(y + cb_term, 0, 255)
-    rgb = torch.stack([rr, gg, bb], dim=-1).to(torch.uint8)
+    # Each channel narrowed to uint8 before the stack (clamped, so exact):
+    # the int32 stack would take 4 bytes per output byte.
+    rr = torch.clamp(y + cr_term, 0, 255).to(torch.uint8)
+    gg = torch.clamp(y - g_cb - g_cr, 0, 255).to(torch.uint8)
+    bb = torch.clamp(y + cb_term, 0, 255).to(torch.uint8)
+    rgb = torch.stack([rr, gg, bb], dim=-1)
     return rgb[..., :height, :width, :]

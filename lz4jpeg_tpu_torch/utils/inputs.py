@@ -1,5 +1,10 @@
 """Random benchmark inputs.
 
+* ``extract_random_passage`` — a random substring of a text corpus with
+  newlines replaced by spaces so every byte stays printable, which the
+  parity LZ4 text path requires (``Experiment/random_extract.c:8-71``);
+  ``load_corpus`` reads the corpus (the reference's ``Metamorphosis.txt``
+  by default); copies of ``lz4jpeg_tpu/utils/inputs.py``'s;
 * ``generate_noise_image`` — per-pixel uniform RGB noise, as the
   reference's generator makes (``Experiment/random_image.c:58-77``); a
   copy of ``lz4jpeg_tpu/utils/inputs.py``'s;
@@ -14,11 +19,39 @@
 
 from __future__ import annotations
 
+import os
+from pathlib import Path
+
 import numpy as np
 
 TEXT_VOCABULARY = 4096  # distinct words
 TEXT_MAX_WORD = 10      # letters per word, at most
 TEXT_ZIPF_S = 1.1       # word rank r is drawn with weight r**-s
+
+# A checkout of the reference repository (its corpus and images): the
+# directory ``$LZ4JPEG_REFERENCE``, else ``reference/`` at this checkout's
+# root.  This repository carries none of its files.
+REFERENCE_ROOT = os.environ.get(
+    "LZ4JPEG_REFERENCE", str(Path(__file__).resolve().parents[2] / "reference")
+)
+METAMORPHOSIS_PATH = os.path.join(
+    REFERENCE_ROOT, "Output-Input", "input", "Metamorphosis.txt"
+)
+
+
+def extract_random_passage(
+    corpus: bytes, length: int, rng: np.random.Generator
+) -> bytes:
+    if length > len(corpus):
+        raise ValueError(f"passage of {length} exceeds corpus ({len(corpus)})")
+    start = int(rng.integers(0, len(corpus) - length + 1))
+    passage = corpus[start : start + length]
+    return passage.replace(b"\r", b" ").replace(b"\n", b" ")
+
+
+def load_corpus(path: str = METAMORPHOSIS_PATH) -> bytes:
+    with open(path, "rb") as f:
+        return f.read()
 
 
 def generate_noise_image(

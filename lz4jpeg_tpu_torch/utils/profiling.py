@@ -53,6 +53,24 @@ def checksum(out) -> float:
     return total
 
 
+def device_checksum(t: torch.Tensor) -> torch.Tensor:
+    """A 0-d float32 tensor on ``t``'s device that depends on every byte of
+    ``t``: the wrapping integer sum of its bytes read as the widest
+    integers (8, 4, 2 or 1 bytes) that tile them.  It reads ``t`` once and
+    writes nothing of its size, where ``t.sum(dtype=torch.float32)`` of an
+    integer tensor first builds a widened copy: the fence of the chained
+    benchmarks, whose carry stays on the device."""
+    flat = t.contiguous().reshape(-1).view(torch.uint8)
+    if flat.numel() == 0:
+        return torch.zeros((), dtype=torch.float32, device=t.device)
+    for dtype in (torch.int64, torch.int32, torch.int16):
+        width = torch.empty((), dtype=dtype).element_size()
+        if flat.numel() % width == 0 and flat.storage_offset() % width == 0:
+            flat = flat.view(dtype)
+            break
+    return flat.sum(dtype=flat.dtype).to(torch.float32)
+
+
 def fenced(fn: Callable) -> Callable[..., float]:
     """Wrap ``fn`` so calling it executes fully and returns the checksum of
     its whole output."""

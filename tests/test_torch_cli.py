@@ -223,8 +223,16 @@ def test_lzw_matches_jax(tmp_path, capsys):
 
 
 def test_bench_is_not_a_subcommand(capsys):
+    """An unknown ``bench`` suite is no subcommand the parser takes, and
+    ``bench headline`` on the default device (``cuda``) raises on a host
+    without a card instead of running on the CPU."""
+    import torch
+
     with pytest.raises(SystemExit):
-        main(["bench", "headline"])
+        main(["bench", "no-such-suite"])
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            main(["bench", "headline"])
 
 
 def test_module_entry_point(tmp_path, text_file):

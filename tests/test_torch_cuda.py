@@ -601,3 +601,30 @@ def test_nccl_world_of_one_ordered_gather(cuda):
             multihost.ordered_allgather_payloads([b"x"], [0], 2)
     finally:
         dist.destroy_process_group()
+
+
+@pytest.mark.parametrize("dtype", [torch.uint8, torch.int16, torch.float32])
+@pytest.mark.parametrize("case", ["aligned", "odd", "offset view", "empty"])
+def test_stream_copy_matches_plain_version(cuda, dtype, case):
+    """The copy kernel: the vector body with byte-wise head and tail (odd
+    sizes, equal offsets) and the byte-wise route (a source one element
+    off a 16-byte boundary, a 16-byte-aligned destination)."""
+    from lz4jpeg_tpu_torch.ops.stream import stream_copy, stream_copy_ref
+
+    n = {"aligned": 1 << 22, "odd": 1_000_003, "offset view": 65_537,
+         "empty": 0}[case]
+    gen = torch.Generator(device=cuda).manual_seed(n)
+    x = torch.randint(-100, 100, (n,), generator=gen, device=cuda).to(dtype)
+    if case == "offset view":
+        buf = torch.empty(n + 1, dtype=dtype, device=cuda)
+        x = buf[1:].copy_(x)
+        assert x.data_ptr() % 16 != 0 and x.is_contiguous()
+    before = stream_copy.launches
+    got = stream_copy(x)
+    torch.cuda.synchronize()
+    assert stream_copy.launches == before + (n > 0)
+    want = stream_copy_ref(x)
+    assert got.dtype == dtype and got.shape == x.shape and got.is_contiguous()
+    assert torch.equal(got, want)
+    if n:
+        assert got.data_ptr() != x.data_ptr()
