@@ -2,10 +2,11 @@
 """Smoke run of the PyTorch port (lz4jpeg_tpu_torch) on one CUDA card.
 
 Run from the repository root with no arguments: ``python3 chip_smoke.py``.
-It needs one card.  At first use it builds the nine Hopper kernels (one
-nvcc per source file, seven files, all started together, sm_90a) and the
-native runtime (g++) into ``lz4jpeg_tpu_torch/_build/``, then runs twenty
-phases and fails (non-zero exit, no result line) if any of them fails.
+It needs one card.  At first use it builds the thirteen Hopper kernels
+(one nvcc per source file, ten files, all started together, sm_90a) and the
+native runtime (g++) into ``lz4jpeg_tpu_torch/_build/``, then runs
+twenty-one phases and fails (non-zero exit, no result line) if any of them
+fails.
 ``ab_kernels.py`` times K1, K2 and K4-K7 in turns with another checkout's.
 
 1. the card's name and power limit, the torch and CUDA versions, and the
@@ -163,19 +164,40 @@ phases and fails (non-zero exit, no result line) if any of them fails.
     printed), jpeg-perblock at 64²–256², entropy-ab at 1024²; both
     rooflines at their defaults; every artifact naming the device and the
     card; ``python -m lz4jpeg_tpu_torch bench headline --device cuda`` in a
-    process of its own; the wall time of each suite.
+    process of its own; the wall time of each suite;
+21. the kernel candidates (``lz4jpeg_tpu_torch/profiles/``), a few
+    seconds: the MCU forward and inverse kernels
+    (``csrc/mcu_transform_kernel.cu``) against their plain versions (cuBLAS)
+    at HW 64 and 32 on 1, 5, 511, 513 and 2,097,152 random tiles, identical
+    up to one-step flips at summation ties
+    (``utils/parity.py::transform_flips``: forward ratios within 1e-4 of an
+    integer, inverse pixels within the float32 error bound of a round-half
+    tie; at most 1e-5 of the outputs each, the counts printed); the RLE
+    compaction kernel (``csrc/rle_compact_kernel.cu``) identical at L = 2,
+    32, 64, 128 on 1, 5, 4,099 and 2,097,152 rows (crafted all-equal,
+    all-distinct and int16-extreme rows first; at 4,099 rows also int32
+    input and a view one element off a 16-byte boundary); the plane colour
+    kernel (``csrc/plane_color_kernel.cu``) identical at 131,072 × 2048,
+    7 × 2 and 3 × 130; each kernel and its plain version timed at the A/B
+    shapes (phase 4's method); then ``run_candidates_ab`` and
+    ``run_plane_color_ab`` at their defaults (artifacts in a temporary
+    directory, each naming the card), each kernel's count set to 0 just
+    before its A/B and read just after (every kernel launched), every time
+    and verdict printed, and the phase's wall time.
 
 The line before the last is the kernels' JSON record: per kernel (the
-packed16 kernels once per timed channel and input dtype) its
-launches on the main path, its error against the plain version, its time,
-the plain version's, its bound (the larger of the bytes it must move over
-3.35 TB/s and, for K1, its bf16 tensor-core operations over 989 TFLOP/s;
-the H100 SXM data sheet's rates) and the time of one PyTorch call that
-computes the same function where there is one (K3: ``torch.gather``; the
-copy kernel: ``Tensor.copy_``).  Before it, one line per bytes-bound kernel
-gives its share of the data sheet's bound and of the same bytes over the
-stream ceiling phase 20 measured.  The last line is ``{"ok": true,
-"device": {...}}``.
+packed16 kernels once per timed channel and input dtype) its launches on
+the main path (phase 21's kernels: per A/B call), its error against the
+plain version, its time, the plain version's, its bound (the larger of
+the bytes it must move over 3.35 TB/s and the operations: K1's bf16
+tensor-core operations over 989 TFLOP/s, the MCU kernels' IEEE fp32 FMA
+work over the 67 TFLOP/s of the CUDA cores; the H100 SXM data sheet's
+rates) and the time of one PyTorch call that computes the same function
+where there is one (K3: ``torch.gather``; the copy kernel:
+``Tensor.copy_``; none for phase 21's kernels).  Before it, one line per
+bytes-bound kernel gives its share of the data sheet's bound and of the
+same bytes over the stream ceiling phase 20 measured.  The last line is
+``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -256,8 +278,18 @@ BENCH_PERBLOCK_SIZES = (64, 128, 256)
 BENCH_ENTROPY_SIDE = 1024
 ROOFLINE_FORWARD = {}  # the suites' defaults: 2048², batch 32, chain 8
 ROOFLINE_INVERSE = {}  # 2048², batch 64, chain 8
+MCU_SOURCE = "lz4jpeg_tpu_torch/csrc/mcu_transform_kernel.cu"
+RLE_SOURCE = "lz4jpeg_tpu_torch/csrc/rle_compact_kernel.cu"
+COLOR_SOURCE = "lz4jpeg_tpu_torch/csrc/plane_color_kernel.cu"
+CAND_TILES = (1, 5, 511, 513, 2 * 1024 * 1024)  # phase 21's MCU tile counts
+CAND_SEGS = (2, 32, 64, 128)  # phase 21's RLE row lengths
+CAND_ROWS = (1, 5, 4099, 2 * 1024 * 1024)  # and row counts
+CAND_PLANES = ((131_072, 2048), (7, 2), (3, 130))  # phase 21's (n, w) planes
+CAND_AB = {}  # the candidate A/B's defaults: 2,097,152 luma tiles, chain 8
+COLOR_AB = {}  # the colour A/B's defaults: 2048², batch 64
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3 (NVIDIA data sheet)
 BF16_FLOP_PER_S = 989e12  # H100 SXM dense bf16 tensor cores (data sheet)
+FP32_FLOP_PER_S = 67e12  # H100 SXM fp32 on the CUDA cores (data sheet)
 # K1's tensor-core work per 8x8 tile: three bf16 passes of a 64-deep luma
 # and two 32-deep chroma products, 2 operations per multiply-add.
 K1_FLOP_PER_TILE = 3 * 2 * (64 * 64 + 2 * 32 * 32)
@@ -319,12 +351,13 @@ def timed_runs(fn, x, warmup: int = 2, runs: int = 10):
     return ms, {int(s) for s in sums}
 
 
-def bound(n_bytes: float, flops: float = 0.0):
+def bound(n_bytes: float, flops: float = 0.0, fp32_flops: float = 0.0):
     """(bound_ms, bound_by): the least time the card could take for the
-    work, the larger of ``n_bytes`` over the HBM rate and ``flops`` bf16
-    tensor-core operations over their peak."""
+    work, the larger of ``n_bytes`` over the HBM rate and the operations:
+    ``flops`` bf16 tensor-core operations over their peak plus
+    ``fp32_flops`` IEEE fp32 operations on the CUDA cores over theirs."""
     by_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
-    by_ops = flops / BF16_FLOP_PER_S * 1e3
+    by_ops = (flops / BF16_FLOP_PER_S + fp32_flops / FP32_FLOP_PER_S) * 1e3
     return (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops, "operations")
 
 
@@ -369,6 +402,7 @@ def build_all():
         pack16,
         stream,
     )
+    from lz4jpeg_tpu_torch.profiles import mcu, plane_color, rle
 
     builds = {
         "nvcc fwd_megakernel": fwd_megakernel.load_kernel,
@@ -378,6 +412,9 @@ def build_all():
         "nvcc expand16_kernel": pack16.load_expand_kernels,
         "nvcc expand16_wide_kernel": pack16.load_wide_kernel,
         "nvcc stream_copy_kernel": stream.load_kernel,
+        "nvcc mcu_transform_kernel": mcu.load_kernel,
+        "nvcc rle_compact_kernel": rle.load_kernel,
+        "nvcc plane_color_kernel": plane_color.load_kernel,
         "g++ lz4core": native_backend,
     }
 
@@ -2225,6 +2262,221 @@ def bench_phase(dev):
     }, ceiling
 
 
+def candidates_phase(dev):
+    """Phase 21: the kernel candidates of ``lz4jpeg_tpu_torch/profiles/``
+    against their plain versions on the card, their times at the A/B shapes,
+    and both A/Bs at their defaults; returns the four kernel records."""
+    import gc
+    import tempfile
+
+    import torch
+
+    from lz4jpeg_tpu_torch.ops.quantize import (
+        CHROMINANCE_QUANTIZATION_TABLE as CHR,
+        LUMINANCE_QUANTIZATION_TABLE as LUM,
+    )
+    from lz4jpeg_tpu_torch.profiles.candidates_ab import run_candidates_ab
+    from lz4jpeg_tpu_torch.profiles.mcu import (
+        fused_forward_candidate,
+        fused_forward_candidate_ref,
+        fused_inverse_candidate,
+        fused_inverse_candidate_ref,
+    )
+    from lz4jpeg_tpu_torch.profiles.plane_color import (
+        plane_color,
+        plane_color_ref,
+        run_plane_color_ab,
+    )
+    from lz4jpeg_tpu_torch.profiles.rle import (
+        rle_encode_candidate,
+        rle_encode_candidate_ref,
+    )
+    from lz4jpeg_tpu_torch.utils.inputs import crafted_rle_rows
+    from lz4jpeg_tpu_torch.utils.parity import transform_flips
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    t_phase = time.perf_counter()
+    gen = torch.Generator(device=dev).manual_seed(SEED + 21)
+    rng = np.random.default_rng(SEED + 21)
+
+    # -- the MCU transforms: identical up to one-step flips at ties ----------
+    counts = {"forward": [0, 0], "inverse": [0, 0]}  # flips, outputs
+    for width, table in ((8, LUM), (4, CHR)):
+        for n in CAND_TILES:
+            tiles = torch.randint(0, 256, (n, 8, width), generator=gen,
+                                  device=dev, dtype=torch.uint8)
+            zz = fused_forward_candidate_ref(tiles, table, width, 8)
+            fwd = fused_forward_candidate(tiles, table, width, 8)
+            inv = fused_inverse_candidate(zz, table, width, 8)
+            inv_ref = fused_inverse_candidate_ref(zz, table, width, 8)
+            torch.cuda.synchronize()
+            f = transform_flips("forward", tiles, fwd, zz, table, width, 8)
+            i = transform_flips("inverse", zz, inv, inv_ref, table, width, 8)
+            counts["forward"][0] += f
+            counts["forward"][1] += fwd.numel()
+            counts["inverse"][0] += i
+            counts["inverse"][1] += inv.numel()
+            print(f"phase 21: mcu HW {8 * width} N {n}: forward {f} flips, "
+                  f"inverse {i} flips in {fwd.numel()} outputs")
+            del tiles, zz, fwd, inv, inv_ref
+    for kind, (flips, total) in counts.items():
+        check(flips <= MAX_FLIP_SHARE * total,
+              f"mcu {kind}: {flips} flips in {total} outputs")
+        print(f"phase 21: mcu {kind}: {flips} admissible flips in {total} "
+              f"outputs ({flips / total:.3g}, at most {MAX_FLIP_SHARE})")
+    mcu_err = {k: float(v[0] > 0) for k, v in counts.items()}
+
+    # -- the RLE compaction: identical ----------------------------------------
+    for length in CAND_SEGS:
+        for n in CAND_ROWS:
+            x = torch.from_numpy(crafted_rle_rows(n, length, rng)).to(dev)
+            views = [("int16", x)]
+            if n == 4099:
+                views += [("int32", x.to(torch.int32)),
+                          ("offset view", offset_view(x))]
+            for label, v in views:
+                got = rle_encode_candidate(v)
+                want = rle_encode_candidate_ref(v)
+                torch.cuda.synchronize()
+                same = torch.equal(got[0], want[0]) and torch.equal(got[1],
+                                                                    want[1])
+                print(f"phase 21: rle L {length} rows {n} {label}: "
+                      f"{'identical' if same else 'DIFFERS'} "
+                      f"({int(got[1].sum()) // 2} runs)")
+                check(same, f"rle kernel differs at L {length}, {n} rows, {label}")
+            del x, views, got, want
+
+    # -- the plane colour merge: identical ------------------------------------
+    for n, w in CAND_PLANES:
+        y = torch.randint(0, 256, (n, w), generator=gen, device=dev,
+                          dtype=torch.uint8)
+        cr, cb = (torch.randint(0, 256, (n, w // 2), generator=gen, device=dev,
+                                dtype=torch.uint8) for _ in range(2))
+        y[0], cr[0], cb[0] = 255, 255, 0  # both clamps
+        got, want = plane_color(y, cr, cb), plane_color_ref(y, cr, cb)
+        torch.cuda.synchronize()
+        same = all(torch.equal(a, b) for a, b in zip(got, want))
+        print(f"phase 21: plane colour {n}x{w}: "
+              f"{'identical' if same else 'DIFFERS'}")
+        check(same, f"plane colour kernel differs at {n}x{w}")
+        del y, cr, cb, got, want
+
+    # -- kernel against plain at the A/B shapes (phase 4's method) -----------
+    n = CAND_AB.get("n_blocks", 2 * 1024 * 1024)
+    tiles = torch.randint(0, 256, (n, 8, 8), generator=gen, device=dev,
+                          dtype=torch.uint8)
+    zz = fused_forward_candidate_ref(tiles, LUM, 8, 8)
+    times = {}
+    times["mcu_forward"] = time_versions(
+        f"phase 21: mcu forward {n} x 64",
+        {"plain": lambda x: fused_forward_candidate_ref(x, LUM, 8, 8),
+         "kernel": lambda x: fused_forward_candidate(x, LUM, 8, 8)},
+        tiles, identical=False)
+    times["mcu_inverse"] = time_versions(
+        f"phase 21: mcu inverse {n} x 64",
+        {"plain": lambda z: fused_inverse_candidate_ref(z, LUM, 8, 8),
+         "kernel": lambda z: fused_inverse_candidate(z, LUM, 8, 8)},
+        zz, identical=False)
+    zz16 = zz.to(torch.int16)
+    times["rle_compact"] = time_versions(
+        f"phase 21: rle {n} x 64 int16",
+        {"plain": rle_encode_candidate_ref, "kernel": rle_encode_candidate},
+        zz16)
+    del tiles, zz, zz16
+    w = COLOR_AB.get("size", 2048)
+    h = COLOR_AB.get("batch", 64) * w
+    planes = (torch.randint(0, 256, (h, w), generator=gen, device=dev,
+                            dtype=torch.uint8),
+              *(torch.randint(0, 256, (h, w // 2), generator=gen, device=dev,
+                              dtype=torch.uint8) for _ in range(2)))
+    times["plane_color"] = time_versions(
+        f"phase 21: plane colour {h}x{w}",
+        {"plain": lambda p: plane_color_ref(*p),
+         "kernel": lambda p: plane_color(*p)}, planes)
+    del planes
+    bounds = {
+        "mcu_forward": bound(n * (64 + 4 * 64), fp32_flops=n * 2 * 64 * 64),
+        "mcu_inverse": bound(n * (4 * 64 + 64), fp32_flops=n * 2 * 64 * 64),
+        "rle_compact": bound(n * 64 * 2 + n * (128 * 2 + 4)),
+        "plane_color": bound(h * w * 2 + h * w * 3),
+    }
+    for name, (b_ms, by) in bounds.items():
+        t = times[name]
+        print(f"phase 21: {name}: kernel {t['kernel']:.4f} ms, plain "
+              f"{t['plain']:.4f} ms ({t['plain'] / t['kernel']:.1f}x); bound "
+              f"{b_ms:.4f} ms ({by}), {b_ms / t['kernel']:.1%} of it")
+
+    # -- both A/Bs at their defaults: the path these kernels serve -----------
+    gc.collect()
+    torch.cuda.empty_cache()
+    wrappers = {"mcu_forward": fused_forward_candidate,
+                "mcu_inverse": fused_inverse_candidate,
+                "rle_compact": rle_encode_candidate,
+                "plane_color": plane_color}
+    launches, wall = {}, {}
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        for fn in wrappers.values():
+            fn.launches = 0
+        t0 = time.perf_counter()
+        ab = run_candidates_ab(**CAND_AB, device=dev,
+                               output=str(tmp / "candidates_ab.json"))
+        wall["candidates_ab"] = time.perf_counter() - t0
+        for name in ("mcu_forward", "mcu_inverse", "rle_compact"):
+            launches[name] = wrappers[name].launches
+        plane_color.launches = 0
+        t0 = time.perf_counter()
+        pc = run_plane_color_ab(**COLOR_AB, device=dev,
+                                output=str(tmp / "plane_color_ab.json"))
+        wall["plane_color_ab"] = time.perf_counter() - t0
+        launches["plane_color"] = plane_color.launches
+        for path in sorted(tmp.iterdir()):
+            art = json.loads(path.read_text())
+            check(art.get("device") == str(dev) and art.get("card"),
+                  f"{path.name} does not name the card")
+    for name, count in launches.items():
+        check(count > 0, f"the A/B never launched {name}")
+    for op, r in ab["ops"].items():
+        shipped = next(v for k, v in r.items() if k.startswith("torch_"))
+        print(f"phase 21: A/B {op}: torch {shipped * 1e3:.4f} ms, kernel "
+              f"{r['kernel_s'] * 1e3:.4f} ms, fence floor "
+              f"{r['fence_floor_s'] * 1e3:.4f} ms per iteration "
+              f"({r['speedup']:.2f}x)")
+    print(f"phase 21: A/B gates {ab['gates']}; verdict: {ab['verdict']}")
+    op = pc["ops"]["plane_color"]
+    print(f"phase 21: colour A/B: kernel {op['kernel_planar_s'] * 1e3:.4f} ms "
+          f"({op['kernel_mpix_s']:.1f} MPix/s), torch "
+          f"{op['torch_interleaved_s'] * 1e3:.4f} ms ({op['torch_mpix_s']:.1f} "
+          f"MPix/s), fence floor {op['fence_floor_s'] * 1e3:.4f} ms; verdict: "
+          f"{pc['verdict']}")
+    print(f"phase 21: launches per A/B call {launches}; wall s "
+          + ", ".join(f"{k} {v:.2f}" for k, v in wall.items())
+          + f"; phase {time.perf_counter() - t_phase:.2f} s")
+
+    sources = {"mcu_forward": (MCU_SOURCE, "profiles/pallas_mcu.py:36"),
+               "mcu_inverse": (MCU_SOURCE, "profiles/pallas_mcu.py:48"),
+               "rle_compact": (RLE_SOURCE, "profiles/pallas_rle.py:52"),
+               "plane_color": (COLOR_SOURCE,
+                               "profiles/profile_plane_color_kernel.py:27")}
+    errors = {"mcu_forward": mcu_err["forward"],
+              "mcu_inverse": mcu_err["inverse"],
+              "rle_compact": 0.0, "plane_color": 0.0}
+    return [{
+        "name": name,
+        "route": "cuda",
+        "source": sources[name][0],
+        "replaces": sources[name][1],
+        "launches": launches[name],
+        "max_abs_err": errors[name],
+        "ms": times[name]["kernel"],
+        "plain_ms": times[name]["plain"],
+        "bound_ms": bounds[name][0],
+        "bound_by": bounds[name][1],
+        "library_ms": None,
+    } for name in wrappers]
+
+
 def main() -> int:
     import torch
 
@@ -2417,6 +2669,7 @@ def main() -> int:
     parallel_phase(dev, card, lz4_data, lz4_frame)
     del lz4_data, lz4_frame
     copy, ceiling = bench_phase(dev)
+    candidates = candidates_phase(dev)
 
     records = [{
         "name": "fwd_megakernel",
@@ -2430,7 +2683,7 @@ def main() -> int:
         "bound_ms": k1_bound[0],
         "bound_by": k1_bound[1],
         "library_ms": None,
-    }, *lz4, *pairs, wide, copy]
+    }, *lz4, *pairs, wide, copy, *candidates]
     for r in records:
         if r["bound_by"] == "bytes":  # the same bytes over the measured rate
             measured = r["bound_ms"] * HBM_BYTES_PER_S / (ceiling * 1e9)

@@ -133,6 +133,29 @@ def crafted_packed16_rows(k: int, rng: np.random.Generator, n_random: int = 40):
     return words.astype(np.uint16).view(np.int16), lengths.astype(np.int32)
 
 
+def crafted_rle_rows(n: int, length: int, rng: np.random.Generator):
+    """(n, length) int16 rows for run-length compaction: each value repeats
+    the one before it with probability 0.6 (runs of every length) and takes
+    one of 7 small values or, one time in eight, any int16; the first rows
+    (as many as ``n`` holds) are all equal, all distinct, the int16 limits
+    alternating, and all -32768."""
+    vals = rng.integers(-3, 4, size=(n, length))
+    wide = rng.random((n, length)) < 0.125
+    vals[wide] = rng.integers(-32768, 32768, size=int(wide.sum()))
+    repeat = rng.random((n, length)) < 0.6
+    for j in range(1, length):
+        vals[:, j] = np.where(repeat[:, j], vals[:, j - 1], vals[:, j])
+    crafted = [
+        np.full(length, 7),
+        np.arange(length) - length // 2,
+        np.where(np.arange(length) % 2 == 0, 32767, -32768),
+        np.full(length, -32768),
+    ]
+    for i, row in enumerate(crafted[:n]):
+        vals[i] = row
+    return vals.astype(np.int16)
+
+
 MATCH_BLOCK_KINDS = ("one_byte", "period4", "short", "zeros", "padding",
                      "ragged")
 

@@ -20,6 +20,11 @@ numpy from the same pixels, lies within ``eps`` of an integer.  Anything
 else raises.  Callers bound the count (at most 1e-5 of the coefficients).
 ``combined_of`` brings pair and packed16 encodes to the same buffer, so the
 rule covers the int16 pair layout's forward (cuBLAS on a card) too.
+``transform_flips`` applies the same rule to the tile transforms of
+``profiles/mcu.py``: a forward coefficient one step apart where the float64
+ratio is within ``eps`` of an integer, an inverse pixel one step apart where
+the float64 pixel value is within the float32 summation error of a
+round-half tie.
 """
 
 from __future__ import annotations
@@ -32,7 +37,7 @@ from lz4jpeg_tpu_torch.ops.color import (
     rgb_to_ycbcr,
     split_mcus,
 )
-from lz4jpeg_tpu_torch.ops.fused import _table_key, forward_basis
+from lz4jpeg_tpu_torch.ops.fused import _table_key, forward_basis, inverse_basis
 from lz4jpeg_tpu_torch.ops.fwd_megakernel import CHANNEL_SLICES
 from lz4jpeg_tpu_torch.ops.rle import (
     rle_decode_batched,
@@ -105,6 +110,67 @@ def sum_order_flips(
             )
         flips += int(r_idx.size)
     return flips
+
+
+def transform_flips(
+    kind: str,
+    inputs: torch.Tensor,
+    got: torch.Tensor,
+    want: torch.Tensor,
+    table: np.ndarray,
+    width: int,
+    height: int,
+    eps: float = 1e-4,
+) -> int:
+    """Count admissible one-step differences between two results of a tile
+    transform; raise AssertionError on any other difference.
+
+    ``kind`` "forward": ``inputs`` are the (N, height, width) uint8 tiles and
+    ``got``/``want`` (N, HW) quantized coefficients; a difference of 1 is
+    admissible where the float64 ratio ``x · M[k] - off[k]`` lies within
+    ``eps`` of an integer (``sum_order_flips``' rule).  ``kind`` "inverse":
+    ``inputs`` are the (N, HW) coefficients and ``got``/``want`` (N, height,
+    width) uint8 pixels; a difference of 1 is admissible where the float64
+    pixel value ``v = z · Minv[p] + 128`` lies within
+    2⁻²⁴·(2·HW·Σ|z_k·Minv[p,k]| + 2|v|) of a half-integer (the float32 error
+    bound of two summation orders and of the + 128).
+    Only the rows that differ leave the device."""
+    if kind not in ("forward", "inverse"):
+        raise ValueError(f"kind must be 'forward' or 'inverse', not {kind!r}")
+    n = got.shape[0]
+    g, w = got.reshape(n, -1), want.reshape(n, -1)
+    if g.shape != w.shape:
+        raise AssertionError(
+            f"shapes differ: {tuple(got.shape)} vs {tuple(want.shape)}")
+    rows = torch.nonzero((g != w).any(dim=1)).flatten()
+    if rows.numel() == 0:
+        return 0
+    g = g[rows].cpu().numpy().astype(np.int64)
+    w = w[rows].cpu().numpy().astype(np.int64)
+    x = inputs.reshape(n, -1)[rows].cpu().numpy().astype(np.float64)
+    r_idx, k_idx = np.nonzero(g != w)
+    delta = np.abs(g - w)[r_idx, k_idx]
+    key = _table_key(table)
+    if kind == "forward":
+        m, off = forward_basis(width, height, key)
+        value = np.einsum("ij,ij->i", x[r_idx], m[k_idx]) - off[k_idx]
+        near = np.abs(value - np.round(value)) <= eps
+    else:
+        minv = inverse_basis(width, height, key)
+        terms = x[r_idx] * minv[k_idx]
+        value = terms.sum(axis=1) + 128.0
+        window = 2.0**-24 * (2 * x.shape[1] * np.abs(terms).sum(axis=1)
+                             + 2 * np.abs(value))  # the sums, then + 128
+        near = np.abs(value - np.floor(value) - 0.5) <= window
+    bad = (delta != 1) | ~near
+    if bad.any():
+        i = int(np.argmax(bad))
+        raise AssertionError(
+            f"{kind}: tile {int(rows[r_idx[i]])} element {int(k_idx[i])} "
+            f"differs by {int(delta[i])}, float64 value {float(value[i])!r} is "
+            "not at a tie"
+        )
+    return int(r_idx.size)
 
 
 def quantization_tie_mask(

@@ -628,3 +628,115 @@ def test_stream_copy_matches_plain_version(cuda, dtype, case):
     assert torch.equal(got, want)
     if n:
         assert got.data_ptr() != x.data_ptr()
+
+
+def _offset(x):
+    """``x`` copied into a view one element past a 16-byte boundary."""
+    buf = torch.empty(x.numel() + 1, dtype=x.dtype, device=x.device)
+    view = buf[1:].view(x.shape).copy_(x)
+    assert view.data_ptr() % 16 != 0
+    return view
+
+
+@pytest.mark.parametrize("width", [8, 4])
+@pytest.mark.parametrize("n", [1, 5, 513, 70_000, "offset view"])
+def test_mcu_kernels_match_plain_versions(cuda, width, n):
+    """The MCU transform kernels (``profiles/mcu.py``) against their plain
+    versions (cuBLAS): identical up to one-step flips at summation ties
+    (``utils/parity.py::transform_flips``), at most 1e-5 of the outputs."""
+    from lz4jpeg_tpu_torch.profiles import mcu
+    from lz4jpeg_tpu_torch.utils.parity import transform_flips
+
+    table = LUM if width == 8 else CHR
+    rows = 517 if n == "offset view" else n
+    rng = np.random.default_rng(rows + width)
+    tiles = torch.from_numpy(rng.integers(0, 256, size=(rows, 8, width),
+                                          dtype=np.uint8)).to(cuda)
+    zz = mcu.fused_forward_candidate_ref(tiles, table, width, 8)
+    if n == "offset view":
+        tiles, zz = _offset(tiles), _offset(zz)
+    before = (mcu.fused_forward_candidate.launches,
+              mcu.fused_inverse_candidate.launches)
+    fwd = mcu.fused_forward_candidate(tiles, table, width, 8)
+    inv = mcu.fused_inverse_candidate(zz, table, width, 8)
+    torch.cuda.synchronize()
+    assert (mcu.fused_forward_candidate.launches,
+            mcu.fused_inverse_candidate.launches) == (before[0] + 1,
+                                                      before[1] + 1)
+    assert fwd.dtype == torch.float32 and fwd.shape == (rows, 8 * width)
+    assert inv.dtype == torch.uint8 and inv.shape == (rows, 8, width)
+    f = transform_flips("forward", tiles, fwd, zz, table, width, 8)
+    i = transform_flips("inverse", zz, inv,
+                        mcu.fused_inverse_candidate_ref(zz, table, width, 8),
+                        table, width, 8)
+    assert f <= MAX_FLIP_SHARE * fwd.numel() and i <= MAX_FLIP_SHARE * inv.numel()
+
+
+@pytest.mark.parametrize("length", [1, 2, 8, 32, 64, 128])
+@pytest.mark.parametrize("dtype", [torch.int16, torch.int32])
+def test_rle_compact_kernel_matches_plain_version(cuda, length, dtype):
+    """The RLE compaction kernel (``profiles/rle.py``): identical pairs and
+    lengths on crafted rows (all equal, all distinct, int16 limits), at row
+    counts off its rows per warp pass, and in an unaligned view."""
+    from lz4jpeg_tpu_torch.profiles.rle import (
+        rle_encode_candidate,
+        rle_encode_candidate_ref,
+    )
+    from lz4jpeg_tpu_torch.utils.inputs import crafted_rle_rows
+
+    rng = np.random.default_rng(length)
+    for n in (1, 5, 4099):
+        x = torch.from_numpy(crafted_rle_rows(n, length, rng)).to(cuda, dtype)
+        for view in (x, _offset(x)):
+            before = rle_encode_candidate.launches
+            got = rle_encode_candidate(view)
+            torch.cuda.synchronize()
+            assert rle_encode_candidate.launches == before + 1
+            want = rle_encode_candidate_ref(view)
+            assert got[0].dtype == torch.int16 and got[1].dtype == torch.int32
+            assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+@pytest.mark.parametrize("shape", [(64, 128), (7, 2), (3, 130), (1, 2),
+                                   (33, 2048), "offset view"])
+def test_plane_color_kernel_matches_plain_version(cuda, shape):
+    """The plane colour kernel (``profiles/plane_color.py``): identical to
+    the repeat + ``ycbcr_planes_to_rgb`` planes, including the 0/255
+    extremes, widths off its 16-pixel step and unaligned views."""
+    from lz4jpeg_tpu_torch.profiles.plane_color import (
+        plane_color,
+        plane_color_ref,
+    )
+
+    n, w = (9, 96) if shape == "offset view" else shape
+    rng = np.random.default_rng(n * w)
+    y = torch.from_numpy(rng.integers(0, 256, size=(n, w), dtype=np.uint8))
+    cr, cb = (torch.from_numpy(rng.integers(0, 256, size=(n, w // 2),
+                                            dtype=np.uint8)) for _ in range(2))
+    y[0], cr[0], cb[0] = 255, 255, 0
+    y, cr, cb = y.to(cuda), cr.to(cuda), cb.to(cuda)
+    if shape == "offset view":
+        y, cr, cb = _offset(y), _offset(cr), _offset(cb)
+    before = plane_color.launches
+    got = plane_color(y, cr, cb)
+    torch.cuda.synchronize()
+    assert plane_color.launches == before + 1
+    for a, b in zip(got, plane_color_ref(y, cr, cb)):
+        assert a.dtype == torch.uint8 and a.shape == (n, w)
+        assert torch.equal(a, b)
+
+
+def test_candidate_abs_on_the_card(cuda, tmp_path):
+    """Both A/Bs at small scale on the card: gates, launch guards, the card
+    named in the artifact."""
+    import json
+
+    from lz4jpeg_tpu_torch.profiles.candidates_ab import run_candidates_ab
+    from lz4jpeg_tpu_torch.profiles.plane_color import run_plane_color_ab
+
+    ab = run_candidates_ab(n_blocks=4096, chain=2, runs=1, device=cuda,
+                           output=str(tmp_path / "ab.json"))
+    pc = run_plane_color_ab(size=64, batch=2, runs=1, device=cuda)
+    assert json.loads((tmp_path / "ab.json").read_text())["card"] == ab["card"]
+    assert set(ab["ops"]) == {"fused_forward", "fused_inverse", "rle_encode"}
+    assert ab["device"] == pc["device"] == str(cuda) and pc["card"]

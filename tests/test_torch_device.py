@@ -4,9 +4,11 @@
   the CPU instead.
 * ``forward_combined.launches`` counts kernel launches only: CPU tensors
   run the plain version and leave it at 0.
-* No module of ``lz4jpeg_tpu_torch`` (the oracle copy included) nor
-  ``chip_smoke.py`` imports ``jax`` or ``lz4jpeg_tpu``, by an AST scan and
-  by a subprocess that blocks both names and still runs JPEG round trips
+* No module of ``lz4jpeg_tpu_torch`` (the oracle copy and the kernel
+  candidates of ``profiles/`` included) nor ``chip_smoke.py`` imports
+  ``jax``, ``lz4jpeg_tpu`` or the repository's ``profiles`` scripts, by an
+  AST scan and by a subprocess that blocks the three names and still runs
+  the kernel candidates' plain versions and JPEG round trips
   (sparse16, its packed16 twin, quality 90 in the int16 pair layout, exact
   precision against the oracle copy, per-block entropy, the overlapped
   and bucketed encodes, K8's plain version), an LZ4T
@@ -30,7 +32,7 @@ from lz4jpeg_tpu_torch.ops.quantize import (
 )
 
 REPO = Path(__file__).resolve().parent.parent
-BLOCKED = ("jax", "lz4jpeg_tpu")
+BLOCKED = ("jax", "lz4jpeg_tpu", "profiles")
 
 
 def test_cuda_pipeline_raises_without_a_card():
@@ -155,6 +157,14 @@ with contextlib.redirect_stdout(io.StringIO()) as said:
                  "--device", "cpu"]) == 0
 assert said.getvalue().startswith("3000 -> ")
 assert open("out.lz4", "rb").read() == frame
+from lz4jpeg_tpu_torch.ops.quantize import LUMINANCE_QUANTIZATION_TABLE as LUM
+from lz4jpeg_tpu_torch.profiles import candidates_ab, mcu, plane_color, rle
+zz = mcu.fused_forward_candidate(torch.from_numpy(rgb[..., 0][None, :8, :8].copy()),
+                                 LUM, 8, 8)
+assert mcu.fused_inverse_candidate(zz, LUM, 8, 8).shape == (1, 8, 8)
+assert rle.rle_encode_candidate(zz.to(torch.int16))[1].shape == (1,)
+assert len(plane_color.plane_color(*(torch.zeros(s, dtype=torch.uint8)
+                                     for s in ((2, 4), (2, 2), (2, 2))))) == 3
 assert "jax" not in sys.modules and "lz4jpeg_tpu" not in sys.modules
 print("ok")
 """
