@@ -189,10 +189,12 @@ The line before the last is the kernels' JSON record: per kernel (the
 packed16 kernels once per timed channel and input dtype) its launches on
 the main path (phase 21's kernels: per A/B call), its error against the
 plain version, its time, the plain version's, its bound (the larger of
-the bytes it must move over 3.35 TB/s and the operations: K1's bf16
-tensor-core operations over 989 TFLOP/s, the MCU kernels' IEEE fp32 FMA
-work over the 67 TFLOP/s of the CUDA cores; the H100 SXM data sheet's
-rates) and the time of one PyTorch call that computes the same function
+the bytes it must move over 3.35 TB/s and the operations as bf16
+tensor-core work over 989 TFLOP/s, the H100 SXM data sheet's rates: K1's
+three-part product, and the MCU kernels' product counted the same way,
+three basis parts against exact pixel values, and against the two exact
+bf16 parts of integer coefficients for the inverse, which leaves both
+MCU kernels bound by their bytes) and the time of one PyTorch call that computes the same function
 where there is one (K3: ``torch.gather``; the copy kernel:
 ``Tensor.copy_``; none for phase 21's kernels).  Before it, one line per
 bytes-bound kernel gives its share of the data sheet's bound and of the
@@ -289,10 +291,14 @@ CAND_AB = {}  # the candidate A/B's defaults: 2,097,152 luma tiles, chain 8
 COLOR_AB = {}  # the colour A/B's defaults: 2048², batch 64
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3 (NVIDIA data sheet)
 BF16_FLOP_PER_S = 989e12  # H100 SXM dense bf16 tensor cores (data sheet)
-FP32_FLOP_PER_S = 67e12  # H100 SXM fp32 on the CUDA cores (data sheet)
 # K1's tensor-core work per 8x8 tile: three bf16 passes of a 64-deep luma
 # and two 32-deep chroma products, 2 operations per multiply-add.
 K1_FLOP_PER_TILE = 3 * 2 * (64 * 64 + 2 * 32 * 32)
+# The MCU candidates' product counted the same way, per 64-deep luma tile:
+# three bf16 basis parts against exact pixel values (forward), and against
+# the two exact bf16 parts of integer coefficients up to 1024 (inverse).
+MCU_FWD_FLOP_PER_TILE = 3 * 2 * 64 * 64
+MCU_INV_FLOP_PER_TILE = 2 * 3 * 2 * 64 * 64
 
 
 def check(cond: bool, msg: str) -> None:
@@ -351,13 +357,12 @@ def timed_runs(fn, x, warmup: int = 2, runs: int = 10):
     return ms, {int(s) for s in sums}
 
 
-def bound(n_bytes: float, flops: float = 0.0, fp32_flops: float = 0.0):
+def bound(n_bytes: float, flops: float = 0.0):
     """(bound_ms, bound_by): the least time the card could take for the
-    work, the larger of ``n_bytes`` over the HBM rate and the operations:
-    ``flops`` bf16 tensor-core operations over their peak plus
-    ``fp32_flops`` IEEE fp32 operations on the CUDA cores over theirs."""
+    work, the larger of ``n_bytes`` over the HBM rate and ``flops`` bf16
+    tensor-core operations over their peak."""
     by_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
-    by_ops = (flops / BF16_FLOP_PER_S + fp32_flops / FP32_FLOP_PER_S) * 1e3
+    by_ops = flops / BF16_FLOP_PER_S * 1e3
     return (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops, "operations")
 
 
@@ -2396,8 +2401,8 @@ def candidates_phase(dev):
          "kernel": lambda p: plane_color(*p)}, planes)
     del planes
     bounds = {
-        "mcu_forward": bound(n * (64 + 4 * 64), fp32_flops=n * 2 * 64 * 64),
-        "mcu_inverse": bound(n * (4 * 64 + 64), fp32_flops=n * 2 * 64 * 64),
+        "mcu_forward": bound(n * (64 + 4 * 64), n * MCU_FWD_FLOP_PER_TILE),
+        "mcu_inverse": bound(n * (4 * 64 + 64), n * MCU_INV_FLOP_PER_TILE),
         "rle_compact": bound(n * 64 * 2 + n * (128 * 2 + 4)),
         "plane_color": bound(h * w * 2 + h * w * 3),
     }

@@ -24,16 +24,19 @@
 // element at once, so the shared-memory reads are broadcasts, four floats a
 // load.  Outputs leave four floats (forward) or sixteen bytes (inverse) per
 // 16-byte store.  Persistent CTAs, sized by the occupancy calculator, walk
-// the tiles in a grid-stride loop.  No tensor cores: K1's exact three-part
-// bf16 split holds for pixel inputs up to 255, not for inverse coefficients
-// up to +-1024, so the product stays in fp32 FMAs (a later PR's work).
+// the tiles in a grid-stride loop.  No tensor cores yet (a later PR's work):
+// the same product runs exactly on them as bf16 parts, K1's three basis parts
+// against pixel values that bf16 holds exactly, and for the inverse's integer
+// coefficients (|z| <= 1024) two exact bf16 parts of z against those three.
 //
-// What bounds it.  Per tile 2 * HW * HW fp32 operations and HW + 4 HW bytes
-// of device memory.  At 2,097,152 luma tiles (the A/B's shape): 17.18 GFLOP,
-// 0.2564 ms at the 67 TFLOP/s fp32 rate of an H100 SXM's data sheet (700 W),
-// against 671.1 MB, 0.2003 ms at 3.35 TB/s: the fp32 FMA work bounds both
-// directions.  One LDS.128 feeds four FMAs, so the shared-memory pipe is
-// the next limit after the FMA pipe.
+// What bounds it.  Per tile HW + 4 HW bytes of device memory; counted as
+// those bf16 tensor-core products, 3 (forward) or 6 (inverse) times
+// 2 * HW * HW operations.  At 2,097,152 luma tiles (the A/B's shape):
+// 671.1 MB, 0.2003 ms at the 3.35 TB/s of an H100 SXM's data sheet, against
+// 51.5 or 103.1 GFLOP, 0.0521 or 0.1042 ms at its 989 TFLOP/s: the bytes
+// bound both directions.  In fp32 FMAs on the CUDA cores, as here, the same
+// work takes at least 0.2564 ms at 67 TFLOP/s, and one LDS.128 feeds four
+// FMAs, so the FMA and shared-memory pipes are this kernel's limits.
 
 #include <cstdint>
 
@@ -154,17 +157,22 @@ __global__ void __launch_bounds__(kThreads)
 }
 
 // Persistent grid: as many CTAs as can be resident at once, no more than the
-// tiles need.
+// tiles need.  A failed device or occupancy query is returned, not guessed
+// around.
 template <typename Kernel>
-unsigned grid_for(Kernel kernel, long long n) {
-  int dev = 0, sms = 132, per_sm = 1;
-  if (cudaGetDevice(&dev) == cudaSuccess)
-    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kThreads, 0);
-  if (per_sm < 1) per_sm = 1;
+cudaError_t grid_for(Kernel kernel, long long n, unsigned* grid) {
+  int dev = 0, sms = 0, per_sm = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err != cudaSuccess) return err;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
+                                                      kThreads, 0);
+  if (err != cudaSuccess) return err;
   const long long need = (n + kThreads - 1) / kThreads;
-  const long long cap = static_cast<long long>(sms) * per_sm;
-  return static_cast<unsigned>(need < cap ? need : cap);
+  const long long cap = static_cast<long long>(sms) * (per_sm > 0 ? per_sm : 1);
+  *grid = static_cast<unsigned>(need < cap ? need : cap);
+  return cudaSuccess;
 }
 
 bool aligned16(const void* p) {
@@ -175,8 +183,9 @@ bool aligned16(const void* p) {
 
 // tiles: (n, hw) uint8; basis: (hw, hw) float32, row k the basis of output
 // k; offset: (hw,) float32; out: (n, hw) float32; all contiguous, tiles and
-// out 16-byte aligned.  Launches on `stream` and returns cudaGetLastError()
-// (0 on success); never synchronises.
+// out 16-byte aligned.  Launches on `stream` and returns the first CUDA
+// error of the occupancy query or the launch (0 on success); never
+// synchronises.
 extern "C" int mcu_forward_launch(const void* tiles, const void* basis,
                                   const void* offset, void* out, long long n,
                                   int hw, float snap_eps, void* stream) {
@@ -188,12 +197,16 @@ extern "C" int mcu_forward_launch(const void* tiles, const void* basis,
   const float* m = static_cast<const float*>(basis);
   const float* o = static_cast<const float*>(offset);
   float* y = static_cast<float*>(out);
+  unsigned grid = 0;
+  cudaError_t err;
   if (hw == 64) {
-    mcu_forward_kernel<64><<<grid_for(mcu_forward_kernel<64>, n), kThreads, 0,
-                             s>>>(x, m, o, y, n, snap_eps);
+    err = grid_for(mcu_forward_kernel<64>, n, &grid);
+    if (err != cudaSuccess) return err;
+    mcu_forward_kernel<64><<<grid, kThreads, 0, s>>>(x, m, o, y, n, snap_eps);
   } else {
-    mcu_forward_kernel<32><<<grid_for(mcu_forward_kernel<32>, n), kThreads, 0,
-                             s>>>(x, m, o, y, n, snap_eps);
+    err = grid_for(mcu_forward_kernel<32>, n, &grid);
+    if (err != cudaSuccess) return err;
+    mcu_forward_kernel<32><<<grid, kThreads, 0, s>>>(x, m, o, y, n, snap_eps);
   }
   return cudaGetLastError();
 }
@@ -209,12 +222,16 @@ extern "C" int mcu_inverse_launch(const void* zz, const void* basis, void* out,
   const float* z = static_cast<const float*>(zz);
   const float* m = static_cast<const float*>(basis);
   uint8_t* y = static_cast<uint8_t*>(out);
+  unsigned grid = 0;
+  cudaError_t err;
   if (hw == 64) {
-    mcu_inverse_kernel<64><<<grid_for(mcu_inverse_kernel<64>, n), kThreads, 0,
-                             s>>>(z, m, y, n);
+    err = grid_for(mcu_inverse_kernel<64>, n, &grid);
+    if (err != cudaSuccess) return err;
+    mcu_inverse_kernel<64><<<grid, kThreads, 0, s>>>(z, m, y, n);
   } else {
-    mcu_inverse_kernel<32><<<grid_for(mcu_inverse_kernel<32>, n), kThreads, 0,
-                             s>>>(z, m, y, n);
+    err = grid_for(mcu_inverse_kernel<32>, n, &grid);
+    if (err != cudaSuccess) return err;
+    mcu_inverse_kernel<32><<<grid, kThreads, 0, s>>>(z, m, y, n);
   }
   return cudaGetLastError();
 }

@@ -113,8 +113,8 @@ __global__ void __launch_bounds__(kThreads)
 
 // y, r, g, b: n_pix uint8; cr, cb: n_pix / 2 uint8 (n_pix even: the planes
 // are (n, w) and (n, w / 2) with w even, flattened); all contiguous device
-// memory.  Launches on `stream` and returns cudaGetLastError() (0 on
-// success); never synchronises.
+// memory.  Launches on `stream` and returns the first CUDA error of the
+// occupancy query or the launch (0 on success); never synchronises.
 extern "C" int plane_color_launch(const void* y, const void* cr,
                                   const void* cb, void* r, void* g, void* b,
                                   long long n_pix, void* stream) {
@@ -127,14 +127,16 @@ extern "C" int plane_color_launch(const void* y, const void* cr,
   const bool vec = bits % 16 == 0;
   const long long n_vec = vec ? n_pix / 16 : 0;
   const long long work = n_vec > 0 ? n_vec : n_pix;
-  int dev = 0, sms = 132, per_sm = 1;
-  if (cudaGetDevice(&dev) == cudaSuccess)
-    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, plane_color_kernel,
-                                                kThreads, 0);
-  if (per_sm < 1) per_sm = 1;
+  int dev = 0, sms = 0, per_sm = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err != cudaSuccess) return err;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &per_sm, plane_color_kernel, kThreads, 0);
+  if (err != cudaSuccess) return err;
   long long blocks = (work + kThreads - 1) / kThreads;
-  const long long cap = static_cast<long long>(sms) * per_sm;
+  const long long cap = static_cast<long long>(sms) * (per_sm > 0 ? per_sm : 1);
   if (blocks > cap) blocks = cap;
   plane_color_kernel<<<static_cast<unsigned>(blocks), kThreads, 0,
                        static_cast<cudaStream_t>(stream)>>>(

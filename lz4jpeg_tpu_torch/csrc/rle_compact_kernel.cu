@@ -134,25 +134,32 @@ __global__ void __launch_bounds__(kWarps * 32)
   }
 }
 
-unsigned grid_for(long long passes, const void* kernel) {
-  int dev = 0, sms = 132, per_sm = 1;
-  if (cudaGetDevice(&dev) == cudaSuccess)
-    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kWarps * 32,
-                                                0);
-  if (per_sm < 1) per_sm = 1;
+// Persistent grid: as many CTAs as can be resident at once, no more than the
+// passes need.  A failed device or occupancy query is returned.
+cudaError_t grid_for(long long passes, const void* kernel, unsigned* grid) {
+  int dev = 0, sms = 0, per_sm = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err != cudaSuccess) return err;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
+                                                      kWarps * 32, 0);
+  if (err != cudaSuccess) return err;
   const long long need = (passes + kWarps - 1) / kWarps;
-  const long long cap = static_cast<long long>(sms) * per_sm;
-  return static_cast<unsigned>(need < cap ? need : cap);
+  const long long cap = static_cast<long long>(sms) * (per_sm > 0 ? per_sm : 1);
+  *grid = static_cast<unsigned>(need < cap ? need : cap);
+  return cudaSuccess;
 }
 
 template <typename T, int L>
 cudaError_t launch_seg(const void* values, void* pairs, void* lengths,
                        long long n_rows, cudaStream_t s) {
   constexpr int R = 32 / (L >= 32 ? 32 : L);
-  const unsigned grid =
+  unsigned grid = 0;
+  const cudaError_t err =
       grid_for((n_rows + R - 1) / R,
-               reinterpret_cast<const void*>(rle_compact_kernel<T, L>));
+               reinterpret_cast<const void*>(rle_compact_kernel<T, L>), &grid);
+  if (err != cudaSuccess) return err;
   rle_compact_kernel<T, L><<<grid, kWarps * 32, 0, s>>>(
       static_cast<const T*>(values), static_cast<uint32_t*>(pairs),
       static_cast<int32_t*>(lengths), n_rows);
@@ -179,8 +186,8 @@ cudaError_t launch(const void* values, void* pairs, void* lengths,
 
 // values: (n_rows, seg) int16 (elem_bytes 2) or int32 (4), 16-byte aligned;
 // pairs: (n_rows, 2 seg) int16, 4-byte aligned; lengths: (n_rows,) int32;
-// all contiguous.  Launches on `stream` and returns cudaGetLastError() (0 on
-// success); never synchronises.
+// all contiguous.  Launches on `stream` and returns the first CUDA error of
+// the occupancy query or the launch (0 on success); never synchronises.
 extern "C" int rle_compact_launch(const void* values, int elem_bytes,
                                   void* pairs, void* lengths, long long n_rows,
                                   int seg, void* stream) {

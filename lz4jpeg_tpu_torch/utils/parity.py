@@ -20,11 +20,12 @@ numpy from the same pixels, lies within ``eps`` of an integer.  Anything
 else raises.  Callers bound the count (at most 1e-5 of the coefficients).
 ``combined_of`` brings pair and packed16 encodes to the same buffer, so the
 rule covers the int16 pair layout's forward (cuBLAS on a card) too.
-``transform_flips`` applies the same rule to the tile transforms of
-``profiles/mcu.py``: a forward coefficient one step apart where the float64
-ratio is within ``eps`` of an integer, an inverse pixel one step apart where
-the float64 pixel value is within the float32 summation error of a
-round-half tie.
+The rule itself lives in ``transform_flips``, which ``sum_order_flips``
+calls per channel and which the tile transforms of ``profiles/mcu.py`` use
+directly: a forward coefficient one step apart where the float64 ratio is
+within ``eps`` of an integer, an inverse pixel one step apart where the
+float64 pixel value is within the float32 summation error of a round-half
+tie.
 """
 
 from __future__ import annotations
@@ -90,25 +91,12 @@ def sum_order_flips(
         CHANNEL_SLICES.items(), tiles, (lum_table, chr_table, chr_table),
         (8, 4, 4),
     ):
-        coef_got = rle_decode_sparse16(torch.from_numpy(got[rows, sl])).numpy()
-        coef_want = rle_decode_sparse16(torch.from_numpy(want[rows, sl])).numpy()
-        r_idx, k_idx = np.nonzero(coef_got != coef_want)
-        if r_idx.size == 0:
-            continue
-        delta = np.abs(coef_got - coef_want)[r_idx, k_idx]
-        m, off = forward_basis(width, 8, _table_key(table))
-        x = t.numpy().reshape(t.shape[0], -1)[rows[r_idx]].astype(np.float64)
-        ratio = np.einsum("ij,ij->i", x, m[k_idx]) - off[k_idx]
-        near = np.abs(ratio - np.round(ratio)) <= eps
-        bad = (delta != 1) | ~near
-        if bad.any():
-            i = int(np.argmax(bad))
-            raise AssertionError(
-                f"{name}: block {int(rows[r_idx[i]])} coefficient "
-                f"{int(k_idx[i])} differs by {int(delta[i])}, float64 ratio "
-                f"{float(ratio[i])!r} is not a sum-order flip"
-            )
-        flips += int(r_idx.size)
+        flips += transform_flips(
+            "forward", t[torch.from_numpy(rows)],
+            rle_decode_sparse16(torch.from_numpy(got[rows, sl])),
+            rle_decode_sparse16(torch.from_numpy(want[rows, sl])),
+            table, width, 8, eps, name=name, index=rows,
+        )
     return flips
 
 
@@ -121,9 +109,14 @@ def transform_flips(
     width: int,
     height: int,
     eps: float = 1e-4,
+    *,
+    name: str | None = None,
+    index: np.ndarray | None = None,
 ) -> int:
     """Count admissible one-step differences between two results of a tile
-    transform; raise AssertionError on any other difference.
+    transform; raise AssertionError on any other difference, naming it
+    ``name`` (default ``kind``) and its tile by ``index[row]`` (default the
+    row).
 
     ``kind`` "forward": ``inputs`` are the (N, height, width) uint8 tiles and
     ``got``/``want`` (N, HW) quantized coefficients; a difference of 1 is
@@ -165,10 +158,11 @@ def transform_flips(
     bad = (delta != 1) | ~near
     if bad.any():
         i = int(np.argmax(bad))
+        tile = int(rows[r_idx[i]])
         raise AssertionError(
-            f"{kind}: tile {int(rows[r_idx[i]])} element {int(k_idx[i])} "
-            f"differs by {int(delta[i])}, float64 value {float(value[i])!r} is "
-            "not at a tie"
+            f"{name or kind}: tile {tile if index is None else int(index[tile])} "
+            f"element {int(k_idx[i])} differs by {int(delta[i])}, float64 "
+            f"value {float(value[i])!r} is not at a tie: not a sum-order flip"
         )
     return int(r_idx.size)
 
