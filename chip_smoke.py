@@ -2,11 +2,12 @@
 """Smoke run of the PyTorch port (lz4jpeg_tpu_torch) on one CUDA card.
 
 Run from the repository root with no arguments: ``python3 chip_smoke.py``.
-It needs one card.  At first use it builds the thirteen Hopper kernels
-(one nvcc per source file, ten files, all started together, sm_90a) and the
-native runtime (g++) into ``lz4jpeg_tpu_torch/_build/``, then runs
-twenty-one phases and fails (non-zero exit, no result line) if any of them
-fails.
+It needs one card.  At first use it builds the fifteen Hopper kernels
+(one nvcc per source file, eleven files, all started together, sm_90a; the
+two megakernel probes are one file of seventeen instantiations of K1's
+template) and the native runtime (g++) into ``lz4jpeg_tpu_torch/_build/``,
+then runs twenty-two phases and fails (non-zero exit, no result line) if
+any of them fails.
 ``ab_kernels.py`` times K1, K2 and K4-K7 in turns with another checkout's.
 
 1. the card's name and power limit, the torch and CUDA versions, and the
@@ -183,7 +184,24 @@ fails.
     ``run_plane_color_ab`` at their defaults (artifacts in a temporary
     directory, each naming the card), each kernel's count set to 0 just
     before its A/B and read just after (every kernel launched), every time
-    and verdict printed, and the phase's wall time.
+    and verdict printed, and the phase's wall time;
+22. the forward megakernel's attribution variants
+    (``profiles/megakernel.py``: seventeen instantiations of K1's template
+    ``csrc/fwd_megakernel.cuh`` in ``csrc/fwd_probe_kernel.cu``), about a
+    minute: every variant against its plain version at 2 × 64 × 128 and at
+    32 × 2048² (one-step truncation flips at ties of the variant's own
+    product admitted by ``variant_flips``, at most 1e-5 of its outputs, 1e-3
+    for the ladder's raw, unsnapped dots (``flip_limit``); the bare rungs
+    identical), the full row and the bands of 128, 16 and 32
+    tiles identical to K1 (``forward_combined``); then the ablation
+    (``run_megakernel_ablation``, the ten rows of
+    ``profiles/probe_megakernel_ablate.py``) and the ladder
+    (``run_megakernel_ladder``, the eight rows of
+    ``profiles/probe_megakernel_dma.py``) at their defaults, 32 frames of
+    2048², the variants' launch count set to 0 just before each run and
+    read just after; every row printed with its CUDA-event and fenced-chain
+    times, its difference from the baseline row, registers, shared memory,
+    CTAs per SM and its bound; the phase's wall time.
 
 The line before the last is the kernels' JSON record: per kernel (the
 packed16 kernels once per timed channel and input dtype) its launches on
@@ -196,7 +214,10 @@ three basis parts against exact pixel values, and against the two exact
 bf16 parts of integer coefficients for the inverse, which leaves both
 MCU kernels bound by their bytes) and the time of one PyTorch call that computes the same function
 where there is one (K3: ``torch.gather``; the copy kernel:
-``Tensor.copy_``; none for phase 21's kernels).  Before it, one line per
+``Tensor.copy_``; none for phase 21's and phase 22's kernels).  Phase 22's
+two records (``megakernel_ablate``, ``megakernel_dma``) give the baseline
+row's time, bound and plain time, the launches of the whole run, and a
+``variants`` list of every row.  Before it, one line per
 bytes-bound kernel gives its share of the data sheet's bound and of the
 same bytes over the stream ceiling phase 20 measured.  The last line is
 ``{"ok": true, "device": {...}}``.
@@ -289,6 +310,11 @@ CAND_ROWS = (1, 5, 4099, 2 * 1024 * 1024)  # and row counts
 CAND_PLANES = ((131_072, 2048), (7, 2), (3, 130))  # phase 21's (n, w) planes
 CAND_AB = {}  # the candidate A/B's defaults: 2,097,152 luma tiles, chain 8
 COLOR_AB = {}  # the colour A/B's defaults: 2048², batch 64
+PROBE_SOURCE = "lz4jpeg_tpu_torch/csrc/fwd_probe_kernel.cu"
+PROBE_REPLACES = {"megakernel_ablate": "profiles/probe_megakernel_ablate.py:77",
+                  "megakernel_dma": "profiles/probe_megakernel_dma.py:78"}
+PROBE_CHECKS = ((2, 64, 128), (32, 2048, 2048))  # phase 22's (frames, H, W)
+PROBE_RUN = {}  # both probe runs' defaults: 32 frames of 2048², chains of 8
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3 (NVIDIA data sheet)
 BF16_FLOP_PER_S = 989e12  # H100 SXM dense bf16 tensor cores (data sheet)
 # K1's tensor-core work per 8x8 tile: three bf16 passes of a 64-deep luma
@@ -407,7 +433,7 @@ def build_all():
         pack16,
         stream,
     )
-    from lz4jpeg_tpu_torch.profiles import mcu, plane_color, rle
+    from lz4jpeg_tpu_torch.profiles import megakernel, mcu, plane_color, rle
 
     builds = {
         "nvcc fwd_megakernel": fwd_megakernel.load_kernel,
@@ -420,6 +446,7 @@ def build_all():
         "nvcc mcu_transform_kernel": mcu.load_kernel,
         "nvcc rle_compact_kernel": rle.load_kernel,
         "nvcc plane_color_kernel": plane_color.load_kernel,
+        "nvcc fwd_probe_kernel": megakernel.load_kernel,
         "g++ lz4core": native_backend,
     }
 
@@ -2482,6 +2509,108 @@ def candidates_phase(dev):
     } for name in wrappers]
 
 
+def probes_phase(dev):
+    """Phase 22: the forward megakernel's attribution variants
+    (``profiles/megakernel.py``) against their plain versions and K1 on the
+    card, then the ablation and the ladder at their defaults; returns the
+    two kernel records."""
+    import gc
+    import tempfile
+
+    import torch
+
+    from lz4jpeg_tpu_torch.ops.fwd_megakernel import forward_combined
+    from lz4jpeg_tpu_torch.ops.quantize import (
+        CHROMINANCE_QUANTIZATION_TABLE as CHR,
+        LUMINANCE_QUANTIZATION_TABLE as LUM,
+    )
+    from lz4jpeg_tpu_torch.profiles import megakernel as mk
+    from lz4jpeg_tpu_torch.profiles.megakernel_ablate import (
+        run_megakernel_ablation,
+    )
+    from lz4jpeg_tpu_torch.profiles.megakernel_dma import run_megakernel_ladder
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    t_phase = time.perf_counter()
+
+    # -- every variant against its plain version; the K1 rows against K1 ----
+    flips = {v.name: [0, 0] for v in mk.VARIANTS}  # flips, outputs
+    for frames, h, w in PROBE_CHECKS:
+        x = mk.noise_batch(frames, h, w, SEED + 22).to(dev)
+        k1 = forward_combined(x, LUM, CHR)
+        for v in mk.VARIANTS:
+            got = mk.megakernel_variant(x, v.name, LUM, CHR)
+            want = mk.megakernel_variant_ref(x, v.name, LUM, CHR)
+            torch.cuda.synchronize()
+            f = mk.variant_flips(x, got, want, v.name, LUM, CHR)
+            flips[v.name][0] += f
+            flips[v.name][1] += got.numel()
+            line = f"{f} flips against plain in {got.numel()} outputs"
+            if v.name in mk.SAME_AS_K1:
+                same = torch.equal(got, k1)
+                line += f"; {'identical' if same else 'DIFFERS'} to K1"
+                check(same, f"phase 22: {v.name} differs from forward_combined "
+                            f"at {frames}x{h}x{w}")
+            print(f"phase 22: {v.name} {frames}x{h}x{w}: {line}")
+            del got, want
+        del x, k1
+    for name, (f, total) in flips.items():
+        check(f <= mk.flip_limit(name) * total,
+              f"phase 22: {name}: {f} flips in {total} outputs")
+    print("phase 22: every variant held to its plain version (flips "
+          + ", ".join(f"{k} {f} ({f / n:.3g})" for k, (f, n) in flips.items()
+                      if f)
+          + f"; at most {mk.MAX_FLIP_SHARE} of the outputs, "
+          f"{mk.RAW_FLIP_SHARE} for raw samples)")
+
+    # -- both probes at their defaults, each count zeroed before its run ----
+    gc.collect()
+    torch.cuda.empty_cache()
+    runs = {"megakernel_ablate": run_megakernel_ablation,
+            "megakernel_dma": run_megakernel_ladder}
+    results, launches, wall = {}, {}, {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for key, run in runs.items():
+            mk.megakernel_variant.launches = 0
+            t0 = time.perf_counter()
+            results[key] = run(dev, **PROBE_RUN, output=str(Path(tmp) / key))
+            wall[key] = time.perf_counter() - t0
+            launches[key] = mk.megakernel_variant.launches
+            art = json.loads((Path(tmp) / key).read_text())
+            check(art.get("device") == str(dev) and art.get("card"),
+                  f"{key}'s artifact does not name the card")
+    for key, count in launches.items():
+        check(count > 0, f"phase 22: {key} never launched a variant")
+    print(f"phase 22: launches per run {launches}; wall s "
+          + ", ".join(f"{k} {v:.2f}" for k, v in wall.items())
+          + f"; phase {time.perf_counter() - t_phase:.2f} s")
+
+    records = []
+    for key, res in results.items():
+        base = res["rows"][0]
+        names = {r["variant"] for r in res["rows"]}
+        records.append({
+            "name": key,
+            "route": "cuda",
+            "source": PROBE_SOURCE,
+            "replaces": PROBE_REPLACES[key],
+            "launches": launches[key],
+            "max_abs_err": max(1.0 if flips[n][0] else 0.0 for n in names),
+            "ms": base["ms"],
+            "plain_ms": res["plain_ms"],
+            "bound_ms": base["bound_ms"],
+            "bound_by": base["bound_by"],
+            "library_ms": None,
+            "library": None,
+            "variants": [{k: r[k] for k in (
+                "row", "variant", "ms", "chain_ms", "vs_baseline_ms",
+                "registers", "shared_bytes", "ctas_per_sm", "bound_ms",
+                "bound_by", "share", "same_as")} for r in res["rows"]],
+        })
+    return records
+
+
 def main() -> int:
     import torch
 
@@ -2675,6 +2804,7 @@ def main() -> int:
     del lz4_data, lz4_frame
     copy, ceiling = bench_phase(dev)
     candidates = candidates_phase(dev)
+    probes = probes_phase(dev)
 
     records = [{
         "name": "fwd_megakernel",
@@ -2688,7 +2818,7 @@ def main() -> int:
         "bound_ms": k1_bound[0],
         "bound_by": k1_bound[1],
         "library_ms": None,
-    }, *lz4, *pairs, wide, copy, *candidates]
+    }, *lz4, *pairs, wide, copy, *candidates, *probes]
     for r in records:
         if r["bound_by"] == "bytes":  # the same bytes over the measured rate
             measured = r["bound_ms"] * HBM_BYTES_PER_S / (ceiling * 1e9)

@@ -1,13 +1,14 @@
 """Build shared libraries at first use and load them with ctypes.
 
-Every library is keyed by a hash of its source bytes and its compiler
-command, so a changed source or flag gives a new file and a stale build is
-never loaded.  Builds go into ``lz4jpeg_tpu_torch/_build/`` (git-ignored):
-the compiler writes a temporary file that ``os.replace`` moves into place,
-under an exclusive file lock, so several test workers that need the same
-library at once build it one time and never load a half-written file.  A
-failed compiler run raises, naming the command; nothing degrades to another
-path.
+Every library is keyed by a hash of its source bytes, the bytes of the
+``.cuh`` headers beside it (``csrc/fwd_megakernel.cuh`` holds K1's body,
+which two sources include) and its compiler command, so a changed source,
+header or flag gives a new file and a stale build is never loaded.  Builds
+go into ``lz4jpeg_tpu_torch/_build/`` (git-ignored): the compiler writes a
+temporary file that ``os.replace`` moves into place, under an exclusive
+file lock, so several test workers that need the same library at once
+build it one time and never load a half-written file.  A failed compiler
+run raises, naming the command; nothing degrades to another path.
 """
 
 from __future__ import annotations
@@ -34,13 +35,25 @@ NVCC_FLAGS = (
 )
 
 
-def build_library(name: str, source: Path, command: Sequence[str]) -> Path:
-    """Compile ``source`` with ``command`` (compiler argv without the output
-    and source) into ``_build/lib{name}-{hash}.so`` unless it exists."""
+def library_path(name: str, source: Path, command: Sequence[str]) -> Path:
+    """``_build/lib{name}-{hash}.so``: the hash covers ``source``, every
+    ``*.cuh`` header in its directory (name and bytes, in name order) and
+    ``command``."""
     source = Path(source)
     digest = hashlib.sha256(source.read_bytes())
+    for header in sorted(source.parent.glob("*.cuh")):
+        digest.update(b"\0" + header.name.encode() + b"\0")
+        digest.update(header.read_bytes())
     digest.update("\0".join(command).encode())
-    out = BUILD_DIR / f"lib{name}-{digest.hexdigest()[:16]}.so"
+    return BUILD_DIR / f"lib{name}-{digest.hexdigest()[:16]}.so"
+
+
+def build_library(name: str, source: Path, command: Sequence[str]) -> Path:
+    """Compile ``source`` with ``command`` (compiler argv without the output
+    and source) into ``library_path(name, source, command)`` unless it
+    exists."""
+    source = Path(source)
+    out = library_path(name, source, command)
     if out.exists():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)

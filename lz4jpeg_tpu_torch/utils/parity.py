@@ -112,6 +112,8 @@ def transform_flips(
     *,
     name: str | None = None,
     index: np.ndarray | None = None,
+    basis: np.ndarray | None = None,
+    offset: np.ndarray | None = None,
 ) -> int:
     """Count admissible one-step differences between two results of a tile
     transform; raise AssertionError on any other difference, naming it
@@ -127,6 +129,15 @@ def transform_flips(
     pixel value ``v = z · Minv[p] + 128`` lies within
     2⁻²⁴·(2·HW·Σ|z_k·Minv[p,k]| + 2|v|) of a half-integer (the float32 error
     bound of two summation orders and of the + 128).
+    ``basis`` and ``offset`` ("forward" only) replace ``forward_basis``'s
+    (HW, HW) basis and (HW,) offset with those the results were computed
+    with: the hi bf16 part of a one-pass product
+    (``ops/fwd_megakernel.py::split_basis``) with its own centring offset
+    128·Σ hi, or a raw product's basis with offset 0
+    (``profiles/megakernel.py``).  With an explicit basis a difference of 1
+    is admissible also within 2⁻²⁴·2·HW·Σ|x_k·M[k]| of an integer, the
+    float32 error bound of two summation orders: raw samples make larger
+    sums than centred ones.
     Only the rows that differ leave the device."""
     if kind not in ("forward", "inverse"):
         raise ValueError(f"kind must be 'forward' or 'inverse', not {kind!r}")
@@ -145,9 +156,17 @@ def transform_flips(
     delta = np.abs(g - w)[r_idx, k_idx]
     key = _table_key(table)
     if kind == "forward":
-        m, off = forward_basis(width, height, key)
+        if basis is None:
+            m, off = forward_basis(width, height, key)
+        else:
+            m = np.asarray(basis, dtype=np.float64)
+            off = np.zeros(len(m)) if offset is None else np.asarray(offset)
         value = np.einsum("ij,ij->i", x[r_idx], m[k_idx]) - off[k_idx]
-        near = np.abs(value - np.round(value)) <= eps
+        window = eps
+        if basis is not None:
+            window = np.maximum(eps, 2.0**-24 * 2 * x.shape[1] * np.abs(
+                x[r_idx] * m[k_idx]).sum(axis=1))
+        near = np.abs(value - np.round(value)) <= window
     else:
         minv = inverse_basis(width, height, key)
         terms = x[r_idx] * minv[k_idx]

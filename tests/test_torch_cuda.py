@@ -740,3 +740,73 @@ def test_candidate_abs_on_the_card(cuda, tmp_path):
     assert json.loads((tmp_path / "ab.json").read_text())["card"] == ab["card"]
     assert set(ab["ops"]) == {"fused_forward", "fused_inverse", "rle_encode"}
     assert ab["device"] == pc["device"] == str(cuda) and pc["card"]
+
+
+# The forward megakernel's attribution variants (profiles/megakernel.py):
+# each against its plain version by the one-step rule of ``variant_flips``
+# (the bare rungs identical), the K1 rows identical to ``forward_combined``.
+# Flips: at most ``flip_limit`` of the outputs (1e-5; 1e-3 for the raw,
+# unsnapped dots), and one flip at these small shapes, where a single tie
+# already passes 1e-5.
+# Shapes: the runs' gate, one band short of every T, a last band of 2 tiles
+# (W = 2064) and block rows of 6 tiles (coefficient-major runs that are not
+# 16-byte aligned).
+PROBE_SHAPES = [(2, 64, 128), (1, 16, 32), (1, 16, 2064), (2, 24, 48)]
+
+
+@pytest.mark.parametrize("shape", PROBE_SHAPES)
+def test_megakernel_variants_match_plain_versions(cuda, shape):
+    from lz4jpeg_tpu_torch.profiles import megakernel as mk
+
+    x = mk.noise_batch(*shape, seed=sum(shape)).to(cuda)
+    k1 = forward_combined(x, LUM, CHR)
+    for v in mk.VARIANTS:
+        before = mk.megakernel_variant.launches
+        got = mk.megakernel_variant(x, v.name, LUM, CHR)
+        torch.cuda.synchronize()
+        assert mk.megakernel_variant.launches == before + 1
+        want = mk.megakernel_variant_ref(x, v.name, LUM, CHR)
+        flips = mk.variant_flips(x, got, want, v.name, LUM, CHR)
+        assert flips <= max(1, mk.flip_limit(v.name) * got.numel()), (
+            v.name, flips)
+        if v.name in mk.SAME_AS_K1:
+            assert torch.equal(got, k1), v.name
+
+
+def test_megakernel_variant_attributes(cuda):
+    from lz4jpeg_tpu_torch.profiles import megakernel as mk
+
+    attrs = {v.name: mk.variant_attributes(v.name, cuda) for v in mk.VARIANTS}
+    assert attrs["full"]["ctas_per_sm"] == 3
+    assert attrs["full"]["shared_bytes"] == 73_728
+    assert attrs["band_128"]["ctas_per_sm"] == 1
+    for name, a in attrs.items():
+        assert 0 < a["registers"] <= 255 and a["ctas_per_sm"] >= 1, name
+
+
+def test_megakernel_variant_refuses_what_the_probes_do_not_run(cuda):
+    from lz4jpeg_tpu_torch.profiles import megakernel as mk
+
+    x = mk.noise_batch(1, 16, 32, seed=0).to(cuda)
+    buf = torch.empty(x.numel() + 1, dtype=torch.uint8, device=cuda)
+    view = buf[1:].view(x.shape).copy_(x)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        mk.megakernel_variant(view, "full", LUM, CHR)
+    with pytest.raises(ValueError, match="W·3 % 16"):
+        mk.megakernel_variant(x[:, :, :24].contiguous(), "full", LUM, CHR)
+
+
+def test_megakernel_probe_runs_on_the_card(cuda, tmp_path):
+    import json
+
+    from lz4jpeg_tpu_torch.profiles.megakernel_ablate import (
+        run_megakernel_ablation,
+    )
+    from lz4jpeg_tpu_torch.profiles.megakernel_dma import run_megakernel_ladder
+
+    for run in (run_megakernel_ablation, run_megakernel_ladder):
+        res = run(cuda, frames=2, side=256, runs=1, chain=2,
+                  output=str(tmp_path / "run.json"))
+        assert json.loads((tmp_path / "run.json").read_text())["card"]
+        for row in res["rows"]:
+            assert row["ms"] > 0 and row["registers"] > 0, row

@@ -8,7 +8,8 @@
   candidates of ``profiles/`` included) nor ``chip_smoke.py`` imports
   ``jax``, ``lz4jpeg_tpu`` or the repository's ``profiles`` scripts, by an
   AST scan and by a subprocess that blocks the three names and still runs
-  the kernel candidates' plain versions and JPEG round trips
+  the kernel candidates' and the megakernel variants' plain versions and
+  JPEG round trips
   (sparse16, its packed16 twin, quality 90 in the int16 pair layout, exact
   precision against the oracle copy, per-block entropy, the overlapped
   and bucketed encodes, K8's plain version), an LZ4T
@@ -165,6 +166,12 @@ assert mcu.fused_inverse_candidate(zz, LUM, 8, 8).shape == (1, 8, 8)
 assert rle.rle_encode_candidate(zz.to(torch.int16))[1].shape == (1,)
 assert len(plane_color.plane_color(*(torch.zeros(s, dtype=torch.uint8)
                                      for s in ((2, 4), (2, 2), (2, 2))))) == 3
+from lz4jpeg_tpu_torch.ops.quantize import CHROMINANCE_QUANTIZATION_TABLE as CHR
+from lz4jpeg_tpu_torch.profiles import megakernel
+for v in megakernel.VARIANTS:
+    out = megakernel.megakernel_variant(torch.zeros((1, 8, 16, 3), dtype=torch.uint8),
+                                        v.name, LUM, CHR)
+    assert tuple(out.shape) == v.shape(2)
 assert "jax" not in sys.modules and "lz4jpeg_tpu" not in sys.modules
 print("ok")
 """
