@@ -2,11 +2,11 @@
 """Smoke run of the PyTorch port (lz4jpeg_tpu_torch) on one CUDA card.
 
 Run from the repository root with no arguments: ``python3 chip_smoke.py``.
-It needs one card.  At first use it builds the fifteen Hopper kernels
+It needs one card.  At first use it builds the eighteen Hopper kernels
 (one nvcc per source file, eleven files, all started together, sm_90a; the
-two megakernel probes are one file of seventeen instantiations of K1's
+five megakernel probes are one file of twenty-six instantiations of K1's
 template) and the native runtime (g++) into ``lz4jpeg_tpu_torch/_build/``,
-then runs twenty-two phases and fails (non-zero exit, no result line) if
+then runs twenty-three phases and fails (non-zero exit, no result line) if
 any of them fails.
 ``ab_kernels.py`` times K1, K2 and K4-K7 in turns with another checkout's.
 
@@ -201,7 +201,22 @@ any of them fails.
     2048², the variants' launch count set to 0 just before each run and
     read just after; every row printed with its CUDA-event and fenced-chain
     times, its difference from the baseline row, registers, shared memory,
-    CTAs per SM and its bound; the phase's wall time.
+    CTAs per SM and its bound; the phase's wall time;
+23. the megakernel's layout variants (nine more instantiations of the same
+    template, reading the (3, 64, N) KT layout of ``rgb_to_kt``), about
+    15 s: every KT variant against its plain version on ``rgb_to_kt`` of
+    the frames of ``PROBE_CHECKS`` (even columns repeating odd ones), the
+    K1-arithmetic rows (``KT_SAME_AS_K1``: the split stage's three outputs
+    side by side) identical to ``forward_combined`` on the same frames,
+    ``kt_basis_a`` held to the one-step rule and reported identical or not;
+    every KT variant on a ragged N (``LAYOUT_RAGGED_N``: N % 16 == 0, N % T
+    ≠ 0 for every T) against its plain version, and an N % 16 ≠ 0 refused
+    by the wrapper and by the C entry point; then the three layout runners
+    (``run_megakernel_kt``, ``run_megakernel_t``, ``run_megakernel_v2``:
+    the rows of ``profiles/probe_megakernel.py``, ``probe_megakernel_t.py``
+    and ``probe_megakernel_v2.py``) at their defaults, 32 frames of 2048²,
+    the variants' launch count set to 0 just before each run and read just
+    after; the phase's wall time.
 
 The line before the last is the kernels' JSON record: per kernel (the
 packed16 kernels once per timed channel and input dtype) its launches on
@@ -214,10 +229,11 @@ three basis parts against exact pixel values, and against the two exact
 bf16 parts of integer coefficients for the inverse, which leaves both
 MCU kernels bound by their bytes) and the time of one PyTorch call that computes the same function
 where there is one (K3: ``torch.gather``; the copy kernel:
-``Tensor.copy_``; none for phase 21's and phase 22's kernels).  Phase 22's
-two records (``megakernel_ablate``, ``megakernel_dma``) give the baseline
-row's time, bound and plain time, the launches of the whole run, and a
-``variants`` list of every row.  Before it, one line per
+``Tensor.copy_``; none for phase 21's, 22's and 23's kernels).  Phase
+22's two records (``megakernel_ablate``, ``megakernel_dma``) and phase
+23's three (``megakernel_kt``, ``megakernel_t``, ``megakernel_v2``) give
+the baseline row's time, bound and plain time, the launches of the whole
+run, and a ``variants`` list of every row.  Before it, one line per
 bytes-bound kernel gives its share of the data sheet's bound and of the
 same bytes over the stream ceiling phase 20 measured.  The last line is
 ``{"ok": true, "device": {...}}``.
@@ -315,6 +331,12 @@ PROBE_REPLACES = {"megakernel_ablate": "profiles/probe_megakernel_ablate.py:77",
                   "megakernel_dma": "profiles/probe_megakernel_dma.py:78"}
 PROBE_CHECKS = ((2, 64, 128), (32, 2048, 2048))  # phase 22's (frames, H, W)
 PROBE_RUN = {}  # both probe runs' defaults: 32 frames of 2048², chains of 8
+LAYOUT_REPLACES = {"megakernel_kt": "profiles/probe_megakernel.py:108",
+                   "megakernel_t": "profiles/probe_megakernel_t.py:50",
+                   "megakernel_v2": "profiles/probe_megakernel_v2.py:85"}
+LAYOUT_RAGGED_N = 64 * 64 + 48  # phase 23: N % 16 == 0, N % 32, 64, 128 ≠ 0
+LAYOUT_REFUSED_N = 4100  # phase 23: N % 16 ≠ 0
+LAYOUT_RUN = {}  # the three layout runs' defaults: 32 frames of 2048²
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3 (NVIDIA data sheet)
 BF16_FLOP_PER_S = 989e12  # H100 SXM dense bf16 tensor cores (data sheet)
 # K1's tensor-core work per 8x8 tile: three bf16 passes of a 64-deep luma
@@ -2515,7 +2537,6 @@ def probes_phase(dev):
     card, then the ablation and the ladder at their defaults; returns the
     two kernel records."""
     import gc
-    import tempfile
 
     import torch
 
@@ -2535,11 +2556,11 @@ def probes_phase(dev):
     t_phase = time.perf_counter()
 
     # -- every variant against its plain version; the K1 rows against K1 ----
-    flips = {v.name: [0, 0] for v in mk.VARIANTS}  # flips, outputs
+    flips = {v.name: [0, 0] for v in mk.RGB_VARIANTS}  # flips, outputs
     for frames, h, w in PROBE_CHECKS:
         x = mk.noise_batch(frames, h, w, SEED + 22).to(dev)
         k1 = forward_combined(x, LUM, CHR)
-        for v in mk.VARIANTS:
+        for v in mk.RGB_VARIANTS:
             got = mk.megakernel_variant(x, v.name, LUM, CHR)
             want = mk.megakernel_variant_ref(x, v.name, LUM, CHR)
             torch.cuda.synchronize()
@@ -2565,36 +2586,64 @@ def probes_phase(dev):
           f"{mk.RAW_FLIP_SHARE} for raw samples)")
 
     # -- both probes at their defaults, each count zeroed before its run ----
-    gc.collect()
-    torch.cuda.empty_cache()
     runs = {"megakernel_ablate": run_megakernel_ablation,
             "megakernel_dma": run_megakernel_ladder}
+    results, launches = probe_runs("phase 22", runs, PROBE_RUN, dev, t_phase)
+    return probe_records(results, launches, flips, PROBE_REPLACES)
+
+
+def probe_runs(phase, runs, params, dev, t_phase):
+    """Run each of ``runs`` ({record name: runner}) on ``dev`` with
+    ``params``, the variants' launch count set to 0 just before each run
+    and read just after; check that each artifact names the card and that
+    each run launched a variant; return the results and the counts."""
+    import gc
+    import tempfile
+
+    import torch
+
+    from lz4jpeg_tpu_torch.profiles import megakernel as mk
+
     results, launches, wall = {}, {}, {}
     with tempfile.TemporaryDirectory() as tmp:
         for key, run in runs.items():
+            gc.collect()
+            torch.cuda.empty_cache()
             mk.megakernel_variant.launches = 0
             t0 = time.perf_counter()
-            results[key] = run(dev, **PROBE_RUN, output=str(Path(tmp) / key))
+            results[key] = run(dev, **params, output=str(Path(tmp) / key))
             wall[key] = time.perf_counter() - t0
             launches[key] = mk.megakernel_variant.launches
             art = json.loads((Path(tmp) / key).read_text())
             check(art.get("device") == str(dev) and art.get("card"),
                   f"{key}'s artifact does not name the card")
     for key, count in launches.items():
-        check(count > 0, f"phase 22: {key} never launched a variant")
-    print(f"phase 22: launches per run {launches}; wall s "
+        check(count > 0, f"{phase}: {key} never launched a variant")
+    print(f"{phase}: launches per run {launches}; wall s "
           + ", ".join(f"{k} {v:.2f}" for k, v in wall.items())
           + f"; phase {time.perf_counter() - t_phase:.2f} s")
+    return results, launches
+
+
+def probe_records(results, launches, flips, replaces):
+    """The kernel records of probe runs: the baseline row's time, bound
+    and plain time, the launches of the whole run, the largest error of
+    its variants (1 where one flipped, by ``flips``: {variant: (flips,
+    outputs)}, which must hold every variant of the rows; the other steps,
+    K1, stage A and the plain chain, are checked on their own) and every
+    row."""
+    from lz4jpeg_tpu_torch.profiles import megakernel as mk
 
     records = []
     for key, res in results.items():
-        base = res["rows"][0]
-        names = {r["variant"] for r in res["rows"]}
+        base = next(r for r in res["rows"] if r["row"] == res["baseline"])
+        names = {r["variant"].split("+")[-1] for r in res["rows"]}
+        names = {n for n in names if n in mk.BY_NAME}
         records.append({
             "name": key,
             "route": "cuda",
             "source": PROBE_SOURCE,
-            "replaces": PROBE_REPLACES[key],
+            "replaces": replaces[key],
             "launches": launches[key],
             "max_abs_err": max(1.0 if flips[n][0] else 0.0 for n in names),
             "ms": base["ms"],
@@ -2610,6 +2659,94 @@ def probes_phase(dev):
         })
     return records
 
+
+def layouts_phase(dev):
+    """Phase 23: the megakernel's KT layout variants (``profiles/
+    megakernel.py``) against their plain versions and K1 on the card, a
+    ragged and a refused N, then the three layout runners at their
+    defaults; returns the three kernel records."""
+    import ctypes
+    import gc
+
+    import torch
+
+    from lz4jpeg_tpu_torch.ops.fwd_megakernel import forward_combined, rgb_to_kt
+    from lz4jpeg_tpu_torch.ops.quantize import (
+        CHROMINANCE_QUANTIZATION_TABLE as CHR,
+        LUMINANCE_QUANTIZATION_TABLE as LUM,
+    )
+    from lz4jpeg_tpu_torch.profiles import megakernel as mk
+    from lz4jpeg_tpu_torch.profiles.megakernel_kt import run_megakernel_kt
+    from lz4jpeg_tpu_torch.profiles.megakernel_t import run_megakernel_t
+    from lz4jpeg_tpu_torch.profiles.megakernel_v2 import run_megakernel_v2
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    t_phase = time.perf_counter()
+
+    def held(kt, v, label):
+        got = mk.megakernel_variant(kt, v.name, LUM, CHR)
+        want = mk.megakernel_variant_ref(kt, v.name, LUM, CHR)
+        torch.cuda.synchronize()
+        f = mk.variant_flips(kt, got, want, v.name, LUM, CHR)
+        n = mk.combined(got).numel()
+        flips[v.name][0] += f
+        flips[v.name][1] += n
+        return got, f"{label}: {f} flips against plain in {n} outputs"
+
+    # -- every KT variant against its plain version and K1 ------------------
+    flips = {v.name: [0, 0] for v in mk.KT_VARIANTS}  # flips, outputs
+    for frames, h, w in PROBE_CHECKS:
+        x = mk.noise_batch(frames, h, w, SEED + 23, runs=True).to(dev)
+        kt = rgb_to_kt(x)
+        k1 = forward_combined(x, LUM, CHR)
+        for v in mk.KT_VARIANTS:
+            got, line = held(kt, v, f"{v.name} {frames}x{h}x{w}")
+            if v.deltas:
+                same = torch.equal(mk.combined(got), k1)
+                line += f"; {'identical' if same else 'NOT identical'} to K1"
+                check(same or v.name not in mk.KT_SAME_AS_K1,
+                      f"phase 23: {v.name} differs from forward_combined at "
+                      f"{frames}x{h}x{w}")
+            print(f"phase 23: {line}")
+            del got
+        del x, kt, k1
+    # -- a ragged N, and one the route refuses -------------------------------
+    kt = mk.noise_kt(LAYOUT_RAGGED_N, SEED + 23).to(dev)
+    for v in mk.KT_VARIANTS:
+        print("phase 23: " + held(kt, v, f"{v.name} ragged N {LAYOUT_RAGGED_N}")[1])
+    for name, (f, total) in flips.items():
+        check(f <= mk.flip_limit(name) * total,
+              f"phase 23: {name}: {f} flips in {total} outputs")
+    kt = mk.noise_kt(LAYOUT_REFUSED_N, SEED).to(dev)
+    try:
+        mk.megakernel_variant(kt, "kt_full", LUM, CHR)
+        refused = False
+    except ValueError:
+        refused = True
+    check(refused, f"phase 23: the wrapper took N = {LAYOUT_REFUSED_N}")
+    out = torch.empty((LAYOUT_REFUSED_N, 128), dtype=torch.int16, device=dev)
+    lib = mk.load_kernel()
+    rc = lib.fwd_probe_kt_launch(
+        mk.VARIANTS.index(mk.BY_NAME["kt_full"]), kt.data_ptr(),
+        (ctypes.c_void_p * 1)(out.data_ptr()), 0, LAYOUT_REFUSED_N,
+        torch.cuda.current_stream(dev).cuda_stream)
+    check(rc != 0, f"phase 23: the KT entry point took N = {LAYOUT_REFUSED_N}")
+    torch.cuda.synchronize()
+    del kt, out
+    print("phase 23: every KT variant held to its plain version (flips "
+          + ", ".join(f"{k} {f} ({f / n:.3g})" for k, (f, n) in flips.items()
+                      if f)
+          + f"; at most {mk.MAX_FLIP_SHARE} of the outputs); N = "
+          f"{LAYOUT_REFUSED_N} refused by the wrapper and the entry point "
+          f"({lib.fwd_probe_error_string(rc).decode()})")
+
+    # -- the three runners at their defaults, each count zeroed before -----
+    runs = {"megakernel_kt": run_megakernel_kt,
+            "megakernel_t": run_megakernel_t,
+            "megakernel_v2": run_megakernel_v2}
+    results, launches = probe_runs("phase 23", runs, LAYOUT_RUN, dev, t_phase)
+    return probe_records(results, launches, flips, LAYOUT_REPLACES)
 
 def main() -> int:
     import torch
@@ -2805,6 +2942,7 @@ def main() -> int:
     copy, ceiling = bench_phase(dev)
     candidates = candidates_phase(dev)
     probes = probes_phase(dev)
+    layouts = layouts_phase(dev)
 
     records = [{
         "name": "fwd_megakernel",
@@ -2818,7 +2956,7 @@ def main() -> int:
         "bound_ms": k1_bound[0],
         "bound_by": k1_bound[1],
         "library_ms": None,
-    }, *lz4, *pairs, wide, copy, *candidates, *probes]
+    }, *lz4, *pairs, wide, copy, *candidates, *probes, *layouts]
     for r in records:
         if r["bound_by"] == "bytes":  # the same bytes over the measured rate
             measured = r["bound_ms"] * HBM_BYTES_PER_S / (ceiling * 1e9)

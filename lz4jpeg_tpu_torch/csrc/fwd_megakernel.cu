@@ -60,7 +60,8 @@
 //
 // The body is the template of csrc/fwd_megakernel.cuh; this file
 // instantiates K1's variant (K1Variant) only.  csrc/fwd_probe_kernel.cu
-// instantiates the attribution variants of the same template.
+// instantiates the probe variants (attribution and KT layout) of the same
+// template.
 
 #include "fwd_megakernel.cuh"
 

@@ -4,16 +4,20 @@
 // csrc/fwd_megakernel.cu instantiates K1's variant only (K1Variant below:
 // its design is described there).  csrc/fwd_probe_kernel.cu instantiates
 // the attribution variants that port profiles/probe_megakernel_ablate.py and
-// profiles/probe_megakernel_dma.py: each turns one part of K1 off or builds
+// profiles/probe_megakernel_dma.py (each turns one part of K1 off or builds
 // it up from a bare copy, so the difference of two variants' times is the
-// cost of that part.  A Variant fixes
+// cost of that part), and the layout variants that port
+// profiles/probe_megakernel.py, probe_megakernel_t.py and
+// probe_megakernel_v2.py (K1's work read from the KT block layout).  A
+// Variant fixes
 //   - kTiles: T, the band in tiles of one block row (16, 32, 64 or 128);
 //   - kParts: 3 bf16 basis parts (hi + mid + lo, K1's exact split) or 1
 //     (hi only: the TPU's one-pass bf16 product, DEFAULT precision);
 //   - kColour: YCbCr (K1), R feeding all three channels, or R, G, B feeding
 //     the luma, Cr and Cb products raw (the ladder's dots);
 //   - kChannels: 3, or luma only (64 output lanes);
-//   - kStage: what the band stores: the sparse-delta epilogue (K1),
+//   - kStage: what the band stores: the sparse-delta epilogue (K1), the same
+//     split into the luma, Cr and Cb outputs with each block's run counts,
 //     truncated coefficients, or no product at all: R[0:64], G[0:32] and
 //     B[0:32] of each tile copied as u8, cast to i16, or through f32
 //     (lanes 64-95 hold G + B);
@@ -22,7 +26,15 @@
 //   - kBlockMajor: block-major (N, lanes) output (K1) or coefficient-major
 //     (lanes, N), staged transposed in shared memory so that each lane's T
 //     values go out as one contiguous run;
-//   - kMinCtas: the minimum CTAs per SM of __launch_bounds__.
+//   - kMinCtas: the minimum CTAs per SM of __launch_bounds__;
+//   - kInput: (B, H, W, 3) RGB image bands (K1) or slabs of T blocks of the
+//     (3, 64, N) KT layout (ops/fwd_megakernel.py::rgb_to_kt): 192 row
+//     pieces of T bytes at stride N, the same 192·T bytes as an image band
+//     (the i16 cast copies only the 128 pieces it reads);
+//   - kBasisA: the samples as the mma's A operand (K1: the product comes out
+//     (tile, lane)) or the basis (it comes out (lane, tile) and is written
+//     transposed into the staging: the TPU production kernel's "dot, then
+//     transpose out").
 // Every value a variant computes feeds a stored output, so the compiler
 // removes nothing that a variant's time claims to include.
 
@@ -45,10 +57,12 @@ constexpr int kLumPart = 64 * 64;          // bf16 values of one luma part
 constexpr int kChrPart = 32 * 32;
 
 enum class Colour { kYCbCr, kR, kRGB };
-enum class Stage { kSparse, kTrunc, kCopyU8, kCastI16, kSumF32 };
+enum class Stage { kSparse, kTrunc, kCopyU8, kCastI16, kSumF32, kSplit };
+enum class Input { kRgb, kKt };
 
 template <int Tiles, int Parts, Colour C, int Channels, Stage S, bool Centred,
-          bool BlockMajor, int MinCtas>
+          bool BlockMajor, int MinCtas, Input In = Input::kRgb,
+          bool BasisA = false>
 struct Variant {
   static constexpr int kTiles = Tiles;
   static constexpr int kParts = Parts;
@@ -58,7 +72,10 @@ struct Variant {
   static constexpr bool kCentred = Centred;
   static constexpr bool kBlockMajor = BlockMajor;
   static constexpr int kMinCtas = MinCtas;
-  static constexpr bool kProduct = S == Stage::kSparse || S == Stage::kTrunc;
+  static constexpr Input kInput = In;
+  static constexpr bool kBasisA = BasisA;
+  static constexpr bool kDeltas = S == Stage::kSparse || S == Stage::kSplit;
+  static constexpr bool kProduct = kDeltas || S == Stage::kTrunc;
   static constexpr int kLanes = Channels == 3 ? 128 : 64;
   static constexpr int kRowBytes = Tiles * 24;  // one image row of a band
   static constexpr int kRowChunks = kRowBytes / 16;
@@ -75,9 +92,21 @@ struct Variant {
   static_assert(Parts == 1 || Parts == 3, "one or three bf16 basis parts");
   static_assert(Channels == 3 || (Channels == 1 && C == Colour::kYCbCr),
                 "luma only is a YCbCr variant");
-  static_assert(kProduct || (Channels == 3 && !BlockMajor),
-                "the copy stages are the ladder's coefficient-major rungs");
-  static_assert(!(S == Stage::kSparse && !Centred), "sparse deltas are K1's");
+  static_assert(kProduct || (Channels == 3 && (!BlockMajor ||
+                                               (S == Stage::kCastI16 &&
+                                                In == Input::kKt))),
+                "the copy stages are the ladder's coefficient-major rungs, "
+                "or the i16 cast of a KT slab, block-major");
+  static_assert(!(kDeltas && !Centred), "sparse deltas are K1's");
+  static_assert(In == Input::kRgb ||
+                    (Tiles >= 32 && (kProduct ? C == Colour::kYCbCr && Centred &&
+                                                    Parts == 3 && BlockMajor
+                                              : S == Stage::kCastI16)),
+                "a KT variant is K1's arithmetic or the i16 cast, T >= 32");
+  static_assert(!BasisA || (kProduct && BlockMajor && Channels == 3),
+                "the basis as A operand is a block-major product");
+  static_assert(S != Stage::kSplit || (BlockMajor && Channels == 3),
+                "the split stage cuts the three segments of block-major rows");
 };
 
 // K1: bands of 64 tiles, three parts, colour, three channels, the sparse
@@ -460,12 +489,32 @@ __device__ __forceinline__ void product(const uint16_t* op, int mt,
   }
 }
 
+// The sparse deltas of the 8 staged lanes at qr, segment-local (the lane
+// before the first is one 2-byte shared read, none at a segment's start),
+// plus kBias where a run starts and 0 elsewhere; they wrap modulo 2^16 like
+// the reference's int16 cast.
+__device__ __forceinline__ uint4 sparse_deltas(const int16_t* qr,
+                                               bool seg_first) {
+  const uint4 v = *reinterpret_cast<const uint4*>(qr);
+  const uint32_t word[4] = {v.x, v.y, v.z, v.w};
+  uint32_t prev = seg_first ? 0u : static_cast<uint16_t>(qr[-1]);
+  uint32_t d[4];
+#pragma unroll
+  for (int e = 0; e < 4; ++e) {
+    const uint32_t x0 = word[e] & 0xffffu, x1 = word[e] >> 16;
+    const uint32_t d0 = (e == 0 && seg_first) || x0 != prev ? x0 - prev + kBias : 0u;
+    const uint32_t d1 = x1 != x0 ? x1 - x0 + kBias : 0u;
+    d[e] = __byte_perm(d0, d1, 0x5410);
+    prev = x1;
+  }
+  return make_uint4(d[0], d[1], d[2], d[3]);
+}
+
 // Block-major store: thread i takes lanes 8c..8c+7 (c = i % (lanes/8)) of
 // staged rows i/(lanes/8), + kThreads/(lanes/8), ... and writes each as one
 // 16-byte store: each output row goes out coalesced.  The sparse stage
 // forms the segment-local deltas first (segments start at lanes 0, 64 and
-// 96; the lane before a thread's first is one 2-byte shared read); they
-// wrap modulo 2^16 like the reference's int16 cast.
+// 96).
 template <class V>
 __device__ __forceinline__ void store_rows(const Smem<V>& sm, const Band& b,
                                            int16_t* __restrict__ out) {
@@ -482,22 +531,11 @@ __device__ __forceinline__ void store_rows(const Smem<V>& sm, const Band& b,
   for (int j = 0; j < V::kTiles * kPerRow / kThreads; ++j) {
     if (j * kRowsPerPass >= rows) break;
     const int16_t* qr = src + j * kRowsPerPass * kQStride;
-    const uint4 v = *reinterpret_cast<const uint4*>(qr);
     if constexpr (V::kStage == Stage::kSparse) {
-      const uint32_t word[4] = {v.x, v.y, v.z, v.w};
-      uint32_t prev = seg_first ? 0u : static_cast<uint16_t>(qr[-1]);
-      uint32_t d[4];
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const uint32_t x0 = word[e] & 0xffffu, x1 = word[e] >> 16;
-        const uint32_t d0 = (e == 0 && seg_first) || x0 != prev ? x0 - prev + kBias : 0u;
-        const uint32_t d1 = x1 != x0 ? x1 - x0 + kBias : 0u;
-        d[e] = __byte_perm(d0, d1, 0x5410);
-        prev = x1;
-      }
-      __stcs(dst + j * kRowsPerPass * kPerRow, make_uint4(d[0], d[1], d[2], d[3]));
+      __stcs(dst + j * kRowsPerPass * kPerRow, sparse_deltas(qr, seg_first));
     } else {
-      __stcs(dst + j * kRowsPerPass * kPerRow, v);
+      __stcs(dst + j * kRowsPerPass * kPerRow,
+             *reinterpret_cast<const uint4*>(qr));
     }
   }
 }
@@ -561,95 +599,435 @@ __device__ __forceinline__ void store_lanes(const Smem<V>& sm, const Band& b,
   }
 }
 
-// The kernel of every variant.  Persistent CTAs walk over bands of T tiles
-// of one block row; bands are loaded two ahead into a ring of kStages
-// buffers by cp.async (staged != 0) or read straight from device memory.
+// ---- The KT input (the layout variants) ---------------------------------
+//
+// A KT band is T consecutive blocks n0..n0+T-1 of the (3, 64, N) u8 array:
+// 192 row pieces (channel c, position p = 8r + col) of T bytes each, at
+// stride N.  Piece ρ = 64c + p is T/16 chunks of 16 bytes; chunk j of piece
+// ρ lands in the ring buffer at chunk index g ^ (ρ & 7), g = ρ·(T/16) + j.
+// The XOR keeps each aligned group of 8 chunks (one 128-byte row of the 32
+// banks) and is a bijection; it lets 8 lanes that read the same chunk j of
+// 8 pieces whose positions differ mod 8 hit 8 different 16-byte bank
+// groups.
+
 template <class V>
-__global__ void __launch_bounds__(kThreads, V::kMinCtas)
-    fwd_megakernel(const uint8_t* __restrict__ rgb,
-                   typename V::Out* __restrict__ out,
-                   const uint16_t* __restrict__ parts, uint32_t n_bands,
-                   int height, int width, int bpc, int bpr, bool staged) {
+__device__ __forceinline__ int kt_chunk_offset(int piece, int j) {
+  return ((piece * (V::kTiles / 16) + j) ^ (piece & 7)) * 16;
+}
+
+// The 32-bit word w (tiles 16j + 4w .. + 3) of chunk j of piece `piece`.
+template <class V>
+__device__ __forceinline__ uint32_t kt_word(const uint8_t* buf, int piece,
+                                            int j, int w) {
+  return *reinterpret_cast<const uint32_t*>(buf + kt_chunk_offset<V>(piece, j) +
+                                            4 * w);
+}
+
+// Start the 16-byte copies of one KT band: T/16 chunks of each piece the
+// variant reads, thread i copying chunks i, i + kThreads, ...  A product
+// reads all 192 pieces; the i16 cast only R[0:64], G[0:32] and B[0:32]
+// (pieces 0-95 and 128-159: its 128·T bytes).  A short last band (tiles <
+// T, a multiple of 16 since N % 16 == 0) copies its whole chunks only; the
+// rest of the buffer keeps stale bytes, whose outputs are never stored.
+template <class V>
+__device__ __forceinline__ void load_kt(uint8_t* buf, const uint8_t* src,
+                                        int64_t n_blocks, int tiles) {
+  constexpr int kPer = V::kTiles / 16;
+  constexpr int kTotal = (V::kProduct ? 192 : 128) * kPer;
+  const int chunks = tiles / 16;
+#pragma unroll
+  for (int j = 0; j < (kTotal + kThreads - 1) / kThreads; ++j) {
+    const int i = threadIdx.x + j * kThreads;
+    const int k = i / kPer;
+    const int c = i - k * kPer;
+    const int piece = V::kProduct || k < 96 ? k : k + 32;
+    if ((kTotal % kThreads == 0 || i < kTotal) && c < chunks) {
+      cp_async16(buf + kt_chunk_offset<V>(piece, c),
+                 src + piece * n_blocks + c * 16);
+    }
+  }
+}
+
+// A thread's share of a KT band: units of (8 position pairs × 4 tile quads
+// of one chunk j), lane = 8·w + qq holding pair q = 8·(group) + qq (the
+// positions 2q and 2q + 1) and tiles 16j + 4w .. + 3.  Lanes 4-7 of each 8
+// read the odd position first, so each read instruction's 8 pieces differ
+// mod 8 (conflict-free under the swizzle).  Lanes w = 2, 3 walk their four
+// tiles in the order 2, 3, 0, 1, which spreads each staging write of the
+// warp over the 32 banks (tile stride 144 or 272 bytes is 16 banks).
+struct KtLane {
+  int qq, w, h, rot;
+  __device__ __forceinline__ KtLane() {
+    const int lane = threadIdx.x & 31;
+    qq = lane & 7;
+    w = lane >> 3;
+    h = (qq >> 2) & 1;
+    rot = w & 2;
+  }
+  // The words of positions 2q and 2q + 1 of channel c, tiles of chunk j.
+  template <class V>
+  __device__ __forceinline__ void read(const uint8_t* buf, int c, int q, int j,
+                                       uint32_t& even, uint32_t& odd) const {
+    const uint32_t a = kt_word<V>(buf, 64 * c + 2 * q + h, j, w);
+    const uint32_t b = kt_word<V>(buf, 64 * c + 2 * q + 1 - h, j, w);
+    even = h ? b : a;
+    odd = h ? a : b;
+  }
+};
+
+// Byte s of the R, G and B words as one pixel word whose bytes 0-2 are R, G,
+// B (byte 3 is R again: every colour coefficient word is 0 there), the
+// input of colour<0>.
+__device__ __forceinline__ uint32_t kt_pixel(uint32_t r, uint32_t g, uint32_t b,
+                                             int s) {
+  const uint32_t rg = __byte_perm(r, g, s | ((s + 4) << 4));
+  return __byte_perm(rg, b, 0x0010 | ((s + 4) << 8));
+}
+
+// Colour of a KT band → the bf16 operands of K1 in shared memory (luma T ×
+// 64, Cr and Cb T × 32, tile-major), the same values convert_band writes
+// for the same blocks: chroma is computed for the odd columns, position
+// 8r + 2c' + 1 → chroma sample 4r + c' = q.
+template <class V>
+__device__ __forceinline__ void convert_kt(Smem<V>& sm, const uint8_t* buf) {
+  const KtLane ln;
+#pragma unroll
+  for (int m = 0; m < V::kTiles / 32; ++m) {
+    const int u = (threadIdx.x >> 5) + 8 * m;
+    const int q = 8 * (u & 3) + ln.qq;
+    const int j = u >> 2;
+    uint32_t e[3], o[3];
+#pragma unroll
+    for (int c = 0; c < 3; ++c) ln.read<V>(buf, c, q, j, e[c], o[c]);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int s = i ^ ln.rot;
+      const int t = 16 * j + 4 * ln.w + s;
+      const uint32_t pe = kt_pixel(e[0], e[1], e[2], s);
+      const uint32_t po = kt_pixel(o[0], o[1], o[2], s);
+      *reinterpret_cast<uint32_t*>(&sm.lum[t * kLumStride + 2 * q]) =
+          bf16_pair<true>(colour<0>(pe, kYHi, kYLo, 0),
+                          colour<0>(po, kYHi, kYLo, 0));
+      sm.chr[0][t * kChrStride + q] = static_cast<uint16_t>(
+          sample<true>(colour<0>(po, kCrHi, kCrLo, 128000)) >> 16);
+      sm.chr[1][t * kChrStride + q] = static_cast<uint16_t>(
+          sample<true>(colour<0>(po, kCbHi, kCbLo, 128000)) >> 16);
+    }
+  }
+}
+
+// The i16 cast of a KT band, block-major: lanes 0-63, 64-95 and 96-127 of
+// tile t's staged row are R[0:64], G[0:32] and B[0:32] of block t (v2's
+// "copy" mode).  Pairs q = 0..63 of output lanes; 8 pairs of one channel per
+// lane group.
+template <class V>
+__device__ __forceinline__ void convert_kt_bare(Smem<V>& sm,
+                                                const uint8_t* buf) {
+  const KtLane ln;
+#pragma unroll
+  for (int m = 0; m < V::kTiles / 16; ++m) {
+    const int u = (threadIdx.x >> 5) + 8 * m;
+    const int q = 8 * (u & 7) + ln.qq;
+    const int j = u >> 3;
+    const int c = q < 32 ? 0 : (q < 48 ? 1 : 2);
+    uint32_t e, o;
+    ln.read<V>(buf, c, q - (c == 0 ? 0 : 16 + 16 * c), j, e, o);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int s = i ^ ln.rot;
+      const int t = 16 * j + 4 * ln.w + s;
+      *reinterpret_cast<uint32_t*>(&sm.q[t * kQStride + 2 * q]) =
+          __byte_perm(e, o, s | ((s + 4) << 8)) & 0x00ff00ffu;
+    }
+  }
+}
+
+// The basis as the mma's A operand (m = 16 coefficient lanes, k = positions)
+// in registers, the samples as B (n = 8 tiles) by ldmatrix from the
+// tile-major operands: the product comes out (lane, tile), as the TPU
+// production kernel's basis × samples, and is written transposed into the
+// (tile, lane) staging.  Warp w < 4 holds luma m-tile w (lanes 16w..+15,
+// depth 64), warp w ≥ 4 chroma m-tile w & 1 of channel (w >> 1) & 1 (depth
+// 32, Cr and Cb share the basis): 48 registers of fragments at most, where
+// an even split of the 72 mma per 8 tiles would need 72.  The luma warps
+// carry 12 mma per 8 tiles, the chroma warps 6.
+template <class V>
+__device__ __forceinline__ void load_basis_a(const uint16_t* parts, int warp,
+                                             int lane, uint32_t (&af)[3][4][4]) {
+  const bool luma = warp < 4;
+  const int width = luma ? 64 : 32;
+  const int row = (luma ? 16 * warp : 16 * (warp & 1)) + (lane >> 2);
+  const int k = 2 * (lane & 3);
+  const uint16_t* base = luma ? parts : parts + 3 * kLumPart;
+  const int part = luma ? kLumPart : kChrPart;
+#pragma unroll
+  for (int p = 0; p < 3; ++p) {
+#pragma unroll
+    for (int ks = 0; ks < 4; ++ks) {
+      if (ks < 2 || luma) {
+        const uint16_t* a = base + p * part + row * width + 16 * ks + k;
+        af[p][ks][0] = *reinterpret_cast<const uint32_t*>(a);
+        af[p][ks][1] = *reinterpret_cast<const uint32_t*>(a + 8 * width);
+        af[p][ks][2] = *reinterpret_cast<const uint32_t*>(a + 8);
+        af[p][ks][3] = *reinterpret_cast<const uint32_t*>(a + 8 * width + 8);
+      }
+    }
+  }
+}
+
+// One (16 lanes × 8 tiles) block of the basis-A product: tiles 8nt..8nt+7,
+// lanes col + 0..15 of the staging, the three parts summed as in product().
+template <int KSteps, int Stride>
+__device__ __forceinline__ void product_basis_a(const uint16_t* op, int nt,
+                                                const uint32_t (&af)[3][4][4],
+                                                int16_t* q, int col) {
+  const int lane = threadIdx.x & 31;
+  uint32_t b[KSteps][2];
+#pragma unroll
+  for (int ks = 0; ks < KSteps; ks += 2) {
+    uint32_t r[4];
+    ldmatrix_x4(r, op + (8 * nt + (lane & 7)) * Stride + 16 * ks +
+                       8 * (lane >> 3));
+    b[ks][0] = r[0];
+    b[ks][1] = r[1];
+    b[ks + 1][0] = r[2];
+    b[ks + 1][1] = r[3];
+  }
+  float small[4] = {}, large[4] = {};
+#pragma unroll
+  for (int ks = 0; ks < KSteps; ++ks) {
+    mma_bf16(small, af[2][ks], b[ks][0], b[ks][1]);
+    mma_bf16(large, af[0][ks], b[ks][0], b[ks][1]);
+  }
+#pragma unroll
+  for (int ks = 0; ks < KSteps; ++ks) {
+    mma_bf16(small, af[1][ks], b[ks][0], b[ks][1]);
+  }
+  const int m = col + (lane >> 2);      // staging lane of d[0], d[1]
+  const int t = 8 * nt + 2 * (lane & 3);  // tile of d[0], d[2]
+  const auto put = [&](int tile, int l, int i) {
+    q[tile * kQStride + l] =
+        static_cast<int16_t>(snap_trunc_int(__fadd_rn(small[i], large[i])));
+  };
+  put(t, m, 0);
+  put(t + 1, m, 1);
+  put(t, m + 8, 2);
+  put(t + 1, m + 8, 3);
+}
+
+// The outputs of a KT variant: p[0] the (N, lanes) rows; for the split
+// stage p[0..2] the (N, 64), (N, 32) and (N, 32) int16 luma, Cr and Cb
+// segments and p[3..5] their (N,) int32 run counts.
+struct KtOut {
+  void* p[6];
+};
+
+// The split store: the block-major store's threads and sparse deltas, each
+// 16-byte piece going to the segment's own output; then the number of
+// nonzero words of each segment (every run's first word is nonzero: slot 0
+// carries kBias, a later start a nonzero delta), summed over the segment's
+// 8 or 4 threads by shuffles, written by its first thread.
+template <class V>
+__device__ __forceinline__ void store_split(const Smem<V>& sm, const Band& b,
+                                            const KtOut& out) {
+  constexpr int kPerRow = 16;
+  constexpr int kRowsPerPass = kThreads / kPerRow;
+  const int c = threadIdx.x & (kPerRow - 1);
+  const int seg = c < 8 ? 0 : (c < 12 ? 1 : 2);
+  const int first = seg == 0 ? 0 : 4 + 4 * seg;
+  const int width = seg == 0 ? 64 : 32;
+  const int r0 = threadIdx.x / kPerRow;
+  // Pointers by selects: an index into out.p would put it in local memory.
+  void* const seg_out = seg == 0 ? out.p[0] : (seg == 1 ? out.p[1] : out.p[2]);
+  void* const seg_runs = seg == 0 ? out.p[3] : (seg == 1 ? out.p[4] : out.p[5]);
+  int16_t* dst = static_cast<int16_t*>(seg_out) + (b.out_row + r0) * width +
+                 8 * (c - first);
+  int32_t* runs = static_cast<int32_t*>(seg_runs) + b.out_row + r0;
+  const int16_t* src = sm.q + r0 * kQStride + 8 * c;
+#pragma unroll
+  for (int j = 0; j < V::kTiles / kRowsPerPass; ++j) {
+    const uint4 d = sparse_deltas(src + j * kRowsPerPass * kQStride, c == first);
+    int n = __popc(__vcmpne2(d.x, 0u)) + __popc(__vcmpne2(d.y, 0u)) +
+            __popc(__vcmpne2(d.z, 0u)) + __popc(__vcmpne2(d.w, 0u));
+    n += __shfl_xor_sync(0xffffffffu, n, 1);
+    n += __shfl_xor_sync(0xffffffffu, n, 2);
+    const int other = __shfl_xor_sync(0xffffffffu, n, 4);
+    if (seg == 0) n += other;
+    if (r0 + j * kRowsPerPass < b.tiles) {
+      __stcs(reinterpret_cast<uint4*>(dst + j * kRowsPerPass * width), d);
+      if (c == first) runs[j * kRowsPerPass] = n >> 4;
+    }
+  }
+}
+
+// Basis fragments as B operands ("col" layout: lane holds rows n = lane/4,
+// depth pairs 2·(lane%4) and +8), loaded once per CTA.  Luma columns
+// 8w..8w+7; chroma columns 8(w%4).. of channel w/4 (Cr and Cb share the
+// basis).
+template <class V>
+__device__ __forceinline__ void load_basis_b(const uint16_t* parts, int warp,
+                                             int lane,
+                                             uint32_t (&bl)[V::kParts][4][2],
+                                             uint32_t (&bc)[V::kParts][2][2]) {
+  const int n = lane >> 2, k = 2 * (lane & 3);
+  const uint32_t* lum = reinterpret_cast<const uint32_t*>(parts);
+  const uint32_t* chr = reinterpret_cast<const uint32_t*>(parts + 3 * kLumPart);
+#pragma unroll
+  for (int p = 0; p < V::kParts; ++p) {
+#pragma unroll
+    for (int ks = 0; ks < 4; ++ks) {
+      const int base = p * kLumPart + (8 * warp + n) * 64 + 16 * ks + k;
+      bl[p][ks][0] = lum[base / 2];
+      bl[p][ks][1] = lum[(base + 8) / 2];
+    }
+#pragma unroll
+    for (int ks = 0; ks < 2; ++ks) {
+      const int base = p * kChrPart + (8 * (warp & 3) + n) * 32 + 16 * ks + k;
+      bc[p][ks][0] = chr[base / 2];
+      bc[p][ks][1] = chr[(base + 8) / 2];
+    }
+  }
+}
+
+// The geometry of KT band `band`: blocks n0 = band·T .. of the slab.
+template <class V>
+__device__ __forceinline__ Band kt_band_at(const uint8_t* kt, uint32_t band,
+                                           int64_t n_blocks) {
+  Band b;
+  b.out_row = static_cast<int64_t>(band) * V::kTiles;
+  b.src = kt + b.out_row;
+  b.rows = 8;
+  b.cols = 0;
+  b.tiles = static_cast<int>(min(static_cast<int64_t>(V::kTiles),
+                                 n_blocks - b.out_row));
+  return b;
+}
+
+// Where a variant's bands come from, as the band loop asks for them: a
+// band's geometry, its cp.async copies into a ring buffer, and its convert
+// steps (colour into the bf16 operands, or the bare copy into the staging).
+// Image bands of (B, H, W, 3) RGB (K1):
+template <class V>
+struct RgbBands {
+  const uint8_t* rgb;
+  int height, width, bpc, bpr, bands_per_row, row_bytes;
+  __device__ __forceinline__ Band at(uint32_t band) const {
+    return band_at<V>(rgb, band, height, width, bpc, bpr, bands_per_row);
+  }
+  __device__ __forceinline__ void load(uint8_t* buf, const Band& b) const {
+    load_band<V>(buf, b, row_bytes);
+  }
+  __device__ __forceinline__ void convert(Smem<V>& sm, const uint8_t* buf,
+                                          const Band& b, bool staged) const {
+    convert_band<V>(sm, buf, b, row_bytes, staged);
+  }
+  __device__ __forceinline__ void bare(Smem<V>& sm, const uint8_t* buf) const {
+    convert_bare<V>(sm, buf);
+  }
+};
+
+// KT slabs of T blocks of the (3, 64, N) layout (always staged).
+template <class V>
+struct KtBands {
+  const uint8_t* kt;
+  int64_t n_blocks;
+  __device__ __forceinline__ Band at(uint32_t band) const {
+    return kt_band_at<V>(kt, band, n_blocks);
+  }
+  __device__ __forceinline__ void load(uint8_t* buf, const Band& b) const {
+    load_kt<V>(buf, b.src, n_blocks, b.tiles);
+  }
+  __device__ __forceinline__ void convert(Smem<V>& sm, const uint8_t* buf,
+                                          const Band&, bool) const {
+    convert_kt<V>(sm, buf);
+  }
+  __device__ __forceinline__ void bare(Smem<V>& sm, const uint8_t* buf) const {
+    convert_kt_bare<V>(sm, buf);
+  }
+};
+
+// The body of every variant.  Persistent CTAs walk over bands of T tiles
+// (src.at); bands are loaded two ahead into a ring of kStages buffers by
+// cp.async (staged) or read straight from device memory (RGB bands only).
+// Each band: convert → product, or the bare copy → store.  `out` is the
+// variant's output pointer, or KtOut for a KT variant; n_blocks is the lane
+// stride of coefficient-major output.
+template <class V, class Bands, class Out>
+__device__ __forceinline__ void band_loop(const Bands& src, Out out,
+                                          const uint16_t* __restrict__ parts,
+                                          uint32_t n_bands, bool staged,
+                                          int64_t n_blocks) {
   extern __shared__ __align__(16) unsigned char smem_bytes[];
   Smem<V>& sm = *reinterpret_cast<Smem<V>*>(smem_bytes);
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
-  const int bands_per_row = (bpr + V::kTiles - 1) / V::kTiles;
-  const int row_bytes = width * 3;
 
-  // Basis fragments (B operands, "col" layout: lane holds rows n = lane/4,
-  // depth pairs 2·(lane%4) and +8), loaded once.  Luma columns 8w..8w+7;
-  // chroma columns 8(w%4).. of channel w/4 (Cr and Cb share the basis).
-  uint32_t bl[V::kParts][4][2], bc[V::kParts][2][2];
-  if constexpr (V::kProduct) {
-    const int n = lane >> 2, k = 2 * (lane & 3);
-    const uint32_t* lum = reinterpret_cast<const uint32_t*>(parts);
-    const uint32_t* chr = reinterpret_cast<const uint32_t*>(parts + 3 * kLumPart);
-#pragma unroll
-    for (int p = 0; p < V::kParts; ++p) {
-#pragma unroll
-      for (int ks = 0; ks < 4; ++ks) {
-        const int base = p * kLumPart + (8 * warp + n) * 64 + 16 * ks + k;
-        bl[p][ks][0] = lum[base / 2];
-        bl[p][ks][1] = lum[(base + 8) / 2];
-      }
-#pragma unroll
-      for (int ks = 0; ks < 2; ++ks) {
-        const int base = p * kChrPart + (8 * (warp & 3) + n) * 32 + 16 * ks + k;
-        bc[p][ks][0] = chr[base / 2];
-        bc[p][ks][1] = chr[(base + 8) / 2];
-      }
-    }
+  constexpr int kBParts = V::kBasisA ? 1 : V::kParts;
+  uint32_t bl[kBParts][4][2], bc[kBParts][2][2], af[V::kBasisA ? 3 : 1][4][4];
+  if constexpr (V::kProduct && V::kBasisA) {
+    load_basis_a<V>(parts, warp, lane, af);
+  } else if constexpr (V::kProduct) {
+    load_basis_b<V>(parts, warp, lane, bl, bc);
   }
   const int ch = warp >> 2;
   const int lum_col = 8 * warp;
   const int chr_col = 64 + 32 * ch + 8 * (warp & 3);
-  int64_t n_blocks = 0;  // N: the lane stride of coefficient-major output
-  if constexpr (!V::kBlockMajor) {
-    n_blocks = static_cast<int64_t>(n_bands / bands_per_row) * bpr;
-  }
 
   const uint32_t step = gridDim.x;
   if (staged) {
 #pragma unroll
     for (int s = 0; s < kStages - 1; ++s) {
       const uint32_t nb = blockIdx.x + s * step;
-      if (nb < n_bands) {
-        load_band<V>(sm.raw[s], band_at<V>(rgb, nb, height, width, bpc, bpr,
-                                           bands_per_row), row_bytes);
-      }
+      if (nb < n_bands) src.load(sm.raw[s], src.at(nb));
       cp_async_commit();
     }
   }
   int slot = 0;
   for (uint32_t band = blockIdx.x; band < n_bands; band += step) {
-    const Band b = band_at<V>(rgb, band, height, width, bpc, bpr, bands_per_row);
+    const Band b = src.at(band);
     if (staged) {
       const uint32_t nb = band + (kStages - 1) * step;
       if (nb < n_bands) {
-        load_band<V>(sm.raw[(slot + kStages - 1) % kStages],
-                     band_at<V>(rgb, nb, height, width, bpc, bpr, bands_per_row),
-                     row_bytes);
+        src.load(sm.raw[(slot + kStages - 1) % kStages], src.at(nb));
       }
       cp_async_commit();
       cp_async_wait<kStages - 1>();
     }
     __syncthreads();  // this band's bytes landed; the last store pass is done
     if constexpr (V::kProduct) {
-      convert_band<V>(sm, sm.raw[slot], b, row_bytes, staged);
+      src.convert(sm, sm.raw[slot], b, staged);
       __syncthreads();
+      if constexpr (V::kBasisA) {
+        if (warp < 4) {
 #pragma unroll 1
-      for (int mt = 0; mt < V::kTiles / 16; ++mt) {
-        product<V, 4, kLumStride>(sm.lum, mt, bl, sm.q, lum_col);
-        if constexpr (V::kChannels == 3) {
-          product<V, 2, kChrStride>(sm.chr[ch], mt, bc, sm.q, chr_col);
+          for (int nt = 0; nt < V::kTiles / 8; ++nt) {
+            product_basis_a<4, kLumStride>(sm.lum, nt, af, sm.q, 16 * warp);
+          }
+        } else {
+#pragma unroll 1
+          for (int nt = 0; nt < V::kTiles / 8; ++nt) {
+            product_basis_a<2, kChrStride>(sm.chr[(warp >> 1) & 1], nt, af,
+                                           sm.q, 64 + 16 * (warp & 3));
+          }
+        }
+      } else {
+#pragma unroll 1
+        for (int mt = 0; mt < V::kTiles / 16; ++mt) {
+          product<V, 4, kLumStride>(sm.lum, mt, bl, sm.q, lum_col);
+          if constexpr (V::kChannels == 3) {
+            product<V, 2, kChrStride>(sm.chr[ch], mt, bc, sm.q, chr_col);
+          }
         }
       }
     } else {
-      convert_bare<V>(sm, sm.raw[slot]);
+      src.bare(sm, sm.raw[slot]);
     }
     __syncthreads();
-    if constexpr (V::kBlockMajor) {
+    if constexpr (V::kStage == Stage::kSplit) {
+      store_split<V>(sm, b, out);
+    } else if constexpr (V::kInput == Input::kKt) {
+      store_rows<V>(sm, b, static_cast<int16_t*>(out.p[0]));
+    } else if constexpr (V::kBlockMajor) {
       store_rows<V>(sm, b, out);
     } else {
       store_lanes<V>(sm, b, out, n_blocks);
@@ -657,6 +1035,55 @@ __global__ void __launch_bounds__(kThreads, V::kMinCtas)
     slot = (slot + 1) % kStages;
   }
   if (staged) cp_async_wait<0>();
+}
+
+// The kernel of the RGB variants (K1 among them): band_loop over image
+// bands.
+template <class V>
+__global__ void __launch_bounds__(kThreads, V::kMinCtas)
+    fwd_megakernel(const uint8_t* __restrict__ rgb,
+                   typename V::Out* __restrict__ out,
+                   const uint16_t* __restrict__ parts, uint32_t n_bands,
+                   int height, int width, int bpc, int bpr, bool staged) {
+  const int bands_per_row = (bpr + V::kTiles - 1) / V::kTiles;
+  int64_t n_blocks = 0;  // N: the lane stride of coefficient-major output
+  if constexpr (!V::kBlockMajor) {
+    n_blocks = static_cast<int64_t>(n_bands / bands_per_row) * bpr;
+  }
+  const RgbBands<V> src{rgb, height, width, bpc, bpr, bands_per_row, width * 3};
+  band_loop<V>(src, out, parts, n_bands, staged, n_blocks);
+}
+
+// The kernel of the KT variants: band_loop over KT slabs, always staged
+// (the launcher checks the cp.async route's alignment).
+template <class V>
+__global__ void __launch_bounds__(kThreads, V::kMinCtas)
+    fwd_megakernel_kt(const uint8_t* __restrict__ kt, KtOut out,
+                      const uint16_t* __restrict__ parts, uint32_t n_bands,
+                      int64_t n_blocks) {
+  band_loop<V>(KtBands<V>{kt, n_blocks}, out, parts, n_bands, true, n_blocks);
+}
+
+// The persistent grid of `kernel` with `smem` bytes of dynamic shared
+// memory: the resident CTAs of every SM, at most n_bands.  Returns the
+// first failed attribute call or query.
+template <class K>
+cudaError_t persistent_grid(K kernel, int smem, int64_t n_bands,
+                            unsigned* grid) {
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  int device = 0, sms = 0, per_sm = 0;
+  err = cudaGetDevice(&device);
+  if (err != cudaSuccess) return err;
+  err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  if (err != cudaSuccess) return err;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
+                                                      kThreads, smem);
+  if (err != cudaSuccess) return err;
+  int64_t g = static_cast<int64_t>(sms) * (per_sm > 0 ? per_sm : 1);
+  *grid = static_cast<unsigned>(g < n_bands ? g : n_bands);
+  return cudaSuccess;
 }
 
 // Launch variant V on `stream` (the contract of fwd_megakernel_launch in
@@ -679,25 +1106,38 @@ int launch_variant(const void* rgb, void* out, const void* parts, int batch,
     return cudaErrorInvalidValue;
   }
   const int smem = static_cast<int>(sizeof(Smem<V>));
-  cudaError_t err = cudaFuncSetAttribute(
-      fwd_megakernel<V>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  unsigned grid = 0;
+  const cudaError_t err = persistent_grid(fwd_megakernel<V>, smem, n_bands, &grid);
   if (err != cudaSuccess) return err;
-  int device = 0, sms = 0, per_sm = 0;
-  err = cudaGetDevice(&device);
-  if (err != cudaSuccess) return err;
-  err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
-  if (err != cudaSuccess) return err;
-  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, fwd_megakernel<V>,
-                                                      kThreads, smem);
-  if (err != cudaSuccess) return err;
-  int64_t grid = static_cast<int64_t>(sms) * (per_sm > 0 ? per_sm : 1);
-  if (grid > n_bands) grid = n_bands;
-  fwd_megakernel<V><<<static_cast<unsigned>(grid), kThreads, smem,
-                      static_cast<cudaStream_t>(stream)>>>(
+  fwd_megakernel<V><<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const uint8_t*>(rgb), static_cast<typename V::Out*>(out),
       static_cast<const uint16_t*>(parts), static_cast<uint32_t>(n_bands),
       height, width, bpc, bpr,
       staged != 0);
+  return cudaGetLastError();
+}
+
+// Launch KT variant V on `stream`: kt is (3, 64, n_blocks) uint8,
+// contiguous; the cp.async route needs n_blocks % 16 == 0 and a 16-byte
+// aligned kt, else cudaErrorInvalidValue.  Returns cudaGetLastError() or
+// the first failed query, never synchronises.
+template <class V>
+int launch_kt(const void* kt, const KtOut& out, const void* parts,
+              int64_t n_blocks, void* stream) {
+  if (n_blocks <= 0) return cudaSuccess;
+  if (n_blocks % 16 != 0 || reinterpret_cast<uintptr_t>(kt) % 16 != 0) {
+    return cudaErrorInvalidValue;
+  }
+  const int64_t n_bands = (n_blocks + V::kTiles - 1) / V::kTiles;
+  if (n_bands > (1ll << 30)) return cudaErrorInvalidValue;
+  const int smem = static_cast<int>(sizeof(Smem<V>));
+  unsigned grid = 0;
+  const cudaError_t err = persistent_grid(fwd_megakernel_kt<V>, smem, n_bands, &grid);
+  if (err != cudaSuccess) return err;
+  fwd_megakernel_kt<V><<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const uint8_t*>(kt), out,
+      static_cast<const uint16_t*>(parts), static_cast<uint32_t>(n_bands),
+      n_blocks);
   return cudaGetLastError();
 }
 

@@ -8,6 +8,9 @@ hand-written Hopper kernel ``csrc/fwd_megakernel.cu``; on a CPU tensor it
 runs ``forward_combined_ref``, the plain torch version of the same function
 (the JAX package's tile chain, ``models/jpeg.py:365-376``).  There is no
 fallback between the two: a CUDA call launches the kernel or raises.
+``rgb_to_kt`` is the JAX package's "stage A", the (3, 64, N) KT block
+layout that its Pallas kernel read (K1 reads RGB; the layout probes of
+``profiles/megakernel.py`` read KT).
 """
 
 from __future__ import annotations
@@ -58,6 +61,32 @@ def kt_bases(lum_key: bytes, chr_key: bytes):
         mc64.astype(np.float32),
         offs.astype(np.float32),
     )
+
+
+def rgb_to_kt(rgb: torch.Tensor) -> torch.Tensor:
+    """(..., H, W, 3) uint8 → (3, 64, N) uint8 KT block layout, contiguous.
+
+    N = prod(batch) · (H/8) · (W/8), blocks in block-row-major order
+    (frames outermost); axis 1 is the position 8·row + col within the 8x8
+    block.  A pure relayout (``reshape``/``permute``/``contiguous``), as
+    ``lz4jpeg_tpu/ops/pallas_fwd.py::rgb_to_kt``; requires H % 8 == 0 and
+    W % 8 == 0."""
+    *batch, h, w, c = rgb.shape
+    if c != 3 or h % 8 or w % 8:
+        raise ValueError(f"expected (..., H, W, 3) with H, W multiples of 8, "
+                         f"got {tuple(rgb.shape)}")
+    x = rgb.reshape(*batch, h // 8, 8, w // 8, 8, 3)
+    nb = len(batch)
+    perm = (nb + 4, nb + 1, nb + 3, *range(nb), nb, nb + 2)
+    return x.permute(*perm).contiguous().reshape(3, 64, -1)
+
+
+def kt_tiles(kt: torch.Tensor):
+    """(3, 64, N) KT layout → its (N, 64) R, G and B tiles (positions
+    8·row + col), the blocks the plain versions work on."""
+    if kt.dim() != 3 or tuple(kt.shape[:2]) != (3, 64):
+        raise ValueError(f"expected a (3, 64, N) KT array, got {tuple(kt.shape)}")
+    return tuple(kt[c].T for c in range(3))
 
 
 def _blocks(rgb: torch.Tensor):

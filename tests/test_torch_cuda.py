@@ -760,7 +760,7 @@ def test_megakernel_variants_match_plain_versions(cuda, shape):
 
     x = mk.noise_batch(*shape, seed=sum(shape)).to(cuda)
     k1 = forward_combined(x, LUM, CHR)
-    for v in mk.VARIANTS:
+    for v in mk.RGB_VARIANTS:
         before = mk.megakernel_variant.launches
         got = mk.megakernel_variant(x, v.name, LUM, CHR)
         torch.cuda.synchronize()
@@ -810,3 +810,99 @@ def test_megakernel_probe_runs_on_the_card(cuda, tmp_path):
         assert json.loads((tmp_path / "run.json").read_text())["card"]
         for row in res["rows"]:
             assert row["ms"] > 0 and row["registers"] > 0, row
+
+
+# The layout variants (profiles/megakernel.py's KT variants): each against its
+# plain version by the one-step rule (the copy rows identical, the split
+# stage's run counts equal to its nonzero words), the K1-arithmetic rows
+# identical to ``forward_combined`` on ``rgb_to_kt`` of the same frames.
+# Shapes: the runs' gate and a last band of 32 tiles (N = 544); then N =
+# 4,144, ragged for every T (N % 16 == 0, N % 32 ≠ 0).
+KT_SHAPES = [(2, 64, 128), (1, 16, 2176)]
+
+
+@pytest.mark.parametrize("shape", KT_SHAPES)
+def test_megakernel_kt_variants_match_plain_and_k1(cuda, shape):
+    from lz4jpeg_tpu_torch.ops.fwd_megakernel import rgb_to_kt
+    from lz4jpeg_tpu_torch.profiles import megakernel as mk
+
+    x = mk.noise_batch(*shape, seed=sum(shape), runs=True).to(cuda)
+    kt = rgb_to_kt(x)
+    k1 = forward_combined(x, LUM, CHR)
+    for v in mk.KT_VARIANTS:
+        before = mk.megakernel_variant.launches
+        got = mk.megakernel_variant(kt, v.name, LUM, CHR)
+        torch.cuda.synchronize()
+        assert mk.megakernel_variant.launches == before + 1
+        want = mk.megakernel_variant_ref(kt, v.name, LUM, CHR)
+        flips = mk.variant_flips(kt, got, want, v.name, LUM, CHR)
+        assert flips <= max(1, mk.flip_limit(v.name) * mk.combined(got).numel())
+        if v.name in mk.KT_SAME_AS_K1:
+            assert torch.equal(mk.combined(got), k1), v.name
+
+
+def test_megakernel_kt_variants_on_a_ragged_n(cuda):
+    from lz4jpeg_tpu_torch.profiles import megakernel as mk
+
+    kt = mk.noise_kt(64 * 64 + 48, seed=7).to(cuda)
+    for v in mk.KT_VARIANTS:
+        got = mk.megakernel_variant(kt, v.name, LUM, CHR)
+        torch.cuda.synchronize()
+        want = mk.megakernel_variant_ref(kt, v.name, LUM, CHR)
+        flips = mk.variant_flips(kt, got, want, v.name, LUM, CHR)
+        assert flips <= max(1, mk.flip_limit(v.name) * mk.combined(got).numel())
+
+
+def test_megakernel_kt_variant_refuses_what_the_route_does_not_take(cuda):
+    import ctypes
+
+    from lz4jpeg_tpu_torch.profiles import megakernel as mk
+
+    kt = mk.noise_kt(100, seed=0).to(cuda)
+    with pytest.raises(ValueError, match="N % 16"):
+        mk.megakernel_variant(kt, "kt_full", LUM, CHR)
+    buf = torch.empty(3 * 64 * 96 + 1, dtype=torch.uint8, device=cuda)
+    view = buf[1:].view(3, 64, 96)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        mk.megakernel_variant(view, "kt_full", LUM, CHR)
+    lib = mk.load_kernel()
+    out = torch.empty((100, 128), dtype=torch.int16, device=cuda)
+    stream = torch.cuda.current_stream(cuda).cuda_stream
+    ptrs = (ctypes.c_void_p * 1)(out.data_ptr())
+    kt_id = mk.VARIANTS.index(mk.BY_NAME["kt_full"])
+    assert lib.fwd_probe_kt_launch(kt_id, kt.data_ptr(), ptrs, 0, 100,
+                                   stream) != 0
+    assert lib.fwd_probe_kt_launch(0, kt.data_ptr(), ptrs, 0, 96, stream) != 0
+    assert lib.fwd_probe_launch(kt_id, kt.data_ptr(), out.data_ptr(), 0, 1, 8,
+                                16, stream) != 0
+
+
+def test_megakernel_kt_variant_attributes(cuda):
+    from lz4jpeg_tpu_torch.profiles import megakernel as mk
+
+    attrs = {v.name: mk.variant_attributes(v.name, cuda)
+             for v in mk.KT_VARIANTS}
+    for name in ("kt_split_runs", "kt_full", "kt_basis_a", "kt_dct",
+                 "kt_copy"):
+        assert attrs[name]["shared_bytes"] == 73_728, name
+        assert attrs[name]["ctas_per_sm"] == 3, name
+    assert attrs["kt_full_128"]["ctas_per_sm"] == 1
+    assert attrs["kt_copy_128"]["ctas_per_sm"] == 1
+    for name, a in attrs.items():
+        assert 0 < a["registers"] <= 255 and a["ctas_per_sm"] >= 1, name
+
+
+def test_megakernel_layout_runs_on_the_card(cuda, tmp_path):
+    import json
+
+    from lz4jpeg_tpu_torch.profiles.megakernel_kt import run_megakernel_kt
+    from lz4jpeg_tpu_torch.profiles.megakernel_t import run_megakernel_t
+    from lz4jpeg_tpu_torch.profiles.megakernel_v2 import run_megakernel_v2
+
+    for run in (run_megakernel_kt, run_megakernel_t, run_megakernel_v2):
+        res = run(cuda, frames=2, side=256, runs=1, chain=2,
+                  output=str(tmp_path / "run.json"))
+        assert json.loads((tmp_path / "run.json").read_text())["card"]
+        assert res["plain_ms"] > 0
+        for row in res["rows"]:
+            assert row["ms"] > 0 and row["bound_ms"] > 0, row

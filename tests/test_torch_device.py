@@ -168,10 +168,15 @@ assert len(plane_color.plane_color(*(torch.zeros(s, dtype=torch.uint8)
                                      for s in ((2, 4), (2, 2), (2, 2))))) == 3
 from lz4jpeg_tpu_torch.ops.quantize import CHROMINANCE_QUANTIZATION_TABLE as CHR
 from lz4jpeg_tpu_torch.profiles import megakernel
-for v in megakernel.VARIANTS:
+for v in megakernel.RGB_VARIANTS:
     out = megakernel.megakernel_variant(torch.zeros((1, 8, 16, 3), dtype=torch.uint8),
                                         v.name, LUM, CHR)
     assert tuple(out.shape) == v.shape(2)
+from lz4jpeg_tpu_torch.profiles import megakernel_kt, megakernel_t, megakernel_v2
+for v in megakernel.KT_VARIANTS:
+    out = megakernel.megakernel_variant(torch.zeros((3, 64, 16), dtype=torch.uint8),
+                                        v.name, LUM, CHR)
+    assert tuple(megakernel.combined(out).shape) == (16, 128)
 assert "jax" not in sys.modules and "lz4jpeg_tpu" not in sys.modules
 print("ok")
 """

@@ -305,7 +305,7 @@ def test_wrapper_refuses_an_unknown_variant_and_counts_no_cpu_launch():
     with pytest.raises(ValueError, match="unknown variant"):
         mk.megakernel_variant(x, "fast", LUM, CHR)
     mk.megakernel_variant.launches = 0
-    for v in mk.VARIANTS:
+    for v in mk.RGB_VARIANTS:
         out = mk.megakernel_variant(x, v.name, LUM, CHR)
         assert tuple(out.shape) == v.shape(8) and out.dtype == v.dtype
     assert mk.megakernel_variant.launches == 0
@@ -316,9 +316,10 @@ def test_variant_table_maps_every_probe_row():
         "full", "one_part", "coefficient_major", "no_sparse", "no_colour",
         "luma_only", "band_128", "band_16", "band_32", "bare"]
     assert len(LADDER_ROWS) == 8
-    rows = [r for v in mk.VARIANTS for r in v.rows]
+    rows = [r for v in mk.RGB_VARIANTS for r in v.rows]
     assert len(rows) == len(set(rows)) == 18
-    assert {n for _, n in ABLATE_ROWS + LADDER_ROWS} == set(mk.BY_NAME)
+    assert {n for _, n in ABLATE_ROWS + LADDER_ROWS} == {
+        v.name for v in mk.RGB_VARIANTS}
 
 
 def test_bound_of_the_full_row_at_the_probes_size():
