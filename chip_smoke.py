@@ -2,12 +2,12 @@
 """Smoke run of the PyTorch port (lz4jpeg_tpu_torch) on one CUDA card.
 
 Run from the repository root with no arguments: ``python3 chip_smoke.py``.
-It needs one card.  At first use it builds the eighteen Hopper kernels
-(one nvcc per source file, eleven files, all started together, sm_90a; the
-five megakernel probes are one file of twenty-six instantiations of K1's
-template) and the native runtime (g++) into ``lz4jpeg_tpu_torch/_build/``,
-then runs twenty-three phases and fails (non-zero exit, no result line) if
-any of them fails.
+It needs one card.  At first use it builds the twenty-two Hopper kernels
+(one nvcc per source file, fourteen files, all started together, sm_90a;
+the five megakernel probes are one file of twenty-six instantiations of
+K1's template) and the native runtime (g++) into
+``lz4jpeg_tpu_torch/_build/``, then runs twenty-four phases and fails
+(non-zero exit, no result line) if any of them fails.
 ``ab_kernels.py`` times K1, K2 and K4-K7 in turns with another checkout's.
 
 1. the card's name and power limit, the torch and CUDA versions, and the
@@ -216,7 +216,27 @@ any of them fails.
     the rows of ``profiles/probe_megakernel.py``, ``probe_megakernel_t.py``
     and ``probe_megakernel_v2.py``) at their defaults, 32 frames of 2048²,
     the variants' launch count set to 0 just before each run and read just
-    after; the phase's wall time.
+    after; the phase's wall time;
+24. the matcher sorts and the membership decode (``profiles/
+    bitonic_sort.py``, ``bucket_partition.py``, ``rle_decode.py``): the
+    sort (``csrc/bitonic_sort_kernel.cu``) identical to its plain version
+    and to ``torch.sort`` + ``torch.gather`` at 1, 3, 8 and 2,048 blocks of
+    the probe's keys and on crafted sorted, reversed and all-same-bucket
+    blocks, its replay variant returning the sorted keys and the input
+    payload, both on duplicate keys identical to the plain version; both
+    stage kernels (``csrc/stage_rate_kernel.cu``) identical to their plain
+    versions at 256 and 2,048 blocks and on a view one element off a
+    16-byte boundary; the membership kernel
+    (``csrc/rle_membership_kernel.cu``) identical to K6 and to its plain
+    version on phase 10's luma and Cr words and on crafted rows (a valid
+    word 0, lengths 0, runs past out_size; N = 1, 5, 4,099; out_size L and
+    L/2 + 3), and three refused shapes refused by the wrapper and the C
+    entry point; then the three runners at their defaults (2,048 sorted
+    blocks; stages at 256 and 2,048 blocks; the membership A/B against K6
+    and K8 on the luma words of 64 frames of 2048²), each kernel's launch
+    count set to 0 just before its run and read just after, every row
+    printed with registers, shared memory and CTAs per SM, K2's phase-8
+    time beside the sort's, and the phase's wall time.
 
 The line before the last is the kernels' JSON record: per kernel (the
 packed16 kernels once per timed channel and input dtype) its launches on
@@ -229,7 +249,13 @@ three basis parts against exact pixel values, and against the two exact
 bf16 parts of integer coefficients for the inverse, which leaves both
 MCU kernels bound by their bytes) and the time of one PyTorch call that computes the same function
 where there is one (K3: ``torch.gather``; the copy kernel:
-``Tensor.copy_``; none for phase 21's, 22's and 23's kernels).  Phase
+``Tensor.copy_``; the sort: ``torch.sort`` of the keys alone; none for
+phase 21's, 22's and 23's kernels, the stage kernels and the membership
+decode).  Phase 24's records add an issue bound (``issue_bound_ms``: the
+least lane instructions the algorithm needs, as warp instructions over
+132 SMs × 4 schedulers at the card's highest SM clock, labelled by what
+they count in ``issue_counts``): integer compares and selects have no
+data-sheet rate, so ``bound_ms`` stays the bytes bound.  Phase
 22's two records (``megakernel_ablate``, ``megakernel_dma``) and phase
 23's three (``megakernel_kt``, ``megakernel_t``, ``megakernel_v2``) give
 the baseline row's time, bound and plain time, the launches of the whole
@@ -337,6 +363,16 @@ LAYOUT_REPLACES = {"megakernel_kt": "profiles/probe_megakernel.py:108",
 LAYOUT_RAGGED_N = 64 * 64 + 48  # phase 23: N % 16 == 0, N % 32, 64, 128 ≠ 0
 LAYOUT_REFUSED_N = 4100  # phase 23: N % 16 ≠ 0
 LAYOUT_RUN = {}  # the three layout runs' defaults: 32 frames of 2048²
+SORT_SOURCE = "lz4jpeg_tpu_torch/csrc/bitonic_sort_kernel.cu"
+STAGE_SOURCE = "lz4jpeg_tpu_torch/csrc/stage_rate_kernel.cu"
+MEMBERSHIP_SOURCE = "lz4jpeg_tpu_torch/csrc/rle_membership_kernel.cu"
+SORT_BLOCKS = (1, 3, 8, 2048)  # phase 24's sorts against plain and torch.sort
+STAGE_BLOCKS = (256, 2048)  # phase 24's stage kernels against plain
+MEMBER_ROWS = (1, 5, 4099)  # phase 24's crafted packed16 rows
+MEMBER_REFUSED = ((64, 65), (16, 16), (128, 64))  # (L, out_size) refused
+SORT_RUN = {}  # the runners' defaults: 2,048 blocks, 8 checked
+STAGE_RUN = {}  # 256 and 2,048 blocks
+RLE_RUN = {}  # the luma words of 64 frames of 2048²
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3 (NVIDIA data sheet)
 BF16_FLOP_PER_S = 989e12  # H100 SXM dense bf16 tensor cores (data sheet)
 # K1's tensor-core work per 8x8 tile: three bf16 passes of a 64-deep luma
@@ -455,7 +491,15 @@ def build_all():
         pack16,
         stream,
     )
-    from lz4jpeg_tpu_torch.profiles import megakernel, mcu, plane_color, rle
+    from lz4jpeg_tpu_torch.profiles import (
+        bitonic_sort,
+        bucket_partition,
+        megakernel,
+        mcu,
+        plane_color,
+        rle,
+        rle_decode,
+    )
 
     builds = {
         "nvcc fwd_megakernel": fwd_megakernel.load_kernel,
@@ -469,6 +513,9 @@ def build_all():
         "nvcc rle_compact_kernel": rle.load_kernel,
         "nvcc plane_color_kernel": plane_color.load_kernel,
         "nvcc fwd_probe_kernel": megakernel.load_kernel,
+        "nvcc bitonic_sort_kernel": bitonic_sort.load_kernel,
+        "nvcc stage_rate_kernel": bucket_partition.load_kernel,
+        "nvcc rle_membership_kernel": rle_decode.load_kernel,
         "g++ lz4core": native_backend,
     }
 
@@ -2748,6 +2795,224 @@ def layouts_phase(dev):
     results, launches = probe_runs("phase 23", runs, LAYOUT_RUN, dev, t_phase)
     return probe_records(results, launches, flips, LAYOUT_REPLACES)
 
+def matcher_phase(dev, p10_words, k2_ms):
+    """Phase 24: the matcher sorts (``profiles/bitonic_sort.py``,
+    ``profiles/bucket_partition.py``) and the membership decode
+    (``profiles/rle_decode.py``) against their plain versions on the card,
+    then their three runners at their defaults; returns the four kernel
+    records.  ``p10_words`` holds phase 10's luma and Cr packed16 words and
+    lengths (numpy), ``k2_ms`` phase 8's K2 time."""
+    import gc
+    import tempfile
+
+    import torch
+
+    from lz4jpeg_tpu_torch.ops import pack16
+    from lz4jpeg_tpu_torch.profiles import bitonic_sort as bs
+    from lz4jpeg_tpu_torch.profiles import bucket_partition as bp
+    from lz4jpeg_tpu_torch.profiles import rle_decode as rd
+    from lz4jpeg_tpu_torch.utils.inputs import crafted_packed16_rows
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    t_phase = time.perf_counter()
+    err = {"bitonic_sort": 0, "concentration_stages": 0,
+           "compare_exchange_stages": 0, "rle_membership": 0}
+
+    def held(name, label, got, want):
+        torch.cuda.synchronize()
+        got = got if isinstance(got, tuple) else (got,)
+        want = want if isinstance(want, tuple) else (want,)
+        same = all(torch.equal(a, b) for a, b in zip(got, want))
+        d = max(int((a.long() - b.long()).abs().max()) if a.numel() else 0
+                for a, b in zip(got, want))
+        err[name] = max(err[name], d)
+        print(f"phase 24: {label}: {'identical' if same else 'DIFFERS'}")
+        check(same, f"phase 24: {label} differs (max |d| {d})")
+
+    # -- the sort: plain version, torch.sort + gather, the replay -----------
+    keys_np, pay_np = bs.probe_blocks(max(SORT_BLOCKS), SEED + 24)
+    pos = np.arange(bs.SLOTS, dtype=np.int64)
+    crafted = {
+        "sorted": (np.arange(bs.SLOTS, dtype=np.int64) << bs.LOG_SLOTS) | pos,
+        "reversed": (np.arange(bs.SLOTS, dtype=np.int64)[::-1] << bs.LOG_SLOTS)
+        | pos,
+        "all-same-bucket": (np.full(bs.SLOTS, 12345, dtype=np.int64)
+                            << bs.LOG_SLOTS) | pos[::-1],
+    }
+    cases = [(f"{n} blocks", keys_np[:n], pay_np[:n]) for n in SORT_BLOCKS]
+    cases += [(f"crafted {name} block", k[None].astype(np.int32), pay_np[:1])
+              for name, k in crafted.items()]
+    for label, k_np, p_np in cases:
+        k = torch.from_numpy(np.ascontiguousarray(k_np)).to(dev)
+        p = torch.from_numpy(np.ascontiguousarray(p_np)).to(dev)
+        want = bs.sort_gather(k, p)
+        got = bs.bitonic_sort_blocks(k, p)
+        held("bitonic_sort", f"sort {label} vs plain", got,
+             bs.bitonic_sort_blocks_ref(k, p))
+        held("bitonic_sort", f"sort {label} vs torch.sort + gather", got, want)
+        tiles = bs.bitonic_sort_blocks(k.view(-1, bs.ROWS, bs.LANES),
+                                       p.view(-1, bs.ROWS, bs.LANES),
+                                       record_masks=True)
+        held("bitonic_sort", f"replay {label}: sorted keys, input payload",
+             tuple(t.reshape(k.shape) for t in tiles), (want[0], p))
+        del k, p, want, got, tiles
+    gen = torch.Generator(device=dev).manual_seed(SEED + 24)
+    dup_pay = torch.from_numpy(pay_np[:4]).to(dev)
+    dup = torch.randint(0, 7, dup_pay.shape, dtype=torch.int32, device=dev,
+                        generator=gen)
+    for record in (False, True):
+        held("bitonic_sort", f"duplicate keys (record_masks={record}) vs plain",
+             bs.bitonic_sort_blocks(dup, dup_pay, record),
+             bs.bitonic_sort_blocks_ref(dup, dup_pay, record))
+    del keys_np, pay_np, dup, dup_pay
+
+    # -- both stage kernels, also on a view off a 16-byte boundary ----------
+    for n in STAGE_BLOCKS:
+        x = bp.probe_tiles(n, SEED + 24).to(dev)
+        views = [(f"{n} blocks", x)] + ([("offset view", offset_view(x))]
+                                        if n == min(STAGE_BLOCKS) else [])
+        for label, v in views:
+            for name, (_, fn, ref, _) in bp.KERNELS.items():
+                held(name, f"{name} {label} vs plain", fn(v), ref(v))
+        del x, views
+
+    # -- the membership decode: K6 and plain, crafted rows, refusals --------
+    for c, (w_np, l_np) in p10_words.items():
+        w = torch.from_numpy(w_np).to(dev)
+        lens = torch.from_numpy(l_np).to(dev)
+        k = w.shape[1]
+        got = rd.rle_decode_membership(w, lens, k)
+        held("rle_membership", f"membership phase 10 {c} {tuple(w.shape)} vs K6",
+             got, pack16.pack16_decode(w, lens, k))
+        held("rle_membership", f"membership phase 10 {c} vs plain", got,
+             rd.rle_decode_membership_ref(w, lens, k))
+        del w, lens, got
+    rng = np.random.default_rng(SEED + 24)
+    for k in rd.SEGMENTS:
+        for n in MEMBER_ROWS:
+            w_np, l_np = crafted_packed16_rows(k, rng, n_random=max(0, n - 12))
+            w = torch.from_numpy(w_np[:n]).to(dev)
+            lens = torch.from_numpy(l_np[:n]).to(dev)
+            for out_size in (k, k // 2 + 3):
+                got = rd.rle_decode_membership(w, lens, out_size)
+                label = f"membership crafted L {k} rows {n} out {out_size}"
+                held("rle_membership", f"{label} vs K6", got,
+                     pack16.pack16_decode(w, lens, out_size))
+                held("rle_membership", f"{label} vs plain", got,
+                     rd.rle_decode_membership_ref(w, lens, out_size))
+    lib = rd.load_kernel()
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    for k, out_size in MEMBER_REFUSED:
+        w = torch.zeros((5, k), dtype=torch.int16, device=dev)
+        lens = torch.zeros((5,), dtype=torch.int32, device=dev)
+        out = torch.empty((5, out_size), dtype=torch.int32, device=dev)
+        try:
+            rd.rle_decode_membership(w, lens, out_size)
+            refused = False
+        except ValueError:
+            refused = True
+        rc = lib.rle_membership_launch(w.data_ptr(), lens.data_ptr(),
+                                       out.data_ptr(), 5, k, out_size, stream)
+        print(f"phase 24: membership L {k} out {out_size}: wrapper "
+              f"{'refused' if refused else 'TOOK IT'}, entry point "
+              f"{lib.rle_membership_error_string(rc).decode() if rc else 'TOOK IT'}")
+        check(refused and rc != 0,
+              f"phase 24: L {k}, out_size {out_size} was not refused")
+    torch.cuda.synchronize()
+    print(f"phase 24: checks in {time.perf_counter() - t_phase:.2f} s; max "
+          f"|kernel - plain| {err}")
+
+    # -- the three runners at their defaults, each count zeroed before -----
+    wrappers = {"bitonic_sort": (bs.bitonic_sort_blocks,),
+                "bucket_partition": (bp.concentration_stages,
+                                     bp.compare_exchange_stages),
+                "rle_decode": (rd.rle_decode_membership,)}
+    runners = {"bitonic_sort": (bs.run_bitonic_sort, SORT_RUN),
+               "bucket_partition": (bp.run_bucket_partition, STAGE_RUN),
+               "rle_decode": (rd.run_rle_decode_ab, RLE_RUN)}
+    results, launches, wall = {}, {}, {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for key, (run, params) in runners.items():
+            gc.collect()
+            torch.cuda.empty_cache()
+            for fn in wrappers[key]:
+                fn.launches = 0
+            t0 = time.perf_counter()
+            results[key] = run(dev, **params, output=str(Path(tmp) / key))
+            wall[key] = time.perf_counter() - t0
+            for fn in wrappers[key]:
+                launches[fn.__name__] = fn.launches
+            art = json.loads((Path(tmp) / key).read_text())
+            check(art.get("device") == str(dev) and art.get("card"),
+                  f"{key}'s artifact does not name the card")
+    for name, count in launches.items():
+        check(count > 0, f"phase 24: the runner never launched {name}")
+
+    sort = {r["row"]: r for r in results["bitonic_sort"]["rows"]}
+    s_ms = sort["bitonic sort 2-op"]["ms"]
+    print(f"phase 24: sort {s_ms:.4f} ms, with replay "
+          f"{sort['bitonic sort 2-op + reverse replay']['ms']:.4f}, torch.sort "
+          f"{sort['torch.sort keys only']['ms']:.4f}, + gather "
+          f"{sort['torch.sort + torch.gather']['ms']:.4f}; K2 (keys only, "
+          f"with its candidates, phase 8) {k2_ms:.4f} ms")
+    stages = results["bucket_partition"]["sizes"][-1]
+    rle = results["rle_decode"]
+    print(f"phase 24: at {stages['blocks']} blocks concentration / "
+          f"compare-exchange per stage "
+          f"{stages['concentration_over_compare_exchange']:.3f}; a 16-bit radix "
+          f"partition {stages['radix_over_bitonic_time']:.2f}x the bitonic "
+          f"network's stage time; {rle['verdict']}")
+    print(f"phase 24: launches per run {launches}; wall s "
+          + ", ".join(f"{k} {v:.2f}" for k, v in wall.items())
+          + f"; phase {time.perf_counter() - t_phase:.2f} s")
+
+    res = results["bitonic_sort"]
+    records = [{
+        "name": "bitonic_sort", "route": "cuda", "source": SORT_SOURCE,
+        "replaces": "profiles/profile_pallas_sort.py:35",
+        "launches": launches["bitonic_sort_blocks"],
+        "max_abs_err": float(err["bitonic_sort"]), "ms": s_ms,
+        "plain_ms": sort["plain version (torch ops)"]["ms"],
+        "bound_ms": res["bytes_bound_ms"], "bound_by": "bytes",
+        "library_ms": sort["torch.sort keys only"]["ms"],
+        "library": "torch.sort (keys only, stable)",
+        "issue_bound_ms": res["issue_bound_ms"],
+        "replay_ms": sort["bitonic sort 2-op + reverse replay"]["ms"],
+        "replay_issue_bound_ms": res["replay_issue_bound_ms"],
+        "issue_counts": res["issue_counts"],
+    }]
+    for name, line in (("concentration_stages", 45),
+                       ("compare_exchange_stages", 59)):
+        r = stages["kernels"][name]
+        records.append({
+            "name": name, "route": "cuda", "source": STAGE_SOURCE,
+            "replaces": f"profiles/probe_bucket_partition.py:{line}",
+            "launches": launches[name], "max_abs_err": float(err[name]),
+            "ms": r["ms"], "plain_ms": r["plain_ms"],
+            "bound_ms": r["bytes_bound_ms"], "bound_by": "bytes",
+            "library_ms": None, "issue_bound_ms": r["issue_bound_ms"],
+            "issue_counts": r["issue_counts"],
+            "blocks": stages["blocks"],
+            "ps_per_stage_elem": r["ps_per_stage_elem"],
+        })
+    v = rle["versions"]
+    records.append({
+        "name": "rle_membership", "route": "cuda", "source": MEMBERSHIP_SOURCE,
+        "replaces": "profiles/pallas_rle_decode.py:26",
+        "launches": launches["rle_decode_membership"],
+        "max_abs_err": float(err["rle_membership"]),
+        "ms": v["membership kernel"]["ms"],
+        "plain_ms": v["plain pack16_decode_ref"]["ms"],
+        "bound_ms": rle["bytes_bound_ms"], "bound_by": "bytes",
+        "library_ms": None, "issue_bound_ms": rle["issue_bound_ms"],
+        "issue_counts": rle["issue_counts"],
+        "k6_ms": v["K6 pack16_decode"]["ms"],
+        "k8_ms": v["K8 pack16_decode_wide"]["ms"],
+    })
+    return records
+
+
 def main() -> int:
     import torch
 
@@ -2931,6 +3196,9 @@ def main() -> int:
     lz4, lz4_data, lz4_frame = lz4_phases(dev)
     pairs, packed, p_decoded = pair_phases(dev, frames, containers, decoded)
     wide = wide_phase(dev, packed, p_decoded)
+    p10_words = {c: (np.concatenate([e.rle[c] for e in packed]).view(np.int16),
+                     np.concatenate([e.rle_lengths[c] for e in packed])
+                     .astype(np.int32)) for c in ("lum", "r")}
     del packed, p_decoded
     exact_phase(dev, frames[0])
     per_block_phase(dev, frames[0])
@@ -2943,6 +3211,8 @@ def main() -> int:
     candidates = candidates_phase(dev)
     probes = probes_phase(dev)
     layouts = layouts_phase(dev)
+    k2_ms = next(r["ms"] for r in lz4 if r["name"] == "match_kernel")
+    matchers = matcher_phase(dev, p10_words, k2_ms)
 
     records = [{
         "name": "fwd_megakernel",
@@ -2956,7 +3226,7 @@ def main() -> int:
         "bound_ms": k1_bound[0],
         "bound_by": k1_bound[1],
         "library_ms": None,
-    }, *lz4, *pairs, wide, copy, *candidates, *probes, *layouts]
+    }, *lz4, *pairs, wide, copy, *candidates, *probes, *layouts, *matchers]
     for r in records:
         if r["bound_by"] == "bytes":  # the same bytes over the measured rate
             measured = r["bound_ms"] * HBM_BYTES_PER_S / (ceiling * 1e9)

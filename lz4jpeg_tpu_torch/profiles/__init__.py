@@ -23,13 +23,34 @@ kernel or raises):
 * ``megakernel_ablate``: K1 with one part switched off at a time
   (``profiles/probe_megakernel_ablate.py``);
 * ``megakernel_dma``: the ladder of bare costs from a u8 copy up to the
-  basis dots (``profiles/probe_megakernel_dma.py``).
+  basis dots (``profiles/probe_megakernel_dma.py``);
+* ``megakernel_kt``, ``megakernel_t``, ``megakernel_v2``: K1's layout
+  probes (``profiles/probe_megakernel.py``, ``probe_megakernel_t.py``,
+  ``probe_megakernel_v2.py``);
+* ``bitonic_sort``: the matcher's block sort with a payload and its
+  reverse replay of the recorded swap masks
+  (``csrc/bitonic_sort_kernel.cu``; ``profiles/profile_pallas_sort.py``),
+  and its run against ``torch.sort``;
+* ``bucket_partition``: the radix partition's concentration stage and the
+  bitonic compare-exchange stage, two instantiations of
+  ``csrc/stage_rate_kernel.cu`` (``profiles/probe_bucket_partition.py``),
+  and their per-stage rates;
+* ``rle_decode``: the packed16 decode by interval membership
+  (``csrc/rle_membership_kernel.cu``; ``profiles/pallas_rle_decode.py``),
+  and its A/B against K6 and K8;
+* ``timing``: what the last three runners share (per-call times, kernel
+  attributes, bytes and issue bounds).
 
 The codec's paths do not reach this package.  The A/Bs and probes run as
 ``python -m lz4jpeg_tpu_torch.profiles.candidates_ab``,
 ``python -m lz4jpeg_tpu_torch.profiles.plane_color``,
-``python -m lz4jpeg_tpu_torch.profiles.megakernel_ablate`` and
-``python -m lz4jpeg_tpu_torch.profiles.megakernel_dma``.
+``python -m lz4jpeg_tpu_torch.profiles.megakernel_ablate``,
+``python -m lz4jpeg_tpu_torch.profiles.megakernel_dma``, the three layout
+runs (``megakernel_kt``, ``megakernel_t``, ``megakernel_v2``),
+``python -m lz4jpeg_tpu_torch.profiles.bitonic_sort``,
+``python -m lz4jpeg_tpu_torch.profiles.bucket_partition`` and
+``python -m lz4jpeg_tpu_torch.profiles.rle_decode`` (add ``--device cpu``
+and small sizes on a host without a card).
 """
 
 from lz4jpeg_tpu_torch.profiles import megakernel_ablate, megakernel_dma  # noqa: F401

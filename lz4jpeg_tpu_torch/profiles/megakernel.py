@@ -110,6 +110,7 @@ from lz4jpeg_tpu_torch.ops.quantize import (
 )
 from lz4jpeg_tpu_torch.ops.rle import rle_decode_sparse16, rle_encode_sparse16
 from lz4jpeg_tpu_torch.profiles.candidates_ab import _body
+from lz4jpeg_tpu_torch.profiles.timing import time_ms
 from lz4jpeg_tpu_torch.utils.parity import transform_flips
 
 BARE_STAGES = ("copy_u8", "cast_i16", "sum_f32")
@@ -563,32 +564,6 @@ def noise_kt(n_blocks: int, seed: int) -> torch.Tensor:
         rng.integers(0, 256, size=(3, 64, n_blocks), dtype=np.uint8))
 
 
-def _event_ms(fn, x, reps: int, runs: int, kernel=None) -> float:
-    """Best of ``runs`` CUDA-event times of ``reps`` calls of ``fn(x)`` in a
-    row, per call, after two warm calls.  ``kernel``, a wrapper with a
-    ``launches`` count, guards the timing: each run must launch it ``reps``
-    times."""
-    fn(x)
-    fn(x)
-    best = float("inf")
-    for _ in range(runs):
-        before = kernel.launches if kernel is not None else 0
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        for _ in range(reps):
-            out = fn(x)
-        end.record()
-        end.synchronize()
-        del out
-        if kernel is not None and kernel.launches - before != reps:
-            raise RuntimeError(f"launch guard: {kernel.__name__} launched "
-                               f"{kernel.launches - before} times in {reps} "
-                               "timed calls")
-        best = min(best, start.elapsed_time(end) / reps)
-    return best
-
-
 STAGE_A = "rgb_to_kt"
 K1_STEP = "k1"
 PLAIN_CHAIN = "plain_chain"
@@ -688,7 +663,7 @@ def run_rows(title: str, rows: Sequence[Tuple[str, str]],
         fn, kernel, kind = _step(name)
         x = inputs[kind]
         guard = kernel if cuda else None
-        rec = {"ms": _event_ms(fn, x, chain, runs, guard) if cuda else None,
+        rec = {"ms": time_ms(fn, x, dev, chain, runs, guard) if cuda else None,
                "chain_ms": _chain_bench(_body(fn), x, chain, torch.int16,
                                         runs=runs, kernel=guard) * 1e3}
         rec.update(_attributes(name, dev))
@@ -700,8 +675,8 @@ def run_rows(title: str, rows: Sequence[Tuple[str, str]],
     if cuda and base_variant in BY_NAME:
         plain = functools.partial(megakernel_variant_ref, name=base_variant,
                                   lum_table=LUM, chr_table=CHR)
-        plain_ms = _event_ms(plain, inputs[_variant(base_variant).input], 1,
-                             runs)
+        plain_ms = time_ms(plain, inputs[_variant(base_variant).input], dev, 1,
+                           runs)
 
     key = "ms" if cuda else "chain_ms"
     base = steps[base_name][key]

@@ -906,3 +906,131 @@ def test_megakernel_layout_runs_on_the_card(cuda, tmp_path):
         assert res["plain_ms"] > 0
         for row in res["rows"]:
             assert row["ms"] > 0 and row["bound_ms"] > 0, row
+
+
+# The matcher sorts and the membership decode (profiles/bitonic_sort.py,
+# profiles/bucket_partition.py, profiles/rle_decode.py): integer kernels,
+# identical to their plain versions; the sort also to torch.sort +
+# torch.gather, its replay variant returning the input payload.
+
+
+@pytest.mark.parametrize("record", [False, True])
+def test_bitonic_sort_matches_plain_and_torch_sort(cuda, record):
+    from lz4jpeg_tpu_torch.profiles import bitonic_sort as bs
+
+    keys, pay = bs.probe_blocks(3, seed=13)
+    k, p = torch.from_numpy(keys).to(cuda), torch.from_numpy(pay).to(cuda)
+    before = bs.bitonic_sort_blocks.launches
+    got = bs.bitonic_sort_blocks(k.view(3, 128, 128), p.view(3, 128, 128),
+                                 record)
+    torch.cuda.synchronize()
+    assert bs.bitonic_sort_blocks.launches == before + 1
+    assert got[0].shape == (3, 128, 128)
+    want = bs.bitonic_sort_blocks_ref(k, p, record)
+    assert torch.equal(got[0].view(3, -1), want[0])
+    assert torch.equal(got[1].view(3, -1), want[1])
+    lib_k, lib_p = bs.sort_gather(k, p)
+    assert torch.equal(want[0], lib_k)
+    assert torch.equal(want[1], p if record else lib_p)
+
+
+@pytest.mark.parametrize("record", [False, True])
+def test_bitonic_sort_on_duplicates_and_an_offset_view(cuda, record):
+    from lz4jpeg_tpu_torch.profiles import bitonic_sort as bs
+
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    keys = torch.randint(0, 9, (2, bs.SLOTS), dtype=torch.int32, device=cuda,
+                         generator=gen)
+    pay = torch.arange(2 * bs.SLOTS, dtype=torch.int32, device=cuda).view(2, -1)
+    buf = torch.empty(keys.numel() + 1, dtype=torch.int32, device=cuda)
+    view = buf[1:].view(keys.shape).copy_(keys)
+    assert view.data_ptr() % 16
+    got = bs.bitonic_sort_blocks(view, pay, record)
+    want = bs.bitonic_sort_blocks_ref(keys, pay, record)
+    torch.cuda.synchronize()
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+def test_bitonic_sort_refusals_and_attributes(cuda):
+    from lz4jpeg_tpu_torch.profiles import bitonic_sort as bs
+
+    x = torch.zeros((1, 128, 64), dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError):
+        bs.bitonic_sort_blocks(x, x)
+    lib = bs.load_kernel()
+    y = torch.zeros((1, bs.SLOTS + 1), dtype=torch.int32, device=cuda)
+    stream = torch.cuda.current_stream(cuda).cuda_stream
+    assert lib.bitonic_sort_launch(y[:, 1:].data_ptr(), y.data_ptr(),
+                                   y.data_ptr(), y.data_ptr(), 1, 0,
+                                   stream) != 0
+    plain, replay = bs.sort_attributes(False, cuda), bs.sort_attributes(True, cuda)
+    assert plain["shared_bytes"] == 131_072 and replay["shared_bytes"] == 173_056
+    assert plain["ctas_per_sm"] == replay["ctas_per_sm"] == 1
+
+
+@pytest.mark.parametrize("name", ["concentration_stages",
+                                  "compare_exchange_stages"])
+def test_stage_kernels_match_plain(cuda, name):
+    from lz4jpeg_tpu_torch.profiles import bucket_partition as bp
+
+    _, fn, ref, _ = bp.KERNELS[name]
+    x = bp.probe_tiles(3, seed=2).to(cuda)
+    buf = torch.empty(x.numel() + 1, dtype=torch.int32, device=cuda)
+    view = buf[1:].view(x.shape).copy_(x)
+    for v in (x, view):
+        before = fn.launches
+        got = fn(v)
+        torch.cuda.synchronize()
+        assert fn.launches == before + 1
+        assert torch.equal(got, ref(x))
+
+
+@pytest.mark.parametrize("k", [64, 32])
+def test_membership_decode_matches_plain_and_k6(cuda, k):
+    from lz4jpeg_tpu_torch.profiles import rle_decode as rd
+
+    words, lengths = crafted_packed16_rows(k, np.random.default_rng(k),
+                                           n_random=4087)
+    w, lens = torch.from_numpy(words).to(cuda), torch.from_numpy(lengths).to(cuda)
+    for out_size in (k, k // 2 + 3, 1):
+        before = rd.rle_decode_membership.launches
+        got = rd.rle_decode_membership(w, lens, out_size)
+        torch.cuda.synchronize()
+        assert rd.rle_decode_membership.launches == before + 1
+        assert torch.equal(got, rd.rle_decode_membership_ref(w, lens, out_size))
+        assert torch.equal(got, pack16.pack16_decode(w, lens, out_size))
+
+
+def test_membership_decode_refusals(cuda):
+    from lz4jpeg_tpu_torch.profiles import rle_decode as rd
+
+    lib = rd.load_kernel()
+    stream = torch.cuda.current_stream(cuda).cuda_stream
+    for k, out_size in ((16, 16), (64, 65), (32, 0)):
+        w = torch.zeros((4, k), dtype=torch.int16, device=cuda)
+        lens = torch.zeros((4,), dtype=torch.int32, device=cuda)
+        out = torch.empty((4, max(out_size, 1)), dtype=torch.int32, device=cuda)
+        with pytest.raises(ValueError):
+            rd.rle_decode_membership(w, lens, out_size)
+        assert lib.rle_membership_launch(w.data_ptr(), lens.data_ptr(),
+                                         out.data_ptr(), 4, k, out_size,
+                                         stream) != 0
+
+
+def test_matcher_sort_runners_on_the_card(cuda, tmp_path):
+    import json
+
+    from lz4jpeg_tpu_torch.profiles.bitonic_sort import run_bitonic_sort
+    from lz4jpeg_tpu_torch.profiles.bucket_partition import run_bucket_partition
+    from lz4jpeg_tpu_torch.profiles.rle_decode import run_rle_decode_ab
+
+    out = tmp_path / "run.json"
+    sort = run_bitonic_sort(cuda, blocks=16, check_blocks=2, runs=1, reps=1,
+                            output=str(out))
+    assert json.loads(out.read_text())["card"]
+    assert all(r["ms"] > 0 for r in sort["rows"]) and sort["issue_bound_ms"] > 0
+    stages = run_bucket_partition(cuda, blocks=(4,), runs=1, reps=1)
+    for rec in stages["sizes"][0]["kernels"].values():
+        assert rec["ms"] > 0 and rec["registers"] > 0
+    ab = run_rle_decode_ab(cuda, frames=1, side=256, runs=1, reps=1)
+    assert ab["versions"]["membership kernel"]["ms"] > 0 and ab["card"]
