@@ -2,13 +2,16 @@
 """Smoke run of the PyTorch port (lz4jpeg_tpu_torch) on one CUDA card.
 
 Run from the repository root with no arguments: ``python3 chip_smoke.py``.
-It needs one card.  At first use it builds the twenty-two Hopper kernels
-(one nvcc per source file, fourteen files, all started together, sm_90a;
+It needs one card.  At first use it builds the twenty-six Hopper kernels
+(one nvcc per source file, sixteen files, all started together, sm_90a;
 the five megakernel probes are one file of twenty-six instantiations of
-K1's template) and the native runtime (g++) into
-``lz4jpeg_tpu_torch/_build/``, then runs twenty-four phases and fails
-(non-zero exit, no result line) if any of them fails.
-``ab_kernels.py`` times K1, K2 and K4-K7 in turns with another checkout's.
+K1's template, K7's phase variants one file of eight instantiations of
+K7's)
+and the native runtime (g++) into ``lz4jpeg_tpu_torch/_build/``, then runs
+twenty-five phases and fails (non-zero exit, no result line) if any of
+them fails.  ``ab_kernels.py`` times K1, K2 and K4-K7 in turns with
+another checkout's; ``sass_diff.py`` compares a source's machine code with
+another checkout's.
 
 1. the card's name and power limit, the torch and CUDA versions, and the
    build seconds;
@@ -236,7 +239,23 @@ K1's template) and the native runtime (g++) into
     and K8 on the luma words of 64 frames of 2048²), each kernel's launch
     count set to 0 just before its run and read just after, every row
     printed with registers, shared memory and CTAs per SM, K2's phase-8
-    time beside the sort's, and the phase's wall time.
+    time beside the sort's, and the phase's wall time;
+25. K7's phase split (``profiles/rle_expand.py``), about 10 s: the three
+    copies (``csrc/rle_expand_copy_kernel.cu``: row-major, contiguous
+    transpose, transpose into the plane layout) identical to their plain
+    versions at the probe's luma and chroma streams (1,048,576 × 64,
+    524,288 × 32), at 4,099 rows (off the 64-row tile), bw 131 (% 8 ≠ 0),
+    N = 1, K 24 and 4,104, each also on a view one element off a 16-byte
+    boundary and on the (rows/2, 128) view where it exists; the four
+    ablated phases of K7 (``csrc/expand16_probe_kernel.cu``) identical to
+    their plain versions, and the full phase (K7 itself) to
+    ``pack16_decode_plane_ref``, on the probe's words (4,096 block rows of
+    luma and chroma), on phase 10's luma and Cr words and on crafted rows
+    (a valid word 0, lengths 0, runs past K; 4,096, 455 and 1 rows at bw
+    64, 7 and 1; an offset view); three shapes refused by the wrapper and
+    by the C entry point; then both runners at their defaults (16 frames of
+    2048²), each wrapper's count set to 0 just before its run and read just
+    after, with the verdicts and the phase's wall time.
 
 The line before the last is the kernels' JSON record: per kernel (the
 packed16 kernels once per timed channel and input dtype) its launches on
@@ -251,7 +270,12 @@ MCU kernels bound by their bytes) and the time of one PyTorch call that computes
 where there is one (K3: ``torch.gather``; the copy kernel:
 ``Tensor.copy_``; the sort: ``torch.sort`` of the keys alone; none for
 phase 21's, 22's and 23's kernels, the stage kernels and the membership
-decode).  Phase 24's records add an issue bound (``issue_bound_ms``: the
+decode; phase 25's copies: ``Tensor.copy_`` and, for the transposes,
+their plain version, which is that call; none for the phase variants).
+The probe runners' times (phases 22-25, ``profiles/timing.py``) are
+queued behind a spin on the card, so that the host's issue of each call
+drops out.  Phase 24's
+records add an issue bound (``issue_bound_ms``: the
 least lane instructions the algorithm needs, as warp instructions over
 132 SMs × 4 schedulers at the card's highest SM clock, labelled by what
 they count in ``issue_counts``): integer compares and selects have no
@@ -259,7 +283,10 @@ data-sheet rate, so ``bound_ms`` stays the bytes bound.  Phase
 22's two records (``megakernel_ablate``, ``megakernel_dma``) and phase
 23's three (``megakernel_kt``, ``megakernel_t``, ``megakernel_v2``) give
 the baseline row's time, bound and plain time, the launches of the whole
-run, and a ``variants`` list of every row.  Before it, one line per
+run, and a ``variants`` list of every row; phase 25's
+``expand16_phases`` record gives the luma dist row (the last ablated
+phase), the launches of the ablated phases in the ablation run and a
+``variants`` list of every phase at luma and chroma, the full one K7's.  Before it, one line per
 bytes-bound kernel gives its share of the data sheet's bound and of the
 same bytes over the stream ceiling phase 20 measured.  The last line is
 ``{"ok": true, "device": {...}}``.
@@ -373,6 +400,16 @@ MEMBER_REFUSED = ((64, 65), (16, 16), (128, 64))  # (L, out_size) refused
 SORT_RUN = {}  # the runners' defaults: 2,048 blocks, 8 checked
 STAGE_RUN = {}  # 256 and 2,048 blocks
 RLE_RUN = {}  # the luma words of 64 frames of 2048²
+COPIES_SOURCE = "lz4jpeg_tpu_torch/csrc/rle_expand_copy_kernel.cu"
+PHASES_SOURCE = "lz4jpeg_tpu_torch/csrc/expand16_probe_kernel.cu"
+# Phase 25's copies (rows, K, bw): the probe's luma and chroma streams; rows
+# off the 64-row tile; bw % 8 != 0; N = 1; K no power of two; K over 64.
+EXPAND_COPIES = ((1_048_576, 64, 256), (524_288, 32, 128), (4099, 64, 4099),
+                 (917, 64, 131), (1, 8, 1), (30, 24, 5), (100, 4104, 10))
+EXPAND_PROBE_BH = 4096  # phase 25's probe words: 4,096 block rows a channel
+EXPAND_CRAFTED = ((4096, 64), (7 * 65, 7), (1, 1))  # (rows, bw) of crafted rows
+EXPAND_RM_RUN = {}  # both runners' defaults: 16 frames of 2048²
+EXPAND_ABLATE_RUN = {}
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3 (NVIDIA data sheet)
 BF16_FLOP_PER_S = 989e12  # H100 SXM dense bf16 tensor cores (data sheet)
 # K1's tensor-core work per 8x8 tile: three bf16 passes of a 64-deep luma
@@ -499,6 +536,7 @@ def build_all():
         plane_color,
         rle,
         rle_decode,
+        rle_expand,
     )
 
     builds = {
@@ -516,6 +554,8 @@ def build_all():
         "nvcc bitonic_sort_kernel": bitonic_sort.load_kernel,
         "nvcc stage_rate_kernel": bucket_partition.load_kernel,
         "nvcc rle_membership_kernel": rle_decode.load_kernel,
+        "nvcc rle_expand_copy_kernel": rle_expand.load_copy_kernels,
+        "nvcc expand16_probe_kernel": rle_expand.load_phase_kernels,
         "g++ lz4core": native_backend,
     }
 
@@ -3013,6 +3053,201 @@ def matcher_phase(dev, p10_words, k2_ms):
     return records
 
 
+def expand_phase(dev, p10_words):
+    """Phase 25: K7's phase split (``profiles/rle_expand.py``): the three
+    copies and the phases (the full one K7) against their plain versions on
+    the card, refusals, then both runners at their
+    defaults; returns the five kernel records.  ``p10_words`` holds phase
+    10's luma and Cr packed16 words and lengths (numpy)."""
+    import gc
+    import tempfile
+
+    import torch
+
+    from lz4jpeg_tpu_torch.ops import pack16
+    from lz4jpeg_tpu_torch.ops.rle import rle_encode_packed16
+    from lz4jpeg_tpu_torch.profiles import rle_expand as rx
+    from lz4jpeg_tpu_torch.profiles.rle_expand_ablate import (
+        run_rle_expand_ablate,
+    )
+    from lz4jpeg_tpu_torch.profiles.rle_expand_rm import run_rle_expand_rm
+    from lz4jpeg_tpu_torch.utils.inputs import crafted_packed16_rows
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    t_phase = time.perf_counter()
+    copies = {"copy_rm": rx.copy_rm, "copy_t_contig": rx.copy_t_contig,
+              "copy_t_slab": rx.copy_t_slab}
+    err = dict.fromkeys([*copies, "expand_plane_phase"], 0)
+
+    def held(name, label, got, want):
+        torch.cuda.synchronize()
+        same = torch.equal(got, want)
+        d = int((got.long() - want.long()).abs().max()) if (
+            got.shape == want.shape and got.numel()) else (0 if same else -1)
+        err[name] = max(err[name], d)
+        print(f"phase 25: {label}: {'identical' if same else 'DIFFERS'}")
+        check(same, f"phase 25: {label} differs (max |d| {d})")
+
+    # -- the copies: the probe's shapes, ragged ones, views ----------------
+    rng = np.random.default_rng(SEED + 25)
+    for rows, k, bw in EXPAND_COPIES:
+        p = torch.from_numpy(rx.stream_values(rows, k, rng)).to(dev)
+        views = [("", p), (" offset view", offset_view(p))]
+        if rows * k % 128 == 0:
+            views.append((" wide view", p.view(-1, 128)))
+        for tag, x in views:
+            label = f"({rows}, {k}) bw {bw}{tag}"
+            held("copy_rm", f"copy_rm {label}", rx.copy_rm(x), rx.copy_rm_ref(x))
+            if "wide" in tag:
+                continue
+            held("copy_t_contig", f"copy_t_contig {label}", rx.copy_t_contig(x),
+                 rx.copy_t_contig_ref(x))
+            held("copy_t_slab", f"copy_t_slab {label}", rx.copy_t_slab(x, bw),
+                 rx.copy_t_slab_ref(x, bw))
+        del p, views
+
+    # -- the phases: the probe's words, phase 10's, crafted rows -----------
+    def phases_held(label, w, lens, bw):
+        for phase in rx.PHASES:
+            got = rx.expand_plane_phase(w, lens, bw, phase)
+            held("expand_plane_phase", f"{phase} {label} vs plain", got,
+                 rx.expand_plane_phase_ref(w, lens, bw, phase))
+        held("expand_plane_phase", f"full (K7) {label} vs "
+             "pack16_decode_plane_ref", got,
+             pack16.pack16_decode_plane_ref(w, lens, bw))
+
+    for k, bw in ((64, SIDE // 8), (32, SIDE // 16)):
+        vals = torch.from_numpy(
+            rx.ablate_symbols(EXPAND_PROBE_BH * bw, k, rng)).to(dev)
+        w, lens = rle_encode_packed16(vals)
+        phases_held(f"probe words ({w.shape[0]}, {k}) bw {bw}", w, lens, bw)
+        del vals, w, lens
+    for c, (w_np, l_np) in p10_words.items():
+        w = torch.from_numpy(w_np).to(dev)
+        lens = torch.from_numpy(l_np).to(dev)
+        phases_held(f"phase 10 {c} {tuple(w.shape)} bw {SIDE // 8}", w, lens,
+                    SIDE // 8)
+        del w, lens
+    for k in rx.PHASE_SEGMENTS:
+        for rows, bw in EXPAND_CRAFTED:
+            w_np, l_np = crafted_packed16_rows(k, rng, n_random=max(0, rows - 12))
+            w = torch.from_numpy(w_np[:rows]).to(dev)
+            lens = torch.from_numpy(l_np[:rows]).to(dev)
+            phases_held(f"crafted K {k} rows {rows} bw {bw}", w, lens, bw)
+            if rows == max(r for r, _ in EXPAND_CRAFTED):
+                phases_held(f"crafted K {k} offset view", offset_view(w), lens,
+                            bw)
+
+    # -- refusals, by the wrappers and by the C entry points ---------------
+    copy_lib, phase_lib = rx.load_copy_kernels(), rx.load_phase_kernels()
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    x12 = torch.zeros((16, 12), dtype=torch.int16, device=dev)
+    x64 = torch.zeros((1000, 64), dtype=torch.int16, device=dev)
+    w16 = torch.zeros((16, 16), dtype=torch.int16, device=dev)
+    l16 = torch.zeros((16,), dtype=torch.int32, device=dev)
+    sink = torch.empty(64_000, dtype=torch.int16, device=dev)
+    refusals = (
+        ("copy_rm K 12", lambda: rx.copy_rm(x12),
+         lambda: copy_lib.rle_expand_copy_rm_launch(
+             x12.data_ptr(), sink.data_ptr(), 16, 12, stream),
+         copy_lib.rle_expand_copy_error_string),
+        ("copy_t_slab rows 1000 bw 256", lambda: rx.copy_t_slab(x64, 256),
+         lambda: copy_lib.rle_expand_copy_t_slab_launch(
+             x64.data_ptr(), sink.data_ptr(), 1000, 64, 256, stream),
+         copy_lib.rle_expand_copy_error_string),
+        ("phase dist K 16", lambda: rx.expand_plane_phase(w16, l16, 8, "dist"),
+         lambda: phase_lib.expand16_probe_launch(
+             rx.ABLATED.index("dist"), w16.data_ptr(), l16.data_ptr(),
+             sink.data_ptr(), 2, 8, 16, stream),
+         phase_lib.expand16_probe_error_string),
+    )
+    for label, wrapper, entry, error_string in refusals:
+        try:
+            wrapper()
+            refused = False
+        except ValueError:
+            refused = True
+        rc = entry()
+        print(f"phase 25: {label}: wrapper {'refused' if refused else 'TOOK IT'}"
+              f", entry point {error_string(rc).decode() if rc else 'TOOK IT'}")
+        check(refused and rc != 0, f"phase 25: {label} was not refused")
+    torch.cuda.synchronize()
+    print(f"phase 25: checks in {time.perf_counter() - t_phase:.2f} s; max "
+          f"|kernel - plain| {err}")
+
+    # -- both runners at their defaults, each count zeroed before ----------
+    wrappers = {"rm": (rx.copy_rm, rx.copy_t_contig, rx.copy_t_slab),
+                "ablate": (rx.expand_plane_phase, rx.copy_t_slab,
+                           pack16.pack16_decode_plane)}
+    runners = {"rm": (run_rle_expand_rm, EXPAND_RM_RUN),
+               "ablate": (run_rle_expand_ablate, EXPAND_ABLATE_RUN)}
+    results, launches, wall = {}, {}, {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for key, (run, params) in runners.items():
+            gc.collect()
+            torch.cuda.empty_cache()
+            for fn in wrappers[key]:
+                fn.launches = 0
+            t0 = time.perf_counter()
+            results[key] = run(dev, **params, output=str(Path(tmp) / key))
+            wall[key] = time.perf_counter() - t0
+            launches[key] = {fn.__name__: fn.launches for fn in wrappers[key]}
+            art = json.loads((Path(tmp) / key).read_text())
+            check(art.get("device") == str(dev) and art.get("card"),
+                  f"{key}'s artifact does not name the card")
+    for key, counts in launches.items():
+        for name, count in counts.items():
+            check(count > 0, f"phase 25: the {key} runner never launched {name}")
+    rm = results["rm"]["copies"]
+    check(rm[0]["launches"] + rm[1]["launches"] == launches["rm"]["copy_rm"],
+          "phase 25: copy_rm's rows do not add up to its count")
+    ab = results["ablate"]["channels"]
+    print(f"phase 25: {results['rm']['verdict']}; {results['ablate']['verdict']}")
+    print(f"phase 25: launches per run {launches}; wall s "
+          + ", ".join(f"{k} {v:.2f}" for k, v in wall.items())
+          + f"; phase {time.perf_counter() - t_phase:.2f} s")
+
+    records = []
+    for r, name, line, counter in (
+            (rm[0], "rle_expand_copy_rm", 50, "copy_rm"),
+            (rm[1], "rle_expand_copy_rm_wide", 95, "copy_rm"),
+            (rm[2], "rle_expand_copy_t_contig", 53, "copy_t_contig"),
+            (rm[3], "rle_expand_copy_t_slab", 56, "copy_t_slab")):
+        records.append({
+            "name": name, "route": "cuda", "source": COPIES_SOURCE,
+            "replaces": f"profiles/profile_rle_expand_rm.py:{line}",
+            "launches": (r["launches"] if counter == "copy_rm" else
+                         launches["rm"][counter]
+                         + launches["ablate"].get(counter, 0)),
+            "max_abs_err": float(err[counter]), "ms": r["ms"],
+            "plain_ms": r["plain_ms"], "bound_ms": r["bytes_bound_ms"],
+            "bound_by": "bytes", "library_ms": r["library_ms"],
+            "library": r["library"], "shape": r["shape"],
+        })
+    lum_dist = next(p for p in ab["lum"]["phases"] if p["phase"] == "dist")
+    records.append({
+        "name": "expand16_phases", "route": "cuda", "source": PHASES_SOURCE,
+        "replaces": "profiles/profile_rle_expand_ablate.py:38",
+        "launches": launches["ablate"]["expand_plane_phase"],
+        "max_abs_err": float(err["expand_plane_phase"]), "row": "lum dist",
+        "ms": lum_dist["ms"], "plain_ms": lum_dist["plain_ms"],
+        "bound_ms": ab["lum"]["bytes_bound_ms"], "bound_by": "bytes",
+        "library_ms": None,
+        "variants": [
+            {"channel": tag, "phase": p["phase"], "ms": p["ms"],
+             "plain_ms": p["plain_ms"], "delta_ms": p["delta_ms"],
+             "launches": p["launches"],
+             "bound_ms": c["bytes_bound_ms"], "share": p["share"],
+             "registers": p["registers"], "shared_bytes": p["shared_bytes"],
+             "ctas_per_sm": p["ctas_per_sm"],
+             **({"copy_t_slab_ms": p["copy_t_slab_ms"]}
+                if "copy_t_slab_ms" in p else {})}
+            for tag, c in ab.items() for p in c["phases"]],
+    })
+    return records
+
+
 def main() -> int:
     import torch
 
@@ -3213,6 +3448,7 @@ def main() -> int:
     layouts = layouts_phase(dev)
     k2_ms = next(r["ms"] for r in lz4 if r["name"] == "match_kernel")
     matchers = matcher_phase(dev, p10_words, k2_ms)
+    expands = expand_phase(dev, p10_words)
 
     records = [{
         "name": "fwd_megakernel",
@@ -3226,7 +3462,8 @@ def main() -> int:
         "bound_ms": k1_bound[0],
         "bound_by": k1_bound[1],
         "library_ms": None,
-    }, *lz4, *pairs, wide, copy, *candidates, *probes, *layouts, *matchers]
+    }, *lz4, *pairs, wide, copy, *candidates, *probes, *layouts, *matchers,
+       *expands]
     for r in records:
         if r["bound_by"] == "bytes":  # the same bytes over the measured rate
             measured = r["bound_ms"] * HBM_BYTES_PER_S / (ceiling * 1e9)

@@ -232,6 +232,9 @@ def load_expand_kernels() -> ctypes.CDLL:
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64,
         ctypes.c_int64, ctypes.c_int, ctypes.c_void_p,
     ]
+    lib.expand16_plane_attributes.restype = ctypes.c_int
+    lib.expand16_plane_attributes.argtypes = (
+        [ctypes.c_int] + [ctypes.POINTER(ctypes.c_int)] * 3)
     lib.expand16_kernel_error_string.restype = ctypes.c_char_p
     lib.expand16_kernel_error_string.argtypes = [ctypes.c_int]
     return lib

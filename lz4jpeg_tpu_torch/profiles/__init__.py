@@ -38,7 +38,15 @@ kernel or raises):
 * ``rle_decode``: the packed16 decode by interval membership
   (``csrc/rle_membership_kernel.cu``; ``profiles/pallas_rle_decode.py``),
   and its A/B against K6 and K8;
-* ``timing``: what the last three runners share (per-call times, kernel
+* ``rle_expand``: K7's phase split: three copies of the packed16 stream
+  (row-major, transposed, into the plane layout;
+  ``csrc/rle_expand_copy_kernel.cu``; ``profiles/profile_rle_expand_rm.py``)
+  and K7's body cut after each of its phases, instantiations of K7's
+  template (``csrc/expand16_plane.cuh`` → ``csrc/expand16_probe_kernel.cu``;
+  ``profiles/profile_rle_expand_ablate.py``), and the plane inverse's einsum
+  in both orientations;
+* ``rle_expand_rm``, ``rle_expand_ablate``: their runners;
+* ``timing``: what the probe runners share (per-call times, kernel
   attributes, bytes and issue bounds).
 
 The codec's paths do not reach this package.  The A/Bs and probes run as
@@ -48,9 +56,11 @@ The codec's paths do not reach this package.  The A/Bs and probes run as
 ``python -m lz4jpeg_tpu_torch.profiles.megakernel_dma``, the three layout
 runs (``megakernel_kt``, ``megakernel_t``, ``megakernel_v2``),
 ``python -m lz4jpeg_tpu_torch.profiles.bitonic_sort``,
-``python -m lz4jpeg_tpu_torch.profiles.bucket_partition`` and
-``python -m lz4jpeg_tpu_torch.profiles.rle_decode`` (add ``--device cpu``
-and small sizes on a host without a card).
+``python -m lz4jpeg_tpu_torch.profiles.bucket_partition``,
+``python -m lz4jpeg_tpu_torch.profiles.rle_decode``,
+``python -m lz4jpeg_tpu_torch.profiles.rle_expand_rm`` and
+``python -m lz4jpeg_tpu_torch.profiles.rle_expand_ablate`` (add ``--device
+cpu`` and small sizes on a host without a card).
 """
 
 from lz4jpeg_tpu_torch.profiles import megakernel_ablate, megakernel_dma  # noqa: F401

@@ -3,7 +3,8 @@ rows), the kernels' attributes, the bytes and issue bounds, and the
 artifact.
 
 ``time_ms`` gives the best of ``runs`` CUDA-event times of ``reps`` calls
-in a row on a card, each run guarded by the wrapper's launch count; on the
+in a row on a card, each run queued behind a spin so that the host's issue
+of each call drops out and guarded by the wrapper's launch count; on the
 CPU it gives host-clock times of the plain versions under another key
 (``timer`` says which), never a device metric.
 
@@ -23,12 +24,13 @@ import ctypes
 import json
 import subprocess
 import time
-from typing import Callable, Dict, Optional
+from typing import Callable, Dict, Optional, Tuple, Union
 
 import torch
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3 (NVIDIA data sheet)
 SCHEDULERS_PER_SM = 4  # warp schedulers of a Hopper SM, one issue a clock
+QUEUE_SPIN_CYCLES = 4_000_000  # ~2 ms at the H100's 1,980 MHz
 
 
 def time_ms(fn: Callable, x, dev: torch.device, reps: int = 8, runs: int = 4,
@@ -36,7 +38,11 @@ def time_ms(fn: Callable, x, dev: torch.device, reps: int = 8, runs: int = 4,
     """Best per-call ms of ``runs`` runs of ``reps`` calls of ``fn(x)``
     after two warm calls: CUDA events on a card, where ``kernel`` (a
     wrapper with a ``launches`` count) must launch ``reps`` times a run;
-    the host clock on the CPU."""
+    the host clock on the CPU.  On a card each run's calls are issued
+    behind a spin of ``QUEUE_SPIN_CYCLES``, so that they run back to back
+    and the events time the card's work, not the host's issue of each call
+    (which holds kernels of some 30 µs); for longer kernels the spin
+    changes nothing."""
     fn(x)
     fn(x)
     best = float("inf")
@@ -45,6 +51,7 @@ def time_ms(fn: Callable, x, dev: torch.device, reps: int = 8, runs: int = 4,
         if dev.type == "cuda":
             start = torch.cuda.Event(enable_timing=True)
             end = torch.cuda.Event(enable_timing=True)
+            torch.cuda._sleep(QUEUE_SPIN_CYCLES)
             start.record()
             for _ in range(reps):
                 out = fn(x)
@@ -72,17 +79,20 @@ def timer_key(dev: torch.device) -> str:
 
 
 def attributes(load: Callable[[], ctypes.CDLL], fn_name: str, err_name: str,
-               arg: int, dev: torch.device) -> Dict[str, Optional[int]]:
+               arg: Union[int, Tuple[int, ...]],
+               dev: torch.device) -> Dict[str, Optional[int]]:
     """Registers per thread, shared memory per CTA and resident CTAs per SM
-    of a kernel by the attribute entry point ``fn_name(arg, ...)`` of the
-    library ``load()`` builds; None on the CPU."""
+    of a kernel by the attribute entry point ``fn_name(*arg, ...)`` (one int
+    or a tuple of them) of the library ``load()`` builds; None on the
+    CPU."""
     if dev.type != "cuda":
         return {"registers": None, "shared_bytes": None, "ctas_per_sm": None}
     lib = load()
+    args = arg if isinstance(arg, tuple) else (arg,)
     regs, smem, ctas = ctypes.c_int(), ctypes.c_int(), ctypes.c_int()
     with torch.cuda.device(dev):
-        rc = getattr(lib, fn_name)(arg, ctypes.byref(regs), ctypes.byref(smem),
-                                   ctypes.byref(ctas))
+        rc = getattr(lib, fn_name)(*args, ctypes.byref(regs),
+                                   ctypes.byref(smem), ctypes.byref(ctas))
     if rc != 0:
         msg = getattr(lib, err_name)(rc).decode()
         raise RuntimeError(f"{fn_name} failed: {msg} ({rc})")
@@ -90,11 +100,12 @@ def attributes(load: Callable[[], ctypes.CDLL], fn_name: str, err_name: str,
             "ctas_per_sm": ctas.value}
 
 
-def bind_attributes(lib: ctypes.CDLL, fn_name: str) -> None:
-    """Declare ``fn_name(int, int*, int*, int*) -> int`` on ``lib``."""
+def bind_attributes(lib: ctypes.CDLL, fn_name: str, n_args: int = 1) -> None:
+    """Declare ``fn_name(int × n_args, int*, int*, int*) -> int`` on
+    ``lib``."""
     fn = getattr(lib, fn_name)
     fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_int] + [ctypes.POINTER(ctypes.c_int)] * 3
+    fn.argtypes = [ctypes.c_int] * n_args + [ctypes.POINTER(ctypes.c_int)] * 3
 
 
 def bytes_bound_ms(n_bytes: float) -> float:

@@ -1034,3 +1034,107 @@ def test_matcher_sort_runners_on_the_card(cuda, tmp_path):
         assert rec["ms"] > 0 and rec["registers"] > 0
     ab = run_rle_decode_ab(cuda, frames=1, side=256, runs=1, reps=1)
     assert ab["versions"]["membership kernel"]["ms"] > 0 and ab["card"]
+
+
+# K7's phase split (profiles/rle_expand.py): the three copies and the phase
+# variants of K7's template, identical to their plain versions; the full
+# phase is K7 itself.
+
+
+@pytest.mark.parametrize("rows,k,bw", [(4096, 64, 256), (2048, 32, 128),
+                                       (4099, 64, 4099), (917, 64, 131),
+                                       (1, 8, 1), (30, 24, 5), (100, 4104, 10)])
+def test_rle_expand_copies_match_plain(cuda, rows, k, bw):
+    from lz4jpeg_tpu_torch.profiles import rle_expand as rx
+
+    p = torch.from_numpy(rx.stream_values(rows, k, np.random.default_rng(rows)))
+    p = p.to(cuda)
+    views = [p, _offset_view(p)] + ([p.view(-1, 128)] if rows * k % 128 == 0
+                                    else [])
+    for x in views:
+        w = bw if x.shape[1] == k else x.shape[0]  # the wide view: one slab
+        for fn, ref in ((rx.copy_rm, rx.copy_rm_ref),
+                        (rx.copy_t_contig, rx.copy_t_contig_ref),
+                        (lambda v: rx.copy_t_slab(v, w),
+                         lambda v: rx.copy_t_slab_ref(v, w))):
+            got = fn(x)
+            torch.cuda.synchronize()
+            assert torch.equal(got, ref(x))
+    before = rx.copy_rm.launches
+    rx.copy_rm(p)
+    assert rx.copy_rm.launches == before + 1
+
+
+@pytest.mark.parametrize("k", [64, 32])
+def test_rle_expand_phases_match_plain_and_k7(cuda, k):
+    from lz4jpeg_tpu_torch.profiles import rle_expand as rx
+
+    rng = np.random.default_rng(k)
+    vals = torch.from_numpy(rx.ablate_symbols(64 * 7, k, rng)).to(cuda)
+    words, lens = pack16.pack16_encode(vals)
+    cw, cl = crafted_packed16_rows(k, rng, n_random=4084)
+    cases = [(words, lens, 64), (words, lens, 7),
+             (torch.from_numpy(cw).to(cuda), torch.from_numpy(cl).to(cuda), 8)]
+    cases.append((_offset_view(cases[-1][0]), cases[-1][1], 8))
+    for w, l, bw in cases:
+        for phase in rx.PHASES:
+            counter = (pack16.pack16_decode_plane if phase == "full"
+                       else rx.expand_plane_phase)
+            before = counter.launches
+            got = rx.expand_plane_phase(w, l, bw, phase)
+            torch.cuda.synchronize()
+            assert counter.launches == before + 1
+            assert torch.equal(got, rx.expand_plane_phase_ref(w, l, bw, phase))
+        assert torch.equal(got, pack16.pack16_decode_plane_ref(w, l, bw))
+
+
+def test_rle_expand_refusals_and_attributes(cuda):
+    from lz4jpeg_tpu_torch.profiles import rle_expand as rx
+
+    copy_lib, phase_lib = rx.load_copy_kernels(), rx.load_phase_kernels()
+    stream = torch.cuda.current_stream(cuda).cuda_stream
+    x = torch.zeros((1000, 64), dtype=torch.int16, device=cuda)
+    sink = torch.empty_like(x)
+    with pytest.raises(ValueError):
+        rx.copy_rm(x[:, :12].contiguous())
+    assert copy_lib.rle_expand_copy_rm_launch(x.data_ptr(), sink.data_ptr(),
+                                              16, 12, stream) != 0
+    with pytest.raises(ValueError):
+        rx.copy_t_slab(x, 256)
+    assert copy_lib.rle_expand_copy_t_slab_launch(
+        x.data_ptr(), sink.data_ptr(), 1000, 64, 256, stream) != 0
+    lens = torch.zeros((16,), dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError):
+        rx.expand_plane_phase(x[:16, :16].contiguous(), lens, 8, "full")
+    assert phase_lib.expand16_probe_launch(3, x.data_ptr(), lens.data_ptr(),
+                                           sink.data_ptr(), 2, 8, 16,
+                                           stream) != 0
+    # the full phase is K7, not built in the probe library
+    assert phase_lib.expand16_probe_launch(4, x.data_ptr(), lens.data_ptr(),
+                                           sink.data_ptr(), 2, 8, 64,
+                                           stream) != 0
+    for phase in rx.PHASES:
+        for seg in rx.PHASE_SEGMENTS:
+            a = rx.phase_attributes(phase, seg, cuda)
+            assert a["registers"] > 0 and a["ctas_per_sm"] > 0, (phase, seg)
+    assert rx.copy_attributes(rx.COPY_RM, cuda)["ctas_per_sm"] > 0
+
+
+def test_rle_expand_runners_on_the_card(cuda, tmp_path):
+    import json
+
+    from lz4jpeg_tpu_torch.profiles.rle_expand_ablate import (
+        run_rle_expand_ablate,
+    )
+    from lz4jpeg_tpu_torch.profiles.rle_expand_rm import run_rle_expand_rm
+
+    out = tmp_path / "run.json"
+    rm = run_rle_expand_rm(cuda, frames=1, side=256, runs=1, reps=1,
+                           output=str(out))
+    assert json.loads(out.read_text())["card"]
+    assert all(r["ms"] > 0 and r["launches"] > 0 for r in rm["copies"])
+    ab = run_rle_expand_ablate(cuda, frames=1, side=256, runs=1, reps=1)
+    for c in ab["channels"].values():
+        assert [p["phase"] for p in c["phases"]] == [
+            "copyT", "unpack", "matmul", "dist", "full"]
+        assert all(p["ms"] > 0 and p["registers"] > 0 for p in c["phases"])
