@@ -2,13 +2,13 @@
 """Smoke run of the PyTorch port (lz4jpeg_tpu_torch) on one CUDA card.
 
 Run from the repository root with no arguments: ``python3 chip_smoke.py``.
-It needs one card.  At first use it builds the twenty-six Hopper kernels
-(one nvcc per source file, sixteen files, all started together, sm_90a;
+It needs one card.  At first use it builds the thirty Hopper kernels
+(one nvcc per source file, nineteen files, all started together, sm_90a;
 the five megakernel probes are one file of twenty-six instantiations of
 K1's template, K7's phase variants one file of eight instantiations of
-K7's)
+K7's, the casts one template of seven instantiations)
 and the native runtime (g++) into ``lz4jpeg_tpu_torch/_build/``, then runs
-twenty-five phases and fails (non-zero exit, no result line) if any of
+twenty-six phases and fails (non-zero exit, no result line) if any of
 them fails.  ``ab_kernels.py`` times K1, K2 and K4-K7 in turns with
 another checkout's; ``sass_diff.py`` compares a source's machine code with
 another checkout's.
@@ -255,7 +255,28 @@ another checkout's.
     64, 7 and 1; an offset view); three shapes refused by the wrapper and
     by the C entry point; then both runners at their defaults (16 frames of
     2048²), each wrapper's count set to 0 just before its run and read just
-    after, with the verdicts and the phase's wall time.
+    after, with the verdicts and the phase's wall time;
+26. the sublane RLE, the casts and the fused-DCT gates (``profiles/
+    sublane_rle.py``, ``casts.py``, ``dct_gates.py``), about 6 s: the
+    sublane kernel (``csrc/sublane_rle_kernel.cu``) identical to its plain
+    version at SEG 32 and 64 on the probes' run-structured values at B 1,
+    131, 256, 512, 70,001 and on uniform values at 2,097,152, in int32, in
+    int16 and in a view one element off a 16-byte boundary; the cast kernel
+    (``csrc/cast_kernel.cu``) identical to ``x.to(dst)`` for all seven
+    pairs on the probe's tile, over the source's whole range (every
+    bfloat16 bit pattern; NaN as NaN), in an offset view and at 1,000,003
+    random words; the basis product (``csrc/dct_gate_kernel.cu``) within
+    64 · 2^-24 · Σ|x·m| of float64 at 512 (the probe's), 1, 65, 4,099 and
+    2,097,152 rows and an offset view, cuBLAS too, the outputs that differ
+    from cuBLAS and the largest difference in ulp printed; the transpose
+    identical at the probe's (8, 256, 8) and (8, 128, 4), ragged shapes,
+    tw 1 and 64, the timed bands and an offset view; the lane split on the
+    stream-copy kernel identical at (8, 2048), (5, 7) and (32,768, 2048)
+    and in offset views; five shapes refused by the wrapper and by the C
+    entry point; registers, shared memory and CTAs per SM of every
+    instantiation; then the four runners at their defaults
+    (``BUTTERFLY_RUN``, ``PLANE_EXACT_RUN``, ``CASTS_RUN``, ``GATES_RUN``),
+    each wrapper's count set to 0 just before its run and read just after.
 
 The line before the last is the kernels' JSON record: per kernel (the
 packed16 kernels once per timed channel and input dtype) its launches on
@@ -271,7 +292,10 @@ where there is one (K3: ``torch.gather``; the copy kernel:
 ``Tensor.copy_``; the sort: ``torch.sort`` of the keys alone; none for
 phase 21's, 22's and 23's kernels, the stage kernels and the membership
 decode; phase 25's copies: ``Tensor.copy_`` and, for the transposes,
-their plain version, which is that call; none for the phase variants).
+their plain version, which is that call; none for the phase variants;
+phase 26's: none for the sublane RLE, ``x.to(dst)`` for the casts (also
+their plain version), cuBLAS fp32 for the basis product, ``.transpose(1,
+2).contiguous()`` for the transpose, ``Tensor.copy_`` for the split).
 The probe runners' times (phases 22-25, ``profiles/timing.py``) are
 queued behind a spin on the card, so that the host's issue of each call
 drops out.  Phase 24's
@@ -286,7 +310,13 @@ the baseline row's time, bound and plain time, the launches of the whole
 run, and a ``variants`` list of every row; phase 25's
 ``expand16_phases`` record gives the luma dist row (the last ablated
 phase), the launches of the ablated phases in the ablation run and a
-``variants`` list of every phase at luma and chroma, the full one K7's.  Before it, one line per
+``variants`` list of every phase at luma and chroma, the full one K7's;
+phase 26's six records (one per TPU site: the butterfly, the SEG 32/64
+butterfly, the casts, the product, the transpose, the split) give the
+runners' rows (the SEG 32/64 butterfly its SEG 32 time: SEG 64 is the
+butterfly's row), the casts the int32 → float32 pair with a ``variants``
+list of all seven, the product its FFMA bound (67 TFLOP/s fp32) beside the
+bytes bound.  Before it, one line per
 bytes-bound kernel gives its share of the data sheet's bound and of the
 same bytes over the stream ceiling phase 20 measured.  The last line is
 ``{"ok": true, "device": {...}}``.
@@ -410,6 +440,23 @@ EXPAND_PROBE_BH = 4096  # phase 25's probe words: 4,096 block rows a channel
 EXPAND_CRAFTED = ((4096, 64), (7 * 65, 7), (1, 1))  # (rows, bw) of crafted rows
 EXPAND_RM_RUN = {}  # both runners' defaults: 16 frames of 2048²
 EXPAND_ABLATE_RUN = {}
+SUBLANE_SOURCE = "lz4jpeg_tpu_torch/csrc/sublane_rle_kernel.cu"
+CAST_SOURCE = "lz4jpeg_tpu_torch/csrc/cast_kernel.cu"
+GATE_SOURCE = "lz4jpeg_tpu_torch/csrc/dct_gate_kernel.cu"
+# Phase 26's checks: sublane widths (the probes' 256 and 512, ragged ones,
+# the runners' 2,097,152); basis-product rows; transposes (B, bw, tw): the
+# probe's, ragged, tw 1 and 64, the timed bands; splits ((rows, W), tw).
+SUBLANE_COLS = (1, 131, 256, 512, 70_001, 2_097_152)
+DOT_ROWS = (512, 1, 65, 4099, 2_097_152)
+TRANSPOSE_SHAPES = ((8, 256, 8), (8, 128, 4), (3, 7, 5), (2, 1000, 64),
+                    (1, 1, 1), (5, 129, 3), (4, 300, 33), (32_768, 256, 8),
+                    (32_768, 128, 4))
+SPLIT_SHAPES = (((8, 2048), 8), ((5, 7), 7), ((32_768, 2048), 8))
+CAST_RAGGED = 1_000_003  # phase 26's random cast inputs, off every vector
+BUTTERFLY_RUN = {}  # the four runners' defaults: (64, 2,097,152) int32,
+PLANE_EXACT_RUN = {}  # 256² and 512² frames and (32, 2,097,152),
+CASTS_RUN = {}  # 134,217,728 elements a pair,
+GATES_RUN = {}  # 2,097,152 × 64 and 32,768 band rows
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3 (NVIDIA data sheet)
 BF16_FLOP_PER_S = 989e12  # H100 SXM dense bf16 tensor cores (data sheet)
 # K1's tensor-core work per 8x8 tile: three bf16 passes of a 64-deep luma
@@ -531,12 +578,15 @@ def build_all():
     from lz4jpeg_tpu_torch.profiles import (
         bitonic_sort,
         bucket_partition,
+        casts,
+        dct_gates,
         megakernel,
         mcu,
         plane_color,
         rle,
         rle_decode,
         rle_expand,
+        sublane_rle,
     )
 
     builds = {
@@ -556,6 +606,9 @@ def build_all():
         "nvcc rle_membership_kernel": rle_decode.load_kernel,
         "nvcc rle_expand_copy_kernel": rle_expand.load_copy_kernels,
         "nvcc expand16_probe_kernel": rle_expand.load_phase_kernels,
+        "nvcc sublane_rle_kernel": sublane_rle.load_kernel,
+        "nvcc cast_kernel": casts.load_kernel,
+        "nvcc dct_gate_kernel": dct_gates.load_kernel,
         "g++ lz4core": native_backend,
     }
 
@@ -3248,6 +3301,265 @@ def expand_phase(dev, p10_words):
     return records
 
 
+def gates_phase(dev):
+    """Phase 26: the sublane RLE, the casts and the fused-DCT gates
+    (``profiles/sublane_rle.py``, ``casts.py``, ``dct_gates.py``) against
+    their plain versions on the card, refusals, then the four runners at
+    their defaults; returns the six kernel records."""
+    import gc
+    import tempfile
+
+    import torch
+
+    from lz4jpeg_tpu_torch.ops import pack16
+    from lz4jpeg_tpu_torch.ops.stream import stream_copy
+    from lz4jpeg_tpu_torch.profiles import casts
+    from lz4jpeg_tpu_torch.profiles import dct_gates as dg
+    from lz4jpeg_tpu_torch.profiles import sublane_rle as sr
+    from lz4jpeg_tpu_torch.profiles.plane_exact import run_plane_exact
+    from lz4jpeg_tpu_torch.profiles.sublane_butterfly import (
+        run_sublane_butterfly,
+    )
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    t_phase = time.perf_counter()
+    err = dict.fromkeys(["sublane_rle", "cast", "basis_dot", "minor_transpose",
+                         "lane_split"], 0.0)
+
+    def held(name, label, same, d=0.0):
+        err[name] = max(err[name], d)
+        print(f"phase 26: {label}: {'identical' if same else 'DIFFERS'}")
+        check(same, f"phase 26: {label} differs")
+
+    # -- the sublane RLE: probe values, ragged widths, views, int16 --------
+    rng = np.random.default_rng(SEED + 26)
+    for seg in sr.SEGMENTS:
+        for cols in SUBLANE_COLS:
+            x = (sr.uniform_values(seg, cols, dev, SEED + seg)
+                 if cols > 100_000 else
+                 torch.from_numpy(sr.probe_values(seg, cols, rng)).to(dev))
+            for tag, v in (("int32", x), ("int16", x.to(torch.int16)),
+                           ("int32 offset view", offset_view(x))):
+                packed, runs = sr.sublane_rle(v)
+                want_p, want_r = sr.sublane_rle_ref(v)
+                torch.cuda.synchronize()
+                held("sublane_rle", f"sublane SEG {seg} ({seg}, {cols}) {tag}",
+                     torch.equal(packed, want_p) and torch.equal(runs, want_r))
+            del x, packed, runs, want_p, want_r
+
+    # -- the casts: the probe's tile, the whole range, views, ragged -------
+    for pair, (src, dst) in enumerate(casts.PAIRS):
+        full = casts.full_range(src, rng).to(dev)
+        for tag, x in (("probe tile", casts.probe_values(src, rng).to(dev)),
+                       ("whole range", full), ("offset view", offset_view(full)),
+                       (f"{CAST_RAGGED} random",
+                        casts.random_values(src, CAST_RAGGED, dev, pair))):
+            got = casts.cast(x, dst)
+            torch.cuda.synchronize()
+            held("cast", f"cast {casts.pair_name(pair)} {tag}",
+                 casts.same(got, casts.cast_ref(x, dst)))
+
+    # -- the basis product: within its bound; against cuBLAS ---------------
+    m = dg.luma_basis(dev)
+    ulps = {}
+    for rows in (*DOT_ROWS, "offset view"):
+        x = dg.probe_pixels(4099 if rows == "offset view" else rows, rng).to(dev)
+        if rows == "offset view":
+            x = offset_view(x)
+        got = dg.basis_dot(x, m)
+        plain = dg.basis_dot_ref(x, m)
+        torch.cuda.synchronize()
+        e, p_e = dg.dot_error(got, x, m), dg.dot_error(plain, x, m)
+        ulps[str(rows)] = dg.ulp_compare(got, plain)
+        d = float((got - plain).abs().max())
+        print(f"phase 26: basis product {rows} rows: {ulps[str(rows)]['differ']}"
+              f"/{ulps[str(rows)]['outputs']} outputs differ from cuBLAS (max "
+              f"{ulps[str(rows)]['max_ulp']} ulp, max |d| {d}); kernel error "
+              f"{e['max_err_over_bound']:.3g}, cuBLAS "
+              f"{p_e['max_err_over_bound']:.3g} of 64·2^-24·Σ|x·m|")
+        held("basis_dot", f"basis product {rows} rows within the bound",
+             e["within"] and p_e["within"], d)
+        del x, got, plain
+
+    # -- the transpose and the split ----------------------------------------
+    for shape in (*TRANSPOSE_SHAPES, "offset view"):
+        x = dg.device_pixels((6, 131, 8) if shape == "offset view" else shape,
+                             dev, SEED)
+        if shape == "offset view":
+            x = offset_view(x)
+        got = dg.minor_transpose(x)
+        torch.cuda.synchronize()
+        held("minor_transpose", f"transpose {shape}",
+             torch.equal(got, dg.minor_transpose_ref(x)))
+        del x, got
+    for shape, tw in SPLIT_SHAPES:
+        x = dg.device_pixels(shape, dev, SEED)
+        for tag, v in (("", x), (" offset view", offset_view(x))):
+            before = stream_copy.launches
+            got = dg.lane_split(v, tw)
+            torch.cuda.synchronize()
+            check(stream_copy.launches == before + 1,
+                  "phase 26: the split did not launch the copy kernel")
+            held("lane_split", f"lane split {shape} tw {tw}{tag}",
+                 torch.equal(got, dg.lane_split_ref(v, tw)))
+        del x, got
+
+    # -- refusals, by the wrappers and by the C entry points ---------------
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    s_lib, c_lib, g_lib = sr.load_kernel(), casts.load_kernel(), dg.load_kernel()
+    i16 = torch.zeros((16, 128), dtype=torch.int32, device=dev)
+    f64 = torch.zeros((64, 64), dtype=torch.float32, device=dev)
+    sink = torch.empty(1 << 16, dtype=torch.int32, device=dev)
+    refusals = (
+        ("sublane SEG 16", lambda: sr.sublane_rle(i16),
+         lambda: s_lib.sublane_rle_launch(i16.data_ptr(), 4, sink.data_ptr(),
+                                          sink.data_ptr(), 16, 128, stream),
+         s_lib.sublane_rle_error_string),
+        ("sublane 3-D input", lambda: sr.sublane_rle(i16.view(2, 8, 128)),
+         lambda: s_lib.sublane_rle_launch(i16.data_ptr(), 8, sink.data_ptr(),
+                                          sink.data_ptr(), 64, 128, stream),
+         s_lib.sublane_rle_error_string),
+        ("cast int32 -> int16", lambda: casts.cast(i16, torch.int16),
+         lambda: c_lib.cast_launch(7, i16.data_ptr(), sink.data_ptr(), 16,
+                                   stream),
+         c_lib.cast_error_string),
+        ("basis product width 32", lambda: dg.basis_dot(f64[:, :32].contiguous(),
+                                                        f64),
+         lambda: g_lib.basis_dot_launch(f64.data_ptr(), f64.data_ptr(),
+                                        sink.data_ptr(), 64, 32, 64, stream),
+         g_lib.dct_gate_error_string),
+        ("transpose tw 0",
+         lambda: dg.minor_transpose(torch.zeros((8, 256, 0), device=dev)),
+         lambda: g_lib.minor_transpose_launch(f64.data_ptr(), sink.data_ptr(),
+                                              8, 256, 0, stream),
+         g_lib.dct_gate_error_string),
+    )
+    for label, wrapper, entry, error_string in refusals:
+        try:
+            wrapper()
+            refused = False
+        except ValueError:
+            refused = True
+        rc = entry()
+        print(f"phase 26: {label}: wrapper {'refused' if refused else 'TOOK IT'}"
+              f", entry point {error_string(rc).decode() if rc else 'TOOK IT'}")
+        check(refused and rc != 0, f"phase 26: {label} was not refused")
+    torch.cuda.synchronize()
+    del i16, f64, sink
+    attrs = {f"sublane SEG {seg} {b}-byte": sr.attributes(seg, b, dev)
+             for seg in sr.SEGMENTS for b in (2, 4)}
+    attrs.update({f"cast {casts.pair_name(p)}": casts.attributes(p, dev)
+                  for p in range(len(casts.PAIRS))})
+    attrs["basis_dot"] = dg.attributes(dg.DOT, device=dev)
+    attrs.update({f"transpose tw {tw}": dg.attributes(dg.TRANSPOSE, tw, dev)
+                  for tw in (8, 4)})
+    for name, a in attrs.items():
+        print(f"phase 26: {name}: regs {a['registers']}, smem "
+              f"{a['shared_bytes']} B, CTAs/SM {a['ctas_per_sm']}")
+    print(f"phase 26: checks in {time.perf_counter() - t_phase:.2f} s; max "
+          f"|kernel - plain| {err}")
+
+    # -- the four runners at their defaults, each count zeroed before ------
+    runners = {
+        "butterfly": (run_sublane_butterfly, BUTTERFLY_RUN,
+                      (sr.sublane_rle, pack16.pack16_encode_kt,
+                       pack16.pack16_encode)),
+        "plane_exact": (run_plane_exact, PLANE_EXACT_RUN, (sr.sublane_rle,)),
+        "casts": (casts.run_casts, CASTS_RUN, (casts.cast,)),
+        "gates": (dg.run_dct_gates, GATES_RUN,
+                  (dg.basis_dot, dg.minor_transpose, stream_copy)),
+    }
+    results, launches, wall = {}, {}, {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for key, (run, params, wrappers) in runners.items():
+            gc.collect()
+            torch.cuda.empty_cache()
+            for fn in wrappers:
+                fn.launches = 0
+            t0 = time.perf_counter()
+            results[key] = run(dev, **params, output=str(Path(tmp) / key))
+            wall[key] = time.perf_counter() - t0
+            launches[key] = {fn.__name__: fn.launches for fn in wrappers}
+            art = json.loads((Path(tmp) / key).read_text())
+            check(art.get("device") == str(dev) and art.get("card"),
+                  f"{key}'s artifact does not name the card")
+    for key, counts in launches.items():
+        for name, count in counts.items():
+            check(count > 0, f"phase 26: the {key} runner never launched {name}")
+    for key in results:
+        print(f"phase 26: {results[key]['verdict']}")
+    print(f"phase 26: launches per run {launches}; wall s "
+          + ", ".join(f"{k} {v:.2f}" for k, v in wall.items())
+          + f"; phase {time.perf_counter() - t_phase:.2f} s")
+
+    bfly, plane = results["butterfly"], results["plane_exact"]
+    by_pair = {r["pair"]: r for r in results["casts"]["pairs"]}
+    widest = by_pair[casts.pair_name(1)]  # int32 -> float32, the most bytes
+    timed = results["gates"]["timed"]
+    record = {"route": "cuda", "library_ms": None}
+    return [
+        {**record, "name": "sublane_rle", "source": SUBLANE_SOURCE,
+         "replaces": "profiles/profile_sublane_butterfly.py:24",
+         "launches": launches["butterfly"]["sublane_rle"],
+         "max_abs_err": err["sublane_rle"], "shape": [bfly["seg"], bfly["cols"]],
+         "ms": bfly["ms"], "plain_ms": bfly["plain_ms"],
+         "bound_ms": bfly["bytes_bound_ms"], "bound_by": "bytes",
+         "relayout_ms": bfly["relayout_ms"], "ways": bfly["ways"],
+         "registers": bfly["registers"], "shared_bytes": bfly["shared_bytes"],
+         "ctas_per_sm": bfly["ctas_per_sm"]},
+        {**record, "name": "sublane_rle_seg", "source": SUBLANE_SOURCE,
+         "replaces": "profiles/profile_plane_exact.py:63",
+         "launches": launches["plane_exact"]["sublane_rle"],
+         "max_abs_err": err["sublane_rle"], "shape": [plane["seg"],
+                                                      plane["cols"]],
+         "ms": plane["ms"], "plain_ms": plane["plain_ms"],
+         "bound_ms": plane["bytes_bound_ms"], "bound_by": "bytes",
+         "einsum_mismatches": plane["total_mismatches"],
+         "registers": plane["registers"], "shared_bytes": plane["shared_bytes"],
+         "ctas_per_sm": plane["ctas_per_sm"]},
+        {"name": "cast", "route": "cuda", "source": CAST_SOURCE,
+         "replaces": "profiles/profile_mosaic_casts.py:15",
+         "launches": launches["casts"]["cast"], "max_abs_err": err["cast"],
+         "row": widest["pair"], "ms": widest["ms"],
+         "plain_ms": widest["plain_ms"], "bound_ms": widest["bytes_bound_ms"],
+         "bound_by": "bytes", "library_ms": widest["library_ms"],
+         "library": "x.to(dst)",
+         "variants": [{k: r[k] for k in ("pair", "ms", "library_ms", "launches",
+                                         "bytes_bound_ms", "share", "registers",
+                                         "shared_bytes", "ctas_per_sm")}
+                      for r in results["casts"]["pairs"]]},
+        {"name": "basis_dot", "route": "cuda", "source": GATE_SOURCE,
+         "replaces": "profiles/profile_fused_dct_gates.py:26",
+         "launches": launches["gates"]["basis_dot"],
+         "max_abs_err": err["basis_dot"], "shape": timed[0]["shape"],
+         "ms": timed[0]["ms"], "plain_ms": timed[0]["plain_ms"],
+         "bound_ms": timed[0]["bound_ms"], "bound_by": timed[0]["bound_by"],
+         "flops_bound_ms": timed[0]["flops_bound_ms"],
+         "library_ms": timed[0]["library_ms"], "library": timed[0]["library"],
+         "cublas_ulps": ulps, "registers": timed[0]["registers"],
+         "shared_bytes": timed[0]["shared_bytes"],
+         "ctas_per_sm": timed[0]["ctas_per_sm"]},
+        {"name": "minor_transpose", "route": "cuda", "source": GATE_SOURCE,
+         "replaces": "profiles/profile_fused_dct_gates.py:50",
+         "launches": launches["gates"]["minor_transpose"],
+         "max_abs_err": err["minor_transpose"], "shape": timed[1]["shape"],
+         "ms": timed[1]["ms"], "plain_ms": timed[1]["plain_ms"],
+         "bound_ms": timed[1]["bound_ms"], "bound_by": "bytes",
+         "library_ms": timed[1]["library_ms"], "library": timed[1]["library"],
+         "variants": [{k: r[k] for k in ("shape", "ms", "plain_ms", "bound_ms",
+                                         "share", "registers", "shared_bytes",
+                                         "ctas_per_sm")} for r in timed[1:3]]},
+        {"name": "lane_split", "route": "cuda", "source": COPY_SOURCE,
+         "replaces": "profiles/profile_fused_dct_gates.py:70",
+         "launches": launches["gates"]["stream_copy"],
+         "max_abs_err": err["lane_split"], "shape": timed[3]["shape"],
+         "ms": timed[3]["ms"], "plain_ms": timed[3]["plain_ms"],
+         "bound_ms": timed[3]["bound_ms"], "bound_by": "bytes",
+         "library_ms": timed[3]["library_ms"], "library": timed[3]["library"]},
+    ]
+
+
 def main() -> int:
     import torch
 
@@ -3449,6 +3761,7 @@ def main() -> int:
     k2_ms = next(r["ms"] for r in lz4 if r["name"] == "match_kernel")
     matchers = matcher_phase(dev, p10_words, k2_ms)
     expands = expand_phase(dev, p10_words)
+    gates = gates_phase(dev)
 
     records = [{
         "name": "fwd_megakernel",
@@ -3463,7 +3776,7 @@ def main() -> int:
         "bound_by": k1_bound[1],
         "library_ms": None,
     }, *lz4, *pairs, wide, copy, *candidates, *probes, *layouts, *matchers,
-       *expands]
+       *expands, *gates]
     for r in records:
         if r["bound_by"] == "bytes":  # the same bytes over the measured rate
             measured = r["bound_ms"] * HBM_BYTES_PER_S / (ceiling * 1e9)

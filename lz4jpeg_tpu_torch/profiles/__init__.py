@@ -46,6 +46,16 @@ kernel or raises):
   ``profiles/profile_rle_expand_ablate.py``), and the plane inverse's einsum
   in both orientations;
 * ``rle_expand_rm``, ``rle_expand_ablate``: their runners;
+* ``sublane_rle``: the packed16 compaction along the sublane axis of
+  (SEG, B) tiles, SEG 32 or 64 (``csrc/sublane_rle_kernel.cu``;
+  ``profiles/profile_sublane_butterfly.py``, ``profile_plane_exact.py``);
+* ``sublane_butterfly``, ``plane_exact``: its runners (the A/B against K5
+  and transpose + K4; the plane einsum against the tile product);
+* ``casts``: the seven dtype casts of ``profiles/profile_mosaic_casts.py``
+  (``csrc/cast_kernel.cu``), and their run;
+* ``dct_gates``: the fp32 basis product and the minor-dims transpose
+  (``csrc/dct_gate_kernel.cu``) and the lane split on the stream-copy
+  kernel (``profiles/profile_fused_dct_gates.py``), and their run;
 * ``timing``: what the probe runners share (per-call times, kernel
   attributes, bytes and issue bounds).
 
@@ -58,9 +68,13 @@ runs (``megakernel_kt``, ``megakernel_t``, ``megakernel_v2``),
 ``python -m lz4jpeg_tpu_torch.profiles.bitonic_sort``,
 ``python -m lz4jpeg_tpu_torch.profiles.bucket_partition``,
 ``python -m lz4jpeg_tpu_torch.profiles.rle_decode``,
-``python -m lz4jpeg_tpu_torch.profiles.rle_expand_rm`` and
-``python -m lz4jpeg_tpu_torch.profiles.rle_expand_ablate`` (add ``--device
-cpu`` and small sizes on a host without a card).
+``python -m lz4jpeg_tpu_torch.profiles.rle_expand_rm``,
+``python -m lz4jpeg_tpu_torch.profiles.rle_expand_ablate``,
+``python -m lz4jpeg_tpu_torch.profiles.sublane_butterfly``,
+``python -m lz4jpeg_tpu_torch.profiles.plane_exact``,
+``python -m lz4jpeg_tpu_torch.profiles.casts`` and
+``python -m lz4jpeg_tpu_torch.profiles.dct_gates`` (add ``--device cpu``
+and small sizes on a host without a card).
 """
 
 from lz4jpeg_tpu_torch.profiles import megakernel_ablate, megakernel_dma  # noqa: F401

@@ -39,7 +39,6 @@ The runners are ``profiles/rle_expand_rm.py`` and
 
 from __future__ import annotations
 
-import contextlib
 import ctypes
 import functools
 from typing import Dict
@@ -297,19 +296,6 @@ def phase_attributes(phase: str, seg: int, device="cuda") -> Dict:
 # ---------------------------------------------------------------------------
 
 
-@contextlib.contextmanager
-def _no_tf32():
-    saved = (torch.backends.cuda.matmul.allow_tf32,
-             torch.backends.cudnn.allow_tf32)
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    try:
-        yield
-    finally:
-        (torch.backends.cuda.matmul.allow_tf32,
-         torch.backends.cudnn.allow_tf32) = saved
-
-
 def luma_inverse_basis(device="cpu") -> torch.Tensor:
     """(64, 8, 8) float32: ``inverse_basis`` of the luminance table, zigzag
     index first, as the probe's ``mi``."""
@@ -323,7 +309,7 @@ def inverse_einsum(z: torch.Tensor, mi: torch.Tensor,
     """Zigzag coefficients (bh, 64, bw) (``"kt"``) or (bh, bw, 64)
     (``"rm"``) float32 → (8·bh, 8·bw) uint8 pixels: the einsum in IEEE
     float32 with TF32 off, + 128, rounded half away from zero, clamped."""
-    with _no_tf32():
+    with timing.no_tf32():
         pix = torch.einsum(EINSUMS[orientation], z, mi) + 128.0
     r = torch.sign(pix) * torch.floor(torch.abs(pix) + 0.5)
     bh, _, bw, _ = pix.shape

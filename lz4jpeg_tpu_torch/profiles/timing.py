@@ -1,6 +1,6 @@
 """What the probe runners share: per-call times (also ``megakernel.py``'s
-rows), the kernels' attributes, the bytes and issue bounds, and the
-artifact.
+rows), the kernels' attributes, the bytes and issue bounds, TF32 turned
+off around float32 products, and the artifact.
 
 ``time_ms`` gives the best of ``runs`` CUDA-event times of ``reps`` calls
 in a row on a card, each run queued behind a spin so that the host's issue
@@ -20,6 +20,7 @@ of its 4 schedulers at the card's highest SM clock (``nvidia-smi
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import json
 import subprocess
@@ -70,6 +71,21 @@ def time_ms(fn: Callable, x, dev: torch.device, reps: int = 8, runs: int = 4,
                                "timed calls")
         best = min(best, ms / reps)
     return best
+
+
+@contextlib.contextmanager
+def no_tf32():
+    """IEEE float32 products inside the block: TF32 off for cuBLAS and
+    cuDNN, the caller's settings restored after."""
+    saved = (torch.backends.cuda.matmul.allow_tf32,
+             torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        yield
+    finally:
+        (torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.allow_tf32) = saved
 
 
 def timer_key(dev: torch.device) -> str:

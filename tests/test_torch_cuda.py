@@ -1138,3 +1138,183 @@ def test_rle_expand_runners_on_the_card(cuda, tmp_path):
         assert [p["phase"] for p in c["phases"]] == [
             "copyT", "unpack", "matmul", "dist", "full"]
         assert all(p["ms"] > 0 and p["registers"] > 0 for p in c["phases"])
+
+
+# -- P slices 5(a) and 5(b): the sublane RLE, the casts, the fused-DCT gates --
+# The sublane RLE, the casts, the transpose and the split identical to their
+# plain versions; the basis product within 64 · 2^-24 · Σ|x·m| of float64.
+
+
+@pytest.mark.parametrize("seg", [32, 64])
+@pytest.mark.parametrize("dtype", [torch.int32, torch.int16])
+def test_sublane_rle_matches_plain(cuda, seg, dtype):
+    from lz4jpeg_tpu_torch.profiles import sublane_rle as sr
+
+    rng = np.random.default_rng(seg)
+    for cols in (1, 131, 256, 70_001):
+        x = torch.from_numpy(sr.probe_values(seg, cols, rng)).to(dtype).to(cuda)
+        for v in (x, _offset(x)):
+            before = sr.sublane_rle.launches
+            packed, runs = sr.sublane_rle(v)
+            torch.cuda.synchronize()
+            assert sr.sublane_rle.launches == before + 1
+            want_p, want_r = sr.sublane_rle_ref(v)
+            assert torch.equal(packed, want_p) and torch.equal(runs, want_r)
+    x = sr.uniform_values(seg, 4099, cuda, seg)
+    packed, runs = sr.sublane_rle(x)
+    words, lengths = pack16.pack16_encode_kt(x.view(1, seg, -1))
+    assert torch.equal(words, packed.t()) and torch.equal(lengths, 2 * runs[0])
+
+
+def test_sublane_rle_refusals_and_attributes(cuda):
+    from lz4jpeg_tpu_torch.profiles import sublane_rle as sr
+
+    lib = sr.load_kernel()
+    stream = torch.cuda.current_stream(cuda).cuda_stream
+    x = torch.zeros((16, 128), dtype=torch.int32, device=cuda)
+    sink = torch.empty((64, 128), dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError):
+        sr.sublane_rle(x)
+    assert lib.sublane_rle_launch(x.data_ptr(), 4, sink.data_ptr(),
+                                  sink.data_ptr(), 16, 128, stream) != 0
+    assert lib.sublane_rle_launch(x.data_ptr(), 8, sink.data_ptr(),
+                                  sink.data_ptr(), 64, 128, stream) != 0
+    with pytest.raises(ValueError):
+        sr.sublane_rle(torch.zeros((2, 64, 128), dtype=torch.int32, device=cuda))
+    for seg in sr.SEGMENTS:
+        for b in (2, 4):
+            a = sr.attributes(seg, b, cuda)
+            assert a["registers"] > 0 and a["ctas_per_sm"] > 0, (seg, b)
+
+
+@pytest.mark.parametrize("pair", range(7))
+def test_casts_match_x_to(cuda, pair):
+    from lz4jpeg_tpu_torch.profiles import casts
+
+    src, dst = casts.PAIRS[pair]
+    rng = np.random.default_rng(pair)
+    full = casts.full_range(src, rng).to(cuda)
+    cases = [casts.probe_values(src, rng).to(cuda), full, _offset(full),
+             full[:full.numel() - 5], full[:7],
+             casts.random_values(src, 1_000_003, cuda, pair)]
+    for x in cases:
+        before = casts.cast.launches
+        got = casts.cast(x, dst)
+        torch.cuda.synchronize()
+        assert casts.cast.launches == before + 1
+        assert casts.same(got, x.to(dst)), (casts.pair_name(pair), x.shape)
+    assert casts.attributes(pair, cuda)["ctas_per_sm"] > 0
+
+
+def test_cast_refusals(cuda):
+    from lz4jpeg_tpu_torch.profiles import casts
+
+    lib = casts.load_kernel()
+    stream = torch.cuda.current_stream(cuda).cuda_stream
+    x = torch.zeros(64, dtype=torch.int16, device=cuda)
+    with pytest.raises(ValueError):
+        casts.cast(x, torch.float64)
+    with pytest.raises(ValueError):
+        casts.cast(x.float(), torch.int32)
+    assert lib.cast_launch(7, x.data_ptr(), x.data_ptr(), 64, stream) != 0
+    assert lib.cast_launch(0, x.data_ptr(), x.data_ptr(), -1, stream) != 0
+    assert lib.cast_launch(0, x.data_ptr() + 1, x.data_ptr(), 8, stream) != 0
+
+
+@pytest.mark.parametrize("n", [512, 1, 65, 4099, 262_147, "offset view"])
+def test_basis_dot_within_its_bound(cuda, n):
+    from lz4jpeg_tpu_torch.profiles import dct_gates as dg
+
+    rng = np.random.default_rng(7)
+    m = dg.luma_basis(cuda)
+    x = dg.probe_pixels(4099 if n == "offset view" else n, rng).to(cuda)
+    if n == "offset view":
+        x = _offset(x)
+    before = dg.basis_dot.launches
+    got = dg.basis_dot(x, m)
+    torch.cuda.synchronize()
+    assert dg.basis_dot.launches == before + 1
+    assert dg.dot_error(got, x, m)["within"]
+    assert dg.dot_error(dg.basis_dot_ref(x, m), x, m)["within"]
+    cmp = dg.ulp_compare(got, dg.basis_dot_ref(x, m))
+    assert cmp["outputs"] == got.numel()
+
+
+@pytest.mark.parametrize("shape", [(8, 256, 8), (8, 128, 4), (3, 7, 5),
+                                   (2, 1000, 64), (1, 1, 1), (5, 129, 3),
+                                   (4, 300, 33), "offset view"])
+def test_minor_transpose_matches_plain(cuda, shape):
+    from lz4jpeg_tpu_torch.profiles import dct_gates as dg
+
+    x = dg.device_pixels((6, 131, 8) if shape == "offset view" else shape,
+                         cuda, 3)
+    if shape == "offset view":
+        x = _offset(x)
+    before = dg.minor_transpose.launches
+    got = dg.minor_transpose(x)
+    torch.cuda.synchronize()
+    assert dg.minor_transpose.launches == before + 1
+    assert torch.equal(got, dg.minor_transpose_ref(x))
+
+
+def test_lane_split_runs_on_the_copy_kernel(cuda):
+    from lz4jpeg_tpu_torch.ops.stream import stream_copy
+    from lz4jpeg_tpu_torch.profiles import dct_gates as dg
+
+    for shape, tw in (((8, 2048), 8), ((3, 24), 4), ((5, 7), 7)):
+        x = dg.device_pixels(shape, cuda, 4)
+        for v in (x, _offset(x)):
+            before = stream_copy.launches
+            got = dg.lane_split(v, tw)
+            torch.cuda.synchronize()
+            assert stream_copy.launches == before + 1
+            assert torch.equal(got, dg.lane_split_ref(v, tw))
+            assert got.shape == (shape[0], shape[1] // tw, tw)
+
+
+def test_dct_gate_refusals_and_attributes(cuda):
+    from lz4jpeg_tpu_torch.profiles import dct_gates as dg
+
+    lib = dg.load_kernel()
+    stream = torch.cuda.current_stream(cuda).cuda_stream
+    x = torch.zeros((64, 64), dtype=torch.float32, device=cuda)
+    with pytest.raises(ValueError):
+        dg.basis_dot(x[:, :32].contiguous(), x)
+    assert lib.basis_dot_launch(x.data_ptr(), x.data_ptr(), x.data_ptr(), 64,
+                                32, 64, stream) != 0
+    assert lib.basis_dot_launch(x.data_ptr() + 4, x.data_ptr(), x.data_ptr(),
+                                8, 64, 64, stream) != 0
+    with pytest.raises(ValueError):
+        dg.minor_transpose(torch.zeros((8, 256, 0), device=cuda))
+    assert lib.minor_transpose_launch(x.data_ptr(), x.data_ptr(), 8, 256, 0,
+                                      stream) != 0
+    assert lib.minor_transpose_launch(x.data_ptr(), x.data_ptr(), 1, 1, 65,
+                                      stream) != 0
+    with pytest.raises(ValueError):
+        dg.lane_split(x, 5)
+    assert dg.attributes(dg.DOT, device=cuda)["registers"] > 0
+    for tw in (1, 4, 8, 64):
+        assert dg.attributes(dg.TRANSPOSE, tw, cuda)["ctas_per_sm"] > 0
+
+
+def test_gate_runners_on_the_card(cuda, tmp_path):
+    import json
+
+    from lz4jpeg_tpu_torch.profiles import casts, dct_gates
+    from lz4jpeg_tpu_torch.profiles.plane_exact import run_plane_exact
+    from lz4jpeg_tpu_torch.profiles.sublane_butterfly import (
+        run_sublane_butterfly,
+    )
+
+    out = tmp_path / "run.json"
+    b = run_sublane_butterfly(cuda, cols=4096, runs=1, reps=1,
+                              output=str(out))
+    assert json.loads(out.read_text())["card"]
+    assert all(w["ms"] > 0 and w["launches"] > 0 for w in b["ways"])
+    p = run_plane_exact(cuda, sizes=(256,), cols=4096, runs=1, reps=1)
+    assert [c["seg"] for c in p["checks"]] == [32, 64]
+    assert p["seg"] == 32 and p["ms"] > 0 and p["launches"] > 0
+    c = casts.run_casts(cuda, elements=1 << 20, runs=1, reps=1)
+    assert len(c["pairs"]) == 7 and all(r["launches"] > 0 for r in c["pairs"])
+    g = dct_gates.run_dct_gates(cuda, rows=4096, bands=64, runs=1, reps=1)
+    assert len(g["timed"]) == 4 and all(r["ms"] > 0 for r in g["timed"])

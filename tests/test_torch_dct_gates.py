@@ -1,0 +1,232 @@
+"""The fused-DCT gates (``lz4jpeg_tpu_torch/profiles/dct_gates.py``) on the
+CPU, held against the TPU probe's own kernel bodies.
+
+``profiles/profile_fused_dct_gates.py`` defines its three kernels inside
+``main``; they are restated verbatim below and run with
+``pl.pallas_call(..., interpret=True)``:
+
+* the basis product (``dot_kernel``) on the probe's (512, 64) integer
+  pixels and the luma basis, and at other row counts: the port's plain
+  version against the interpret-mode body and ``jnp.matmul(...,
+  precision="highest")``, every output of all three within ``64 · 2⁻²⁴ ·
+  Σ_k |x_k · m_jk|`` of a float64 product (the count that is not
+  bit-equal is printed);
+* the minor-dims transpose (``tr_kernel``) at the probe's (8, 256, 8) and
+  (8, 128, 4) and ragged shapes: exact;
+* the lane split (``split_kernel``) at the probe's (8, 2048) → (8, 256, 8):
+  exact; other widths against numpy's reshape.
+"""
+
+import json
+import os
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+from jax.experimental import pallas as pl
+from jax.experimental.pallas import tpu as pltpu
+
+from lz4jpeg_tpu.ops.fused import _table_key as jax_table_key
+from lz4jpeg_tpu.ops.fused import forward_basis as jax_forward_basis
+from lz4jpeg_tpu.oracle.jpeg_oracle import LUMINANCE_QUANTIZATION_TABLE
+
+from lz4jpeg_tpu_torch.ops.stream import stream_copy
+from lz4jpeg_tpu_torch.profiles import dct_gates as dg
+from lz4jpeg_tpu_torch.profiles import timing
+
+
+# -- the probe's kernel bodies, verbatim ------------------------------------------
+
+
+def dot_kernel(x_ref, m_ref, o_ref):
+    """``profile_fused_dct_gates.py:26-32``."""
+    o_ref[:] = jax.lax.dot_general(
+        x_ref[:], m_ref[:],
+        dimension_numbers=(((1,), (1,)), ((), ())),
+        precision=jax.lax.Precision.HIGHEST,
+        preferred_element_type=jnp.float32,
+    )
+
+
+def tr_kernel(x_ref, o_ref):
+    """``profile_fused_dct_gates.py:50-51``."""
+    o_ref[:] = jnp.transpose(x_ref[:], (0, 2, 1))
+
+
+def split_kernel(x_ref, o_ref):
+    """``profile_fused_dct_gates.py:70-71``."""
+    o_ref[:] = x_ref[:].reshape(8, 256, 8)
+
+
+def _interpret(kernel, out_shape, *args):
+    return np.asarray(pl.pallas_call(
+        kernel,
+        out_shape=jax.ShapeDtypeStruct(out_shape, jnp.float32),
+        in_specs=[pl.BlockSpec(memory_space=pltpu.VMEM)] * len(args),
+        out_specs=pl.BlockSpec(memory_space=pltpu.VMEM),
+        interpret=True,
+    )(*(jnp.asarray(a) for a in args)))
+
+
+# -- the basis product ----------------------------------------------------------------
+
+
+def test_luma_basis_is_the_probes():
+    m, _ = jax_forward_basis(8, 8, jax_table_key(LUMINANCE_QUANTIZATION_TABLE))
+    np.testing.assert_array_equal(dg.luma_basis().numpy(),
+                                  m.astype(np.float32))
+
+
+@pytest.mark.parametrize("rows", [512, 1, 65, 1000])
+def test_basis_dot_within_the_bound_of_float64(rows, capsys):
+    rng = np.random.default_rng(rows)
+    x = dg.probe_pixels(rows, rng)
+    m = dg.luma_basis()
+    ours = dg.basis_dot(x, m)
+    assert ours.dtype == torch.float32 and ours.shape == (rows, 64)
+    assert torch.equal(ours, dg.basis_dot_ref(x, m))
+    body = torch.from_numpy(_interpret(dot_kernel, (rows, 64), x.numpy(),
+                                       m.numpy()).copy())
+    highest = torch.from_numpy(np.array(jnp.matmul(
+        jnp.asarray(x.numpy()), jnp.asarray(m.numpy()).T, precision="highest")))
+    for name, got in (("port", ours), ("interpret body", body),
+                      ("jnp highest", highest)):
+        err = dg.dot_error(got, x, m)
+        assert err["within"], (name, err)
+    for name, other in (("interpret body", body), ("jnp highest", highest)):
+        cmp = dg.ulp_compare(ours, other)
+        with capsys.disabled():
+            print(f"\nbasis product at {rows} rows: port vs {name}: "
+                  f"{cmp['differ']}/{cmp['outputs']} not bit-equal (max "
+                  f"{cmp['max_ulp']} ulp)")
+
+
+def test_dot_error_and_ulps_see_a_one_ulp_change():
+    x = dg.probe_pixels(8, np.random.default_rng(0))
+    m = dg.luma_basis()
+    good = dg.basis_dot(x, m)
+    bad = good.clone()
+    bad[3, 5] = torch.nextafter(bad[3, 5], torch.tensor(np.inf))
+    assert dg.ulp_compare(good, bad) == {"differ": 1, "outputs": 512,
+                                         "max_ulp": 1}
+    assert dg.dot_error(good, x, m)["within"]
+    worse = good.clone()
+    worse[0, 0] += 0.5
+    assert not dg.dot_error(worse, x, m)["within"]
+    signs = torch.tensor([-0.0, 0.0, 1.0, -1.0])
+    assert dg.ulp_compare(signs, torch.tensor([0.0, -0.0, 1.0, -1.0]))[
+        "differ"] == 0
+    below = torch.nextafter(torch.tensor(0.0), torch.tensor(-1.0))
+    assert dg.ulp_compare(torch.tensor([below]), torch.tensor([0.0]))[
+        "max_ulp"] == 1
+
+
+def test_dot_bounds():
+    bound, by, bytes_ms, flops_ms = dg.dot_bound_ms(2_097_152)
+    assert (round(bound, 4), by) == (0.3205, "bytes")
+    assert round(flops_ms, 4) == 0.2564 and bytes_ms == bound
+    assert round(timing.bytes_bound_ms(1_073_758_208), 4) == 0.3205
+
+
+@pytest.mark.parametrize("x_shape,m_shape,dtype,error", [
+    ((16, 32), (64, 64), torch.float32, ValueError),
+    ((16, 64), (64, 32), torch.float32, ValueError),
+    ((16, 64), (32, 64), torch.float32, ValueError),
+    ((2, 16, 64), (64, 64), torch.float32, ValueError),
+    ((16, 64), (64, 64), torch.float64, TypeError)])
+def test_basis_dot_refusals(x_shape, m_shape, dtype, error):
+    x = torch.zeros(x_shape, dtype=dtype)
+    m = torch.zeros(m_shape, dtype=dtype)
+    for fn in (dg.basis_dot, dg.basis_dot_ref):
+        with pytest.raises(error):
+            fn(x, m)
+
+
+# -- the transpose and the split --------------------------------------------------------
+
+
+@pytest.mark.parametrize("shape", [(8, 256, 8), (8, 128, 4), (3, 7, 5),
+                                   (2, 130, 64), (1, 1, 1), (0, 4, 4)])
+def test_minor_transpose_equals_the_probe_body(shape):
+    xs = np.random.default_rng(sum(shape)).integers(
+        0, 256, size=shape).astype(np.float32)
+    got = dg.minor_transpose(torch.from_numpy(xs))
+    assert got.shape == (shape[0], shape[2], shape[1])
+    np.testing.assert_array_equal(got.numpy(), xs.transpose(0, 2, 1))
+    if shape[0]:
+        np.testing.assert_array_equal(
+            got.numpy(), _interpret(tr_kernel, got.shape, xs))
+
+
+@pytest.mark.parametrize("shape", [(8, 256, 0), (8, 0, 8), (8, 4, 65),
+                                   (8, 256), (2, 8, 256, 8)])
+def test_minor_transpose_refusals(shape):
+    x = torch.zeros(shape)
+    for fn in (dg.minor_transpose, dg.minor_transpose_ref):
+        with pytest.raises(ValueError):
+            fn(x)
+    with pytest.raises(TypeError):
+        dg.minor_transpose(torch.zeros((2, 3, 4), dtype=torch.int32))
+
+
+def test_lane_split_equals_the_probe_body():
+    xs = np.random.default_rng(0).integers(0, 256, size=(8, 2048)).astype(
+        np.float32)
+    before = stream_copy.launches
+    got = dg.lane_split(torch.from_numpy(xs), 8)
+    assert stream_copy.launches == before  # the CPU runs the plain version
+    assert got.shape == (8, 256, 8)
+    np.testing.assert_array_equal(got.numpy(),
+                                  _interpret(split_kernel, (8, 256, 8), xs))
+    assert got.data_ptr() != torch.from_numpy(xs).data_ptr()
+
+
+@pytest.mark.parametrize("shape,tw", [((3, 24), 4), ((5, 7), 7), ((2, 3, 16), 8),
+                                      ((12,), 3)])
+def test_lane_split_other_widths(shape, tw):
+    xs = np.arange(np.prod(shape), dtype=np.float32).reshape(shape)
+    got = dg.lane_split(torch.from_numpy(xs), tw)
+    np.testing.assert_array_equal(
+        got.numpy(), xs.reshape(*shape[:-1], shape[-1] // tw, tw))
+    assert torch.equal(got, dg.lane_split_ref(torch.from_numpy(xs), tw))
+
+
+@pytest.mark.parametrize("tw", [0, 5, -1])
+def test_lane_split_refusals(tw):
+    for fn in (dg.lane_split, dg.lane_split_ref):
+        with pytest.raises(ValueError):
+            fn(torch.zeros((8, 2048)), tw)
+
+
+def test_moved_bounds_and_no_cpu_launch():
+    lum = torch.zeros((32_768, 256, 8))
+    assert round(dg.moved_bound_ms(lum), 4) == 0.1603
+    assert round(dg.moved_bound_ms(torch.zeros((32_768, 128, 4))), 4) == 0.0401
+    assert round(dg.moved_bound_ms(torch.zeros((32_768, 2048))), 4) == 0.1603
+    counts = (dg.basis_dot.launches, dg.minor_transpose.launches)
+    dg.minor_transpose(torch.zeros((2, 3, 4)))
+    dg.basis_dot(torch.zeros((2, 64)), torch.zeros((64, 64)))
+    assert counts == (dg.basis_dot.launches, dg.minor_transpose.launches)
+    assert dg.attributes(dg.TRANSPOSE, 8, "cpu")["shared_bytes"] is None
+
+
+# -- the run --------------------------------------------------------------------------------
+
+
+def test_run_on_the_cpu_writes_only_its_output(tmp_path, monkeypatch):
+    monkeypatch.chdir(tmp_path)
+    assert dg.main(["--device", "cpu", "--rows", "600", "--bands", "3",
+                    "--runs", "1", "--reps", "1", "--output", "a.json"]) == 0
+    assert os.listdir(tmp_path) == ["a.json"]
+    art = json.loads((tmp_path / "a.json").read_text())
+    assert art["device"] == "cpu" and "card" not in art
+    assert art["timer"] == "host clock" and art["verdict"].startswith("on cpu:")
+    assert art["checks"]["dot"]["kernel"]["within"]
+    assert [r["site"] for r in art["timed"]] == [
+        f"profile_fused_dct_gates.py:{line}" for line in (35, 56, 56, 75)]
+    assert [r["shape"] for r in art["timed"]] == [
+        [600, 64], [3, 256, 8], [3, 128, 4], [3, 2048]]
+    assert all(r["host_ms"] > 0 and r["share"] is None for r in art["timed"])
+    assert art["timed"][0]["bound_by"] == "bytes"

@@ -8,8 +8,8 @@
   candidates of ``profiles/`` included) nor ``chip_smoke.py`` imports
   ``jax``, ``lz4jpeg_tpu`` or the repository's ``profiles`` scripts, by an
   AST scan and by a subprocess that blocks the three names and still runs
-  the kernel candidates' and the megakernel variants' plain versions and
-  JPEG round trips
+  the kernel candidates', the megakernel variants', the sublane RLE's, the
+  casts' and the fused-DCT gates' plain versions and JPEG round trips
   (sparse16, its packed16 twin, quality 90 in the int16 pair layout, exact
   precision against the oracle copy, per-block entropy, the overlapped
   and bucketed encodes, K8's plain version), an LZ4T
@@ -177,6 +177,13 @@ for v in megakernel.KT_VARIANTS:
     out = megakernel.megakernel_variant(torch.zeros((3, 64, 16), dtype=torch.uint8),
                                         v.name, LUM, CHR)
     assert tuple(megakernel.combined(out).shape) == (16, 128)
+from lz4jpeg_tpu_torch.profiles import casts, dct_gates, sublane_rle
+packed, runs = sublane_rle.sublane_rle(torch.zeros((32, 5), dtype=torch.int16))
+assert runs.tolist() == [[1] * 5] and packed.shape == (32, 5)
+assert casts.cast(torch.zeros(4, dtype=torch.bfloat16), torch.float32).dtype == torch.float32
+assert dct_gates.basis_dot(torch.zeros((2, 64)), dct_gates.luma_basis()).shape == (2, 64)
+assert dct_gates.minor_transpose(torch.zeros((1, 3, 2))).shape == (1, 2, 3)
+assert dct_gates.lane_split(torch.zeros((2, 16)), 8).shape == (2, 2, 8)
 assert "jax" not in sys.modules and "lz4jpeg_tpu" not in sys.modules
 print("ok")
 """

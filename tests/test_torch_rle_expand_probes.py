@@ -305,7 +305,7 @@ def test_einsum_turns_tf32_off_and_restores_it():
     saved = torch.backends.cuda.matmul.allow_tf32
     torch.backends.cuda.matmul.allow_tf32 = True
     try:
-        with rx._no_tf32():
+        with timing.no_tf32():
             assert torch.backends.cuda.matmul.allow_tf32 is False
             assert torch.backends.cudnn.allow_tf32 is False
         assert torch.backends.cuda.matmul.allow_tf32 is True
