@@ -2,13 +2,14 @@
 """Smoke run of the PyTorch port (lz4jpeg_tpu_torch) on one CUDA card.
 
 Run from the repository root with no arguments: ``python3 chip_smoke.py``.
-It needs one card.  At first use it builds the thirty Hopper kernels
-(one nvcc per source file, nineteen files, all started together, sm_90a;
-the five megakernel probes are one file of twenty-six instantiations of
-K1's template, K7's phase variants one file of eight instantiations of
-K7's, the casts one template of seven instantiations)
+It needs one card.  At first use it builds the thirty-three Hopper
+kernels (one nvcc per source file, twenty-two files, all started together,
+sm_90a; the five megakernel probes are one file of twenty-six
+instantiations of K1's template, K7's phase variants one file of eight
+instantiations of K7's, the casts one template of seven instantiations,
+the one-hot gathers one template of nine)
 and the native runtime (g++) into ``lz4jpeg_tpu_torch/_build/``, then runs
-twenty-six phases and fails (non-zero exit, no result line) if any of
+twenty-eight phases and fails (non-zero exit, no result line) if any of
 them fails.  ``ab_kernels.py`` times K1, K2 and K4-K7 in turns with
 another checkout's; ``sass_diff.py`` compares a source's machine code with
 another checkout's.
@@ -276,7 +277,32 @@ another checkout's.
     entry point; registers, shared memory and CTAs per SM of every
     instantiation; then the four runners at their defaults
     (``BUTTERFLY_RUN``, ``PLANE_EXACT_RUN``, ``CASTS_RUN``, ``GATES_RUN``),
-    each wrapper's count set to 0 just before its run and read just after.
+    each wrapper's count set to 0 just before its run and read just after;
+27. the colour probe and the MCU relayout (``profiles/pallas_color.py``,
+    ``mcu_relayout.py``): the colour kernel
+    (``csrc/rgb_color_probe_kernel.cu``) identical to its plain version
+    (the probe's float32 FMA order emulated in float64) on the probe's
+    (16, 2048, 3) case, over the whole 2^24 colour cube in both column
+    phases (each channel's mismatches against ``rgb_to_ycbcr`` printed: the
+    probe has no tie snap), on ``COLOR_SHAPES`` and an offset view; the
+    relayout (``csrc/mcu_relayout_kernel.cu``) identical to
+    ``split_mcus``'s copy on ``RELAYOUT_SHAPES`` (the timed luma and
+    chroma, also against ``split_mcus`` itself, Wp % 16 ≠ 0, wider than a
+    span) and their offset views; three shapes refused by the
+    wrappers and the C entry points; registers, shared memory and CTAs per
+    SM; then both runners at their defaults (``COLOR_PROBE_RUN``,
+    ``COLORSPLIT_RUN``), each wrapper's count set to 0 just before its run
+    and read just after;
+28. the one-hot gathers (``profiles/onehot_gather.py``): every
+    instantiation of ``csrc/onehot_gather_kernel.cu`` identical to its
+    plain version (the dense product in float64) on ``GATHER_SYNTHETIC``
+    roots (some outside [0, P)) and on an offset view of them, three
+    refusals by the wrapper and the C entry point, every instantiation's
+    registers, shared memory and CTAs per SM; then the runner of the four
+    probes' ten rows at its defaults (``MXU_GATHER_RUN``: 4 MiB of
+    generated text, 64 KiB blocks; every full row equal to
+    ``torch.gather`` and the text), the gather's and K3's counts set to 0
+    just before and read just after.
 
 The line before the last is the kernels' JSON record: per kernel (the
 packed16 kernels once per timed channel and input dtype) its launches on
@@ -316,7 +342,16 @@ butterfly, the casts, the product, the transpose, the split) give the
 runners' rows (the SEG 32/64 butterfly its SEG 32 time: SEG 64 is the
 butterfly's row), the casts the int32 → float32 pair with a ``variants``
 list of all seven, the product its FFMA bound (67 TFLOP/s fp32) beside the
-bytes bound.  Before it, one line per
+bytes bound; phase 27's two (the colour probe with the torch chain's time
+and K1's colour share beside it, no library call; the relayout's luma row
+with ``split_mcus``'s transposing copy as the library call, the stream
+copy's time and the probe's rows; each record's ``max_abs_err`` the
+largest |kernel − plain| of the phase's checks) and phase 28's four (one
+per probe: g1, g2's full row, g3 at T = 512, g4 at (32, bf16), each with
+a ``variants`` list of its rows, bound by the product's operations over
+989 TFLOP/s bf16 or 1,979 TOPS int8 (``bound``), ``torch.gather`` the
+library call, K3's and the pointer doubling's times beside it).  Before
+it, one line per
 bytes-bound kernel gives its share of the data sheet's bound and of the
 same bytes over the stream ceiling phase 20 measured.  The last line is
 ``{"ok": true, "device": {...}}``.
@@ -457,8 +492,24 @@ BUTTERFLY_RUN = {}  # the four runners' defaults: (64, 2,097,152) int32,
 PLANE_EXACT_RUN = {}  # 256² and 512² frames and (32, 2,097,152),
 CASTS_RUN = {}  # 134,217,728 elements a pair,
 GATES_RUN = {}  # 2,097,152 × 64 and 32,768 band rows
+RGB_SOURCE = "lz4jpeg_tpu_torch/csrc/rgb_color_probe_kernel.cu"
+RELAYOUT_SOURCE = "lz4jpeg_tpu_torch/csrc/mcu_relayout_kernel.cu"
+ONEHOT_SOURCE = "lz4jpeg_tpu_torch/csrc/onehot_gather_kernel.cu"
+# Phase 27's checks: RGB shapes (..., W, 3) past the colour kernel's
+# 16-pixel runs; relayout planes ((..., H, Wp), tw): the timed luma and
+# chroma, Wp % 16 ≠ 0 (rows loaded in 4-byte words), wider than a span.
+COLOR_SHAPES = ((3, 130, 3), (1, 2, 3), (5, 18, 3), (2, 64, 2048, 3))
+RELAYOUT_SHAPES = (((32, 2048, 2048), 8), ((32, 2048, 1024), 4),
+                   ((16, 20), 4), ((8, 24), 8), ((3, 24, 4104), 8),
+                   ((1, 8, 2064), 4))
+# Phase 28's synthetic roots: (blocks, P), some outside [0, P).
+GATHER_SYNTHETIC = ((2, 4096), (1, 2048), (3, 16_384))
+COLOR_PROBE_RUN = {}  # the runners' defaults: 32 × 2048² and the cube,
+COLORSPLIT_RUN = {}  # 32 noise frames of 2048²,
+MXU_GATHER_RUN = {}  # 4 MiB of generated text, 64 KiB blocks
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3 (NVIDIA data sheet)
 BF16_FLOP_PER_S = 989e12  # H100 SXM dense bf16 tensor cores (data sheet)
+INT8_OP_PER_S = 1979e12  # H100 SXM dense int8 tensor cores (data sheet)
 # K1's tensor-core work per 8x8 tile: three bf16 passes of a 64-deep luma
 # and two 32-deep chroma products, 2 operations per multiply-add.
 K1_FLOP_PER_TILE = 3 * 2 * (64 * 64 + 2 * 32 * 32)
@@ -525,12 +576,13 @@ def timed_runs(fn, x, warmup: int = 2, runs: int = 10):
     return ms, {int(s) for s in sums}
 
 
-def bound(n_bytes: float, flops: float = 0.0):
+def bound(n_bytes: float, flops: float = 0.0, int8_ops: float = 0.0):
     """(bound_ms, bound_by): the least time the card could take for the
-    work, the larger of ``n_bytes`` over the HBM rate and ``flops`` bf16
-    tensor-core operations over their peak."""
+    work, the larger of ``n_bytes`` over the HBM rate and the tensor-core
+    work over its peak: ``flops`` bf16 operations and ``int8_ops`` int8
+    ones."""
     by_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
-    by_ops = flops / BF16_FLOP_PER_S * 1e3
+    by_ops = (flops / BF16_FLOP_PER_S + int8_ops / INT8_OP_PER_S) * 1e3
     return (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops, "operations")
 
 
@@ -580,8 +632,11 @@ def build_all():
         bucket_partition,
         casts,
         dct_gates,
+        mcu_relayout,
         megakernel,
         mcu,
+        onehot_gather,
+        pallas_color,
         plane_color,
         rle,
         rle_decode,
@@ -609,6 +664,9 @@ def build_all():
         "nvcc sublane_rle_kernel": sublane_rle.load_kernel,
         "nvcc cast_kernel": casts.load_kernel,
         "nvcc dct_gate_kernel": dct_gates.load_kernel,
+        "nvcc rgb_color_probe_kernel": pallas_color.load_kernel,
+        "nvcc mcu_relayout_kernel": mcu_relayout.load_kernel,
+        "nvcc onehot_gather_kernel": onehot_gather.load_kernel,
         "g++ lz4core": native_backend,
     }
 
@@ -2896,7 +2954,6 @@ def matcher_phase(dev, p10_words, k2_ms):
     records.  ``p10_words`` holds phase 10's luma and Cr packed16 words and
     lengths (numpy), ``k2_ms`` phase 8's K2 time."""
     import gc
-    import tempfile
 
     import torch
 
@@ -3017,30 +3074,16 @@ def matcher_phase(dev, p10_words, k2_ms):
           f"|kernel - plain| {err}")
 
     # -- the three runners at their defaults, each count zeroed before -----
-    wrappers = {"bitonic_sort": (bs.bitonic_sort_blocks,),
-                "bucket_partition": (bp.concentration_stages,
-                                     bp.compare_exchange_stages),
-                "rle_decode": (rd.rle_decode_membership,)}
-    runners = {"bitonic_sort": (bs.run_bitonic_sort, SORT_RUN),
-               "bucket_partition": (bp.run_bucket_partition, STAGE_RUN),
-               "rle_decode": (rd.run_rle_decode_ab, RLE_RUN)}
-    results, launches, wall = {}, {}, {}
-    with tempfile.TemporaryDirectory() as tmp:
-        for key, (run, params) in runners.items():
-            gc.collect()
-            torch.cuda.empty_cache()
-            for fn in wrappers[key]:
-                fn.launches = 0
-            t0 = time.perf_counter()
-            results[key] = run(dev, **params, output=str(Path(tmp) / key))
-            wall[key] = time.perf_counter() - t0
-            for fn in wrappers[key]:
-                launches[fn.__name__] = fn.launches
-            art = json.loads((Path(tmp) / key).read_text())
-            check(art.get("device") == str(dev) and art.get("card"),
-                  f"{key}'s artifact does not name the card")
-    for name, count in launches.items():
-        check(count > 0, f"phase 24: the runner never launched {name}")
+    runners = {"bitonic_sort": (bs.run_bitonic_sort, SORT_RUN,
+                                (bs.bitonic_sort_blocks,)),
+               "bucket_partition": (bp.run_bucket_partition, STAGE_RUN,
+                                    (bp.concentration_stages,
+                                     bp.compare_exchange_stages)),
+               "rle_decode": (rd.run_rle_decode_ab, RLE_RUN,
+                              (rd.rle_decode_membership,))}
+    results, by_run = probe_runner_runs(24, runners, dev, t_phase)
+    launches = {name: count for counts in by_run.values()
+                for name, count in counts.items()}
 
     sort = {r["row"]: r for r in results["bitonic_sort"]["rows"]}
     s_ms = sort["bitonic sort 2-op"]["ms"]
@@ -3055,10 +3098,7 @@ def matcher_phase(dev, p10_words, k2_ms):
           f"compare-exchange per stage "
           f"{stages['concentration_over_compare_exchange']:.3f}; a 16-bit radix "
           f"partition {stages['radix_over_bitonic_time']:.2f}x the bitonic "
-          f"network's stage time; {rle['verdict']}")
-    print(f"phase 24: launches per run {launches}; wall s "
-          + ", ".join(f"{k} {v:.2f}" for k, v in wall.items())
-          + f"; phase {time.perf_counter() - t_phase:.2f} s")
+          f"network's stage time")
 
     res = results["bitonic_sort"]
     records = [{
@@ -3113,7 +3153,6 @@ def expand_phase(dev, p10_words):
     defaults; returns the five kernel records.  ``p10_words`` holds phase
     10's luma and Cr packed16 words and lengths (numpy)."""
     import gc
-    import tempfile
 
     import torch
 
@@ -3216,50 +3255,22 @@ def expand_phase(dev, p10_words):
          phase_lib.expand16_probe_error_string),
     )
     for label, wrapper, entry, error_string in refusals:
-        try:
-            wrapper()
-            refused = False
-        except ValueError:
-            refused = True
-        rc = entry()
-        print(f"phase 25: {label}: wrapper {'refused' if refused else 'TOOK IT'}"
-              f", entry point {error_string(rc).decode() if rc else 'TOOK IT'}")
-        check(refused and rc != 0, f"phase 25: {label} was not refused")
+        refused_by_both(25, label, wrapper, entry, error_string)
     torch.cuda.synchronize()
     print(f"phase 25: checks in {time.perf_counter() - t_phase:.2f} s; max "
           f"|kernel - plain| {err}")
 
     # -- both runners at their defaults, each count zeroed before ----------
-    wrappers = {"rm": (rx.copy_rm, rx.copy_t_contig, rx.copy_t_slab),
-                "ablate": (rx.expand_plane_phase, rx.copy_t_slab,
-                           pack16.pack16_decode_plane)}
-    runners = {"rm": (run_rle_expand_rm, EXPAND_RM_RUN),
-               "ablate": (run_rle_expand_ablate, EXPAND_ABLATE_RUN)}
-    results, launches, wall = {}, {}, {}
-    with tempfile.TemporaryDirectory() as tmp:
-        for key, (run, params) in runners.items():
-            gc.collect()
-            torch.cuda.empty_cache()
-            for fn in wrappers[key]:
-                fn.launches = 0
-            t0 = time.perf_counter()
-            results[key] = run(dev, **params, output=str(Path(tmp) / key))
-            wall[key] = time.perf_counter() - t0
-            launches[key] = {fn.__name__: fn.launches for fn in wrappers[key]}
-            art = json.loads((Path(tmp) / key).read_text())
-            check(art.get("device") == str(dev) and art.get("card"),
-                  f"{key}'s artifact does not name the card")
-    for key, counts in launches.items():
-        for name, count in counts.items():
-            check(count > 0, f"phase 25: the {key} runner never launched {name}")
+    runners = {"rm": (run_rle_expand_rm, EXPAND_RM_RUN,
+                      (rx.copy_rm, rx.copy_t_contig, rx.copy_t_slab)),
+               "ablate": (run_rle_expand_ablate, EXPAND_ABLATE_RUN,
+                          (rx.expand_plane_phase, rx.copy_t_slab,
+                           pack16.pack16_decode_plane))}
+    results, launches = probe_runner_runs(25, runners, dev, t_phase)
     rm = results["rm"]["copies"]
     check(rm[0]["launches"] + rm[1]["launches"] == launches["rm"]["copy_rm"],
           "phase 25: copy_rm's rows do not add up to its count")
     ab = results["ablate"]["channels"]
-    print(f"phase 25: {results['rm']['verdict']}; {results['ablate']['verdict']}")
-    print(f"phase 25: launches per run {launches}; wall s "
-          + ", ".join(f"{k} {v:.2f}" for k, v in wall.items())
-          + f"; phase {time.perf_counter() - t_phase:.2f} s")
 
     records = []
     for r, name, line, counter in (
@@ -3307,7 +3318,6 @@ def gates_phase(dev):
     their plain versions on the card, refusals, then the four runners at
     their defaults; returns the six kernel records."""
     import gc
-    import tempfile
 
     import torch
 
@@ -3436,15 +3446,7 @@ def gates_phase(dev):
          g_lib.dct_gate_error_string),
     )
     for label, wrapper, entry, error_string in refusals:
-        try:
-            wrapper()
-            refused = False
-        except ValueError:
-            refused = True
-        rc = entry()
-        print(f"phase 26: {label}: wrapper {'refused' if refused else 'TOOK IT'}"
-              f", entry point {error_string(rc).decode() if rc else 'TOOK IT'}")
-        check(refused and rc != 0, f"phase 26: {label} was not refused")
+        refused_by_both(26, label, wrapper, entry, error_string)
     torch.cuda.synchronize()
     del i16, f64, sink
     attrs = {f"sublane SEG {seg} {b}-byte": sr.attributes(seg, b, dev)
@@ -3470,28 +3472,7 @@ def gates_phase(dev):
         "gates": (dg.run_dct_gates, GATES_RUN,
                   (dg.basis_dot, dg.minor_transpose, stream_copy)),
     }
-    results, launches, wall = {}, {}, {}
-    with tempfile.TemporaryDirectory() as tmp:
-        for key, (run, params, wrappers) in runners.items():
-            gc.collect()
-            torch.cuda.empty_cache()
-            for fn in wrappers:
-                fn.launches = 0
-            t0 = time.perf_counter()
-            results[key] = run(dev, **params, output=str(Path(tmp) / key))
-            wall[key] = time.perf_counter() - t0
-            launches[key] = {fn.__name__: fn.launches for fn in wrappers}
-            art = json.loads((Path(tmp) / key).read_text())
-            check(art.get("device") == str(dev) and art.get("card"),
-                  f"{key}'s artifact does not name the card")
-    for key, counts in launches.items():
-        for name, count in counts.items():
-            check(count > 0, f"phase 26: the {key} runner never launched {name}")
-    for key in results:
-        print(f"phase 26: {results[key]['verdict']}")
-    print(f"phase 26: launches per run {launches}; wall s "
-          + ", ".join(f"{k} {v:.2f}" for k, v in wall.items())
-          + f"; phase {time.perf_counter() - t_phase:.2f} s")
+    results, launches = probe_runner_runs(26, runners, dev, t_phase)
 
     bfly, plane = results["butterfly"], results["plane_exact"]
     by_pair = {r["pair"]: r for r in results["casts"]["pairs"]}
@@ -3558,6 +3539,300 @@ def gates_phase(dev):
          "bound_ms": timed[3]["bound_ms"], "bound_by": "bytes",
          "library_ms": timed[3]["library_ms"], "library": timed[3]["library"]},
     ]
+
+
+def refused_by_both(phase: int, label: str, wrapper, entry, error_string):
+    """Check that ``wrapper()`` raises ``ValueError`` and ``entry()`` (a C
+    entry point) returns an error code."""
+    try:
+        wrapper()
+        refused = False
+    except ValueError:
+        refused = True
+    rc = entry()
+    print(f"phase {phase}: {label}: wrapper {'refused' if refused else 'TOOK IT'}"
+          f", entry point {error_string(rc).decode() if rc else 'TOOK IT'}")
+    check(refused and rc != 0, f"phase {phase}: {label} was not refused")
+
+
+def colour_phase(dev):
+    """Phase 27: the colour probe and the MCU relayout
+    (``profiles/pallas_color.py``, ``mcu_relayout.py``) against their plain
+    versions on the card, refusals, attributes, then both runners at their
+    defaults; returns the two kernel records."""
+    import gc
+
+    import torch
+
+    from lz4jpeg_tpu_torch.ops.color import split_mcus
+    from lz4jpeg_tpu_torch.ops.stream import stream_copy
+    from lz4jpeg_tpu_torch.profiles import mcu_relayout as mr
+    from lz4jpeg_tpu_torch.profiles import pallas_color as pc
+    from lz4jpeg_tpu_torch.profiles.colorsplit3 import run_colorsplit3
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    t_phase = time.perf_counter()
+    err = {"color_probe": 0, "mcu_relayout": 0}
+
+    def held(name, label, got, want):
+        torch.cuda.synchronize()
+        got = got if isinstance(got, tuple) else (got,)
+        want = want if isinstance(want, tuple) else (want,)
+        same = all(torch.equal(a, b) for a, b in zip(got, want))
+        d = max(int((a.long() - b.long()).abs().max()) if a.numel() else 0
+                for a, b in zip(got, want))
+        err[name] = max(err[name], d)
+        print(f"phase 27: {label}: {'identical' if same else 'DIFFERS'}")
+        check(same, f"phase 27: {label} differs (max |d| {d})")
+
+    # -- the colour probe: the probe's case, the whole cube, ragged, views --
+    gen = torch.Generator(device=dev).manual_seed(SEED + 27)
+    cases = [("probe case", pc.probe_case(SEED).to(dev)),
+             *((f"cube shifted {s}", pc.colour_cube(s, dev)) for s in (0, 1)),
+             *((str(shape), torch.randint(0, 256, shape, dtype=torch.uint8,
+                                          device=dev, generator=gen))
+               for shape in COLOR_SHAPES)]
+    cases.append(("offset view", offset_view(cases[3][1])))
+    for label, x in cases:
+        got = pc.color_probe(x)
+        held("color_probe", f"colour {label}", tuple(got),
+             tuple(pc.color_probe_ref(x)))
+        if label.startswith(("probe", "cube")):
+            print(f"phase 27: colour {label}: against rgb_to_ycbcr "
+                  f"{pc.mismatches(got, x)}")
+    del cases, got
+
+    # -- the relayout: the timed planes (also against split_mcus), ragged ---
+    for shape, tw in RELAYOUT_SHAPES:
+        x = torch.randint(0, 256, shape, dtype=torch.uint8, device=dev,
+                          generator=gen)
+        for tag, v in (("", x), (" offset view", offset_view(x))):
+            got = mr.mcu_relayout(v, tw)
+            held("mcu_relayout", f"relayout {shape} tw {tw}{tag}", got,
+                 mr.mcu_relayout_ref(v, tw))
+        if shape[-2:] == (2048, 2048):
+            held("mcu_relayout", f"relayout {shape} against split_mcus", got,
+                 split_mcus(x, x[..., :1024], x[..., :1024])[0]
+                 .reshape(got.shape))
+        elif shape[-2:] == (2048, 1024):
+            held("mcu_relayout", f"relayout {shape} against split_mcus", got,
+                 split_mcus(x.repeat(1, 1, 2), x, x)[1].reshape(got.shape))
+        del x, got
+
+    # -- refusals, by the wrappers and by the C entry points ---------------
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    c_lib, r_lib = pc.load_kernel(), mr.load_kernel()
+    rgb = torch.zeros((4, 6, 3), dtype=torch.uint8, device=dev)
+    plane = torch.zeros((8, 40), dtype=torch.uint8, device=dev)
+    sink = torch.empty(1 << 12, dtype=torch.int32, device=dev)
+    for label, wrapper, entry, error_string in (
+            ("colour width 3", lambda: pc.color_probe(rgb[:, :3].contiguous()),
+             lambda: c_lib.rgb_color_launch(rgb.data_ptr(), sink.data_ptr(),
+                                            sink.data_ptr(), sink.data_ptr(),
+                                            4, 3, stream),
+             c_lib.rgb_color_error_string),
+            ("relayout tw 5", lambda: mr.mcu_relayout(plane, 5),
+             lambda: r_lib.mcu_relayout_launch(plane.data_ptr(),
+                                               sink.data_ptr(), 1, 40, 5,
+                                               stream),
+             r_lib.mcu_relayout_error_string),
+            ("relayout Wp 36 at tw 8", lambda: mr.mcu_relayout(plane[:, :36], 8),
+             lambda: r_lib.mcu_relayout_launch(plane.data_ptr(),
+                                               sink.data_ptr(), 1, 36, 8,
+                                               stream),
+             r_lib.mcu_relayout_error_string)):
+        refused_by_both(27, label, wrapper, entry, error_string)
+    torch.cuda.synchronize()
+    del rgb, plane, sink
+    attrs = {"colour": pc.attributes(dev)}
+    attrs.update({f"relayout tw {tw}": mr.attributes(tw, dev)
+                  for tw in mr.WIDTHS})
+    for name, a in attrs.items():
+        print(f"phase 27: {name}: regs {a['registers']}, smem "
+              f"{a['shared_bytes']} B, CTAs/SM {a['ctas_per_sm']}")
+    print(f"phase 27: checks in {time.perf_counter() - t_phase:.2f} s")
+
+    # -- both runners at their defaults, each count zeroed before ----------
+    runners = {"colour": (pc.run_pallas_color, COLOR_PROBE_RUN,
+                          (pc.color_probe,)),
+               "colorsplit3": (run_colorsplit3, COLORSPLIT_RUN,
+                               (mr.mcu_relayout, stream_copy))}
+    results, launches = probe_runner_runs(27, runners, dev, t_phase)
+    colour, split = results["colour"], results["colorsplit3"]
+    row = colour["timed"]
+    luma = split["relayout"][0]
+    return [
+        {"name": "rgb_color_probe", "route": "cuda", "source": RGB_SOURCE,
+         "replaces": "profiles/profile_pallas_color.py:21",
+         "launches": launches["colour"]["color_probe"],
+         "max_abs_err": float(err["color_probe"]),
+         "shape": row["shape"], "ms": row["ms"], "plain_ms": row["plain_ms"],
+         "bound_ms": bound(row["bytes"])[0], "bound_by": bound(row["bytes"])[1],
+         "library_ms": None, "chain_ms": row["chain_ms"],
+         "k1_colour_share_ms": row["k1_colour_share_ms"],
+         "cube_mismatches": colour["cube_mismatches"],
+         "registers": row["registers"], "shared_bytes": row["shared_bytes"],
+         "ctas_per_sm": row["ctas_per_sm"]},
+        {"name": "mcu_relayout", "route": "cuda", "source": RELAYOUT_SOURCE,
+         "replaces": "profiles/profile_colorsplit3.py:118",
+         "launches": launches["colorsplit3"]["mcu_relayout"],
+         "max_abs_err": float(err["mcu_relayout"]), "shape": luma["shape"],
+         "ms": luma["ms"], "plain_ms": luma["plain_ms"],
+         "bound_ms": bound(luma["bytes"])[0],
+         "bound_by": bound(luma["bytes"])[1],
+         "library_ms": luma["library_ms"], "library": luma["library"],
+         "copy_ms": luma["copy_ms"], "probe_rows": split["rows"],
+         "coefficient_checks": split["checks"],
+         "variants": [{k: r[k] for k in ("row", "shape", "ms", "plain_ms",
+                                         "library_ms", "library", "copy_ms",
+                                         "bytes_bound_ms", "share",
+                                         "registers", "shared_bytes",
+                                         "ctas_per_sm")}
+                      for r in split["relayout"]]},
+    ]
+
+
+def probe_runner_runs(phase: int, runners, dev, t_phase):
+    """Each runner ``key: (run, params, wrappers)`` at ``params`` with every
+    wrapper's count set to 0 just before and read just after (each must
+    have launched); the artifacts in a temporary directory, each naming the
+    card.  Returns the results and the counts."""
+    import gc
+    import tempfile
+
+    import torch
+
+    results, launches, wall = {}, {}, {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for key, (run, params, wrappers) in runners.items():
+            gc.collect()
+            torch.cuda.empty_cache()
+            for fn in wrappers:
+                fn.launches = 0
+            t0 = time.perf_counter()
+            results[key] = run(dev, **params, output=str(Path(tmp) / key))
+            wall[key] = time.perf_counter() - t0
+            launches[key] = {fn.__name__: fn.launches for fn in wrappers}
+            art = json.loads((Path(tmp) / key).read_text())
+            check(art.get("device") == str(dev) and art.get("card"),
+                  f"{key}'s artifact does not name the card")
+    for key, counts in launches.items():
+        for name, count in counts.items():
+            check(count > 0, f"phase {phase}: the {key} runner never "
+                             f"launched {name}")
+    for result in results.values():
+        if "verdict" in result:
+            print(f"phase {phase}: {result['verdict']}")
+    print(f"phase {phase}: launches per run {launches}; wall s "
+          + ", ".join(f"{k} {v:.2f}" for k, v in wall.items())
+          + f"; phase {time.perf_counter() - t_phase:.2f} s")
+    return results, launches
+
+
+def gather_phase(dev):
+    """Phase 28: the one-hot gather template (``profiles/onehot_gather.py``)
+    against its plain version on synthetic roots, refusals, attributes,
+    then the runner of the four probes' ten rows at its defaults; returns
+    one kernel record per probe site."""
+    import gc
+
+    import torch
+
+    from lz4jpeg_tpu_torch.ops.lz4t_decode import resolve_rooted
+    from lz4jpeg_tpu_torch.profiles import onehot_gather as og
+    from lz4jpeg_tpu_torch.profiles.lz4t_mxu_gather import run_lz4t_mxu_gather
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    t_phase = time.perf_counter()
+
+    # -- every instantiation on synthetic roots, some outside [0, P) -------
+    err = {k.name: 0 for k in og.KERNELS}
+    gen = torch.Generator(device=dev).manual_seed(SEED + 28)
+    for blocks, p in GATHER_SYNTHETIC:
+        root = torch.randint(-300, p + 300, (blocks, p), dtype=torch.int32,
+                             device=dev, generator=gen)
+        lit = torch.randint(0, 256, (blocks, p), dtype=torch.uint8,
+                            device=dev, generator=gen)
+        for k in og.KERNELS:
+            if p % k.step:
+                continue
+            for tag, r in (("", root), (" offset roots", offset_view(root))):
+                got = og.onehot_gather(r, lit, k.name)
+                want = og.onehot_gather_ref(r, lit, k.name)
+                torch.cuda.synchronize()
+                same = torch.equal(got, want)
+                d = int((got.long() - want.long()).abs().max())
+                err[k.name] = max(err[k.name], d)
+                print(f"phase 28: {k.name} ({blocks}, {p}){tag}: "
+                      f"{'identical' if same else 'DIFFERS'}")
+                check(same, f"phase 28: {k.name} ({blocks}, {p}) differs "
+                            f"(max |d| {d})")
+        del root, lit, got, want
+
+    # -- refusals, by the wrapper and by the C entry point -----------------
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    lib = og.load_kernel()
+    root = torch.zeros((1, 3072), dtype=torch.int32, device=dev)
+    lit = torch.zeros((1, 3072), dtype=torch.uint8, device=dev)
+    for label, wrapper, args in (
+            ("P 3,072", lambda: og.onehot_gather(root, lit, og.KERNELS[1].name),
+             (1, root.data_ptr(), lit.data_ptr(), root.data_ptr(), 1, 3072)),
+            ("P 2,048 at step 4,096", lambda: og.onehot_gather(
+                root[:, :2048].contiguous(), lit[:, :2048].contiguous(),
+                og.KERNELS[6].name),
+             (6, root.data_ptr(), lit.data_ptr(), root.data_ptr(), 1, 2048)),
+            ("an unknown kernel", lambda: og.onehot_gather(root, lit, "g5"),
+             (len(og.KERNELS), root.data_ptr(), lit.data_ptr(),
+              root.data_ptr(), 1, 2048))):
+        refused_by_both(28, label, wrapper,
+                        lambda a=args: lib.onehot_gather_launch(*a, stream),
+                        lib.onehot_gather_error_string)
+    torch.cuda.synchronize()
+    del root, lit
+    for k in og.KERNELS:
+        a = og.attributes(k.name, dev)
+        print(f"phase 28: {k.name}: regs {a['registers']}, smem "
+              f"{a['shared_bytes']} B, CTAs/SM {a['ctas_per_sm']}")
+    print(f"phase 28: checks in {time.perf_counter() - t_phase:.2f} s")
+
+    # -- the runner at its defaults, the counts zeroed before --------------
+    results, launches = probe_runner_runs(
+        28, {"gathers": (run_lz4t_mxu_gather, MXU_GATHER_RUN,
+                         (og.onehot_gather, resolve_rooted))}, dev, t_phase)
+    res = results["gathers"]
+    comp = res["comparisons"]
+    by_row = {r["row"]: r for r in res["rows"]}
+    records = []
+    for site, head in (("probe_lz4t_mxu_gather.py:66", "g1"),
+                       ("probe_lz4t_mxu_gather2.py:47", "g2 full"),
+                       ("probe_lz4t_mxu_gather3.py:51", "g3 T=512"),
+                       ("probe_lz4t_mxu_gather4.py:53", "g4 R=32 bf16")):
+        rows = [r for r in res["rows"] if r["site"] == site]
+        r = by_row[head]
+        spec = og.BY_NAME[r["kernel"]]
+        ops = {"int8_ops" if spec.elem == torch.int8 else "flops":
+               r["operations"]}
+        b_ms, b_by = bound(r["bytes"], **ops)
+        records.append({
+            "name": f"onehot_gather_{head.split()[0]}", "route": "cuda",
+            "source": ONEHOT_SOURCE, "replaces": f"profiles/{site}",
+            "launches": sum(x["launches"] + x["check_launches"] for x in rows),
+            "max_abs_err": float(max(err[x["kernel"]] for x in rows)),
+            "row": head, "kernel": r["kernel"],
+            "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": b_ms,
+            "bound_by": b_by, "library_ms": comp["gather_ms"],
+            "library": "torch.gather on int64 roots", "k3_ms": comp["k3_ms"],
+            "doubling_ms": comp["doubling_ms"],
+            "variants": [{k: x.get(k) for k in (
+                "row", "kernel", "ms", "plain_ms", "launches", "bound_ms",
+                "bound_by", "issue_bound_ms", "share", "registers",
+                "shared_bytes", "ctas_per_sm")} for x in rows]})
+    print(f"phase 28: K3 {comp['k3_ms']:.4f} ms, torch.gather "
+          f"{comp['gather_ms']:.4f}, pointer doubling {comp['doubling_ms']:.4f}"
+          f"; launches {launches}")
+    return records
 
 
 def main() -> int:
@@ -3762,6 +4037,8 @@ def main() -> int:
     matchers = matcher_phase(dev, p10_words, k2_ms)
     expands = expand_phase(dev, p10_words)
     gates = gates_phase(dev)
+    colours = colour_phase(dev)
+    gathers = gather_phase(dev)
 
     records = [{
         "name": "fwd_megakernel",
@@ -3776,7 +4053,7 @@ def main() -> int:
         "bound_by": k1_bound[1],
         "library_ms": None,
     }, *lz4, *pairs, wide, copy, *candidates, *probes, *layouts, *matchers,
-       *expands, *gates]
+       *expands, *gates, *colours, *gathers]
     for r in records:
         if r["bound_by"] == "bytes":  # the same bytes over the measured rate
             measured = r["bound_ms"] * HBM_BYTES_PER_S / (ceiling * 1e9)

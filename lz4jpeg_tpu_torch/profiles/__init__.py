@@ -56,6 +56,17 @@ kernel or raises):
 * ``dct_gates``: the fp32 basis product and the minor-dims transpose
   (``csrc/dct_gate_kernel.cu``) and the lane split on the stream-copy
   kernel (``profiles/profile_fused_dct_gates.py``), and their run;
+* ``pallas_color``: the colour probe's RGB → Y and odd-column chroma in
+  the probe's float32 FMA order (``csrc/rgb_color_probe_kernel.cu``;
+  ``profiles/profile_pallas_color.py``), and its run;
+* ``mcu_relayout``: the plane → MCU tile relayout
+  (``csrc/mcu_relayout_kernel.cu``; ``profiles/profile_colorsplit3.py``),
+  and ``colorsplit3``, the probe's run;
+* ``onehot_gather``: the LZ4T resolve as a dense one-hot product on the
+  tensor cores, one template for the four gather probes
+  (``csrc/onehot_gather_kernel.cu``;
+  ``profiles/probe_lz4t_mxu_gather{,2,3,4}.py``), and
+  ``lz4t_mxu_gather``, their run;
 * ``timing``: what the probe runners share (per-call times, kernel
   attributes, bytes and issue bounds).
 
@@ -72,9 +83,12 @@ runs (``megakernel_kt``, ``megakernel_t``, ``megakernel_v2``),
 ``python -m lz4jpeg_tpu_torch.profiles.rle_expand_ablate``,
 ``python -m lz4jpeg_tpu_torch.profiles.sublane_butterfly``,
 ``python -m lz4jpeg_tpu_torch.profiles.plane_exact``,
-``python -m lz4jpeg_tpu_torch.profiles.casts`` and
-``python -m lz4jpeg_tpu_torch.profiles.dct_gates`` (add ``--device cpu``
-and small sizes on a host without a card).
+``python -m lz4jpeg_tpu_torch.profiles.casts``,
+``python -m lz4jpeg_tpu_torch.profiles.dct_gates``,
+``python -m lz4jpeg_tpu_torch.profiles.pallas_color``,
+``python -m lz4jpeg_tpu_torch.profiles.colorsplit3`` and
+``python -m lz4jpeg_tpu_torch.profiles.lz4t_mxu_gather`` (add ``--device
+cpu`` and small sizes on a host without a card).
 """
 
 from lz4jpeg_tpu_torch.profiles import megakernel_ablate, megakernel_dma  # noqa: F401

@@ -15,7 +15,9 @@ has no data-sheet rate, so ``issue_bound_ms`` gives a second floor: the
 lane instructions the algorithm needs at the least, as 32-lane warp
 instructions, over every SM issuing one warp instruction a clock on each
 of its 4 schedulers at the card's highest SM clock (``nvidia-smi
---query-gpu=clocks.max.sm``).  Each runner labels what it counts.
+--query-gpu=clocks.max.sm``).  Each runner labels what it counts.  A
+tensor-core product's floor is its operations over the data sheet's dense
+rate: 989 TFLOP/s in bf16, 1,979 TOPS in int8.
 """
 
 from __future__ import annotations
@@ -30,15 +32,18 @@ from typing import Callable, Dict, Optional, Tuple, Union
 import torch
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3 (NVIDIA data sheet)
+BF16_FLOP_PER_S = 989e12  # H100 SXM dense bf16 tensor cores (data sheet)
+INT8_OP_PER_S = 1979e12  # H100 SXM dense int8 tensor cores (data sheet)
 SCHEDULERS_PER_SM = 4  # warp schedulers of a Hopper SM, one issue a clock
 QUEUE_SPIN_CYCLES = 4_000_000  # ~2 ms at the H100's 1,980 MHz
 
 
 def time_ms(fn: Callable, x, dev: torch.device, reps: int = 8, runs: int = 4,
-            kernel=None) -> float:
+            kernel=None, per_call: int = 1) -> float:
     """Best per-call ms of ``runs`` runs of ``reps`` calls of ``fn(x)``
     after two warm calls: CUDA events on a card, where ``kernel`` (a
-    wrapper with a ``launches`` count) must launch ``reps`` times a run;
+    wrapper with a ``launches`` count) must launch ``per_call`` × ``reps``
+    times a run;
     the host clock on the CPU.  On a card each run's calls are issued
     behind a spin of ``QUEUE_SPIN_CYCLES``, so that they run back to back
     and the events time the card's work, not the host's issue of each call
@@ -65,10 +70,10 @@ def time_ms(fn: Callable, x, dev: torch.device, reps: int = 8, runs: int = 4,
                 out = fn(x)
             ms = (time.perf_counter() - t0) * 1e3
         del out
-        if kernel is not None and kernel.launches - before != reps:
+        if kernel is not None and kernel.launches - before != per_call * reps:
             raise RuntimeError(f"launch guard: {kernel.__name__} launched "
                                f"{kernel.launches - before} times in {reps} "
-                               "timed calls")
+                               f"timed calls of {per_call}")
         best = min(best, ms / reps)
     return best
 

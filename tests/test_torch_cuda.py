@@ -1318,3 +1318,187 @@ def test_gate_runners_on_the_card(cuda, tmp_path):
     assert len(c["pairs"]) == 7 and all(r["launches"] > 0 for r in c["pairs"])
     g = dct_gates.run_dct_gates(cuda, rows=4096, bands=64, runs=1, reps=1)
     assert len(g["timed"]) == 4 and all(r["ms"] > 0 for r in g["timed"])
+
+
+# -- P slices 5(c) and 5(d): the colour probe, the MCU relayout, the one-hot ----
+# gathers.  All three identical to their plain versions (the colour probe's
+# float64 emulation of the probe's FMA order, split_mcus's copy, the dense
+# one-hot product in float64); every full gather row equal to torch.gather.
+
+
+@pytest.mark.parametrize("case", ["probe", "cube 0", "cube 1", (3, 130, 3),
+                                  (1, 2, 3), (5, 18, 3), (2, 64, 2048, 3),
+                                  "offset view"])
+def test_color_probe_matches_plain(cuda, case):
+    from lz4jpeg_tpu_torch.profiles import pallas_color as pc
+
+    if case == "probe":
+        x = pc.probe_case(0).to(cuda)
+    elif isinstance(case, str) and case.startswith("cube"):
+        x = pc.colour_cube(int(case[-1]), cuda)
+    else:
+        shape = (3, 130, 3) if case == "offset view" else case
+        x = torch.from_numpy(np.random.default_rng(5).integers(
+            0, 256, size=shape, dtype=np.uint8)).to(cuda)
+        if case == "offset view":
+            x = _offset(x)
+    before = pc.color_probe.launches
+    got = pc.color_probe(x)
+    torch.cuda.synchronize()
+    assert pc.color_probe.launches == before + 1
+    for a, b in zip(got, pc.color_probe_ref(x)):
+        assert torch.equal(a, b)
+    if case == "probe":
+        assert pc.mismatches(got, x) == {"y": 1, "cr": 0, "cb": 3}
+
+
+def test_color_probe_refusals_and_attributes(cuda):
+    from lz4jpeg_tpu_torch.profiles import pallas_color as pc
+
+    lib = pc.load_kernel()
+    stream = torch.cuda.current_stream(cuda).cuda_stream
+    x = torch.zeros((4, 6, 3), dtype=torch.uint8, device=cuda)
+    y = torch.empty((64,), dtype=torch.int16, device=cuda)
+    with pytest.raises(ValueError):
+        pc.color_probe(x[:, :3].contiguous())
+    with pytest.raises(TypeError):
+        pc.color_probe(x.to(torch.int16))
+    assert lib.rgb_color_launch(x.data_ptr(), y.data_ptr(), y.data_ptr(),
+                                y.data_ptr(), 4, 3, stream) != 0
+    assert lib.rgb_color_launch(x.data_ptr(), y.data_ptr() + 2, y.data_ptr(),
+                                y.data_ptr(), 4, 6, stream) != 0
+    a = pc.attributes(cuda)
+    assert a["registers"] > 0 and a["ctas_per_sm"] > 0
+
+
+@pytest.mark.parametrize("shape,tw", [((4, 2048, 2048), 8), ((4, 2048, 1024), 4),
+                                      ((16, 20), 4), ((8, 24), 8),
+                                      ((3, 24, 4104), 8), ((1, 8, 2064), 4),
+                                      ((2, 8, 4), 4)])
+def test_mcu_relayout_matches_plain(cuda, shape, tw):
+    from lz4jpeg_tpu_torch.ops.color import split_mcus
+    from lz4jpeg_tpu_torch.profiles import mcu_relayout as mr
+
+    x = torch.from_numpy(np.random.default_rng(tw).integers(
+        0, 256, size=shape, dtype=np.uint8)).to(cuda)
+    for v in (x, _offset(x)):
+        before = mr.mcu_relayout.launches
+        got = mr.mcu_relayout(v, tw)
+        torch.cuda.synchronize()
+        assert mr.mcu_relayout.launches == before + 1
+        assert torch.equal(got, mr.mcu_relayout_ref(v, tw))
+    if tw == 8:
+        want = split_mcus(x, x[..., ::2], x[..., ::2])[0]
+    else:
+        want = split_mcus(x.repeat_interleave(2, dim=-1), x, x)[1]
+    assert torch.equal(got, want.reshape(got.shape))
+
+
+def test_mcu_relayout_refusals_and_attributes(cuda):
+    from lz4jpeg_tpu_torch.profiles import mcu_relayout as mr
+
+    lib = mr.load_kernel()
+    stream = torch.cuda.current_stream(cuda).cuda_stream
+    x = torch.zeros((8, 40), dtype=torch.uint8, device=cuda)
+    with pytest.raises(ValueError):
+        mr.mcu_relayout(x, 5)
+    with pytest.raises(ValueError):
+        mr.mcu_relayout(x[:, :36], 8)
+    with pytest.raises(ValueError):
+        mr.mcu_relayout(x[:4], 8)
+    y = torch.empty((8, 48), dtype=torch.uint8, device=cuda)
+    for args in ((1, 40, 5), (1, 36, 8), (-1, 40, 8), (1, 0, 4)):
+        assert lib.mcu_relayout_launch(x.data_ptr(), y.data_ptr(), *args,
+                                       stream) != 0
+    for src, dst in ((x.data_ptr() + 4, y.data_ptr()),
+                     (x.data_ptr(), y.data_ptr() + 8)):  # off 16 bytes
+        assert lib.mcu_relayout_launch(src, dst, 1, 32, 8, stream) != 0
+    for tw in mr.WIDTHS:
+        assert mr.attributes(tw, cuda)["ctas_per_sm"] > 0
+
+
+@pytest.mark.parametrize("blocks,p", [(2, 4096), (1, 2048), (3, 16_384),
+                                      (1, 65_536)])
+def test_onehot_gather_matches_plain(cuda, blocks, p):
+    from lz4jpeg_tpu_torch.profiles import onehot_gather as og
+
+    gen = torch.Generator(device=cuda).manual_seed(p)
+    root = torch.randint(-300, p + 300, (blocks, p), dtype=torch.int32,
+                         device=cuda, generator=gen)
+    lit = torch.randint(0, 256, (blocks, p), dtype=torch.uint8, device=cuda,
+                        generator=gen)
+    for k in og.KERNELS:
+        if p % k.step:
+            continue
+        for r in (root, _offset(root)):
+            before = og.onehot_gather.launches
+            got = og.onehot_gather(r, lit, k.name)
+            torch.cuda.synchronize()
+            assert og.onehot_gather.launches == before + 1
+            assert torch.equal(got, og.onehot_gather_ref(r, lit, k.name)), k.name
+
+
+@pytest.mark.parametrize("engine", ["device", "native"])
+def test_onehot_gather_rows_equal_torch_gather_on_text(cuda, engine):
+    from lz4jpeg_tpu_torch.ops.lz4t_decode import _trim_rows
+    from lz4jpeg_tpu_torch.profiles import onehot_gather as og
+    from lz4jpeg_tpu_torch.profiles.lz4t_mxu_gather import rooted_program
+
+    text = generate_text(200_000, np.random.default_rng(9))
+    frame = LZ4Codec(LZ4Config(mode="fast"), device=cuda).encode(
+        text, engine=engine)
+    lit, root, sizes, p, _ = rooted_program(frame)
+    lit, root = torch.from_numpy(lit).to(cuda), torch.from_numpy(root).to(cuda)
+    want = torch.gather(lit, 1, root.long())
+    for row in og.ROWS:
+        got = og.row_output(row, root, lit)
+        torch.cuda.synchronize()
+        assert torch.equal(got, og.row_output(row, root, lit,
+                                              og.onehot_gather_ref)), row.name
+        if og.BY_NAME[row.kernel].cut == og.FULL:
+            assert torch.equal(got.to(torch.uint8), want), row.name
+            assert _trim_rows(got.to(torch.uint8).cpu().numpy(), sizes) == text
+
+
+def test_onehot_gather_refusals_and_attributes(cuda):
+    from lz4jpeg_tpu_torch.profiles import onehot_gather as og
+
+    lib = og.load_kernel()
+    stream = torch.cuda.current_stream(cuda).cuda_stream
+    root = torch.zeros((1, 4096), dtype=torch.int32, device=cuda)
+    lit = torch.zeros((1, 4096), dtype=torch.uint8, device=cuda)
+    with pytest.raises(ValueError):
+        og.onehot_gather(root[:, :3072].contiguous(), lit[:, :3072].contiguous(),
+                         "hl_bf16_full_2048")
+    with pytest.raises(ValueError):
+        og.onehot_gather(root, lit, "g5")
+    for args in ((9, 1, 4096), (1, 1, 3072), (6, 1, 2048), (1, -1, 4096),
+                 (1, 1, 131_072)):
+        i, b, p = args
+        assert lib.onehot_gather_launch(i, root.data_ptr(), lit.data_ptr(),
+                                        root.data_ptr(), b, p, stream) != 0
+    assert lib.onehot_gather_launch(1, root.data_ptr(), lit.data_ptr() + 1,
+                                    root.data_ptr(), 1, 4096, stream) != 0
+    for k in og.KERNELS:
+        a = og.attributes(k.name, cuda)
+        assert a["registers"] > 0 and a["ctas_per_sm"] > 0, k.name
+
+
+def test_colour_and_gather_runners_on_the_card(cuda, tmp_path):
+    import json
+
+    from lz4jpeg_tpu_torch.profiles.colorsplit3 import run_colorsplit3
+    from lz4jpeg_tpu_torch.profiles.lz4t_mxu_gather import run_lz4t_mxu_gather
+    from lz4jpeg_tpu_torch.profiles.pallas_color import run_pallas_color
+
+    out = tmp_path / "c.json"
+    c = run_pallas_color(cuda, frames=1, side=256, cube_rows=16, runs=1,
+                         reps=1, output=str(out))
+    assert json.loads(out.read_text())["card"]
+    assert c["timed"]["ms"] > 0 and c["timed"]["launches"] > 0
+    s = run_colorsplit3(cuda, frames=1, side=256, runs=1, reps=1)
+    assert s["checks"]["C"]["mismatches"] == 0 and len(s["rows"]) == 6
+    assert all(r["ms"] > 0 and r["launches"] > 0 for r in s["relayout"])
+    g = run_lz4t_mxu_gather(cuda, text_bytes=200_000, runs=1, reps=1)
+    assert len(g["rows"]) == 10 and all(r["ms"] > 0 for r in g["rows"])
+    assert all(r["launches"] > 0 for r in g["rows"])

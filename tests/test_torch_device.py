@@ -184,6 +184,13 @@ assert casts.cast(torch.zeros(4, dtype=torch.bfloat16), torch.float32).dtype == 
 assert dct_gates.basis_dot(torch.zeros((2, 64)), dct_gates.luma_basis()).shape == (2, 64)
 assert dct_gates.minor_transpose(torch.zeros((1, 3, 2))).shape == (1, 2, 3)
 assert dct_gates.lane_split(torch.zeros((2, 16)), 8).shape == (2, 2, 8)
+from lz4jpeg_tpu_torch.profiles import mcu_relayout, onehot_gather, pallas_color
+y, cr, cb = pallas_color.color_probe(torch.zeros((2, 4, 3), dtype=torch.uint8))
+assert y.shape == (2, 4) and cr.shape == cb.shape == (2, 2) and y.dtype == torch.int16
+assert mcu_relayout.mcu_relayout(torch.zeros((2, 8, 16), dtype=torch.uint8), 4).shape == (8, 32)
+got = onehot_gather.onehot_gather(torch.arange(2048, dtype=torch.int32)[None],
+                                  torch.full((1, 2048), 7, dtype=torch.uint8), "lt_i8_full_2048")
+assert (got == 7).all()
 assert "jax" not in sys.modules and "lz4jpeg_tpu" not in sys.modules
 print("ok")
 """
