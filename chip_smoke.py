@@ -271,13 +271,17 @@ another checkout's.
     2,097,152 rows and an offset view, cuBLAS too, the outputs that differ
     from cuBLAS and the largest difference in ulp printed; the transpose
     identical at the probe's (8, 256, 8) and (8, 128, 4), ragged shapes,
-    tw 1 and 64, the timed bands and an offset view; the lane split on the
+    tw 1 and 64, the timed bands and an offset view, and on both routes
+    (``TRANSPOSE_ROUTES``: tw 2, 4 and 8 at bw 128, 256 and 132 on the
+    vector route; bw 130, tw 3, 16 and 64 on the tile route), each
+    shape's route counted and every route's count checked; the lane split on the
     stream-copy kernel identical at (8, 2048), (5, 7) and (32,768, 2048)
     and in offset views; five shapes refused by the wrapper and by the C
     entry point; registers, shared memory and CTAs per SM of every
-    instantiation; then the four runners at their defaults
-    (``BUTTERFLY_RUN``, ``PLANE_EXACT_RUN``, ``CASTS_RUN``, ``GATES_RUN``),
-    each wrapper's count set to 0 just before its run and read just after;
+    instantiation (both transpose routes); then the four runners at their
+    defaults (``BUTTERFLY_RUN``, ``PLANE_EXACT_RUN``, ``CASTS_RUN``,
+    ``GATES_RUN``), each wrapper's count (and the transpose's per-route
+    counts) set to 0 just before its run and read just after;
 27. the colour probe and the MCU relayout (``profiles/pallas_color.py``,
     ``mcu_relayout.py``): the colour kernel
     (``csrc/rgb_color_probe_kernel.cu``) identical to its plain version
@@ -296,13 +300,15 @@ another checkout's.
 28. the one-hot gathers (``profiles/onehot_gather.py``): every
     instantiation of ``csrc/onehot_gather_kernel.cu`` identical to its
     plain version (the dense product in float64) on ``GATHER_SYNTHETIC``
-    roots (some outside [0, P)) and on an offset view of them, three
-    refusals by the wrapper and the C entry point, every instantiation's
-    registers, shared memory and CTAs per SM; then the runner of the four
-    probes' ten rows at its defaults (``MXU_GATHER_RUN``: 4 MiB of
-    generated text, 64 KiB blocks; every full row equal to
-    ``torch.gather`` and the text), the gather's and K3's counts set to 0
-    just before and read just after.
+    roots (some outside [0, P); 1, 3 and 133 blocks at P = 2,048, 4,096
+    and 65,536, so that the persistent CTAs' runs of steps cross blocks)
+    and on an offset view of them, three refusals by the wrapper and the C
+    entry point, every instantiation's registers, shared memory and CTAs
+    per SM; then the runner of the four probes' ten rows at its defaults
+    (``MXU_GATHER_RUN``: 4 MiB of generated text, 64 KiB blocks; every
+    full row equal to ``torch.gather`` and the text; each row's time with
+    its torch code and the kernel's alone printed), the gather's and K3's
+    counts set to 0 just before and read just after.
 
 The line before the last is the kernels' JSON record: per kernel (the
 packed16 kernels once per timed channel and input dtype) its launches on
@@ -486,6 +492,11 @@ DOT_ROWS = (512, 1, 65, 4099, 2_097_152)
 TRANSPOSE_SHAPES = ((8, 256, 8), (8, 128, 4), (3, 7, 5), (2, 1000, 64),
                     (1, 1, 1), (5, 129, 3), (4, 300, 33), (32_768, 256, 8),
                     (32_768, 128, 4))
+# (B, bw, tw) on each route of the transpose: vector (tw 2, 4, 8, bw % 4
+# == 0) and tile (ragged bw, other tw).
+TRANSPOSE_ROUTES = ((8, 128, 2), (8, 256, 2), (8, 132, 2), (8, 256, 4),
+                    (8, 132, 4), (8, 128, 8), (8, 132, 8), (8, 130, 4),
+                    (8, 130, 8), (8, 128, 3), (8, 128, 16), (8, 128, 64))
 SPLIT_SHAPES = (((8, 2048), 8), ((5, 7), 7), ((32_768, 2048), 8))
 CAST_RAGGED = 1_000_003  # phase 26's random cast inputs, off every vector
 BUTTERFLY_RUN = {}  # the four runners' defaults: (64, 2,097,152) int32,
@@ -502,8 +513,11 @@ COLOR_SHAPES = ((3, 130, 3), (1, 2, 3), (5, 18, 3), (2, 64, 2048, 3))
 RELAYOUT_SHAPES = (((32, 2048, 2048), 8), ((32, 2048, 1024), 4),
                    ((16, 20), 4), ((8, 24), 8), ((3, 24, 4104), 8),
                    ((1, 8, 2064), 4))
-# Phase 28's synthetic roots: (blocks, P), some outside [0, P).
-GATHER_SYNTHETIC = ((2, 4096), (1, 2048), (3, 16_384))
+# Phase 28's synthetic roots: (blocks, P), some outside [0, P); 1, 3 and
+# 133 blocks do not divide among the resident CTAs, so runs cross blocks.
+GATHER_SYNTHETIC = ((2, 4096), (3, 16_384), (1, 2048), (3, 2048),
+                    (133, 2048), (1, 4096), (3, 4096), (133, 4096),
+                    (1, 65_536), (3, 65_536), (133, 65_536))
 COLOR_PROBE_RUN = {}  # the runners' defaults: 32 × 2048² and the cube,
 COLORSPLIT_RUN = {}  # 32 noise frames of 2048²,
 MXU_GATHER_RUN = {}  # 4 MiB of generated text, 64 KiB blocks
@@ -3392,17 +3406,26 @@ def gates_phase(dev):
              e["within"] and p_e["within"], d)
         del x, got, plain
 
-    # -- the transpose and the split ----------------------------------------
-    for shape in (*TRANSPOSE_SHAPES, "offset view"):
-        x = dg.device_pixels((6, 131, 8) if shape == "offset view" else shape,
-                             dev, SEED)
-        if shape == "offset view":
+    # -- the transpose on both routes, and the split ------------------------
+    routes_before = dict(dg.minor_transpose.routes)
+    want_routes = dict.fromkeys(dg.ROUTES, 0)
+    offsets = {"offset view": (6, 131, 8), "offset view bw 132": (6, 132, 8)}
+    for shape in (*TRANSPOSE_SHAPES, *TRANSPOSE_ROUTES, *offsets):
+        x = dg.device_pixels(offsets.get(shape, shape), dev, SEED)
+        if shape in offsets:
             x = offset_view(x)
         got = dg.minor_transpose(x)
         torch.cuda.synchronize()
-        held("minor_transpose", f"transpose {shape}",
+        route = dg.transpose_route(*x.shape, x.data_ptr(), got.data_ptr())
+        want_routes[route] += 1
+        held("minor_transpose", f"transpose {shape} ({route} route)",
              torch.equal(got, dg.minor_transpose_ref(x)))
         del x, got
+    routes = {r: dg.minor_transpose.routes[r] - routes_before[r]
+              for r in dg.ROUTES}
+    print(f"phase 26: transpose launches by route {routes}")
+    check(routes == want_routes and all(routes.values()),
+          f"phase 26: transpose routes {routes}, want {want_routes}")
     for shape, tw in SPLIT_SHAPES:
         x = dg.device_pixels(shape, dev, SEED)
         for tag, v in (("", x), (" offset view", offset_view(x))):
@@ -3456,6 +3479,9 @@ def gates_phase(dev):
     attrs["basis_dot"] = dg.attributes(dg.DOT, device=dev)
     attrs.update({f"transpose tw {tw}": dg.attributes(dg.TRANSPOSE, tw, dev)
                   for tw in (8, 4)})
+    attrs.update({f"transpose vector route tw {tw}":
+                  dg.attributes(dg.TRANSPOSE_VEC, tw, dev)
+                  for tw in dg.VECTOR_TW})
     for name, a in attrs.items():
         print(f"phase 26: {name}: regs {a['registers']}, smem "
               f"{a['shared_bytes']} B, CTAs/SM {a['ctas_per_sm']}")
@@ -3472,7 +3498,12 @@ def gates_phase(dev):
         "gates": (dg.run_dct_gates, GATES_RUN,
                   (dg.basis_dot, dg.minor_transpose, stream_copy)),
     }
-    results, launches = probe_runner_runs(26, runners, dev, t_phase)
+    dg.minor_transpose.routes = dict.fromkeys(dg.ROUTES, 0)  # only the gates
+    results, launches = probe_runner_runs(26, runners, dev, t_phase)  # call it
+    run_routes = dict(dg.minor_transpose.routes)
+    print(f"phase 26: the gates runner's transposes by route {run_routes}")
+    check(run_routes["vector"] > 0,
+          "phase 26: the gates runner's bands missed the vector route")
 
     bfly, plane = results["butterfly"], results["plane_exact"]
     by_pair = {r["pair"]: r for r in results["casts"]["pairs"]}
@@ -3528,9 +3559,11 @@ def gates_phase(dev):
          "ms": timed[1]["ms"], "plain_ms": timed[1]["plain_ms"],
          "bound_ms": timed[1]["bound_ms"], "bound_by": "bytes",
          "library_ms": timed[1]["library_ms"], "library": timed[1]["library"],
-         "variants": [{k: r[k] for k in ("shape", "ms", "plain_ms", "bound_ms",
-                                         "share", "registers", "shared_bytes",
-                                         "ctas_per_sm")} for r in timed[1:3]]},
+         "route": timed[1]["route"], "routes": run_routes,
+         "variants": [{k: r[k] for k in ("shape", "route", "ms", "plain_ms",
+                                         "bound_ms", "share", "registers",
+                                         "shared_bytes", "ctas_per_sm")}
+                      for r in timed[1:3]]},
         {"name": "lane_split", "route": "cuda", "source": COPY_SOURCE,
          "replaces": "profiles/profile_fused_dct_gates.py:70",
          "launches": launches["gates"]["stream_copy"],
@@ -3821,14 +3854,21 @@ def gather_phase(dev):
             "launches": sum(x["launches"] + x["check_launches"] for x in rows),
             "max_abs_err": float(max(err[x["kernel"]] for x in rows)),
             "row": head, "kernel": r["kernel"],
-            "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": b_ms,
+            "ms": r["ms"], "kernel_ms": r["kernel_ms"],
+            "plain_ms": r["plain_ms"], "bound_ms": b_ms,
             "bound_by": b_by, "library_ms": comp["gather_ms"],
             "library": "torch.gather on int64 roots", "k3_ms": comp["k3_ms"],
             "doubling_ms": comp["doubling_ms"],
             "variants": [{k: x.get(k) for k in (
-                "row", "kernel", "ms", "plain_ms", "launches", "bound_ms",
-                "bound_by", "issue_bound_ms", "share", "registers",
-                "shared_bytes", "ctas_per_sm")} for x in rows]})
+                "row", "kernel", "ms", "kernel_ms", "plain_ms", "launches",
+                "bound_ms", "bound_by", "issue_bound_ms", "share",
+                "kernel_share", "registers", "shared_bytes", "ctas_per_sm")}
+                for x in rows]})
+    for x in res["rows"]:
+        alone = x["kernel_ms"]
+        print(f"phase 28: {x['row']}: row {x['ms']:.4f} ms (its torch code "
+              f"included), kernel alone "
+              + ("not measured" if alone is None else f"{alone:.4f} ms"))
     print(f"phase 28: K3 {comp['k3_ms']:.4f} ms, torch.gather "
           f"{comp['gather_ms']:.4f}, pointer doubling {comp['doubling_ms']:.4f}"
           f"; launches {launches}")

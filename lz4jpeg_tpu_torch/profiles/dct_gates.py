@@ -10,7 +10,12 @@ asked whether Mosaic could build a fused plane → packed16 forward:
   and library call: ``torch.matmul(x, m.T)`` with TF32 off (cuBLAS);
 * ``minor_transpose(x)``: (B, bw, tw) → (B, tw, bw) float32, any bw ≥ 1
   and 1 ≤ tw ≤ 64 (``tr_kernel``, :56); plain version and library call:
-  ``x.transpose(1, 2).contiguous()``;
+  ``x.transpose(1, 2).contiguous()``.  Two routes, chosen by shape and
+  alignment alone (``transpose_route``): the barrier-free vector route for
+  tw 2, 4 and 8 with bw % 4 == 0 and both bases 16-byte aligned (float4
+  loads, lane swaps by shuffle, float4 stores; ``emulate_vector_route``
+  mirrors its lanes in numpy), the shared-tile route otherwise;
+  ``minor_transpose.routes`` counts the launches of each;
 * ``lane_split(x, tw)``: (..., W) → (..., W / tw, tw) float32
   (``split_kernel``, :75).  Row-major, the split moves no byte, so it is a
   copy of the bytes into the split view on P-copy's kernel
@@ -65,7 +70,9 @@ from lz4jpeg_tpu_torch.profiles import timing
 DEPTH = 64  # the basis product's k and j
 MAX_TW = 64
 FP32_FLOP_PER_S = 67e12  # H100 SXM fp32 outside the tensor cores (data sheet)
-DOT, TRANSPOSE = 0, 1  # csrc/dct_gate_kernel.cu's attribute ids
+DOT, TRANSPOSE, TRANSPOSE_VEC = 0, 1, 2  # csrc/dct_gate_kernel.cu's ids
+ROUTES = ("tile", "vector")  # minor_transpose_route's answers 0 and 1
+VECTOR_TW = (2, 4, 8)
 BANDS = {"lum": (256, 8), "chr": (128, 4)}  # (bw, tw) of the probe's bands
 
 
@@ -141,6 +148,11 @@ def load_kernel() -> ctypes.CDLL:
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64, ctypes.c_int64,
         ctypes.c_int, ctypes.c_void_p,
     ]
+    lib.minor_transpose_route.restype = ctypes.c_int
+    lib.minor_transpose_route.argtypes = [
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64, ctypes.c_int64,
+        ctypes.c_int,
+    ]
     timing.bind_attributes(lib, "dct_gate_attributes", n_args=2)
     lib.dct_gate_error_string.restype = ctypes.c_char_p
     lib.dct_gate_error_string.argtypes = [ctypes.c_int]
@@ -168,8 +180,10 @@ def basis_dot(x: torch.Tensor, m: torch.Tensor) -> torch.Tensor:
 
 def minor_transpose(x: torch.Tensor) -> torch.Tensor:
     """(B, bw, tw) float32 → (B, tw, bw).  A CPU tensor runs
-    ``minor_transpose_ref``; a CUDA tensor launches the transpose kernel and
-    adds one to ``minor_transpose.launches``."""
+    ``minor_transpose_ref``; a CUDA tensor launches the transpose kernel on
+    the route the entry point takes (``minor_transpose_route``), adds one
+    to ``minor_transpose.launches`` and to that route's count in
+    ``minor_transpose.routes``."""
     x = _bands(x)
     dev = _check_device(x)
     if dev.type == "cpu":
@@ -177,15 +191,68 @@ def minor_transpose(x: torch.Tensor) -> torch.Tensor:
     b, bw, tw = x.shape
     out = torch.empty((b, tw, bw), dtype=torch.float32, device=dev)
     if b:
-        _launch(load_kernel(), "minor_transpose_launch",
-                "dct_gate_error_string", dev, x.data_ptr(), out.data_ptr(), b,
-                bw, tw)
+        lib = load_kernel()
+        route = ROUTES[lib.minor_transpose_route(x.data_ptr(), out.data_ptr(),
+                                                 b, bw, tw)]
+        _launch(lib, "minor_transpose_launch", "dct_gate_error_string", dev,
+                x.data_ptr(), out.data_ptr(), b, bw, tw)
         minor_transpose.launches += 1
+        minor_transpose.routes[route] += 1
     return out
 
 
 for _wrapper in (basis_dot, minor_transpose):
     _wrapper.launches = 0
+minor_transpose.routes = dict.fromkeys(ROUTES, 0)
+
+
+def transpose_route(b: int, bw: int, tw: int, in_ptr: int,
+                    out_ptr: int) -> str:
+    """The route ``csrc/dct_gate_kernel.cu::vector_route`` picks: "vector"
+    for tw 2, 4 or 8, bw % 4 == 0, both addresses 16-byte aligned and
+    fewer than 2³² four-column groups; "tile" otherwise."""
+    vector = (tw in VECTOR_TW and bw % 4 == 0 and in_ptr % 16 == 0
+              and out_ptr % 16 == 0 and b * (bw // 4) < 1 << 32)
+    return ROUTES[vector]
+
+
+def emulate_vector_route(x: torch.Tensor) -> torch.Tensor:
+    """The vector route's lanes in numpy: each float4 of ``x`` (B, bw, tw)
+    in lane f % 32, the bit swaps of ``swap_bits`` as exchanges between
+    lanes, each lane's float4 stored at its row and group; returns the
+    (B, tw, bw) output."""
+    b, bw, tw = _bands(x).shape
+    if tw not in VECTOR_TW or bw % 4:
+        raise ValueError(f"the vector route takes tw in {VECTOR_TW} and bw % "
+                         f"4 == 0, got {tuple(x.shape)}")
+    v = x.contiguous().numpy().reshape(-1, 4).copy()  # float4 f, lane f % 32
+    lane = np.arange(v.shape[0]) % 32
+
+    def swap(lane_bit, elem_bit):
+        mine = ((lane >> lane_bit) & 1).astype(bool)[:, None]
+        partner = np.arange(v.shape[0]) ^ (1 << lane_bit)
+        for e in range(4):
+            if e & (1 << elem_bit):
+                continue
+            lo, hi = v[:, e].copy(), v[:, e | 1 << elem_bit].copy()
+            got = np.where(mine[:, 0], lo, hi)[partner]
+            v[:, e] = np.where(mine[:, 0], got, lo)
+            v[:, e | 1 << elem_bit] = np.where(mine[:, 0], hi, got)
+
+    swaps = {2: ((0, 0),), 4: ((0, 0), (1, 1)), 8: ((1, 0), (2, 1))}[tw]
+    for lane_bit, elem_bit in swaps:
+        swap(lane_bit, elem_bit)
+    if tw == 2:
+        row, v = lane & 1, v[:, [0, 2, 1, 3]]
+    elif tw == 4:
+        row = lane & 3
+    else:
+        row = 4 * (lane & 1) + 2 * ((lane >> 2) & 1) + ((lane >> 1) & 1)
+    u = np.arange(v.shape[0]) // tw
+    batch, group = u // (bw // 4), u % (bw // 4)
+    out = np.empty((b, tw, bw), np.float32)
+    out[batch[:, None], row[:, None], 4 * group[:, None] + np.arange(4)] = v
+    return torch.from_numpy(out)
 
 
 def lane_split(x: torch.Tensor, tw: int) -> torch.Tensor:
@@ -200,8 +267,9 @@ def lane_split(x: torch.Tensor, tw: int) -> torch.Tensor:
 
 
 def attributes(kernel: int, tw: int = 8, device="cuda") -> Dict:
-    """Registers, shared memory and CTAs per SM of ``DOT`` or ``TRANSPOSE``
-    (its shared tile at ``tw``); None on the CPU."""
+    """Registers, shared memory and CTAs per SM of ``DOT``, ``TRANSPOSE``
+    (the tile route, its shared tile at ``tw``) or ``TRANSPOSE_VEC`` (the
+    vector route at ``tw``); None on the CPU."""
     return timing.attributes(load_kernel, "dct_gate_attributes",
                              "dct_gate_error_string", (kernel, tw),
                              torch.device(device))
@@ -358,14 +426,20 @@ def run_dct_gates(device="cuda", rows: int = 2_097_152, bands: int = 32_768,
     del x
     for tag, (bw, tw) in BANDS.items():
         x = device_pixels((bands, bw, tw), dev, seed + tw)
-        if not torch.equal(minor_transpose(x), minor_transpose_ref(x)):
+        got = minor_transpose(x)
+        if not torch.equal(got, minor_transpose_ref(x)):
             raise AssertionError(f"transpose {tuple(x.shape)} differs")
+        route = (transpose_route(bands, bw, tw, x.data_ptr(), got.data_ptr())
+                 if dev.type == "cuda" else None)
+        del got
         timed.append(_row(
             f"transpose {tag} ({bands}, {bw}, {tw})",
             "profile_fused_dct_gates.py:56", minor_transpose, minor_transpose,
             minor_transpose_ref, None, "x.transpose(1, 2).contiguous()", x,
-            moved_bound_ms(x), "bytes", attributes(TRANSPOSE, tw, dev), dev,
-            runs, reps))
+            moved_bound_ms(x), "bytes",
+            attributes(TRANSPOSE_VEC if route == "vector" else TRANSPOSE, tw,
+                       dev), dev, runs, reps))
+        timed[-1]["route"] = route
         del x
     x = device_pixels((bands, 2048), dev, seed + 1)
     if not torch.equal(lane_split(x, 8), lane_split_ref(x, 8)):

@@ -18,7 +18,9 @@ every full row to ``torch.gather`` of the literals at the roots and, with
 the rows trimmed to the blocks' sizes, to the input text.  Then each row is
 timed as the probe timed it (its torch code around the kernel included:
 the literal operand's cast or transpose, g2's transposes, the uint8 cast),
-beside its plain version, and, as the probe's own comparisons (:133-144),
+beside the kernel alone (``kernel_ms``: on the operand and the roots
+prepared before, ``onehot_gather_prepared``; on the card only) and its
+plain version, and, as the probe's own comparisons (:133-144),
 the rooted-resolve kernel K3 (``ops/lz4t_decode.py::resolve_rooted``),
 ``torch.gather`` on int64 roots (the library call) and the pointer doubling
 ``resolve_blocks`` of the program at ``depth_cap=4``.  Times:
@@ -54,11 +56,14 @@ from lz4jpeg_tpu_torch.profiles.onehot_gather import (
     LANES,
     ROWS,
     attributes,
+    literal_operand,
     onehot_gather,
+    onehot_gather_prepared,
     onehot_gather_ref,
     row_bound,
     row_bytes,
     row_output,
+    row_roots,
 )
 from lz4jpeg_tpu_torch.utils.inputs import generate_text
 
@@ -123,6 +128,14 @@ def run_lz4t_mxu_gather(device="cuda", corpus: Optional[bytes] = None,
         ms = timing.time_ms(lambda r, row=row: row_bytes(row, r, lit), root,
                             dev, reps=reps, runs=runs,
                             kernel=onehot_gather if cuda else None)
+        kernel_ms = None
+        if cuda:
+            op = literal_operand(lit, spec)
+            kernel_ms = timing.time_ms(
+                lambda r, row=row, op=op: onehot_gather_prepared(
+                    r, op, row.kernel), row_roots(row, root).contiguous(),
+                dev, reps=reps, runs=runs, kernel=onehot_gather)
+            del op
         plain_ms = timing.time_ms(
             lambda r, row=row: row_output(row, r, lit, onehot_gather_ref)
             .to(torch.uint8), root, dev, reps=1, runs=runs)
@@ -131,16 +144,19 @@ def run_lz4t_mxu_gather(device="cuda", corpus: Optional[bytes] = None,
                      "checked": "identical to plain" + (
                          ", torch.gather and the text" if spec.cut == FULL
                          else ""),
-                     key: ms, f"plain_{key}": plain_ms,
+                     key: ms, "kernel_ms": kernel_ms, f"plain_{key}": plain_ms,
                      "launches": onehot_gather.launches - before - checked,
                      "check_launches": checked, **bound,
                      "share": bound["bound_ms"] / ms if cuda else None,
+                     "kernel_share": (bound["bound_ms"] / kernel_ms
+                                      if cuda else None),
                      "mb_per_s": outputs / ms / 1e3,
                      **attributes(row.kernel, dev)})
         r = rows[-1]
         print(f"{row.name:14s} {ms:9.4f} ms  {r['mb_per_s']:9.1f} MB/s  plain "
               f"{plain_ms:9.4f}"
               + ("" if r["share"] is None else
+                 f"  kernel alone {kernel_ms:.4f}"
                  f"  {r['share']:.1%} of {r['bound_ms']:.4f} "
                  f"({r['bound_by']})  regs {r['registers']}  smem "
                  f"{r['shared_bytes']}  ctas/SM {r['ctas_per_sm']}"),

@@ -1,0 +1,104 @@
+"""The instruction mix of each kernel's innermost loops, from its SASS.
+
+    python -m lz4jpeg_tpu_torch.profiles.sass_loops SOURCE [SOURCE ...]
+        [--output F.json]
+
+SOURCE names a file ``lz4jpeg_tpu_torch/csrc/SOURCE.cu``.  Each is
+compiled and disassembled by ``sass_diff.py``'s own step (``nvcc -cubin``
+with ``kernels/build.py``'s device flags, then ``cuobjdump -sass``); a
+loop is a branch back to an earlier instruction (sm_90 instructions are 16
+bytes apart, so a target address is an instruction index times 16), and
+an innermost loop one that holds no other.  For every kernel it prints
+each innermost loop's length and its tensor-core instructions (``HMMA``,
+``IMMA``), shared-memory fragment loads (``LDSM``), shared stores and loads
+(``STS``, ``LDS``), generic loads (``LD``: what ``nvcuda::wmma`` fragment
+loads became), global loads (``LDG``) and shuffles (``SHFL``).  The one-hot
+gathers' k-loop is the innermost loop with ``HMMA`` or ``IMMA``: two
+k-slices an iteration.  Needs the CUDA toolkit (``nvcc``, ``cuobjdump``,
+``cu++filt``), not a card.
+"""
+
+from __future__ import annotations
+
+import argparse
+import importlib.util
+import json
+import re
+import sys
+import tempfile
+from pathlib import Path
+from typing import Dict, List
+
+REPO = Path(__file__).resolve().parents[2]
+COUNTED = ("HMMA", "IMMA", "LDSM", "STS", "LDS", "LD", "LDG", "SHFL")
+_TARGET = re.compile(r"0x([0-9a-f]+)\s*$")
+
+
+def opcode(instruction: str) -> str:
+    """The opcode of a SASS instruction without its predicate and
+    modifiers: ``@!P0 LDSM.16.MT88.4 R4, [R2]`` → ``LDSM``."""
+    words = instruction.split()
+    if words and words[0].startswith("@"):
+        words = words[1:]
+    return words[0].split(".")[0] if words else ""
+
+
+def loops(instructions: List[str]) -> List[Dict]:
+    """The innermost loops of a function's instructions: each as its first
+    and last index, its length and the count of every opcode of
+    ``COUNTED``, both over the instructions that can execute (ptxas pads
+    each ``LDGSTS`` with ``@!PT LDS``, never executed)."""
+    spans = []
+    for i, ins in enumerate(instructions):
+        m = _TARGET.search(ins)
+        if opcode(ins) == "BRA" and m and int(m.group(1), 16) // 16 < i:
+            spans.append((int(m.group(1), 16) // 16, i))
+    inner = [s for s in spans
+             if not any(o != s and s[0] <= o[0] and o[1] <= s[1]
+                        for o in spans)]
+    result = []
+    for first, last in sorted(set(inner)):
+        ops = [opcode(x) for x in instructions[first:last + 1]
+               if not x.startswith("@!PT ")]  # never executed
+        result.append({"first": first, "last": last, "length": len(ops),
+                       **{c: ops.count(c) for c in COUNTED}})
+    return result
+
+
+def _sass_diff():
+    spec = importlib.util.spec_from_file_location("sass_diff",
+                                                  REPO / "sass_diff.py")
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+def source_loops(source: str) -> Dict[str, List[Dict]]:
+    """{demangled kernel: its innermost loops} of ``csrc/{source}.cu``."""
+    sd = _sass_diff()
+    with tempfile.TemporaryDirectory() as tmp:
+        functions = sd.sass(REPO, source, Path(tmp))
+    names = sd.demangle(list(functions))
+    return {name: loops(ins) for name, ins in zip(names, functions.values())}
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("sources", nargs="+", help="csrc file names without .cu")
+    ap.add_argument("--output", help="write the loops as JSON here")
+    args = ap.parse_args(argv)
+    found = {}
+    for source in args.sources:
+        found[source] = source_loops(source)
+        for name, inner in found[source].items():
+            for lp in inner:
+                mix = ", ".join(f"{c} {lp[c]}" for c in COUNTED if lp[c])
+                print(f"{source}: {name}: loop {lp['first']}-{lp['last']} "
+                      f"({lp['length']} instructions): {mix or 'none counted'}")
+    if args.output:
+        Path(args.output).write_text(json.dumps(found, indent=1))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

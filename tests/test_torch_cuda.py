@@ -1502,3 +1502,76 @@ def test_colour_and_gather_runners_on_the_card(cuda, tmp_path):
     g = run_lz4t_mxu_gather(cuda, text_bytes=200_000, runs=1, reps=1)
     assert len(g["rows"]) == 10 and all(r["ms"] > 0 for r in g["rows"])
     assert all(r["launches"] > 0 for r in g["rows"])
+
+
+# -- the redesigned one-hot gathers and the transpose's two routes ----------------
+# The gathers' persistent CTAs walk contiguous runs of steps and restage a
+# block's slab when a run enters it: block counts that do not divide among
+# the resident CTAs make runs cross blocks.  The transpose takes its vector
+# route for tw 2, 4, 8 with bw % 4 == 0 and 16-byte aligned bases, its tile
+# route otherwise; each route's launches are counted.  Identity throughout.
+
+
+@pytest.mark.parametrize("blocks", [1, 3, 133])
+@pytest.mark.parametrize("p", [2048, 4096, 65_536])
+def test_onehot_gather_runs_that_cross_blocks(cuda, blocks, p):
+    from lz4jpeg_tpu_torch.profiles import onehot_gather as og
+
+    gen = torch.Generator(device=cuda).manual_seed(blocks * p)
+    root = torch.randint(-300, p + 300, (blocks, p), dtype=torch.int32,
+                         device=cuda, generator=gen)
+    lit = torch.randint(0, 256, (blocks, p), dtype=torch.uint8, device=cuda,
+                        generator=gen)
+    for k in og.KERNELS:
+        if p % k.step:
+            continue
+        for r in (root, _offset(root)):
+            want = og.onehot_gather_ref(r, lit, k.name)
+            before = og.onehot_gather.launches
+            got = og.onehot_gather(r, lit, k.name)
+            alone = og.onehot_gather_prepared(
+                r, og.literal_operand(lit, k), k.name)
+            torch.cuda.synchronize()
+            assert og.onehot_gather.launches == before + 2
+            assert torch.equal(got, want), k.name
+            assert torch.equal(alone, want), k.name
+
+
+TRANSPOSE_ROUTES = [((3, 128, 4), "vector"), ((3, 256, 8), "vector"),
+                    ((5, 132, 2), "vector"), ((2, 128, 2), "vector"),
+                    ((4, 256, 4), "vector"), ((2, 132, 8), "vector"),
+                    ((3, 130, 4), "tile"), ((2, 130, 8), "tile"),
+                    ((2, 128, 3), "tile"), ((2, 256, 16), "tile"),
+                    ((2, 128, 64), "tile"), ("offset view", "tile")]
+
+
+@pytest.mark.parametrize("shape,route", TRANSPOSE_ROUTES)
+def test_minor_transpose_takes_its_route(cuda, shape, route):
+    from lz4jpeg_tpu_torch.profiles import dct_gates as dg
+
+    x = dg.device_pixels((5, 128, 4) if shape == "offset view" else shape,
+                         cuda, 7)
+    if shape == "offset view":
+        x = _offset(x)  # 4 bytes off the allocation: the tile route
+    lib = dg.load_kernel()
+    b, bw, tw = x.shape
+    before = dict(dg.minor_transpose.routes)
+    got = dg.minor_transpose(x)
+    torch.cuda.synchronize()
+    assert torch.equal(got, dg.minor_transpose_ref(x))
+    assert dg.minor_transpose.routes[route] == before[route] + 1
+    assert sum(dg.minor_transpose.routes.values()) == sum(before.values()) + 1
+    assert dg.transpose_route(b, bw, tw, x.data_ptr(), got.data_ptr()) == route
+    assert dg.ROUTES[lib.minor_transpose_route(x.data_ptr(), got.data_ptr(),
+                                               b, bw, tw)] == route
+
+
+def test_minor_transpose_vector_route_attributes(cuda):
+    from lz4jpeg_tpu_torch.profiles import dct_gates as dg
+
+    for tw in dg.VECTOR_TW:
+        a = dg.attributes(dg.TRANSPOSE_VEC, tw, cuda)
+        assert a["registers"] > 0 and a["ctas_per_sm"] > 0
+        assert a["shared_bytes"] == 0
+    with pytest.raises(RuntimeError):
+        dg.attributes(dg.TRANSPOSE_VEC, 3, cuda)

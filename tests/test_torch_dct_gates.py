@@ -230,3 +230,52 @@ def test_run_on_the_cpu_writes_only_its_output(tmp_path, monkeypatch):
         [600, 64], [3, 256, 8], [3, 128, 4], [3, 2048]]
     assert all(r["host_ms"] > 0 and r["share"] is None for r in art["timed"])
     assert art["timed"][0]["bound_by"] == "bytes"
+
+
+# -- the transpose's two routes ------------------------------------------------------
+
+
+@pytest.mark.parametrize("shape", [(3, 128, 4), (2, 256, 8), (5, 132, 2),
+                                   (2, 132, 8), (1, 4, 4), (3, 12, 2),
+                                   (4, 8, 8)])
+def test_vector_route_lanes_give_the_transpose(shape):
+    """The vector route's lane swaps, mirrored in numpy, give the probe
+    body's transpose."""
+    xs = np.random.default_rng(sum(shape)).integers(
+        0, 1 << 20, size=shape).astype(np.float32)
+    got = dg.emulate_vector_route(torch.from_numpy(xs))
+    np.testing.assert_array_equal(got.numpy(), xs.transpose(0, 2, 1))
+    if shape in ((3, 128, 4), (2, 256, 8)):
+        np.testing.assert_array_equal(
+            got.numpy(), _interpret(tr_kernel, got.shape, xs))
+
+
+@pytest.mark.parametrize("shape", [(2, 130, 4), (2, 128, 3), (2, 128, 16)])
+def test_vector_route_mirror_refuses_what_the_route_does_not_take(shape):
+    with pytest.raises(ValueError):
+        dg.emulate_vector_route(torch.zeros(shape))
+
+
+@pytest.mark.parametrize("b,bw,tw,in_ptr,out_ptr,route", [
+    (32_768, 128, 4, 0, 1 << 20, "vector"),   # the timed chroma bands
+    (32_768, 256, 8, 256, 512, "vector"),     # the timed luma bands
+    (5, 132, 2, 16, 32, "vector"),
+    (2, 130, 8, 0, 0, "tile"),                # ragged bw
+    (2, 128, 3, 0, 0, "tile"),                # tw outside 2, 4, 8
+    (2, 128, 16, 0, 0, "tile"),
+    (2, 128, 64, 0, 0, "tile"),
+    (2, 128, 4, 4, 0, "tile"),                # a base off 16 bytes
+    (2, 128, 4, 0, 8, "tile"),
+    ((1 << 32) // 32, 128, 4, 0, 0, "tile"),  # 2³² four-column groups
+])
+def test_transpose_route_is_chosen_by_shape_and_alignment(b, bw, tw, in_ptr,
+                                                          out_ptr, route):
+    assert dg.transpose_route(b, bw, tw, in_ptr, out_ptr) == route
+
+
+def test_route_counts_start_at_zero_and_the_cpu_counts_none():
+    assert set(dg.minor_transpose.routes) == set(dg.ROUTES)
+    before = dict(dg.minor_transpose.routes)
+    dg.minor_transpose(torch.zeros((2, 128, 4)))
+    assert dg.minor_transpose.routes == before
+    assert dg.attributes(dg.TRANSPOSE_VEC, 4, "cpu")["registers"] is None

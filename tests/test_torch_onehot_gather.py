@@ -462,3 +462,157 @@ def test_runner_on_the_cpu_writes_only_its_output(tmp_path, monkeypatch):
     assert seen["args"] == ("cpu",) and seen["text_bytes"] == 20_000
     assert (seen["runs"], seen["output"]) == (1, "b.json")
 
+
+
+# -- the kernel's register maps (onehot_gather.py's numpy mirror) -------------
+# The mirror composes the kernel's fragments as the tensor cores read them
+# (PTX ISA layouts of m16n8k16 bf16 and m16n8k32 s8), so a layout error in
+# the kernel's one-hot registers, slab swizzle, ldmatrix addresses or
+# epilogue shows here, before the card.  Tolerance: none.
+
+MIRRORED = [(k.name, p) for k in og.KERNELS for p in (2048, 4096)
+            if p % k.step == 0]
+KINDS = ["hl_bf16_full_2048", "lt_bf16_full_4096", "lt_i8_full_4096"]
+
+
+@pytest.mark.parametrize("kernel,p", MIRRORED)
+def test_emulated_fragments_compose_the_plain_version(kernel, p):
+    rng = np.random.default_rng(p + len(kernel))
+    root = rng.integers(-300, p + 300, size=(2, p)).astype(np.int32)
+    root[0, :4] = [-1, p, -129, 2 * p]  # outside [0, P)
+    lit = rng.integers(0, 256, size=(2, p)).astype(np.uint8)
+    r, lt = torch.from_numpy(root), torch.from_numpy(lit)
+    got = og.emulate(r, lt, kernel, grid=3)  # runs that cross blocks
+    assert got.dtype == og.BY_NAME[kernel].out
+    assert torch.equal(got, og.onehot_gather_ref(r, lt, kernel))
+
+
+@pytest.mark.parametrize("elem", [torch.bfloat16, torch.int8])
+@pytest.mark.parametrize("role", ["a", "b", "c"])
+def test_fragment_maps_cover_each_tile_element_once(role, elem):
+    spec = og.Kernel("x", og.LT_HT, elem, og.FULL, 4096, torch.int32)
+    k = 256 // og.element_format(spec)[0]
+    rows, cols = {"a": (16, k), "b": (k, 8), "c": (16, 8)}[role]
+    fm = og.fragment_map(role, spec).reshape(-1, 2)
+    assert len(fm) == rows * cols
+    assert {tuple(x) for x in fm} == {(i, j) for i in range(rows)
+                                      for j in range(cols)}
+
+
+@pytest.mark.parametrize("kernel", KINDS)
+def test_one_hot_registers_hold_each_output_and_k_once(kernel):
+    """Every one-hot register element stands for one k of the slice: with
+    every root's hi at k it is 1 for that k only, and the tiles the PTX
+    layout reads are the one-hot of every output."""
+    spec = og.BY_NAME[kernel]
+    k = 256 // og.element_format(spec)[0]
+    role = "a" if spec.orient == og.HL else "b"
+    lit_up = 0
+    for s in (0, 1):
+        for kk in range(k):
+            roots = (np.full((1, 64), (s * k + kk) << 7)
+                     + np.arange(64) % 128).astype(np.int32)
+            regs = og.hot_registers(spec, roots, s)
+            lit_up = lit_up + og._elements(spec, regs)[0]
+            tiles = og._tiles(spec, regs, role)[0]
+            want = np.zeros_like(tiles)
+            if spec.orient == og.HL:
+                want[:, :, kk] = 1  # (m-tile, output row, k)
+            else:
+                want[:, kk, :] = 1  # (n-tile, k, output column)
+            assert np.array_equal(tiles, want), (s, kk)
+    assert (lit_up == 2).all()  # once a slice, two slices
+
+
+@pytest.mark.parametrize("kernel", KINDS)
+def test_ldmatrix_reads_each_slab_byte_once_and_conflict_free(kernel):
+    spec = og.BY_NAME[kernel]
+    lane = np.arange(64)
+    for h in (0, 1):
+        for s in (0, 1):
+            rows = og.ldsm_rows(spec, h, s)
+            got = np.stack([og.ldsm_bytes(rows[i], spec.orient == og.HL)
+                            for i in range(4)]).reshape(-1)
+            if spec.orient == og.HL:  # k rows 16s.., lanes 64h..
+                k = 16 * s + np.arange(16)[:, None]
+                ln = 64 * h + lane[None, :]
+                first = og.chunk_offset(og.HL, k, ln // 8) + 2 * (ln % 8)
+                want = np.stack([first, first + 1], -1)
+            else:  # lane rows 64h.., chunks 2s, 2s + 1
+                c = 2 * s + np.arange(2)[:, None, None]
+                first = og.chunk_offset(og.LT_HT, 64 * h + lane[None, :, None],
+                                        c)
+                want = first + np.arange(16)
+            assert len(got) == len(set(got.tolist())) == 64 * 32
+            assert set(got.tolist()) == set(want.reshape(-1).tolist())
+            for call in rows:  # each matrix's 8 rows in 8 bank groups
+                for m in range(4):
+                    assert len({(a // 16) % 8 for a in call[8 * m:8 * m + 8]}) == 8
+
+
+@pytest.mark.parametrize("kernel,p", [("hl_bf16_full_2048", 4096),
+                                      ("lt_bf16_full_4096", 4096),
+                                      ("lt_i8_full_4096", 4096),
+                                      ("lt_i8_full_2048", 2048)])
+def test_staged_slab_places_every_chunk_once(kernel, p):
+    spec = og.BY_NAME[kernel]
+    n = p * spec.elem.itemsize
+    raw = (np.arange(n) % 200).astype(np.uint8)[None, :]  # never 0xEE
+    slab = og.stage_slab(spec, raw)[0]
+    assert not (slab == 0xEE).any()
+    assert np.sort(slab[slab != 0]).tolist() == np.sort(raw[0][raw[0] != 0]).tolist()
+    if kernel == "lt_i8_full_2048":  # C = 16: the k-slice's other half is 0
+        assert slab.size == 4096 and (slab == 0).sum() == 2048 + (raw == 0).sum()
+
+
+@pytest.mark.parametrize("kernel", KINDS)
+def test_accumulators_cover_the_pass_tile_and_the_holder_finds_each(kernel):
+    spec = og.BY_NAME[kernel]
+    am = og.accumulator_map(spec)  # (lane, m-tile, n-tile, c) → (o, lane)
+    flat = am.reshape(-1, 2)
+    assert len({tuple(x) for x in flat}) == len(flat) == 64 * 64
+    o, ln = np.meshgrid(np.arange(64), np.arange(64), indexing="ij")
+    at = og.holder(spec, o, ln)
+    assert np.array_equal(am[at], np.stack([o, ln], -1))
+
+
+@pytest.mark.parametrize("steps,grid", [(2048, 132), (8192, 132), (64, 3),
+                                        (7, 7), (1024, 132)])
+def test_cta_runs_cover_every_step_once(steps, grid):
+    runs = og.cta_runs(steps, grid)
+    assert [s for b, e in runs for s in range(b, e)] == list(range(steps))
+    assert max(e - b for b, e in runs) == -(-steps // grid)
+
+
+def test_prepared_gather_refuses_cpu_and_foreign_operands():
+    root = torch.zeros((1, 4096), dtype=torch.int32)
+    lit = torch.zeros((1, 4096), dtype=torch.uint8)
+    op = og.literal_operand(lit, og.BY_NAME["lt_i8_full_2048"])
+    with pytest.raises(ValueError):  # the kernel runs on a card only
+        og.onehot_gather_prepared(root, op, "lt_i8_full_2048")
+    with pytest.raises(ValueError):  # an int8 operand for a bf16 kernel
+        og.onehot_gather_prepared(root, op, "hl_bf16_full_2048")
+    with pytest.raises(ValueError):  # P 3,072
+        og.onehot_gather_prepared(root[:, :3072], op, "lt_i8_full_2048")
+    with pytest.raises(TypeError):
+        og.onehot_gather_prepared(root.long(), op, "lt_i8_full_2048")
+
+
+def test_sass_loops_finds_the_innermost_loop_and_counts_it():
+    from lz4jpeg_tpu_torch.profiles import sass_loops
+
+    ins = ["MOV R1, c[0x0][0x28]", "LDSM.16.MT88.4 R8, [R2]",
+           "HMMA.16816.F32.BF16 R4, R8, R12, R4", "@P0 BRA 0x10",
+           "STS.128 [R0], R4", "LD.E R3, [R6.64]", "@!P1 BRA 0x0", "EXIT",
+           "BRA 0x80"]
+    assert sass_loops.opcode("@!P0 LDSM.16.MT88.4 R4, [R2]") == "LDSM"
+    inner = sass_loops.loops(ins)
+    assert len(inner) == 1
+    assert {k: inner[0][k] for k in ("first", "last", "length", "HMMA",
+                                     "LDSM", "STS", "LD")} == {
+        "first": 1, "last": 3, "length": 3, "HMMA": 1, "LDSM": 1, "STS": 0,
+        "LD": 0}
+    assert sass_loops.loops(ins[4:7] + ["BRA 0x0"])[0]["LD"] == 1
+    padded = sass_loops.loops(["@!PT LDS RZ, [RZ]", "LDGSTS.E.BYPASS.128 [R1], "
+                               "desc[UR4][R2.64]", "@P0 BRA 0x0"])[0]
+    assert (padded["LDS"], padded["length"]) == (0, 2)
