@@ -12,12 +12,15 @@ called through its own wrappers, whose contracts every commit of the port
 keeps: ``ops/fwd_megakernel.py::forward_combined`` (K1),
 ``ops/fused_match.py::match_candidates`` (K2) and, in ``ops/pack16.py``,
 ``pack16_encode`` (K4), ``pack16_encode_kt`` (K5), ``pack16_decode`` (K6)
-and ``pack16_decode_plane`` (K7).  The two run in turns, other, this,
-this, other (``chip_smoke.py::time_versions``), on phase 4's, phase 8's
-and phase 12's shapes: K1 on 2048² uniform noise at batch 64 and 256; K2
+and ``pack16_decode_plane`` (K7), and ``ops/stream.py::stream_copy`` (the
+copy kernel, P-copy).  The two run in turns, other, this, this, other
+(``chip_smoke.py::time_versions``), on phase 4's, phase 8's, phase 12's
+and phase 20's shapes: K1 on 2048² uniform noise at batch 64 and 256; K2
 on 32 MiB of generated text in 2048 blocks of 16 KiB (stride 1, lcp 4);
 K4-K7 on the zigzag values of the luma (K = 64) and Cr chroma (K = 32)
-channels of 64 such frames, K4 in int16 and int32.  K2's and K4-K7's
+channels of 64 such frames, K4 in int16 and int32; the copy kernel on
+512 MiB of u8 as (rows, 2048), with ``Tensor.copy_`` of the same bytes,
+the library call, timed in the same turns.  K2's, K4-K7's and the copy's
 outputs must be identical; K1's may differ by sum-order flips, which
 ``chip_smoke.py`` phase 2 holds to their limit.  Prints the card's name and
 power limit, each block of runs, and one line per kernel and shape with
@@ -39,7 +42,7 @@ PACKAGE = "lz4jpeg_tpu_torch"
 
 
 def load_checkout(root: Path):
-    """The kernel modules (fwd_megakernel, fused_match, pack16) of the
+    """The kernel modules (fwd_megakernel, fused_match, pack16, stream) of the
     checkout at ``root``, with every kernel built and loaded.  Drops any
     other checkout's modules from ``sys.modules`` first; the modules stay
     alive through the returned references."""
@@ -49,19 +52,21 @@ def load_checkout(root: Path):
     sys.path.insert(0, str(root))
     try:
         mods = [importlib.import_module(f"{PACKAGE}.ops.{name}")
-                for name in ("fwd_megakernel", "fused_match", "pack16")]
+                for name in ("fwd_megakernel", "fused_match", "pack16",
+                             "stream")]
     finally:
         sys.path.remove(str(root))
     for mod in mods:
         if not Path(mod.__file__).resolve().is_relative_to(root):
             raise RuntimeError(f"{mod.__name__} came from {mod.__file__}, "
                                f"not from {root}")
-    fwd, match, pack16 = mods
+    fwd, match, pack16, stream = mods
     fwd.load_kernel()
     match.load_kernel()
     pack16.load_pack_kernels()
     pack16.load_expand_kernels()
-    return fwd, match, pack16
+    stream.load_kernel()
+    return fwd, match, pack16, stream
 
 
 def main() -> int:
@@ -77,6 +82,8 @@ def main() -> int:
         return 1
     sys.path.insert(0, str(HERE))
     from chip_smoke import (
+        COPY_BYTES,
+        COPY_COLUMNS,
         K1_FLOP_PER_TILE,
         MAIN_BYTES,
         SEED,
@@ -102,17 +109,21 @@ def main() -> int:
     from lz4jpeg_tpu_torch.ops.rle import rle_decode_sparse16
     from lz4jpeg_tpu_torch.utils.inputs import generate_text
 
-    def ab(label, fn, inputs, n_bytes, flops=0.0, identical=True):
+    def ab(label, fn, inputs, n_bytes, flops=0.0, identical=True,
+           library=None):
         """Times ``fn(modules, inputs)`` of the other checkout and of this
-        one in turns; prints both times, their ratio, and the bound with
-        this checkout's share of it."""
-        t = time_versions(label, {"other": lambda a: fn(other, a),
-                                  "this": lambda a: fn(this, a)},
-                          inputs, identical=identical)
+        one in turns, and ``library(inputs)`` with them if given; prints the
+        times, their ratio, and the bound with this checkout's share of
+        it."""
+        fns = {"other": lambda a: fn(other, a), "this": lambda a: fn(this, a)}
+        if library is not None:
+            fns["library"] = library
+        t = time_versions(label, fns, inputs, identical=identical)
         b = bound(n_bytes, flops)
+        lib = "" if library is None else f", library {t['library']:.4f} ms"
         print(f"{label}: this {t['this']:.4f} ms, other {t['other']:.4f} ms "
-              f"({t['other'] / t['this']:.2f}x this); bound {b[0]:.4f} ms "
-              f"({b[1]}), this {b[0] / t['this']:.1%} of it")
+              f"({t['other'] / t['this']:.2f}x this){lib}; bound {b[0]:.4f} "
+              f"ms ({b[1]}), this {b[0] / t['this']:.1%} of it")
 
     torch.backends.cuda.matmul.allow_tf32 = False
     dev = torch.device("cuda")
@@ -161,6 +172,13 @@ def main() -> int:
     ab("K2 2048x16KiB stride 1 lcp 4",
        lambda m, a: m[1].match_candidates(a[0], a[1], 1, 4), (blocks, lens),
        blocks.numel() + lens.numel() * 4 + blocks.numel() * 4)
+    del padded, blocks, lens
+
+    x = torch.randint(0, 100, (COPY_BYTES // COPY_COLUMNS, COPY_COLUMNS),
+                      generator=gen, device=dev, dtype=torch.uint8)
+    sink = torch.empty_like(x)
+    ab(f"copy {COPY_BYTES >> 20} MiB u8", lambda m, a: m[3].stream_copy(a), x,
+       2 * x.numel(), library=lambda a: sink.copy_(a))
     return 0
 
 

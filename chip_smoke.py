@@ -156,10 +156,16 @@ another checkout's.
     group, and ``jpeg_scaling_sweep(2048, device="cuda")``; K1 alone (CUDA
     events) on the whole frame and on one of the four-shard mesh's bands;
 20. the benchmark layer (``lz4jpeg_tpu_torch/bench/``), about a minute:
-    the stream-copy kernel (``csrc/stream_copy_kernel.cu``) identical to
-    ``x.clone()`` on u8, i16 and f32 at 512 MiB in (rows, 2048), at
-    1,000,003 elements and in a view one element off a 16-byte boundary
-    (the byte-wise route); kernel, plain and ``Tensor.copy_`` times at 512
+    the stream-copy kernel (``csrc/stream_copy_kernel.cu``, the streaming
+    template ``csrc/stream_copy.cuh``) identical to ``x.clone()`` on u8,
+    i16 and f32 at 512 MiB in (rows, 2048), at 1,000,003 elements and in a
+    view one element off a 16-byte boundary (the byte-wise route); in u8 at
+    the template's chunk edges (16 KiB − 1, 16 KiB, + 1, 3 chunks + 5), in
+    offset views and between equal offsets 5 through the C entry point
+    (head, body, tail), and at 2^31 + 17 bytes; each launch's CTA count from
+    the C plan, held to ``ops/stream.py::copy_plan``'s mirror, and the
+    kernel's registers and CTAs per SM printed; kernel, plain and
+    ``Tensor.copy_`` times at 512
     MiB u8 (phase 4's method); ``measure_hbm_stream_ceiling`` (its count
     of copy-kernel launches is the kernel's record); the headline at 2048²,
     batch 256 (K1 launched 48 times); the sweeps at small scale with
@@ -247,7 +253,10 @@ another checkout's.
     versions at the probe's luma and chroma streams (1,048,576 × 64,
     524,288 × 32), at 4,099 rows (off the 64-row tile), bw 131 (% 8 ≠ 0),
     N = 1, K 24 and 4,104, each also on a view one element off a 16-byte
-    boundary and on the (rows/2, 128) view where it exists; the four
+    boundary and on the (rows/2, 128) view where it exists; the row-major
+    copy (the streaming template of ``csrc/stream_copy.cuh``) also at K 8
+    and 4,104 on rows · K · 2 bytes at the template's chunk edges
+    (``EXPAND_RM_EDGES``), each launch's CTA count printed; the four
     ablated phases of K7 (``csrc/expand16_probe_kernel.cu``) identical to
     their plain versions, and the full phase (K7 itself) to
     ``pack16_decode_plane_ref``, on the probe's words (4,096 block rows of
@@ -276,7 +285,7 @@ another checkout's.
     vector route; bw 130, tw 3, 16 and 64 on the tile route), each
     shape's route counted and every route's count checked; the lane split on the
     stream-copy kernel identical at (8, 2048), (5, 7) and (32,768, 2048)
-    and in offset views; five shapes refused by the wrapper and by the C
+    and in offset views, each launch's CTA count printed; five shapes refused by the wrapper and by the C
     entry point; registers, shared memory and CTAs per SM of every
     instantiation (both transpose routes); then the four runners at their
     defaults (``BUTTERFLY_RUN``, ``PLANE_EXACT_RUN``, ``CASTS_RUN``,
@@ -431,6 +440,8 @@ COPY_SOURCE = "lz4jpeg_tpu_torch/csrc/stream_copy_kernel.cu"
 COPY_REPLACES = "profiles/probe_pallas_copy_ceiling.py:50"
 COPY_BYTES = 512 * MIB  # phase 20's copy arrays, (rows, 2048) as the probe's
 COPY_COLUMNS = 2048
+COPY_BIG_BYTES = 2**31 + 17  # phase 20's copy above 2^31 bytes (64-bit offsets)
+COPY_EQUAL_OFFSET = 5  # phase 20's source and destination offset modulo 16
 HEADLINE_SHAPE = (2048, 256)  # phase 20's headline: side, batch
 BENCH_TEXT_BYTES = 4 * MIB  # phase 20's generated corpus for the LZ4 sweeps
 BENCH_RUNS = 3  # timed runs of each phase-20 sweep
@@ -477,6 +488,10 @@ PHASES_SOURCE = "lz4jpeg_tpu_torch/csrc/expand16_probe_kernel.cu"
 # off the 64-row tile; bw % 8 != 0; N = 1; K no power of two; K over 64.
 EXPAND_COPIES = ((1_048_576, 64, 256), (524_288, 32, 128), (4099, 64, 4099),
                  (917, 64, 131), (1, 8, 1), (30, 24, 5), (100, 4104, 10))
+# phase 25's copy_rm-only shapes: rows · K · 2 bytes at the stream-copy
+# template's chunk edges (16 KiB ∓ 16), 3 chunks + 16, and K 4,104 (more
+# than 512 16-byte pieces a row) a chunk + 32
+EXPAND_RM_EDGES = ((1023, 8), (1024, 8), (1025, 8), (3073, 8), (2, 4104))
 EXPAND_PROBE_BH = 4096  # phase 25's probe words: 4,096 block rows a channel
 EXPAND_CRAFTED = ((4096, 64), (7 * 65, 7), (1, 1))  # (rows, bw) of crafted rows
 EXPAND_RM_RUN = {}  # both runners' defaults: 16 frames of 2048²
@@ -566,6 +581,21 @@ def offset_view(x):
     view = buf[1:].view(x.shape).copy_(x)
     check(view.data_ptr() % 16 != 0, "the view is 16-byte aligned")
     return view
+
+
+def copy_ctas(label: str, src: int, dst: int, n: int) -> int:
+    """Phases 20, 25, 26: the CTA count of the stream-copy template's launch
+    of ``n`` bytes between these device addresses, from the C code's plan,
+    held equal to ``ops/stream.py::copy_plan``'s mirror and printed."""
+    from lz4jpeg_tpu_torch.ops import stream
+
+    got = stream.launch_plan(src, dst, n)
+    want = stream.copy_plan(n, src % 16, dst % 16)
+    check(got == want, f"{label}: the C plan {got} is not the mirror's {want}")
+    print(f"{label}: {n} bytes, src % 16 = {src % 16}, dst % 16 = {dst % 16}: "
+          f"{got.ctas} CTAs (head {got.head}, {got.n_vec} vectors, tail "
+          f"{got.tail})")
+    return got.ctas
 
 
 def timed_runs(fn, x, warmup: int = 2, runs: int = 10):
@@ -2368,8 +2398,10 @@ def bench_phase(dev):
     )
     from lz4jpeg_tpu_torch.ops.fused_match import match_candidates
     from lz4jpeg_tpu_torch.ops.fwd_megakernel import forward_combined
+    from lz4jpeg_tpu_torch.ops import stream
     from lz4jpeg_tpu_torch.ops.lz4t_decode import resolve_rooted
     from lz4jpeg_tpu_torch.ops.stream import stream_copy, stream_copy_ref
+    from lz4jpeg_tpu_torch.profiles import rle_expand
     from lz4jpeg_tpu_torch.utils.inputs import generate_text
 
     gc.collect()
@@ -2380,6 +2412,18 @@ def bench_phase(dev):
     # -- the copy kernel against x.clone(): both routes, three dtypes --------
     gen = torch.Generator(device=dev).manual_seed(SEED + 20)
     n_err = 0
+
+    def copy_held(label, x):
+        got, want = stream_copy(x), stream_copy_ref(x)
+        torch.cuda.synchronize()
+        n = x.numel() * x.element_size()
+        copy_ctas(f"phase 20: copy kernel {label} launch", x.data_ptr(),
+                  got.data_ptr(), n)
+        same = torch.equal(got, want)
+        print(f"phase 20: copy kernel {label} ({n} bytes, ptr % 16 = "
+              f"{x.data_ptr() % 16}): {'identical' if same else 'DIFFERS'}")
+        return not same
+
     for dtype in (torch.uint8, torch.int16, torch.float32):
         rows = COPY_BYTES // (COPY_COLUMNS * torch.empty((), dtype=dtype).element_size())
         big = torch.randint(0, 100, (rows, COPY_COLUMNS), generator=gen,
@@ -2388,15 +2432,43 @@ def bench_phase(dev):
                               device=dev).to(dtype)
         for label, x in ((f"{COPY_BYTES // MIB} MiB", big), ("odd", small),
                          ("offset view", offset_view(small))):
-            got, want = stream_copy(x), stream_copy_ref(x)
-            torch.cuda.synchronize()
-            same = torch.equal(got, want)
-            n_err += not same
-            print(f"phase 20: copy kernel {dtype} {label} "
-                  f"({x.numel() * x.element_size()} bytes, ptr % 16 = "
-                  f"{x.data_ptr() % 16}): {'identical' if same else 'DIFFERS'}")
-        del big, small, got, want
+            n_err += copy_held(f"{dtype} {label}", x)
+        del big, small
+    # the template's chunk edges, aligned and as offset views; the same
+    # sizes between equal offsets (head and tail) through the C entry point
+    chunk = stream.CHUNK_BYTES
+    lib = stream.load_kernel()
+    cuda_stream = torch.cuda.current_stream(dev).cuda_stream
+    off = COPY_EQUAL_OFFSET
+    for n in (chunk - 1, chunk, chunk + 1, 3 * chunk + 5):
+        x = torch.randint(0, 256, (n + off,), generator=gen, device=dev,
+                          dtype=torch.uint8)
+        n_err += copy_held(f"u8 {n} bytes", x[:n])
+        n_err += copy_held(f"u8 {n} bytes offset view", offset_view(x[:n]))
+        dst = torch.zeros_like(x)
+        copy_ctas(f"phase 20: copy kernel u8 {n} bytes at offset {off} "
+                  "launch", x.data_ptr() + off, dst.data_ptr() + off, n)
+        rc = lib.stream_copy_launch(x.data_ptr() + off, dst.data_ptr() + off,
+                                    n, cuda_stream)
+        torch.cuda.synchronize()
+        check(rc == 0, f"phase 20: stream_copy_launch returned {rc}")
+        same = (torch.equal(dst[off:], x[off:])
+                and not dst[:off].any())
+        n_err += not same
+        print(f"phase 20: copy kernel u8 {n} bytes between offsets {off} "
+              f"(entry point): {'identical' if same else 'DIFFERS'}")
+        del x, dst
+    x = torch.randint(0, 256, (COPY_BIG_BYTES,), generator=gen, device=dev,
+                      dtype=torch.uint8)
+    n_err += copy_held(f"u8 {COPY_BIG_BYTES} bytes (above 2^31)", x)
+    del x
+    gc.collect()
+    torch.cuda.empty_cache()
     check(n_err == 0, f"the copy kernel differs from x.clone() in {n_err} cases")
+    attrs = rle_expand.copy_attributes(rle_expand.COPY_RM, dev)
+    print(f"phase 20: the copy template (copy_rm's attributes entry) "
+          f"registers {attrs['registers']}, shared {attrs['shared_bytes']} B, "
+          f"{attrs['ctas_per_sm']} CTAs/SM")
     x = torch.randint(0, 100, (COPY_BYTES // COPY_COLUMNS, COPY_COLUMNS),
                       generator=gen, device=dev, dtype=torch.uint8)
     dst = torch.empty_like(x)
@@ -2525,6 +2597,8 @@ def bench_phase(dev):
         "bound_ms": copy_bound[0],
         "bound_by": copy_bound[1],
         "library_ms": t["library"],
+        "registers": attrs["registers"],
+        "ctas_per_sm": attrs["ctas_per_sm"],
     }, ceiling
 
 
@@ -3195,8 +3269,22 @@ def expand_phase(dev, p10_words):
         print(f"phase 25: {label}: {'identical' if same else 'DIFFERS'}")
         check(same, f"phase 25: {label} differs (max |d| {d})")
 
+    def rm_held(label, x):
+        got = rx.copy_rm(x)
+        copy_ctas(f"phase 25: {label} launch", x.data_ptr(), got.data_ptr(),
+                  x.numel() * 2)
+        held("copy_rm", label, got, rx.copy_rm_ref(x))
+
     # -- the copies: the probe's shapes, ragged ones, views ----------------
     rng = np.random.default_rng(SEED + 25)
+    for rows, k in EXPAND_RM_EDGES:
+        p = torch.from_numpy(rx.stream_values(rows, k, rng)).to(dev)
+        views = [("", p), (" offset view", offset_view(p))]
+        if rows * k % 128 == 0:
+            views.append((" wide view", p.view(-1, 128)))
+        for tag, x in views:
+            rm_held(f"copy_rm ({rows}, {k}){tag}", x)
+        del p, views
     for rows, k, bw in EXPAND_COPIES:
         p = torch.from_numpy(rx.stream_values(rows, k, rng)).to(dev)
         views = [("", p), (" offset view", offset_view(p))]
@@ -3204,7 +3292,7 @@ def expand_phase(dev, p10_words):
             views.append((" wide view", p.view(-1, 128)))
         for tag, x in views:
             label = f"({rows}, {k}) bw {bw}{tag}"
-            held("copy_rm", f"copy_rm {label}", rx.copy_rm(x), rx.copy_rm_ref(x))
+            rm_held(f"copy_rm {label}", x)
             if "wide" in tag:
                 continue
             held("copy_t_contig", f"copy_t_contig {label}", rx.copy_t_contig(x),
@@ -3432,6 +3520,8 @@ def gates_phase(dev):
             before = stream_copy.launches
             got = dg.lane_split(v, tw)
             torch.cuda.synchronize()
+            copy_ctas(f"phase 26: lane split {shape} tw {tw}{tag} launch",
+                      v.data_ptr(), got.data_ptr(), v.numel() * 4)
             check(stream_copy.launches == before + 1,
                   "phase 26: the split did not launch the copy kernel")
             held("lane_split", f"lane split {shape} tw {tw}{tag}",

@@ -16,32 +16,37 @@
 // What bounds them: one read and one write of the stream, 2 × 134,217,728
 // bytes at the probe's (1,048,576, 64), 0.0801 ms at 3.35 TB/s.
 //
-// Design: K7's movement without its decode.  Persistent CTAs of 128
-// threads (as many as fit on the SMs) walk the tiles; a ring of two tiles
-// in shared memory keeps the next tile's 16-byte cp.async copies in flight
-// while the current one is stored.  Each thread copies its own pieces into
-// the ring and reads only those back, so the ring needs no CTA barrier.
-// copy_rm: a tile is 512 pieces (8 KiB, K7's luma word tile) of whole
-// rows, stored back row-major as 16-byte vectors.  The transposes: a tile
-// is 64 rows (blocks) × up to 64 columns of K (K7's [K][64] tile; wider
-// K is cut into groups of 64 columns); piece q of a tile is row q / (K/8),
-// columns 8 (q % (K/8)) .. + 7, as in K7; each thread writes its pieces'
-// values into a transposed [K][64] tile whose 16-byte chunks are
-// XOR-swizzled by k / 8 (K7's swz), and after one CTA barrier the tile is
-// stored as 16-byte vectors, plane row by plane row.  Two output tiles
-// alternate.  A source that is not 16-byte aligned is read element by
-// element; a chunk past the row's end, or a plane whose rows are not
-// 16-byte aligned (bw % 8 ≠ 0), is stored element by element.
+// copy_rm's design: a pure copy gains nothing from a detour through shared
+// memory, so it launches the streaming template of csrc/stream_copy.cuh
+// over the rows · K · 2 bytes: one CTA a 16 KiB chunk in index order, a
+// 16-byte vector a thread through registers (byte-wise where source and
+// destination differ modulo 16).
+// Both views are the same bytes and the same launch.
+//
+// The transposes' design: K7's movement without its decode.  Persistent
+// CTAs of 128 threads (as many as fit on the SMs) walk the tiles; a ring
+// of two tiles in shared memory keeps the next tile's 16-byte cp.async
+// copies in flight while the current one is stored.  Each thread copies
+// its own pieces into the ring and reads only those back, so the ring
+// needs no CTA barrier.  A tile is 64 rows (blocks) × up to 64 columns of
+// K (K7's [K][64] tile; wider K is cut into groups of 64 columns); piece q
+// of a tile is row q / (K/8), columns 8 (q % (K/8)) .. + 7, as in K7; each
+// thread writes its pieces' values into a transposed [K][64] tile whose
+// 16-byte chunks are XOR-swizzled by k / 8 (K7's swz), and after one CTA
+// barrier the tile is stored as 16-byte vectors, plane row by plane row.
+// Two output tiles alternate.  A source that is not 16-byte aligned is
+// read element by element; a chunk past the row's end, or a plane whose
+// rows are not 16-byte aligned (bw % 8 ≠ 0), is stored element by
+// element.
 
 #include "expand16_plane.cuh"  // K7's swz, column_of, Lane16, cp.async
+#include "stream_copy.cuh"     // copy_rm's streaming template
 
 namespace {
 
 constexpr int kThreads = 128;
 constexpr int kStages = 2;     // tiles of input in the ring
-constexpr int kPieces = 512;   // copy_rm: 16-byte pieces of a tile
-constexpr int kCols = 64;      // transposes: columns of K in a tile
-constexpr int kMineRm = kPieces / kThreads;           // pieces a thread
+constexpr int kCols = 64;      // columns of K in a tile
 constexpr int kMineT = kTile * kCols / 8 / kThreads;  // pieces a thread
 
 // 8 int16 values: one 16-byte cp.async when aligned, else 8 loads.
@@ -76,71 +81,6 @@ struct Walk {
     }
   }
 };
-
-// copy_rm: rows of `cols` int16 (cols % 8 == 0).  A tile is tile_rows
-// whole rows of pg pieces, or, for rows of more than 512 pieces, one row's
-// group of 512.
-template <bool Vec>
-__global__ void __launch_bounds__(kThreads)
-    copy_rm_kernel(const int16_t* __restrict__ in, int16_t* __restrict__ out,
-                   long long rows, int cols) {
-  __shared__ alignas(16) uint16_t ring[kStages][kPieces * 8];
-  const int p_row = cols / 8;
-  const int pg = p_row < kPieces ? p_row : kPieces;
-  const int groups = (p_row + pg - 1) / pg;
-  const int tile_rows = kPieces / pg;
-  int prow[kMineRm], pcol[kMineRm];  // this thread's pieces of a tile
-#pragma unroll
-  for (int i = 0; i < kMineRm; ++i) {
-    const int q = threadIdx.x + i * kThreads;
-    prow[i] = q / pg;
-    pcol[i] = q % pg;
-  }
-  const long long row_tiles = (rows + tile_rows - 1) / tile_rows;
-  const Walk walk(groups);
-  // Element offset of piece i of tile p, or -1 past the rows or the row.
-  auto offset = [&](At p, int i) -> long long {
-    const long long row = p.a * tile_rows + prow[i];
-    const int c = static_cast<int>(p.b) * pg + pcol[i];
-    if (prow[i] >= tile_rows || row >= rows || c >= p_row) return -1;
-    return row * cols + c * 8;
-  };
-  auto fetch = [&](At p, int st) {
-#pragma unroll
-    for (int i = 0; i < kMineRm; ++i) {
-      const long long off = offset(p, i);
-      if (off >= 0)
-        fetch8<Vec>(&ring[st][(threadIdx.x + i * kThreads) * 8], in + off);
-    }
-  };
-
-  At ahead = walk.at(blockIdx.x);
-  if (ahead.a < row_tiles) fetch(ahead, 0);
-  commit_copies();
-  walk.advance(ahead);
-  int st = 0;
-  for (At cur = walk.at(blockIdx.x); cur.a < row_tiles; walk.advance(cur)) {
-    if (ahead.a < row_tiles) fetch(ahead, st ^ 1);
-    commit_copies();
-    walk.advance(ahead);
-    wait_copies<kStages - 1>();  // this thread's copies of tile cur landed
-#pragma unroll
-    for (int i = 0; i < kMineRm; ++i) {
-      const long long off = offset(cur, i);
-      if (off < 0) continue;
-      Lane16<8> x;
-      x.v = *reinterpret_cast<const uint4*>(
-          &ring[st][(threadIdx.x + i * kThreads) * 8]);
-      if constexpr (Vec) {
-        *reinterpret_cast<uint4*>(out + off) = x.v;
-      } else {
-#pragma unroll
-        for (int e = 0; e < 8; ++e) out[off + e] = static_cast<int16_t>(x.h[e]);
-      }
-    }
-    st ^= 1;
-  }
-}
 
 // The transposes: (bh · bw, k) → (bh, k, bw), k % 8 == 0.  Tile (a, u) is
 // block row a, blocks 64 (u / groups) .. + 63, columns 64 (u % groups) ..
@@ -291,25 +231,8 @@ extern "C" int rle_expand_copy_rm_launch(const void* in, void* out,
   if (bad_width(cols) || rows < 0) return cudaErrorInvalidValue;
   if (misaligned(in, out)) return cudaErrorMisalignedAddress;
   if (rows == 0) return cudaSuccess;
-  const int p_row = cols / 8;
-  const int pg = p_row < kPieces ? p_row : kPieces;
-  const long long tile_rows = kPieces / pg;
-  const long long tiles =
-      (rows + tile_rows - 1) / tile_rows * ((p_row + pg - 1) / pg);
-  const bool vec = aligned16(in) && aligned16(out);
-  const void* kernel = vec ? reinterpret_cast<const void*>(copy_rm_kernel<true>)
-                           : reinterpret_cast<const void*>(copy_rm_kernel<false>);
-  unsigned ctas = 0;
-  const cudaError_t err = grid_for(kernel, tiles, &ctas);
-  if (err != cudaSuccess) return err;
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const auto* src = static_cast<const int16_t*>(in);
-  auto* dst = static_cast<int16_t*>(out);
-  if (vec)
-    copy_rm_kernel<true><<<ctas, kThreads, 0, s>>>(src, dst, rows, cols);
-  else
-    copy_rm_kernel<false><<<ctas, kThreads, 0, s>>>(src, dst, rows, cols);
-  return cudaGetLastError();
+  return stream_copy::launch(in, out, rows * cols * 2,
+                             static_cast<cudaStream_t>(stream));
 }
 
 // in: (rows, k) int16; out: (k, rows) int16.
@@ -335,15 +258,13 @@ extern "C" int rle_expand_copy_t_slab_launch(const void* in, void* out,
 }
 
 // Registers per thread, static shared memory per CTA and resident CTAs per
-// SM of kernel 0 (copy_rm) or 1 (the transposes), 16-byte aligned routes;
-// returns the first CUDA error.
+// SM of kernel 0 (copy_rm: the streaming template) or 1 (the transposes,
+// 16-byte aligned route); returns the first CUDA error.
 extern "C" int rle_expand_copy_attributes(int kernel, int* regs, int* smem,
                                           int* ctas) {
-  const void* fn =
-      kernel == 0 ? reinterpret_cast<const void*>(copy_rm_kernel<true>)
-      : kernel == 1 ? reinterpret_cast<const void*>(copy_t_kernel<true>)
-                    : nullptr;
-  if (fn == nullptr) return cudaErrorInvalidValue;
+  if (kernel == 0) return stream_copy::attributes(regs, smem, ctas);
+  if (kernel != 1) return cudaErrorInvalidValue;
+  const void* fn = reinterpret_cast<const void*>(copy_t_kernel<true>);
   cudaFuncAttributes attr;
   const cudaError_t err = cudaFuncGetAttributes(&attr, fn);
   if (err != cudaSuccess) return err;

@@ -1,10 +1,11 @@
 """Build shared libraries at first use and load them with ctypes.
 
 Every library is keyed by a hash of its source bytes, the bytes of the
-``.cuh`` headers beside it (``csrc/fwd_megakernel.cuh`` holds K1's body
-and ``csrc/expand16_plane.cuh`` K7's, each included by two sources) and its
-compiler command, so a changed source,
-header or flag gives a new file and a stale build is never loaded.  Builds
+``.cuh`` headers beside it (``csrc/fwd_megakernel.cuh`` holds K1's body,
+``csrc/expand16_plane.cuh`` K7's and ``csrc/stream_copy.cuh`` the
+streaming copy, each included by two sources) and its compiler command,
+so a changed source, header or flag gives a new file and a stale build is
+never loaded.  Builds
 go into ``lz4jpeg_tpu_torch/_build/`` (git-ignored): the compiler writes a
 temporary file that ``os.replace`` moves into place, under an exclusive
 file lock, so several test workers that need the same library at once

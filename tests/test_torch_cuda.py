@@ -603,18 +603,33 @@ def test_nccl_world_of_one_ordered_gather(cuda):
         dist.destroy_process_group()
 
 
+COPY_CHUNK = 16 * 1024  # ops/stream.py's CHUNK_BYTES
+COPY_EDGES = {"chunk - 1": COPY_CHUNK - 1, "chunk": COPY_CHUNK,
+              "chunk + 1": COPY_CHUNK + 1, "3 chunks + 5": 3 * COPY_CHUNK + 5,
+              "above 2^31": 2**31 + 17}  # bytes
+
+
 @pytest.mark.parametrize("dtype", [torch.uint8, torch.int16, torch.float32])
-@pytest.mark.parametrize("case", ["aligned", "odd", "offset view", "empty"])
+@pytest.mark.parametrize("case", ["aligned", "odd", "offset view", "empty",
+                                  *COPY_EDGES])
 def test_stream_copy_matches_plain_version(cuda, dtype, case):
     """The copy kernel: the vector body with byte-wise head and tail (odd
     sizes, equal offsets) and the byte-wise route (a source one element
-    off a 16-byte boundary, a 16-byte-aligned destination)."""
+    off a 16-byte boundary, a 16-byte-aligned destination); the template's
+    chunk edges and a copy above 2^31 bytes (the byte sizes rounded down to
+    whole elements), each launch the C plan's CTAs, equal to the mirror's."""
+    from lz4jpeg_tpu_torch.ops import stream
     from lz4jpeg_tpu_torch.ops.stream import stream_copy, stream_copy_ref
 
+    assert stream.CHUNK_BYTES == COPY_CHUNK
+    size = torch.empty((), dtype=dtype).element_size()
     n = {"aligned": 1 << 22, "odd": 1_000_003, "offset view": 65_537,
-         "empty": 0}[case]
+         "empty": 0}.get(case, COPY_EDGES.get(case, 0) // size)
     gen = torch.Generator(device=cuda).manual_seed(n)
-    x = torch.randint(-100, 100, (n,), generator=gen, device=cuda).to(dtype)
+    if case in COPY_EDGES:
+        x = torch.randint(0, 100, (n,), generator=gen, device=cuda, dtype=dtype)
+    else:
+        x = torch.randint(-100, 100, (n,), generator=gen, device=cuda).to(dtype)
     if case == "offset view":
         buf = torch.empty(n + 1, dtype=dtype, device=cuda)
         x = buf[1:].copy_(x)
@@ -628,6 +643,37 @@ def test_stream_copy_matches_plain_version(cuda, dtype, case):
     assert torch.equal(got, want)
     if n:
         assert got.data_ptr() != x.data_ptr()
+        plan = stream.launch_plan(x.data_ptr(), got.data_ptr(), n * size)
+        assert plan == stream.copy_plan(n * size, x.data_ptr() % 16,
+                                        got.data_ptr() % 16)
+
+
+@pytest.mark.parametrize("n", [1, 15, 16, 17, COPY_CHUNK - 1, COPY_CHUNK,
+                               COPY_CHUNK + 1, 3 * COPY_CHUNK + 5])
+def test_stream_copy_between_equal_offsets(cuda, n):
+    """The C entry point between a source and a destination at the same
+    offset modulo 16 (head, body, tail), for every offset: the copied bytes
+    equal, the bytes around untouched; and its plan equal to the mirror's
+    for every pair of offsets, also above 2^31 bytes."""
+    from lz4jpeg_tpu_torch.ops import stream
+
+    lib = stream.load_kernel()
+    s = torch.cuda.current_stream(cuda).cuda_stream
+    gen = torch.Generator(device=cuda).manual_seed(n)
+    x = torch.randint(0, 256, (n + 32,), generator=gen, device=cuda,
+                      dtype=torch.uint8)
+    for off in range(16):
+        y = torch.zeros_like(x)
+        assert lib.stream_copy_launch(x.data_ptr() + off, y.data_ptr() + off,
+                                      n, s) == 0
+        torch.cuda.synchronize()
+        assert torch.equal(y[off:off + n], x[off:off + n]), off
+        assert not y[:off].any() and not y[off + n:].any(), off
+    for size in (n, 2**31 + 17):
+        for src in range(16):
+            for dst in (src, (src + 3) % 16):
+                got = stream.launch_plan(4096 + src, 8192 + dst, size)
+                assert got == stream.copy_plan(size, src, dst), (size, src, dst)
 
 
 def _offset(x):
@@ -1063,6 +1109,34 @@ def test_rle_expand_copies_match_plain(cuda, rows, k, bw):
     before = rx.copy_rm.launches
     rx.copy_rm(p)
     assert rx.copy_rm.launches == before + 1
+
+
+@pytest.mark.parametrize("rows,k", [(1, 8), (1023, 8), (1024, 8), (1025, 8),
+                                    (3073, 8), (4096, 64), (2, 4104),
+                                    (100, 4104)])
+def test_copy_rm_runs_on_the_streaming_template(cuda, rows, k):
+    """copy_rm at K 8, 64 and 4,104, rows · K · 2 bytes at and around the
+    template's chunk edges, aligned, as an offset view and as the wide view:
+    equal to the plain version, one launch a call, the C plan's CTAs those
+    of the mirror over the bytes."""
+    from lz4jpeg_tpu_torch.ops import stream
+    from lz4jpeg_tpu_torch.profiles import rle_expand as rx
+
+    p = torch.from_numpy(rx.stream_values(rows, k, np.random.default_rng(rows)))
+    p = p.to(cuda)
+    views = [p, _offset_view(p)] + ([p.view(-1, 128)] if rows * k % 128 == 0
+                                    else [])
+    for x in views:
+        before = rx.copy_rm.launches
+        got = rx.copy_rm(x)
+        torch.cuda.synchronize()
+        assert rx.copy_rm.launches == before + 1
+        assert torch.equal(got, rx.copy_rm_ref(x))
+        n = x.numel() * 2
+        assert stream.launch_plan(x.data_ptr(), got.data_ptr(), n) == \
+            stream.copy_plan(n, x.data_ptr() % 16, got.data_ptr() % 16)
+    a = rx.copy_attributes(rx.COPY_RM, cuda)
+    assert a["registers"] > 0 and a["ctas_per_sm"] >= 1
 
 
 @pytest.mark.parametrize("k", [64, 32])
