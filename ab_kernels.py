@@ -22,9 +22,19 @@ channels of 64 such frames, K4 in int16 and int32; the copy kernel on
 512 MiB of u8 as (rows, 2048), with ``Tensor.copy_`` of the same bytes,
 the library call, timed in the same turns.  K2's, K4-K7's and the copy's
 outputs must be identical; K1's may differ by sum-order flips, which
-``chip_smoke.py`` phase 2 holds to their limit.  Prints the card's name and
-power limit, each block of runs, and one line per kernel and shape with
-both times, the ratio, the bound and its share.
+``chip_smoke.py`` phase 2 holds to their limit.  Then the probe kernels
+of ``profiles/casts.py::cast`` (P-cast, the seven pairs at 134,217,728
+random source words, ``casts.run_casts``' size) and
+``profiles/dct_gates.py::basis_dot`` (P-dot, 2,097,152 × 64 pixels and the
+luma basis), each with its library call (``x.to(dst)``;
+``torch.matmul(x, m.T)`` with TF32 off), by ``profiles/timing.py::
+time_ms`` (best of 4 runs of 8 calls, queued behind a spin, so that the
+host's issue of a call drops out) in turns: other, this, library,
+library, this, other.  The casts' outputs must equal ``x.to``'s (NaN as
+NaN), the basis product's must be bit-identical between the two
+checkouts (both sum k in order from 0).  Prints the card's name and power
+limit, each block of runs, and one line per kernel and shape with both
+times, the ratio, the bound and its share.
 """
 
 from __future__ import annotations
@@ -39,34 +49,40 @@ import numpy as np
 
 HERE = Path(__file__).resolve().parent
 PACKAGE = "lz4jpeg_tpu_torch"
+CAST_ELEMENTS = 64 * 2_097_152  # profiles/casts.py::run_casts' elements
+DOT_ROWS = 2_097_152  # profiles/dct_gates.py::run_dct_gates' rows
 
 
 def load_checkout(root: Path):
-    """The kernel modules (fwd_megakernel, fused_match, pack16, stream) of the
-    checkout at ``root``, with every kernel built and loaded.  Drops any
-    other checkout's modules from ``sys.modules`` first; the modules stay
-    alive through the returned references."""
+    """The kernel modules (fwd_megakernel, fused_match, pack16, stream, and
+    the probes' casts and dct_gates) of the checkout at ``root``, with every
+    kernel built and loaded.  Drops any other checkout's modules from
+    ``sys.modules`` first; the modules stay alive through the returned
+    references."""
     for name in [m for m in sys.modules
                  if m == PACKAGE or m.startswith(PACKAGE + ".")]:
         del sys.modules[name]
     sys.path.insert(0, str(root))
     try:
-        mods = [importlib.import_module(f"{PACKAGE}.ops.{name}")
-                for name in ("fwd_megakernel", "fused_match", "pack16",
-                             "stream")]
+        mods = [importlib.import_module(f"{PACKAGE}.{name}")
+                for name in ("ops.fwd_megakernel", "ops.fused_match",
+                             "ops.pack16", "ops.stream", "profiles.casts",
+                             "profiles.dct_gates")]
     finally:
         sys.path.remove(str(root))
     for mod in mods:
         if not Path(mod.__file__).resolve().is_relative_to(root):
             raise RuntimeError(f"{mod.__name__} came from {mod.__file__}, "
                                f"not from {root}")
-    fwd, match, pack16, stream = mods
+    fwd, match, pack16, stream, casts, gates = mods
     fwd.load_kernel()
     match.load_kernel()
     pack16.load_pack_kernels()
     pack16.load_expand_kernels()
     stream.load_kernel()
-    return fwd, match, pack16, stream
+    casts.load_kernel()
+    gates.load_kernel()
+    return fwd, match, pack16, stream, casts, gates
 
 
 def main() -> int:
@@ -90,6 +106,7 @@ def main() -> int:
         SIDE,
         TIME_FRAMES,
         bound,
+        check,
         time_versions,
     )
 
@@ -179,6 +196,58 @@ def main() -> int:
     sink = torch.empty_like(x)
     ab(f"copy {COPY_BYTES >> 20} MiB u8", lambda m, a: m[3].stream_copy(a), x,
        2 * x.numel(), library=lambda a: sink.copy_(a))
+    del x, sink
+
+    from lz4jpeg_tpu_torch.profiles import timing
+
+    def ab_queued(label, fns, inputs, n_bytes, same):
+        """Each of ``fns`` (other, this, library) on ``inputs`` once, the
+        outputs held by ``same(name, out, this_out)``, then each timed by
+        ``timing.time_ms`` in turns: other, this, library, library, this,
+        other; prints both times of each, the ratio and the share of the
+        bytes bound."""
+        outs = {name: fn(inputs) for name, fn in fns.items()}
+        torch.cuda.synchronize()
+        for name, out in outs.items():
+            check(same(name, out, outs["this"]), f"{label}: {name} differs")
+        del outs
+        t = {}
+        for name in [*fns, *reversed(list(fns))]:
+            t.setdefault(name, []).append(timing.time_ms(fns[name], inputs, dev))
+            print(f"{label} {name}: {t[name][-1]:.4f} ms", flush=True)
+        b = bound(n_bytes)[0]
+        mean = {k: sum(v) / 2 for k, v in t.items()}
+        print(f"{label}: this {t['this'][0]:.4f}, {t['this'][1]:.4f} ms, other "
+              f"{t['other'][0]:.4f}, {t['other'][1]:.4f} "
+              f"({mean['other'] / mean['this']:.3f}x this), library "
+              f"{t['library'][0]:.4f}, {t['library'][1]:.4f} "
+              f"({mean['library'] / mean['this']:.3f}x this); bound {b:.4f} ms "
+              f"(bytes), this {b / mean['this']:.1%} of it")
+
+    casts = this[4]
+    for pair, (src, dst) in enumerate(casts.PAIRS):
+        x = casts.random_values(src, CAST_ELEMENTS, dev, SEED + pair)
+        ab_queued(f"P-cast {casts.pair_name(pair)} {CAST_ELEMENTS}",
+                  {"other": lambda a: other[4].cast(a, dst),
+                   "this": lambda a: this[4].cast(a, dst),
+                   "library": lambda a: a.to(dst)}, x,
+                  casts.cast_bytes(pair, CAST_ELEMENTS),
+                  lambda name, a, b: casts.same(a, b))
+        del x
+    gates = this[5]
+    m = gates.luma_basis(dev)
+    x = gates.device_pixels((DOT_ROWS, gates.DEPTH), dev, SEED)
+
+    def bits_of(name, a, b):
+        if name == "library":  # cuBLAS: within the bound of float64
+            return gates.dot_error(a, x, m)["within"]
+        return torch.equal(a.view(torch.int32), b.view(torch.int32))
+
+    ab_queued(f"P-dot ({DOT_ROWS}, 64) x (64, 64)",
+              {"other": lambda a: other[5].basis_dot(a, m),
+               "this": lambda a: this[5].basis_dot(a, m),
+               "library": lambda a: a @ m.t()}, x,
+              (2 * DOT_ROWS * gates.DEPTH + gates.DEPTH ** 2) * 4, bits_of)
     return 0
 
 

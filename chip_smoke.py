@@ -274,10 +274,15 @@ another checkout's.
     int16 and in a view one element off a 16-byte boundary; the cast kernel
     (``csrc/cast_kernel.cu``) identical to ``x.to(dst)`` for all seven
     pairs on the probe's tile, over the source's whole range (every
-    bfloat16 bit pattern; NaN as NaN), in an offset view and at 1,000,003
-    random words; the basis product (``csrc/dct_gate_kernel.cu``) within
-    64 · 2^-24 · Σ|x·m| of float64 at 512 (the probe's), 1, 65, 4,099 and
-    2,097,152 rows and an offset view, cuBLAS too, the outputs that differ
+    bfloat16 bit pattern; NaN as NaN), in an offset view, at 1,000,003
+    random words and at its chunk edges (1, a vector - 1, a chunk ± 1), and
+    uint8 → int32 at 2^29 + 5 elements (2^31 + 20 bytes out), each launch's
+    plan (CTAs) from the C code held to ``casts.cast_plan`` and printed;
+    the basis product (``csrc/dct_gate_kernel.cu``) within 64 · 2^-24 ·
+    Σ|x·m| of float64 at 512 (the probe's), 1, 63, 64, 65, 4,099 and
+    2,097,152 rows, one tile short of and past a full ring a CTA and an
+    offset view, each launch's plan (tiles, CTAs, tiles a CTA) held to
+    ``dct_gates.dot_plan`` and printed, cuBLAS too, the outputs that differ
     from cuBLAS and the largest difference in ulp printed; the transpose
     identical at the probe's (8, 256, 8) and (8, 128, 4), ragged shapes,
     tw 1 and 64, the timed bands and an offset view, and on both routes
@@ -503,7 +508,7 @@ GATE_SOURCE = "lz4jpeg_tpu_torch/csrc/dct_gate_kernel.cu"
 # the runners' 2,097,152); basis-product rows; transposes (B, bw, tw): the
 # probe's, ragged, tw 1 and 64, the timed bands; splits ((rows, W), tw).
 SUBLANE_COLS = (1, 131, 256, 512, 70_001, 2_097_152)
-DOT_ROWS = (512, 1, 65, 4099, 2_097_152)
+DOT_ROWS = (512, 1, 63, 64, 65, 4099, 2_097_152)
 TRANSPOSE_SHAPES = ((8, 256, 8), (8, 128, 4), (3, 7, 5), (2, 1000, 64),
                     (1, 1, 1), (5, 129, 3), (4, 300, 33), (32_768, 256, 8),
                     (32_768, 128, 4))
@@ -514,6 +519,7 @@ TRANSPOSE_ROUTES = ((8, 128, 2), (8, 256, 2), (8, 132, 2), (8, 256, 4),
                     (8, 130, 8), (8, 128, 3), (8, 128, 16), (8, 128, 64))
 SPLIT_SHAPES = (((8, 2048), 8), ((5, 7), 7), ((32_768, 2048), 8))
 CAST_RAGGED = 1_000_003  # phase 26's random cast inputs, off every vector
+CAST_BIG = (1 << 29) + 5  # phase 26's uint8 -> int32: 2^31 + 20 bytes out
 BUTTERFLY_RUN = {}  # the four runners' defaults: (64, 2,097,152) int32,
 PLANE_EXACT_RUN = {}  # 256² and 512² frames and (32, 2,097,152),
 CASTS_RUN = {}  # 134,217,728 elements a pair,
@@ -596,6 +602,34 @@ def copy_ctas(label: str, src: int, dst: int, n: int) -> int:
           f"{got.ctas} CTAs (head {got.head}, {got.n_vec} vectors, tail "
           f"{got.tail})")
     return got.ctas
+
+
+def cast_ctas(label: str, pair: int, n: int) -> int:
+    """Phase 26: the CTAs of the cast kernel's launch for ``n`` elements of
+    the pair, from the C code's plan, held equal to
+    ``profiles/casts.py::cast_plan``'s mirror and printed."""
+    from lz4jpeg_tpu_torch.profiles import casts
+
+    got, want = casts.launch_plan(pair, n), casts.cast_plan(pair, n)
+    check(got == want, f"{label}: the C plan {got} is not the mirror's {want}")
+    print(f"{label}: {n} elements: {got.ctas} CTAs of {got.threads} threads "
+          f"({got.n_vec} vectors of {got.vec_elems}, tail {got.tail})")
+    return got.ctas
+
+
+def dot_ctas(label: str, n: int, dev, resident: int):
+    """Phase 26: the basis product's launch for ``n`` rows from the C code's
+    plan, held equal to ``profiles/dct_gates.py::dot_plan``'s mirror on a
+    card where ``resident`` CTAs fit, and printed; returns the plan."""
+    from lz4jpeg_tpu_torch.profiles import dct_gates as dg
+
+    got, want = dg.dot_launch_plan(n, dev), dg.dot_plan(n, resident)
+    check(got == want, f"{label}: the C plan {got} is not the mirror's {want}")
+    per_cta = -(-got.tiles // got.ctas) if got.ctas else 0
+    print(f"{label}: {n} rows: {got.tiles} tiles of {got.tile_rows} over "
+          f"{got.ctas} CTAs, {per_cta} tiles a CTA at most, a ring of "
+          f"{got.stages}")
+    return got
 
 
 def timed_runs(fn, x, warmup: int = 2, runs: int = 10):
@@ -3460,25 +3494,48 @@ def gates_phase(dev):
                      torch.equal(packed, want_p) and torch.equal(runs, want_r))
             del x, packed, runs, want_p, want_r
 
-    # -- the casts: the probe's tile, the whole range, views, ragged -------
+    # -- the casts: the probe's tile, the whole range, views, ragged, the ---
+    # -- chunk edges (1, a vector - 1, a chunk ± 1), 2^31 bytes out --------
     for pair, (src, dst) in enumerate(casts.PAIRS):
         full = casts.full_range(src, rng).to(dev)
-        for tag, x in (("probe tile", casts.probe_values(src, rng).to(dev)),
-                       ("whole range", full), ("offset view", offset_view(full)),
-                       (f"{CAST_RAGGED} random",
-                        casts.random_values(src, CAST_RAGGED, dev, pair))):
+        plan = casts.cast_plan(pair, 0)
+        chunk = plan.vec_elems * plan.chunk_vecs
+        edges = sorted({1, max(plan.vec_elems - 1, 1), chunk - 1, chunk,
+                        chunk + 1})
+        cases = [("probe tile", casts.probe_values(src, rng).to(dev)),
+                 ("whole range", full), ("offset view", offset_view(full)),
+                 (f"{CAST_RAGGED} random",
+                  casts.random_values(src, CAST_RAGGED, dev, pair))]
+        cases += [(f"{n} random (chunk edge)",
+                   casts.random_values(src, n, dev, n)) for n in edges]
+        for tag, x in cases:
             got = casts.cast(x, dst)
             torch.cuda.synchronize()
-            held("cast", f"cast {casts.pair_name(pair)} {tag}",
-                 casts.same(got, casts.cast_ref(x, dst)))
+            name = f"cast {casts.pair_name(pair)} {tag}"
+            cast_ctas(f"phase 26: {name} launch", pair, x.numel())
+            held("cast", name, casts.same(got, casts.cast_ref(x, dst)))
+    x = casts.random_values(torch.uint8, CAST_BIG, dev, 29)
+    got = casts.cast(x, torch.int32)
+    torch.cuda.synchronize()
+    check(got.numel() * 4 > 1 << 31, "phase 26: the big cast is under 2^31 B")
+    cast_ctas(f"phase 26: cast uint8->int32 {CAST_BIG} launch", 2, CAST_BIG)
+    held("cast", f"cast uint8->int32 {CAST_BIG} ({CAST_BIG * 4} bytes out)",
+         torch.equal(got, x.to(torch.int32)))
+    del x, got, full, cases
 
-    # -- the basis product: within its bound; against cuBLAS ---------------
+    # -- the basis product: within its bound; against cuBLAS; at the ring's
+    # -- edges: one tile short of and past a full ring a CTA (ragged) ------
     m = dg.luma_basis(dev)
     ulps = {}
-    for rows in (*DOT_ROWS, "offset view"):
+    resident = dg.dot_launch_plan(1 << 30, dev).resident
+    ring = resident * dg.DOT_STAGES * dg.DOT_TILE_ROWS
+    ring_rows = (ring - dg.DOT_TILE_ROWS - 3, ring + dg.DOT_TILE_ROWS - 3)
+    for rows in (*DOT_ROWS, *ring_rows, "offset view"):
         x = dg.probe_pixels(4099 if rows == "offset view" else rows, rng).to(dev)
         if rows == "offset view":
             x = offset_view(x)
+        dot_ctas(f"phase 26: basis product {rows} rows launch", x.shape[0],
+                 dev, resident)
         got = dg.basis_dot(x, m)
         plain = dg.basis_dot_ref(x, m)
         torch.cuda.synchronize()

@@ -12,16 +12,31 @@
 // and bfloat16 → float32 is the 16-bit shift of the bits (subnormals,
 // infinities and NaN payloads carry over, as in c10::BFloat16).
 //
-// Design: one template <Src, Dst>, a grid-stride loop over groups of
-// 16 / max(sizeof(Src), sizeof(Dst)) elements: a thread moves 16 bytes of
-// the wider type and 4-16 of the narrower, so each warp load and each warp
-// store covers consecutive addresses (a 16-byte source vector with its
-// 32- or 64-byte result stored by one lane would leave every store
-// instruction strided); 64 bytes of the source a thread are loaded before
-// any is stored, with the streaming cache hint; the last elements past the
-// groups one by one.  Both pointers must be 16-byte aligned (the wrapper
-// copies a source that is not).  The grid is as many CTAs as fit on the
-// SMs.
+// Design: the streaming shape of csrc/stream_copy.cuh.  A lane loads one
+// vector of kLoadBytes of the source (kIn elements) and stores its kIn
+// results as 16-byte vectors; the lanes of a warp hold adjacent vectors, so
+// each warp load and each warp store covers whole 128-byte lines.  A thread
+// loads its kVecs vectors before it stores any.  Each CTA converts one chunk
+// of kThreads · kVecs vectors, and the grid has one CTA a chunk in index
+// order, with no cap at the resident count and no grid-stride walk, so the
+// bytes in flight stay in one window that moves through the array; the
+// loads and stores keep the default cache hints (the evict-first hints of
+// a persistent grid-stride loop cost the copies 1.5% whenever the L2 held
+// other lines, PERF.md §6).  Where a vector's results fill more than one
+// 16-byte store, kShuffle regroups them across the warp by __shfl_sync, so
+// that store q of the warp writes the 512 contiguous bytes q of the warp's
+// results rather than 32 pieces one lane's results apart.  The last n % kIn
+// elements go one by one, as chunks of a list, CTA 0 taking the first.
+// Offsets are 64-bit.  Both pointers must be 16-byte aligned (the wrapper
+// copies a source that is not).  Each pair's shape (PairShape below) is the
+// fastest of a sweep of 45 on an H100 (PERF.md §6): one 16-byte result
+// vector a lane, one vector a thread, 512 threads a CTA (1,024 for int32 →
+// float32).  A 16-byte source vector whose 64 bytes of int32 one lane
+// stores took uint8 → int32 2.1× as long; regrouped by shuffles it came
+// back to within 2% of the shape kept, and more vectors a thread only
+// added time.  -DCAST_LOAD=, -DCAST_VECS=, -DCAST_THREADS= and
+// -DCAST_SHUFFLE= build every pair at one shape for such a sweep
+// (profiles/kernel_sweep.py).
 //
 // What bounds it: one read of the source and one write of the result, no
 // arithmetic to speak of.  At 134,217,728 elements (the probe's tile grown
@@ -34,8 +49,6 @@
 #include <cuda_runtime.h>
 
 namespace {
-
-constexpr int kThreads = 256;
 
 struct Bf16 {  // the 16 bits of a bfloat16
   uint16_t bits;
@@ -72,154 +85,253 @@ template <> struct Raw<16> { using type = uint4; };
 template <> struct Raw<8> { using type = uint2; };
 template <> struct Raw<4> { using type = uint32_t; };
 
-// A thread converts kN elements at a time: 16 bytes of the wider of the two
-// types, so a warp's loads and stores both cover consecutive addresses.
-// kUnroll such groups are loaded before any is converted and stored, 64
-// bytes of the source a thread in flight (at least 4 groups).
-template <typename S, typename D>
-struct Vectors {
-  static constexpr int kWide = sizeof(S) > sizeof(D) ? sizeof(S) : sizeof(D);
-  static constexpr int kN = 16 / kWide;
-  static constexpr int kInBytes = kN * static_cast<int>(sizeof(S));
-  static constexpr int kUnroll = 64 / kInBytes > 4 ? 64 / kInBytes : 4;
-  using Load = typename Raw<kInBytes>::type;
-  using Store = typename Raw<kN * static_cast<int>(sizeof(D))>::type;
-  union In {
-    Load v;
-    S e[kN];
-  };
-  union Out {
-    Store v;
-    D e[kN];
-  };
+// A launch shape: kLoadBytes of the source a vector, kVecs vectors a
+// thread, kThreads threads a CTA, and whether a vector's stores are
+// regrouped across the warp.
+template <int kLoadBytes_, int kVecs_, int kThreads_, int kShuffle_>
+struct Shape {
+  static constexpr int kLoadBytes = kLoadBytes_;
+  static constexpr int kVecs = kVecs_;
+  static constexpr int kThreads = kThreads_;
+  static constexpr bool kShuffle = kShuffle_ != 0;
 };
 
 template <typename S, typename D>
-__global__ void __launch_bounds__(kThreads)
-    cast_kernel(const S* __restrict__ in, D* __restrict__ out, long long n) {
-  using V = Vectors<S, D>;
-  const long long tid =
-      static_cast<long long>(blockIdx.x) * kThreads + threadIdx.x;
-  const long long stride = static_cast<long long>(gridDim.x) * kThreads;
-  const long long n_vec = n / V::kN;
-  const auto* src = reinterpret_cast<const typename V::Load*>(in);
-  auto* dst = reinterpret_cast<typename V::Store*>(out);
-  auto convert = [](const typename V::In& a) {
-    typename V::Out o;
-#pragma unroll
-    for (int j = 0; j < V::kN; ++j) o.e[j] = Convert<S, D>::of(a.e[j]);
-    return o.v;
+struct PairShape;
+#ifdef CAST_LOAD
+template <typename S, typename D>
+struct PairShape : Shape<CAST_LOAD, CAST_VECS, CAST_THREADS, CAST_SHUFFLE> {};
+#else
+template <> struct PairShape<int16_t, float> : Shape<8, 1, 512, 0> {};
+template <> struct PairShape<int32_t, float> : Shape<16, 1, 1024, 0> {};
+template <> struct PairShape<uint8_t, int32_t> : Shape<4, 1, 512, 0> {};
+template <> struct PairShape<int8_t, int32_t> : Shape<4, 1, 512, 0> {};
+template <> struct PairShape<int16_t, int32_t> : Shape<8, 1, 512, 0> {};
+template <> struct PairShape<uint8_t, int16_t> : Shape<8, 1, 512, 0> {};
+template <> struct PairShape<Bf16, float> : Shape<8, 1, 512, 0> {};
+#endif
+
+// What a pair's shape makes of its types: kIn elements a vector, its
+// results in kStores stores of kOut elements (16 bytes, or fewer where a
+// vector's results are fewer).
+template <typename S, typename D>
+struct Layout {
+  using P = PairShape<S, D>;
+  static constexpr int kThreads = P::kThreads;
+  static constexpr int kVecs = P::kVecs;
+  static constexpr int kLoadBytes = P::kLoadBytes;
+  static constexpr int kIn = kLoadBytes / static_cast<int>(sizeof(S));
+  static constexpr int kOutBytes = kIn * static_cast<int>(sizeof(D));
+  static constexpr int kStoreBytes = kOutBytes < 16 ? kOutBytes : 16;
+  static constexpr int kStores = kOutBytes / kStoreBytes;
+  static constexpr int kOut = kStoreBytes / static_cast<int>(sizeof(D));
+  static constexpr bool kShuffle = P::kShuffle && kStores > 1;
+  static constexpr int64_t kChunkVecs = static_cast<int64_t>(kThreads) * kVecs;
+  static constexpr int64_t kChunkElems = kChunkVecs * kIn;
+  static_assert(kLoadBytes == 4 || kLoadBytes == 8 || kLoadBytes == 16,
+                "a vector is 4, 8 or 16 bytes");
+  static_assert(kIn >= 1 && kStores * kStoreBytes == kOutBytes, "bad shape");
+  using Load = typename Raw<kLoadBytes>::type;
+  using Store = typename Raw<kStoreBytes>::type;
+  union In {
+    Load v;
+    S e[kIn];
+    uint32_t w[kLoadBytes / 4];
   };
-  long long i = tid;
-  for (; i + (V::kUnroll - 1) * stride < n_vec; i += V::kUnroll * stride) {
-    typename V::In a[V::kUnroll];
-#pragma unroll
-    for (int u = 0; u < V::kUnroll; ++u) a[u].v = __ldcs(src + i + u * stride);
-#pragma unroll
-    for (int u = 0; u < V::kUnroll; ++u)
-      __stcs(dst + i + u * stride, convert(a[u]));
-  }
-  for (; i < n_vec; i += stride) {
-    typename V::In a;
-    a.v = __ldcs(src + i);
-    __stcs(dst + i, convert(a));
-  }
-  for (i = n_vec * V::kN + tid; i < n; i += stride)
-    out[i] = Convert<S, D>::of(in[i]);
+  union Out {
+    Store v;
+    D e[kOut];
+  };
+};
+
+// The launch: n_vec vectors, then `tail` elements one by one; one CTA a
+// chunk of the vectors or of the tail list, whichever needs more.
+struct Plan {
+  int64_t n_vec, tail, ctas;
+};
+
+template <typename S, typename D>
+Plan plan_of(int64_t n) {
+  using L = Layout<S, D>;
+  Plan p;
+  p.n_vec = n / L::kIn;
+  p.tail = n - p.n_vec * L::kIn;
+  const int64_t body = (p.n_vec + L::kChunkVecs - 1) / L::kChunkVecs;
+  const int64_t rest = (p.tail + L::kChunkElems - 1) / L::kChunkElems;
+  p.ctas = body > rest ? body : rest;
+  return p;
 }
 
-// The pair's (source bytes, destination bytes) and kernel, or 0 and nullptr.
-const void* pair_kernel(int pair, int* src_bytes, int* dst_bytes) {
-  switch (pair) {
-#define CAST_PAIR(ID, S, D)                                 \
-  case ID:                                                  \
-    *src_bytes = sizeof(S);                                 \
-    *dst_bytes = sizeof(D);                                 \
-    return reinterpret_cast<const void*>(cast_kernel<S, D>);
-    CAST_PAIR(0, int16_t, float)
-    CAST_PAIR(1, int32_t, float)
-    CAST_PAIR(2, uint8_t, int32_t)
-    CAST_PAIR(3, int8_t, int32_t)
-    CAST_PAIR(4, int16_t, int32_t)
-    CAST_PAIR(5, uint8_t, int16_t)
-    CAST_PAIR(6, Bf16, float)
-#undef CAST_PAIR
-    default:
-      *src_bytes = *dst_bytes = 0;
-      return nullptr;
+// Store the results of vector i (a.e) at their place in `out`.
+template <typename S, typename D>
+__device__ __forceinline__ void store_vector(
+    const typename Layout<S, D>::In& a, typename Layout<S, D>::Store* out,
+    int64_t i, int64_t n_vec) {
+  using L = Layout<S, D>;
+  const int lane = threadIdx.x & 31;
+  if constexpr (L::kShuffle) {
+    // The warp's 32 vectors i - lane .. are adjacent, their results
+    // 32 · kStores stores; store q of lane l is store 32 q + l of them,
+    // the kOut elements of chunk l % kStores of lane (32 q + l) / kStores.
+    // Where the warp's vectors run past n_vec (the last warp) the lanes
+    // store their own results, as below.
+    if (i - lane + 31 < n_vec) {
+      // the source of one store: kWords 32-bit words of a lane's vector
+      constexpr int kWords = L::kOut * static_cast<int>(sizeof(S)) / 4;
+      union Chunk {
+        uint32_t w[kWords];
+        S e[L::kOut];
+      };
+      const int64_t first = (i - lane) * L::kStores;
+#pragma unroll
+      for (int q = 0; q < L::kStores; ++q) {
+        const int from = (32 * q + lane) / L::kStores;
+        const int want = lane % L::kStores;
+        Chunk got;
+#pragma unroll
+        for (int c = 0; c < L::kStores; ++c)
+#pragma unroll
+          for (int w = 0; w < kWords; ++w) {
+            const uint32_t v = __shfl_sync(0xffffffffu, a.w[c * kWords + w], from);
+            if (c == want) got.w[w] = v;
+          }
+        typename L::Out o;
+#pragma unroll
+        for (int j = 0; j < L::kOut; ++j) o.e[j] = Convert<S, D>::of(got.e[j]);
+        out[first + 32 * q + lane] = o.v;
+      }
+      return;
+    }
   }
-}
-
-// As many CTAs as fit on the SMs, no more than the work needs.
-cudaError_t grid_for(const void* kernel, long long units, unsigned* ctas) {
-  int device = 0, sms = 0, per_sm = 0;
-  cudaError_t err = cudaGetDevice(&device);
-  if (err == cudaSuccess)
-    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
-  if (err == cudaSuccess)
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
-                                                        kThreads, 0);
-  if (err != cudaSuccess) return err;
-  const long long need = (units + kThreads - 1) / kThreads;
-  const long long resident = static_cast<long long>(sms) * per_sm;
-  *ctas = static_cast<unsigned>(need < resident ? need : resident);
-  return *ctas > 0 ? cudaSuccess : cudaErrorInvalidConfiguration;
+  if (i < n_vec) {
+#pragma unroll
+    for (int q = 0; q < L::kStores; ++q) {
+      typename L::Out o;
+#pragma unroll
+      for (int j = 0; j < L::kOut; ++j)
+        o.e[j] = Convert<S, D>::of(a.e[q * L::kOut + j]);
+      out[i * L::kStores + q] = o.v;
+    }
+  }
 }
 
 template <typename S, typename D>
-cudaError_t launch(const void* in, void* out, long long n, cudaStream_t s) {
-  using V = Vectors<S, D>;
-  const long long units = (n / V::kN + V::kUnroll - 1) / V::kUnroll + 1;
-  unsigned ctas = 0;
-  const cudaError_t err = grid_for(
-      reinterpret_cast<const void*>(cast_kernel<S, D>), units, &ctas);
-  if (err != cudaSuccess) return err;
-  cast_kernel<S, D><<<ctas, kThreads, 0, s>>>(static_cast<const S*>(in),
-                                               static_cast<D*>(out), n);
+__global__ void __launch_bounds__(Layout<S, D>::kThreads)
+    cast_kernel(const S* __restrict__ in, D* __restrict__ out, int64_t n_vec,
+                int64_t tail) {
+  using L = Layout<S, D>;
+  const int64_t c = blockIdx.x;
+  const int64_t first = c * L::kChunkVecs + threadIdx.x;
+  const auto* src = reinterpret_cast<const typename L::Load*>(in);
+  auto* dst = reinterpret_cast<typename L::Store*>(out);
+  typename L::In a[L::kVecs];
+#pragma unroll
+  for (int v = 0; v < L::kVecs; ++v) {
+    const int64_t i = first + static_cast<int64_t>(v) * L::kThreads;
+    if (i < n_vec) a[v].v = src[i];
+  }
+#pragma unroll
+  for (int v = 0; v < L::kVecs; ++v)
+    store_vector<S, D>(a[v], dst, first + static_cast<int64_t>(v) * L::kThreads,
+                       n_vec);
+
+  // The tail list: elements n_vec · kIn + j, chunk c of it here.
+  const int64_t t0 = n_vec * L::kIn;
+  const int64_t end =
+      (c + 1) * L::kChunkElems < tail ? (c + 1) * L::kChunkElems : tail;
+  for (int64_t j = c * L::kChunkElems + threadIdx.x; j < end; j += L::kThreads)
+    out[t0 + j] = Convert<S, D>::of(in[t0 + j]);
+}
+
+template <typename S, typename D>
+cudaError_t launch(const void* in, void* out, int64_t n, cudaStream_t s) {
+  const Plan p = plan_of<S, D>(n);
+  cast_kernel<S, D><<<static_cast<unsigned>(p.ctas), Layout<S, D>::kThreads,
+                      0, s>>>(static_cast<const S*>(in), static_cast<D*>(out),
+                              p.n_vec, p.tail);
   return cudaGetLastError();
 }
 
-}  // namespace
-
-// in: n elements of the pair's source type, out: n of its destination type,
-// both contiguous and 16-byte aligned.  Launches on `stream` and returns
-// the first CUDA error of the device and occupancy queries or the launch
-// (0 on success), cudaErrorInvalidValue for an unknown pair or n < 0,
-// cudaErrorMisalignedAddress for a pointer off a 16-byte boundary; never
-// synchronises.
-extern "C" int cast_launch(int pair, const void* in, void* out, long long n,
-                           void* stream) {
-  int sb = 0, db = 0;
-  if (pair_kernel(pair, &sb, &db) == nullptr || n < 0)
-    return cudaErrorInvalidValue;
-  if (reinterpret_cast<uintptr_t>(in) % 16 ||
-      reinterpret_cast<uintptr_t>(out) % 16)
-    return cudaErrorMisalignedAddress;
-  if (n == 0) return cudaSuccess;
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (pair) {
-    case 0: return launch<int16_t, float>(in, out, n, s);
-    case 1: return launch<int32_t, float>(in, out, n, s);
-    case 2: return launch<uint8_t, int32_t>(in, out, n, s);
-    case 3: return launch<int8_t, int32_t>(in, out, n, s);
-    case 4: return launch<int16_t, int32_t>(in, out, n, s);
-    case 5: return launch<uint8_t, int16_t>(in, out, n, s);
-    default: return launch<Bf16, float>(in, out, n, s);
-  }
+// The pair's plan for n elements: plan[0] vectors, [1] tail elements, [2]
+// CTAs, [3] elements a vector, [4] vectors a chunk, [5] threads a CTA, [6]
+// stores a vector, [7] 1 where the stores are regrouped by shuffles.
+template <typename S, typename D>
+void describe(int64_t n, long long* plan) {
+  using L = Layout<S, D>;
+  const Plan p = plan_of<S, D>(n);
+  plan[0] = p.n_vec;
+  plan[1] = p.tail;
+  plan[2] = p.ctas;
+  plan[3] = L::kIn;
+  plan[4] = L::kChunkVecs;
+  plan[5] = L::kThreads;
+  plan[6] = L::kStores;
+  plan[7] = L::kShuffle ? 1 : 0;
 }
 
-// Registers per thread, static shared memory per CTA and resident CTAs per
-// SM of the pair's kernel; returns the first CUDA error.
-extern "C" int cast_attributes(int pair, int* regs, int* smem, int* ctas) {
-  int sb = 0, db = 0;
-  const void* fn = pair_kernel(pair, &sb, &db);
-  if (fn == nullptr) return cudaErrorInvalidValue;
+template <typename S, typename D>
+cudaError_t attributes(int* regs, int* smem, int* ctas) {
+  const void* fn = reinterpret_cast<const void*>(cast_kernel<S, D>);
   cudaFuncAttributes attr;
   const cudaError_t err = cudaFuncGetAttributes(&attr, fn);
   if (err != cudaSuccess) return err;
   *regs = attr.numRegs;
   *smem = static_cast<int>(attr.sharedSizeBytes);
-  return cudaOccupancyMaxActiveBlocksPerMultiprocessor(ctas, fn, kThreads, 0);
+  return cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      ctas, fn, Layout<S, D>::kThreads, 0);
+}
+
+// Runs CALL with S and D the pair's source and destination types; nothing
+// for an unknown pair.
+#define CAST_DISPATCH(PAIR, CALL)          \
+  switch (PAIR) {                          \
+    case 0: { using S = int16_t; using D = float; CALL; } break;   \
+    case 1: { using S = int32_t; using D = float; CALL; } break;   \
+    case 2: { using S = uint8_t; using D = int32_t; CALL; } break; \
+    case 3: { using S = int8_t; using D = int32_t; CALL; } break;  \
+    case 4: { using S = int16_t; using D = int32_t; CALL; } break; \
+    case 5: { using S = uint8_t; using D = int16_t; CALL; } break; \
+    case 6: { using S = Bf16; using D = float; CALL; } break;      \
+    default: break;                        \
+  }
+
+bool known(int pair) { return pair >= 0 && pair < 7; }
+
+}  // namespace
+
+// in: n elements of the pair's source type, out: n of its destination type,
+// both contiguous and 16-byte aligned.  Launches on `stream` and returns
+// the launch's CUDA error (0 on success), cudaErrorInvalidValue for an
+// unknown pair or n < 0, cudaErrorMisalignedAddress for a pointer off a
+// 16-byte boundary; never synchronises.
+extern "C" int cast_launch(int pair, const void* in, void* out, long long n,
+                           void* stream) {
+  if (!known(pair) || n < 0) return cudaErrorInvalidValue;
+  if (reinterpret_cast<uintptr_t>(in) % 16 ||
+      reinterpret_cast<uintptr_t>(out) % 16)
+    return cudaErrorMisalignedAddress;
+  if (n == 0) return cudaSuccess;
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  cudaError_t err = cudaErrorInvalidValue;
+  CAST_DISPATCH(pair, err = (launch<S, D>(in, out, n, s)))
+  return err;
+}
+
+// The launch cast_launch makes for n ≥ 0 elements of the pair (describe's
+// eight numbers); cudaErrorInvalidValue for an unknown pair or n < 0.
+extern "C" int cast_plan(int pair, long long n, long long* plan) {
+  if (!known(pair) || n < 0) return cudaErrorInvalidValue;
+  CAST_DISPATCH(pair, (describe<S, D>(n, plan)))
+  return cudaSuccess;
+}
+
+// Registers per thread, static shared memory per CTA and resident CTAs per
+// SM of the pair's kernel; returns the first CUDA error.
+extern "C" int cast_attributes(int pair, int* regs, int* smem, int* ctas) {
+  if (!known(pair)) return cudaErrorInvalidValue;
+  cudaError_t err = cudaErrorInvalidValue;
+  CAST_DISPATCH(pair, err = (attributes<S, D>(regs, smem, ctas)))
+  return err;
 }
 
 extern "C" const char* cast_error_string(int code) {

@@ -3,24 +3,47 @@
 //
 // basis_dot: out[n, j] = Σ_k x[n, k] · m[j, k] for (N, 64) x and a (64, 64)
 // basis m, float32 in and out, in IEEE fp32 FFMA on the CUDA cores with k
-// summed in order 0 .. 63 for every output (no tensor cores: neither TF32
-// nor bf16 parts are the question).  Replaces
+// summed in order 0 .. 63 from 0 for every output (no tensor cores: neither
+// TF32 nor bf16 parts are the question).  Replaces
 // profiles/profile_fused_dct_gates.py::dot_kernel (:26, pallas_call :35),
 // which asked whether a Pallas kernel's HIGHEST-precision dot_general equals
 // XLA's highest matmul with the luma forward basis.  cuBLAS picks its own
 // summation order, so outputs may differ from it in the last bits; the
 // kernel is held to 64 · 2^-24 · Σ_k |x_k · m_jk| of a float64 product.
-// Design: persistent CTAs of 128 threads; the basis is staged once a CTA,
-// transposed, in shared memory (mt[k][j], 16 KiB); a CTA walks 64-row tiles
-// of x, each staged row-major in shared memory (16 KiB) by coalesced
-// 16-byte loads; a thread owns an 8-row × 4-output register block (32
-// accumulators) and per 4 steps of k reads 8 float4 of its rows and 4
-// float4 of the basis for 128 FFMA; outputs leave as 16-byte stores, two
-// 256-byte rows a warp instruction.
+// Design: persistent CTAs (kCtasPerSm an SM at most) of one producer warp
+// and kConsumers compute threads.  Each CTA stages the basis once,
+// transposed (mt[k][j], 16 KiB), and walks the tiles of kTileRows rows of x
+// blockIdx.x, blockIdx.x + gridDim.x, ... through a ring of kStages tiles
+// in dynamic shared memory.  One producer lane fills a slot by 1-D bulk
+// copies (cp.async.bulk, one for each group of kBlockRows rows, 256 bytes a
+// row, completing on the slot's "full" mbarrier with the bytes as its
+// transaction count) as soon as the consumers have arrived on the slot's
+// "empty" mbarrier, so the loads of the next tiles overlap the FFMA of this
+// one.  A consumer thread owns a kBlockRows × kBlockCols register block:
+// the rows of one group, the columns 4 cg .. 4 cg + 3 (and, for 8 columns,
+// 32 + 4 cg ..).  A warp holds 32 / kColGroups row groups and every column
+// group, so a basis load (one float4 of mt[k]) is kColGroups contiguous
+// float4 broadcast to the row groups, and an x load (one float4 of a row,
+// four k) is one address a row group broadcast to its columns; the row
+// groups sit kGroupBytes + 16 bytes apart in the slot, so their float4
+// fall in distinct banks: no bank conflict, 16 wavefronts for 128 FFMA at
+// 8 × 4 (8 x loads of one, 4 basis loads of two).  A consumer warp
+// releases the slot once its sums are in registers, then stores them as
+// 16-byte vectors with the default hints (a warp's store: the 256
+// contiguous bytes of each of its row groups' rows).  The producer waits on
+// "empty" with the parity of the slot's last round (the first round passes
+// at once), the consumers on "full" with the parity of this round; a
+// partial last tile copies only its rows and expects only their bytes, and
+// its other rows' sums are not stored.  The shape, 64-row tiles, two
+// slots, three CTAs an SM and 8 × 4 blocks (4 consumer warps a CTA), is the
+// fastest of a sweep of 47 on an H100 (PERF.md §6: 8 × 8 blocks, with
+// half the basis loads, leave too few warps an SM); the BASIS_DOT_*
+// macros build another for such a sweep (profiles/kernel_sweep.py).
 // What bounds it: x read once and the result written once, 512 bytes a
 // row: at 2,097,152 rows 1,073,758,208 bytes with the basis, 0.3205 ms at
 // 3.35 TB/s; the 17.18 GFLOP of FFMA work take 0.2564 ms at the data
-// sheet's 67 TFLOP/s fp32, so bytes bound it, if narrowly.
+// sheet's 67 TFLOP/s fp32, so bytes bound it, if narrowly, and only loads,
+// stores and FFMA that overlap come near it.
 //
 // minor_transpose: (B, bw, tw) → (B, tw, bw) float32, any bw ≥ 1 and 1 ≤ tw
 // ≤ 64.  Replaces profile_fused_dct_gates.py::tr_kernel (:50, pallas_call
@@ -60,69 +83,197 @@ namespace {
 
 constexpr int kDepth = 64;       // basis_dot: k
 constexpr int kOutputs = 64;     // basis_dot: j
-constexpr int kRows = 64;        // basis_dot: rows of x a tile
-constexpr int kDotThreads = 128; // 16 × 4 outputs by 8 × 8 rows
 constexpr int kTrThreads = 256;
 constexpr int kChunk = 128;      // minor_transpose: columns a tile
 constexpr int kMaxTw = 64;
 constexpr int kVecThreads = 256;
 constexpr int kVecUnroll = 4;    // float4 loads in flight a lane
 
-__global__ void __launch_bounds__(kDotThreads)
+// basis_dot's shape (see the design above); the BASIS_DOT_* macros build
+// another for a sweep.
+#ifndef BASIS_DOT_TILE_ROWS
+#define BASIS_DOT_TILE_ROWS 64
+#endif
+#ifndef BASIS_DOT_STAGES
+#define BASIS_DOT_STAGES 2
+#endif
+#ifndef BASIS_DOT_CTAS_PER_SM
+#define BASIS_DOT_CTAS_PER_SM 3
+#endif
+#ifndef BASIS_DOT_BLOCK_ROWS
+#define BASIS_DOT_BLOCK_ROWS 8
+#endif
+#ifndef BASIS_DOT_BLOCK_COLS
+#define BASIS_DOT_BLOCK_COLS 4
+#endif
+
+namespace dot {
+constexpr int kTileRows = BASIS_DOT_TILE_ROWS;
+constexpr int kStages = BASIS_DOT_STAGES;
+constexpr int kCtasPerSm = BASIS_DOT_CTAS_PER_SM;
+constexpr int kBlockRows = BASIS_DOT_BLOCK_ROWS;
+constexpr int kBlockCols = BASIS_DOT_BLOCK_COLS;
+constexpr int kRowBytes = kDepth * 4;                // 256: one row of x
+constexpr int kColGroups = kOutputs / kBlockCols;   // column groups
+constexpr int kRowGroups = kTileRows / kBlockRows;  // row groups a tile
+constexpr int kColVecs = kBlockCols / 4;            // float4 of mt[k]
+constexpr int kConsumers = kRowGroups * kColGroups; // compute threads
+constexpr int kThreads = kConsumers + 32;           // and the producer warp
+constexpr int kGroupBytes = kBlockRows * kRowBytes; // one bulk copy
+constexpr int kGroupStride = kGroupBytes + 16;      // 4 banks between groups
+constexpr int kTileBytes = kRowGroups * kGroupStride;
+constexpr int kBasisBytes = kDepth * kOutputs * 4;
+constexpr size_t kSmem =
+    kBasisBytes + static_cast<size_t>(kStages) * kTileBytes + 16 * kStages;
+static_assert(kBlockCols == 4 || kBlockCols == 8, "4 or 8 columns");
+static_assert(kTileRows % kBlockRows == 0 && kConsumers % 32 == 0,
+              "whole row groups and whole warps");
+static_assert((32 / kColGroups) * 4 <= 32, "a warp's row groups in distinct banks");
+static_assert(kGroupBytes % 128 == 0, "a group starts 4 banks on from the last");
+static_assert(kStages >= 1 && kCtasPerSm >= 1, "a ring and a CTA");
+}  // namespace dot
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(smem_u32(bar)),
+               "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(smem_u32(bar))
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(
+                   smem_u32(bar)),
+               "r"(bytes)
+               : "memory");
+}
+
+// Spin until the phase of `bar` with this parity has completed.
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "WAIT:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 p, [%0], %1;\n"
+      "@!p bra WAIT;\n"
+      "}\n" ::"r"(smem_u32(bar)),
+      "r"(parity)
+      : "memory");
+}
+
+// `bytes` (a multiple of 16) from global `src` to shared `dst` (both
+// 16-byte aligned), completing on `bar`.
+__device__ __forceinline__ void bulk_load(void* dst, const void* src,
+                                          uint32_t bytes, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];" ::"r"(smem_u32(dst)),
+      "l"(src), "r"(bytes), "r"(smem_u32(bar))
+      : "memory");
+}
+
+__global__ void __launch_bounds__(dot::kThreads, dot::kCtasPerSm)
     basis_dot_kernel(const float* __restrict__ x, const float* __restrict__ m,
                      float* __restrict__ out, long long n) {
-  __shared__ alignas(16) float mt[kDepth][kOutputs];  // mt[k][j] = m[j][k]
-  __shared__ alignas(16) float xs[kRows][kDepth];
+  using namespace dot;
+  extern __shared__ __align__(128) unsigned char smem[];
+  float* mt = reinterpret_cast<float*>(smem);  // mt[k * 64 + j] = m[j][k]
+  unsigned char* ring = smem + kBasisBytes;
+  uint64_t* full = reinterpret_cast<uint64_t*>(ring + kStages * kTileBytes);
+  uint64_t* empty = full + kStages;
   const int t = threadIdx.x;
-  const int tc = t % 16;  // outputs 4 tc .. 4 tc + 3
-  const int tr = t / 16;  // rows 8 tr .. 8 tr + 7 of the tile
-  for (int i = t; i < kDepth * kOutputs; i += kDotThreads) {
-    const int k = i / kOutputs, j = i % kOutputs;
-    mt[k][j] = m[j * kDepth + k];
-  }
-  const long long tiles = (n + kRows - 1) / kRows;
-  for (long long tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
-    const long long r0 = tile * kRows;
-    __syncthreads();  // the basis is staged; the last tile's reads are done
-    for (int q = t; q < kRows * kDepth / 4; q += kDotThreads) {
-      const int r = q / (kDepth / 4), c4 = q % (kDepth / 4);
-      float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
-      if (r0 + r < n)
-        v = __ldcs(reinterpret_cast<const float4*>(x + (r0 + r) * kDepth) + c4);
-      *reinterpret_cast<float4*>(&xs[r][4 * c4]) = v;
+  if (t == 0) {
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], kConsumers / 32);
     }
-    __syncthreads();
-    float acc[8][4];
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  for (int i = t; i < kDepth * kOutputs; i += kThreads)
+    mt[i] = m[(i % kOutputs) * kDepth + i / kOutputs];
+  __syncthreads();
+  const long long tiles = (n + kTileRows - 1) / kTileRows;
+
+  if (t >= kConsumers) {  // the producer warp: one lane fills the ring
+    if (t != kConsumers) return;
+    int i = 0;
+    for (long long tile = blockIdx.x; tile < tiles; tile += gridDim.x, ++i) {
+      const int s = i % kStages;
+      mbar_wait(&empty[s], ((i / kStages) & 1) ^ 1);
+      const long long r0 = tile * kTileRows;
+      const int rows = n - r0 < kTileRows ? static_cast<int>(n - r0) : kTileRows;
+      mbar_expect_tx(&full[s], rows * kRowBytes);
+      unsigned char* slot = ring + s * kTileBytes;
+      for (int g = 0; g * kBlockRows < rows; ++g) {
+        const int left = rows - g * kBlockRows;
+        bulk_load(slot + g * kGroupStride, x + (r0 + g * kBlockRows) * kDepth,
+                  (left < kBlockRows ? left : kBlockRows) * kRowBytes, &full[s]);
+      }
+    }
+    return;
+  }
+
+  const int lane = t & 31;
+  const int cg = lane % kColGroups;
+  const int rg = (t >> 5) * (32 / kColGroups) + lane / kColGroups;
+  const float* mcol = mt + 4 * cg;
+  int i = 0;
+  for (long long tile = blockIdx.x; tile < tiles; tile += gridDim.x, ++i) {
+    const int s = i % kStages;
+    mbar_wait(&full[s], (i / kStages) & 1);
+    const float* xs =
+        reinterpret_cast<const float*>(ring + s * kTileBytes + rg * kGroupStride);
+    float acc[kBlockRows][kBlockCols];
 #pragma unroll
-    for (int i = 0; i < 8; ++i)
+    for (int r = 0; r < kBlockRows; ++r)
 #pragma unroll
-      for (int c = 0; c < 4; ++c) acc[i][c] = 0.f;
+      for (int c = 0; c < kBlockCols; ++c) acc[r][c] = 0.f;
 #pragma unroll 2
     for (int k = 0; k < kDepth; k += 4) {
-      float4 xv[8], mv[4];
+      float4 xv[kBlockRows];
 #pragma unroll
-      for (int i = 0; i < 8; ++i)
-        xv[i] = *reinterpret_cast<const float4*>(&xs[8 * tr + i][k]);
-#pragma unroll
-      for (int e = 0; e < 4; ++e)
-        mv[e] = *reinterpret_cast<const float4*>(&mt[k + e][4 * tc]);
+      for (int r = 0; r < kBlockRows; ++r)
+        xv[r] = *reinterpret_cast<const float4*>(xs + r * kDepth + k);
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
-        const float* mk = reinterpret_cast<const float*>(&mv[e]);
+        float mv[kBlockCols];
 #pragma unroll
-        for (int i = 0; i < 8; ++i) {
-          const float xk = reinterpret_cast<const float*>(&xv[i])[e];
+        for (int v = 0; v < kColVecs; ++v) {
+          const float4 q = *reinterpret_cast<const float4*>(
+              mcol + (k + e) * kOutputs + v * (kOutputs / kColVecs));
+          mv[4 * v] = q.x;
+          mv[4 * v + 1] = q.y;
+          mv[4 * v + 2] = q.z;
+          mv[4 * v + 3] = q.w;
+        }
 #pragma unroll
-          for (int c = 0; c < 4; ++c) acc[i][c] = fmaf(xk, mk[c], acc[i][c]);
+        for (int r = 0; r < kBlockRows; ++r) {
+          const float xk = reinterpret_cast<const float*>(&xv[r])[e];
+#pragma unroll
+          for (int c = 0; c < kBlockCols; ++c)
+            acc[r][c] = fmaf(xk, mv[c], acc[r][c]);
         }
       }
     }
+    __syncwarp();
+    if (lane == 0) mbar_arrive(&empty[s]);  // the slot's reads are done
+    const long long r0 = tile * kTileRows + rg * kBlockRows;
 #pragma unroll
-    for (int i = 0; i < 8; ++i) {
-      const long long r = r0 + 8 * tr + i;
-      if (r < n)
-        __stcs(reinterpret_cast<float4*>(out + r * kOutputs) + tc,
-               make_float4(acc[i][0], acc[i][1], acc[i][2], acc[i][3]));
+    for (int r = 0; r < kBlockRows; ++r) {
+      if (r0 + r >= n) break;
+      float* row = out + (r0 + r) * kOutputs + 4 * cg;
+#pragma unroll
+      for (int v = 0; v < kColVecs; ++v)
+        *reinterpret_cast<float4*>(row + v * (kOutputs / kColVecs)) =
+            make_float4(acc[r][4 * v], acc[r][4 * v + 1], acc[r][4 * v + 2],
+                        acc[r][4 * v + 3]);
     }
   }
 }
@@ -262,6 +413,33 @@ cudaError_t grid_for(const void* kernel, int threads, size_t smem,
   return *ctas > 0 ? cudaSuccess : cudaErrorInvalidConfiguration;
 }
 
+// basis_dot's launch for n rows: its tiles, the resident CTAs (kCtasPerSm
+// an SM, or fewer where the shared memory allows fewer) and the CTAs, no
+// more than the tiles.  Allows the kernel its dynamic shared memory first.
+struct DotPlan {
+  long long tiles, resident, ctas;
+};
+
+cudaError_t dot_plan(long long n, DotPlan* p) {
+  const void* fn = reinterpret_cast<const void*>(basis_dot_kernel);
+  int device = 0, sms = 0, per_sm = 0;
+  cudaError_t err = cudaFuncSetAttribute(
+      fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(dot::kSmem));
+  if (err == cudaSuccess) err = cudaGetDevice(&device);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &per_sm, fn, dot::kThreads, dot::kSmem);
+  if (err != cudaSuccess) return err;
+  if (per_sm > dot::kCtasPerSm) per_sm = dot::kCtasPerSm;
+  p->tiles = (n + dot::kTileRows - 1) / dot::kTileRows;
+  p->resident = static_cast<long long>(sms) * per_sm;
+  p->ctas = p->tiles < p->resident ? p->tiles : p->resident;
+  return p->resident > 0 ? cudaSuccess : cudaErrorInvalidConfiguration;
+}
+
 bool misaligned(const void* p, int bytes) {
   return reinterpret_cast<uintptr_t>(p) % bytes != 0;
 }
@@ -335,15 +513,32 @@ extern "C" int basis_dot_launch(const void* x, const void* m, void* out,
   if (misaligned(x, 16) || misaligned(out, 16) || misaligned(m, 4))
     return cudaErrorMisalignedAddress;
   if (n == 0) return cudaSuccess;
-  const void* fn = reinterpret_cast<const void*>(basis_dot_kernel);
-  unsigned ctas = 0;
-  const cudaError_t err =
-      grid_for(fn, kDotThreads, 0, (n + kRows - 1) / kRows, &ctas);
+  DotPlan p;
+  const cudaError_t err = dot_plan(n, &p);
   if (err != cudaSuccess) return err;
-  basis_dot_kernel<<<ctas, kDotThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+  basis_dot_kernel<<<static_cast<unsigned>(p.ctas), dot::kThreads, dot::kSmem,
+                     static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(x), static_cast<const float*>(m),
       static_cast<float*>(out), n);
   return cudaGetLastError();
+}
+
+// The launch basis_dot_launch makes for n ≥ 0 rows: plan[0] tiles, [1]
+// resident CTAs, [2] CTAs, [3] rows a tile, [4] ring slots, [5] threads a
+// CTA (the last warp the producer), [6] dynamic shared memory bytes, [7]
+// and [8] a thread's rows and columns; returns the first CUDA error of the
+// queries, cudaErrorInvalidValue for n < 0.
+extern "C" int basis_dot_plan(long long n, long long* plan) {
+  if (n < 0) return cudaErrorInvalidValue;
+  DotPlan p;
+  const cudaError_t err = dot_plan(n, &p);
+  if (err != cudaSuccess) return err;
+  const long long shape[9] = {p.tiles, p.resident, p.ctas, dot::kTileRows,
+                              dot::kStages, dot::kThreads,
+                              static_cast<long long>(dot::kSmem),
+                              dot::kBlockRows, dot::kBlockCols};
+  for (int i = 0; i < 9; ++i) plan[i] = shape[i];
+  return cudaSuccess;
 }
 
 // in: (batches, bw, tw) float32, out: (batches, tw, bw) float32, both
@@ -383,15 +578,22 @@ extern "C" int minor_transpose_route(const void* in, const void* out,
   return vector_route(in, out, batches, bw, tw) ? 1 : 0;
 }
 
-// Registers per thread, shared memory per CTA (static and, for the tile
-// transpose at this tw, dynamic) and resident CTAs per SM of kernel 0
-// (basis_dot), 1 (minor_transpose's tile route) or 2 (its barrier-free
+// Registers per thread, shared memory per CTA (static and dynamic: the
+// basis and the ring for basis_dot, the shared tile at this tw for the tile
+// transpose) and resident CTAs per SM (for basis_dot as it launches) of
+// kernel 0 (basis_dot), 1 (minor_transpose's tile route) or 2 (its barrier-free
 // route, tw 2, 4 or 8); returns the first CUDA error.
 extern "C" int dct_gate_attributes(int kernel, int tw, int* regs, int* smem,
                                    int* ctas) {
-  if (kernel == 0)
-    return attributes_of(reinterpret_cast<const void*>(basis_dot_kernel),
-                         kDotThreads, 0, regs, smem, ctas);
+  if (kernel == 0) {
+    DotPlan p;
+    cudaError_t err = dot_plan(0, &p);
+    if (err == cudaSuccess)
+      err = attributes_of(reinterpret_cast<const void*>(basis_dot_kernel),
+                          dot::kThreads, dot::kSmem, regs, smem, ctas);
+    if (err == cudaSuccess && *ctas > dot::kCtasPerSm) *ctas = dot::kCtasPerSm;
+    return err;
+  }
   if (kernel == 1 && tw >= 1 && tw <= kMaxTw)
     return attributes_of(reinterpret_cast<const void*>(minor_transpose_kernel),
                          kTrThreads, transpose_smem(tw), regs, smem, ctas);

@@ -26,8 +26,13 @@ asked whether Mosaic could build a fused plane → packed16 forward:
 The first two launch ``csrc/dct_gate_kernel.cu`` on a CUDA tensor and add
 one to their wrapper's ``launches``; a CPU tensor runs the plain version.
 Shapes outside these raise ``ValueError`` (a dtype other than float32
-``TypeError``) on both devices.  The product is held, on both devices, to
-``64 · 2⁻²⁴ · Σ_k |x_k · m_jk|`` of a float64 product (``dot_error``);
+``TypeError``) on both devices.  ``dot_plan``, ``dot_schedule`` and
+``dot_thread_map`` mirror the product's launch, its ring (each CTA's tiles,
+their slots and the parities its producer and consumers wait on) and its
+thread → (row, output) map in Python for the CPU tests; on the card
+``dot_launch_plan`` asks the C code for its plan.  The product is held, on
+both devices, to ``64 · 2⁻²⁴ · Σ_k |x_k · m_jk|`` of a float64 product
+(``dot_error``);
 ``ulp_compare`` counts the outputs that differ from cuBLAS's and the
 largest difference in units in the last place, as the probe printed the
 count against XLA.
@@ -54,7 +59,7 @@ from __future__ import annotations
 import argparse
 import ctypes
 import functools
-from typing import Dict, Optional
+from typing import Dict, NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -74,6 +79,11 @@ DOT, TRANSPOSE, TRANSPOSE_VEC = 0, 1, 2  # csrc/dct_gate_kernel.cu's ids
 ROUTES = ("tile", "vector")  # minor_transpose_route's answers 0 and 1
 VECTOR_TW = (2, 4, 8)
 BANDS = {"lum": (256, 8), "chr": (128, 4)}  # (bw, tw) of the probe's bands
+# basis_dot's shape, csrc/dct_gate_kernel.cu's BASIS_DOT_* defaults.
+DOT_TILE_ROWS = 64
+DOT_STAGES = 2
+DOT_CTAS_PER_SM = 3
+DOT_BLOCK = (8, 4)  # a thread's rows × outputs
 
 
 # ---------------------------------------------------------------------------
@@ -134,6 +144,74 @@ def lane_split_ref(x: torch.Tensor, tw: int) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 
+class DotPlan(NamedTuple):
+    """The product's launch for ``n`` rows: ``tiles`` tiles of
+    ``tile_rows`` rows over ``ctas`` persistent CTAs (``resident`` fit on
+    the card), each with a ring of ``stages`` slots, ``threads`` threads
+    (the last warp the producer), ``smem`` bytes of dynamic shared memory
+    and a ``block_rows`` × ``block_cols`` register block a thread."""
+
+    tiles: int
+    resident: int
+    ctas: int
+    tile_rows: int
+    stages: int
+    threads: int
+    smem: int
+    block_rows: int
+    block_cols: int
+
+
+def dot_plan(n: int, resident: int, tile_rows: int = DOT_TILE_ROWS,
+             stages: int = DOT_STAGES, block=DOT_BLOCK) -> DotPlan:
+    """``csrc/dct_gate_kernel.cu::dot_plan`` and ``dot::`` for ``n`` rows on
+    a card where ``resident`` CTAs fit."""
+    br, bc = block
+    groups = tile_rows // br
+    consumers = groups * (DEPTH // bc)
+    tile_bytes = groups * (br * DEPTH * 4 + 16)
+    tiles = -(-n // tile_rows)
+    return DotPlan(tiles, resident, min(tiles, resident), tile_rows, stages,
+                   consumers + 32, DEPTH * DEPTH * 4 + stages * tile_bytes
+                   + 16 * stages, br, bc)
+
+
+def dot_schedule(plan: DotPlan):
+    """Each CTA's walk, as the kernel's loops make it: a list with one
+    (T, 4) int64 array a CTA of rows ``(tile, slot, producer parity,
+    consumer parity)``: tile b, b + ctas, ... of CTA b, its i-th in slot
+    i % stages; the producer waits on the slot's "empty" barrier with
+    parity ((i // stages) & 1) ^ 1, the consumers on "full" with
+    (i // stages) & 1."""
+    out = []
+    for b in range(plan.ctas):
+        tile = np.arange(b, plan.tiles, plan.ctas, dtype=np.int64)
+        i = np.arange(tile.size, dtype=np.int64)
+        rnd = i // plan.stages
+        out.append(np.stack([tile, i % plan.stages, (rnd & 1) ^ 1, rnd & 1], 1))
+    return out
+
+
+def dot_thread_map(tile_rows: int = DOT_TILE_ROWS, block=DOT_BLOCK):
+    """(consumers, rows, outputs) of the consumer threads' register blocks:
+    ``rows[t]`` the tile rows of thread t (its row group ``rg``: rows
+    ``rg · block_rows ..``), ``outputs[t]`` its columns (4 cg .. 4 cg + 3,
+    and 32 + 4 cg .. for 8 columns), with cg = lane % column groups and
+    rg = warp · (32 / column groups) + lane / column groups."""
+    br, bc = block
+    col_groups = DEPTH // bc
+    consumers = tile_rows // br * col_groups
+    t = np.arange(consumers)
+    lane, warp = t % 32, t // 32
+    cg = lane % col_groups
+    rg = warp * (32 // col_groups) + lane // col_groups
+    rows = rg[:, None] * br + np.arange(br)
+    vecs = bc // 4
+    cols = (4 * cg[:, None, None] + (DEPTH // vecs) * np.arange(vecs)[:, None]
+            + np.arange(4)).reshape(consumers, bc)
+    return consumers, rows, cols
+
+
 @functools.lru_cache(maxsize=None)
 def load_kernel() -> ctypes.CDLL:
     """Build ``csrc/dct_gate_kernel.cu`` at first use and bind it."""
@@ -143,6 +221,9 @@ def load_kernel() -> ctypes.CDLL:
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64,
         ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
     ]
+    lib.basis_dot_plan.restype = ctypes.c_int
+    lib.basis_dot_plan.argtypes = [ctypes.c_int64,
+                                   ctypes.POINTER(ctypes.c_int64)]
     lib.minor_transpose_launch.restype = ctypes.c_int
     lib.minor_transpose_launch.argtypes = [
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64, ctypes.c_int64,
@@ -157,6 +238,19 @@ def load_kernel() -> ctypes.CDLL:
     lib.dct_gate_error_string.restype = ctypes.c_char_p
     lib.dct_gate_error_string.argtypes = [ctypes.c_int]
     return lib
+
+
+def dot_launch_plan(n: int, device="cuda") -> DotPlan:
+    """The plan the C code launches for ``n`` rows on ``device``
+    (``csrc/dct_gate_kernel.cu::basis_dot_plan``)."""
+    out = (ctypes.c_int64 * 9)()
+    lib = load_kernel()
+    with torch.cuda.device(torch.device(device)):
+        rc = lib.basis_dot_plan(n, out)
+    if rc != 0:
+        raise RuntimeError(f"basis_dot_plan failed: "
+                           f"{lib.dct_gate_error_string(rc).decode()} ({rc})")
+    return DotPlan(*out)
 
 
 def basis_dot(x: torch.Tensor, m: torch.Tensor) -> torch.Tensor:

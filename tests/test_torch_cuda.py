@@ -1295,6 +1295,79 @@ def test_cast_refusals(cuda):
     assert lib.cast_launch(0, x.data_ptr() + 1, x.data_ptr(), 8, stream) != 0
 
 
+def _cast_edges(pair):
+    """Element counts at the cast kernel's edges: 1, a vector - 1, a chunk
+    ± 1 and three chunks + a vector - 1."""
+    from lz4jpeg_tpu_torch.profiles import casts
+
+    plan = casts.cast_plan(pair, 0)
+    vec, chunk = plan.vec_elems, plan.vec_elems * plan.chunk_vecs
+    return sorted({1, max(vec - 1, 1), chunk - 1, chunk, chunk + 1,
+                   3 * chunk + vec - 1})
+
+
+@pytest.mark.parametrize("pair", range(7))
+def test_cast_chunk_edges_and_plans(cuda, pair):
+    """Each pair at its chunk edges, bit-identical to ``x.to``, one launch
+    a call, with the C plan equal to the mirror's there, at 0 and past 2^31
+    output bytes."""
+    from lz4jpeg_tpu_torch.profiles import casts
+
+    src, dst = casts.PAIRS[pair]
+    for n in _cast_edges(pair):
+        x = casts.random_values(src, n, cuda, n)
+        before = casts.cast.launches
+        got = casts.cast(x, dst)
+        torch.cuda.synchronize()
+        assert casts.cast.launches == before + 1
+        assert casts.same(got, x.to(dst)), (casts.pair_name(pair), n)
+    big = (1 << 31) // dst.itemsize + 17
+    for n in (0, *_cast_edges(pair), big):
+        assert casts.launch_plan(pair, n) == casts.cast_plan(pair, n), n
+
+
+def test_cast_past_2_31_output_bytes(cuda):
+    """uint8 → int32 of 2^29 + 5 elements: 2^31 + 20 bytes out, 64-bit
+    offsets, bit-identical to ``x.to``."""
+    from lz4jpeg_tpu_torch.profiles import casts
+
+    n = (1 << 29) + 5
+    x = casts.random_values(torch.uint8, n, cuda, 29)
+    got = casts.cast(x, torch.int32)
+    torch.cuda.synchronize()
+    assert got.numel() * 4 > 1 << 31
+    assert torch.equal(got, x.to(torch.int32))
+
+
+def _dot_edges(resident, plan):
+    """Row counts at the product's edges: 1, 63, 64, 65, one tile short of
+    and past a full ring a CTA (ragged), 4,099."""
+    full = resident * plan.stages * plan.tile_rows
+    return (1, 63, 64, 65, full - plan.tile_rows - 3, full + plan.tile_rows
+            - 3, 4099)
+
+
+def test_basis_dot_ring_edges_and_plan(cuda):
+    """The product at the ring's edges within its bound, one launch a call,
+    its C plan equal to the mirror's at each count and at 2,097,152 rows."""
+    from lz4jpeg_tpu_torch.profiles import dct_gates as dg
+
+    rng = np.random.default_rng(11)
+    m = dg.luma_basis(cuda)
+    resident = dg.dot_launch_plan(1 << 30, cuda).resident
+    plan = dg.dot_plan(0, resident)
+    for n in (0, *_dot_edges(resident, plan), 2_097_152):
+        assert dg.dot_launch_plan(n, cuda) == dg.dot_plan(n, resident), n
+    for n in _dot_edges(resident, plan):
+        x = dg.probe_pixels(n, rng).to(cuda)
+        before = dg.basis_dot.launches
+        got = dg.basis_dot(x, m)
+        torch.cuda.synchronize()
+        assert dg.basis_dot.launches == before + 1
+        assert dg.dot_error(got, x, m)["within"], n
+    assert dg.attributes(dg.DOT, device=cuda)["shared_bytes"] >= plan.smem
+
+
 @pytest.mark.parametrize("n", [512, 1, 65, 4099, 262_147, "offset view"])
 def test_basis_dot_within_its_bound(cuda, n):
     from lz4jpeg_tpu_torch.profiles import dct_gates as dg

@@ -279,3 +279,158 @@ def test_route_counts_start_at_zero_and_the_cpu_counts_none():
     dg.minor_transpose(torch.zeros((2, 128, 4)))
     assert dg.minor_transpose.routes == before
     assert dg.attributes(dg.TRANSPOSE_VEC, 4, "cpu")["registers"] is None
+
+
+# -- the basis product's ring and thread map ------------------------------------------
+# ``csrc/dct_gate_kernel.cu::basis_dot_kernel`` runs on the card only; its
+# schedule (tile → CTA, ring slot, the parities its producer and consumers
+# wait on) and its thread → (row, output) map are mirrored in
+# ``profiles/dct_gates.py`` and held here: every row computed once, every
+# slot filled before it is read and released before it is filled again
+# (the mbarriers modelled by their completed phases), the map a bijection
+# over a tile whose shared loads are one wavefront each.
+
+import re
+from pathlib import Path
+
+from lz4jpeg_tpu_torch.profiles.kernel_sweep import DOT_SHAPES
+
+DOT_SOURCE = (Path(dg.__file__).resolve().parent.parent / "csrc"
+              / "dct_gate_kernel.cu")
+DOT_ROWS = (0, 1, 63, 64, 65, 4099, 2_097_152)
+
+
+def _ring_ok(sched: np.ndarray, stages: int, warps: int, seed: int) -> bool:
+    """Run one CTA's producer and ``warps`` consumer warps on ``sched`` in a
+    seeded random interleaving, with each mbarrier as its count of completed
+    phases (a wait on parity p passes while the count's parity is not p):
+    "full" completes on the producer's fill, "empty" on the consumer warps'
+    ``warps`` arrivals.  Asserts that a fill finds its slot released and a
+    read finds the tile it expects; returns True once every warp has read
+    every tile (a deadlock raises)."""
+    rng = np.random.default_rng(seed)
+    full, empty = [0] * stages, [0] * stages
+    arrived = [0] * stages
+    holds = [None] * stages  # the tile a slot holds, None once released
+    fills, reads = 0, [0] * warps
+    t = len(sched)
+    while fills < t or min(reads) < t:
+        ready = []
+        if fills < t:
+            _, s, p, _ = sched[fills]
+            if (empty[s] & 1) != p:
+                ready.append(-1)
+        for w in range(warps):
+            if reads[w] < t:
+                _, s, _, p = sched[reads[w]]
+                if (full[s] & 1) != p:
+                    ready.append(w)
+        assert ready, "deadlock"
+        who = ready[rng.integers(len(ready))]
+        if who < 0:
+            tile, s, _, _ = sched[fills]
+            assert holds[s] is None, "a slot refilled before its release"
+            holds[s] = tile
+            full[s] += 1
+            fills += 1
+        else:
+            tile, s, _, _ = sched[reads[who]]
+            assert holds[s] == tile, "a read found another tile"
+            arrived[s] += 1
+            if arrived[s] == warps:
+                arrived[s] = 0
+                empty[s] += 1
+                holds[s] = None
+            reads[who] += 1
+    return True
+
+
+@pytest.mark.parametrize("n", DOT_ROWS)
+@pytest.mark.parametrize("resident", [1, 3, 264])
+def test_dot_schedule_computes_every_row_once(n, resident):
+    plan = dg.dot_plan(n, resident)
+    assert plan.ctas == min(plan.tiles, resident)
+    sched = dg.dot_schedule(plan)
+    tiles = np.concatenate([c[:, 0] for c in sched]) if sched else np.array([])
+    assert np.array_equal(np.sort(tiles), np.arange(plan.tiles))
+    rows = np.concatenate([np.arange(t * plan.tile_rows, min(
+        (t + 1) * plan.tile_rows, n)) for t in tiles]) if n else np.array([])
+    assert np.array_equal(np.sort(rows), np.arange(n))
+    counts = [len(c) for c in sched]
+    assert max(counts, default=0) - min(counts, default=0) <= 1
+    warps = (plan.threads - 32) // 32
+    for b in {0, plan.ctas - 1} if plan.ctas else ():
+        if len(sched[b]) <= 200:
+            assert _ring_ok(sched[b], plan.stages, warps, seed=n + b)
+
+
+@pytest.mark.parametrize("stages", [2, 3, 4])
+@pytest.mark.parametrize("tiles_a_cta", [1, 2, 3, 5, 9])
+def test_dot_ring_ends_mid_ring(stages, tiles_a_cta):
+    """Tile counts a CTA that end before, on and past a wrap of the ring,
+    for three CTAs whose last takes one tile fewer."""
+    tile = dg.DOT_TILE_ROWS
+    n = (3 * tiles_a_cta - 1) * tile - 7
+    plan = dg.dot_plan(n, 3, stages=stages)
+    sched = dg.dot_schedule(plan)
+    want = [tiles_a_cta] * 2 + ([tiles_a_cta - 1] if tiles_a_cta > 1 else [])
+    assert [len(c) for c in sched] == want
+    for b, cta in enumerate(sched):
+        assert np.array_equal(cta[:, 1], np.arange(len(cta)) % stages)
+        for seed in range(3):
+            assert _ring_ok(cta, stages, 2, seed)
+
+
+def test_a_wrong_parity_is_caught():
+    """The ring model fails a producer that waits on the consumers' parity
+    (it refills a slot before its release) and consumers that wait on the
+    producer's (they deadlock or read a stale slot)."""
+    plan = dg.dot_plan(20 * dg.DOT_TILE_ROWS, 1, stages=2)
+    good = dg.dot_schedule(plan)[0]
+    for bad in (good[:, [0, 1, 3, 3]], good[:, [0, 1, 2, 2]]):
+        with pytest.raises(AssertionError):
+            for seed in range(20):
+                _ring_ok(bad, 2, 2, seed)
+
+
+def _wavefronts(byte_addrs, width=16):
+    """Shared-memory wavefronts of one warp load of ``width``-byte vectors at
+    these addresses: the most distinct 4-byte words any bank serves."""
+    words = {a // 4 + i for a in set(byte_addrs) for i in range(width // 4)}
+    per_bank = {}
+    for w in words:
+        per_bank[w % 32] = per_bank.get(w % 32, 0) + 1
+    return max(per_bank.values())
+
+
+@pytest.mark.parametrize("shape", sorted({(s[0], s[3], s[4]) for s in DOT_SHAPES}))
+def test_dot_thread_map_is_a_bijection_with_cheap_loads(shape):
+    tile_rows, br, bc = shape
+    consumers, rows, cols = dg.dot_thread_map(tile_rows, (br, bc))
+    assert consumers % 32 == 0 and rows.shape == (consumers, br)
+    cells = (rows[:, :, None] * dg.DEPTH + cols[:, None, :]).ravel()
+    assert np.array_equal(np.sort(cells), np.arange(tile_rows * dg.DEPTH))
+    group_stride = br * dg.DEPTH * 4 + 16
+    col_groups = dg.DEPTH // bc
+    for w in range(consumers // 32):
+        lanes = np.arange(32 * w, 32 * w + 32)
+        for k in (0, 4, 60):
+            for r in range(br):
+                # x: row r of each lane's group, float4 at k
+                rg = rows[lanes, 0] // br
+                x = rg * group_stride + r * dg.DEPTH * 4 + 4 * k
+                assert _wavefronts(x) == 1
+            for v in range(bc // 4):
+                m = (k * dg.DEPTH + cols[lanes, 4 * v]) * 4
+                assert _wavefronts(m) == col_groups * 16 // 128
+
+
+def test_dot_mirror_matches_the_source():
+    text = DOT_SOURCE.read_text()
+    found = dict(re.findall(r"#define BASIS_DOT_(\w+) (\d+)", text))
+    assert {k: int(v) for k, v in found.items()} == {
+        "TILE_ROWS": dg.DOT_TILE_ROWS, "STAGES": dg.DOT_STAGES,
+        "CTAS_PER_SM": dg.DOT_CTAS_PER_SM, "BLOCK_ROWS": dg.DOT_BLOCK[0],
+        "BLOCK_COLS": dg.DOT_BLOCK[1]}
+    plan = dg.dot_plan(2_097_152, 264)
+    assert (plan.threads, plan.smem) == (160, 16_384 + 2 * 8 * 2_064 + 32)
