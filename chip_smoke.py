@@ -3499,7 +3499,7 @@ def gates_phase(dev):
     for pair, (src, dst) in enumerate(casts.PAIRS):
         full = casts.full_range(src, rng).to(dev)
         plan = casts.cast_plan(pair, 0)
-        chunk = plan.vec_elems * plan.chunk_vecs
+        chunk = plan.vec_elems * plan.threads
         edges = sorted({1, max(plan.vec_elems - 1, 1), chunk - 1, chunk,
                         chunk + 1})
         cases = [("probe tile", casts.probe_values(src, rng).to(dev)),

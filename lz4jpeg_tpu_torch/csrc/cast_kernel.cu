@@ -12,31 +12,25 @@
 // and bfloat16 → float32 is the 16-bit shift of the bits (subnormals,
 // infinities and NaN payloads carry over, as in c10::BFloat16).
 //
-// Design: the streaming shape of csrc/stream_copy.cuh.  A lane loads one
-// vector of kLoadBytes of the source (kIn elements) and stores its kIn
-// results as 16-byte vectors; the lanes of a warp hold adjacent vectors, so
-// each warp load and each warp store covers whole 128-byte lines.  A thread
-// loads its kVecs vectors before it stores any.  Each CTA converts one chunk
-// of kThreads · kVecs vectors, and the grid has one CTA a chunk in index
-// order, with no cap at the resident count and no grid-stride walk, so the
-// bytes in flight stay in one window that moves through the array; the
-// loads and stores keep the default cache hints (the evict-first hints of
-// a persistent grid-stride loop cost the copies 1.5% whenever the L2 held
-// other lines, PERF.md §6).  Where a vector's results fill more than one
-// 16-byte store, kShuffle regroups them across the warp by __shfl_sync, so
-// that store q of the warp writes the 512 contiguous bytes q of the warp's
-// results rather than 32 pieces one lane's results apart.  The last n % kIn
-// elements go one by one, as chunks of a list, CTA 0 taking the first.
-// Offsets are 64-bit.  Both pointers must be 16-byte aligned (the wrapper
-// copies a source that is not).  Each pair's shape (PairShape below) is the
-// fastest of a sweep of 45 on an H100 (PERF.md §6): one 16-byte result
-// vector a lane, one vector a thread, 512 threads a CTA (1,024 for int32 →
-// float32).  A 16-byte source vector whose 64 bytes of int32 one lane
-// stores took uint8 → int32 2.1× as long; regrouped by shuffles it came
-// back to within 2% of the shape kept, and more vectors a thread only
-// added time.  -DCAST_LOAD=, -DCAST_VECS=, -DCAST_THREADS= and
-// -DCAST_SHUFFLE= build every pair at one shape for such a sweep
-// (profiles/kernel_sweep.py).
+// Design: the streaming shape of csrc/stream_copy.cuh.  A lane converts one
+// vector of kIn = 16 / sizeof(D) elements: it loads their kIn · sizeof(S)
+// source bytes (4, 8 or 16) as one load and stores their results as one
+// 16-byte vector.  The lanes of a warp hold adjacent vectors, so each warp
+// load and each warp store covers whole 128-byte lines.  Each CTA of
+// kThreads threads converts one chunk of kThreads vectors, and the grid
+// has one CTA a chunk in index order, with no cap at the resident count and
+// no grid-stride walk, so the bytes in flight stay in one window that moves
+// through the array; the loads and stores keep the default cache hints (the
+// evict-first hints of a persistent grid-stride loop cost the copies 1.5%
+// whenever the L2 held other lines, PERF.md §6).  The last n % kIn elements
+// go one by one, as chunks of a list, CTA 0 taking the first.  Offsets are
+// 64-bit.  Both pointers must be 16-byte aligned (the wrapper copies a
+// source that is not).  A sweep of 45 launch shapes on an H100 (PERF.md §6)
+// put this one, at 512 threads, within 0.3% of the fastest for six pairs
+// (int32 → float32 within 0.2% of its 1,024-thread build, timed in turns);
+// a 16-byte source vector whose results one lane stores took uint8 → int32
+// 2.1× as long, regrouping those stores by shuffles only came back to this
+// shape, and more vectors a thread only added time.
 //
 // What bounds it: one read of the source and one write of the result, no
 // arithmetic to speak of.  At 134,217,728 elements (the probe's tile grown
@@ -79,68 +73,28 @@ struct Convert<Bf16, float> {
   }
 };
 
-// n consecutive bytes as one load or store.
+// n consecutive bytes as one load.
 template <int bytes> struct Raw;
 template <> struct Raw<16> { using type = uint4; };
 template <> struct Raw<8> { using type = uint2; };
 template <> struct Raw<4> { using type = uint32_t; };
 
-// A launch shape: kLoadBytes of the source a vector, kVecs vectors a
-// thread, kThreads threads a CTA, and whether a vector's stores are
-// regrouped across the warp.
-template <int kLoadBytes_, int kVecs_, int kThreads_, int kShuffle_>
-struct Shape {
-  static constexpr int kLoadBytes = kLoadBytes_;
-  static constexpr int kVecs = kVecs_;
-  static constexpr int kThreads = kThreads_;
-  static constexpr bool kShuffle = kShuffle_ != 0;
-};
+constexpr int kThreads = 512;
 
-template <typename S, typename D>
-struct PairShape;
-#ifdef CAST_LOAD
-template <typename S, typename D>
-struct PairShape : Shape<CAST_LOAD, CAST_VECS, CAST_THREADS, CAST_SHUFFLE> {};
-#else
-template <> struct PairShape<int16_t, float> : Shape<8, 1, 512, 0> {};
-template <> struct PairShape<int32_t, float> : Shape<16, 1, 1024, 0> {};
-template <> struct PairShape<uint8_t, int32_t> : Shape<4, 1, 512, 0> {};
-template <> struct PairShape<int8_t, int32_t> : Shape<4, 1, 512, 0> {};
-template <> struct PairShape<int16_t, int32_t> : Shape<8, 1, 512, 0> {};
-template <> struct PairShape<uint8_t, int16_t> : Shape<8, 1, 512, 0> {};
-template <> struct PairShape<Bf16, float> : Shape<8, 1, 512, 0> {};
-#endif
-
-// What a pair's shape makes of its types: kIn elements a vector, its
-// results in kStores stores of kOut elements (16 bytes, or fewer where a
-// vector's results are fewer).
+// What the pair's types make of a vector: kIn elements, kIn · sizeof(S)
+// bytes in and 16 bytes out.
 template <typename S, typename D>
 struct Layout {
-  using P = PairShape<S, D>;
-  static constexpr int kThreads = P::kThreads;
-  static constexpr int kVecs = P::kVecs;
-  static constexpr int kLoadBytes = P::kLoadBytes;
-  static constexpr int kIn = kLoadBytes / static_cast<int>(sizeof(S));
-  static constexpr int kOutBytes = kIn * static_cast<int>(sizeof(D));
-  static constexpr int kStoreBytes = kOutBytes < 16 ? kOutBytes : 16;
-  static constexpr int kStores = kOutBytes / kStoreBytes;
-  static constexpr int kOut = kStoreBytes / static_cast<int>(sizeof(D));
-  static constexpr bool kShuffle = P::kShuffle && kStores > 1;
-  static constexpr int64_t kChunkVecs = static_cast<int64_t>(kThreads) * kVecs;
-  static constexpr int64_t kChunkElems = kChunkVecs * kIn;
-  static_assert(kLoadBytes == 4 || kLoadBytes == 8 || kLoadBytes == 16,
-                "a vector is 4, 8 or 16 bytes");
-  static_assert(kIn >= 1 && kStores * kStoreBytes == kOutBytes, "bad shape");
+  static constexpr int kIn = 16 / static_cast<int>(sizeof(D));
+  static constexpr int kLoadBytes = kIn * static_cast<int>(sizeof(S));
   using Load = typename Raw<kLoadBytes>::type;
-  using Store = typename Raw<kStoreBytes>::type;
   union In {
     Load v;
     S e[kIn];
-    uint32_t w[kLoadBytes / 4];
   };
   union Out {
-    Store v;
-    D e[kOut];
+    uint4 v;
+    D e[kIn];
   };
 };
 
@@ -156,117 +110,55 @@ Plan plan_of(int64_t n) {
   Plan p;
   p.n_vec = n / L::kIn;
   p.tail = n - p.n_vec * L::kIn;
-  const int64_t body = (p.n_vec + L::kChunkVecs - 1) / L::kChunkVecs;
-  const int64_t rest = (p.tail + L::kChunkElems - 1) / L::kChunkElems;
+  const int64_t body = (p.n_vec + kThreads - 1) / kThreads;
+  const int64_t chunk = static_cast<int64_t>(kThreads) * L::kIn;
+  const int64_t rest = (p.tail + chunk - 1) / chunk;
   p.ctas = body > rest ? body : rest;
   return p;
 }
 
-// Store the results of vector i (a.e) at their place in `out`.
 template <typename S, typename D>
-__device__ __forceinline__ void store_vector(
-    const typename Layout<S, D>::In& a, typename Layout<S, D>::Store* out,
-    int64_t i, int64_t n_vec) {
-  using L = Layout<S, D>;
-  const int lane = threadIdx.x & 31;
-  if constexpr (L::kShuffle) {
-    // The warp's 32 vectors i - lane .. are adjacent, their results
-    // 32 · kStores stores; store q of lane l is store 32 q + l of them,
-    // the kOut elements of chunk l % kStores of lane (32 q + l) / kStores.
-    // Where the warp's vectors run past n_vec (the last warp) the lanes
-    // store their own results, as below.
-    if (i - lane + 31 < n_vec) {
-      // the source of one store: kWords 32-bit words of a lane's vector
-      constexpr int kWords = L::kOut * static_cast<int>(sizeof(S)) / 4;
-      union Chunk {
-        uint32_t w[kWords];
-        S e[L::kOut];
-      };
-      const int64_t first = (i - lane) * L::kStores;
-#pragma unroll
-      for (int q = 0; q < L::kStores; ++q) {
-        const int from = (32 * q + lane) / L::kStores;
-        const int want = lane % L::kStores;
-        Chunk got;
-#pragma unroll
-        for (int c = 0; c < L::kStores; ++c)
-#pragma unroll
-          for (int w = 0; w < kWords; ++w) {
-            const uint32_t v = __shfl_sync(0xffffffffu, a.w[c * kWords + w], from);
-            if (c == want) got.w[w] = v;
-          }
-        typename L::Out o;
-#pragma unroll
-        for (int j = 0; j < L::kOut; ++j) o.e[j] = Convert<S, D>::of(got.e[j]);
-        out[first + 32 * q + lane] = o.v;
-      }
-      return;
-    }
-  }
-  if (i < n_vec) {
-#pragma unroll
-    for (int q = 0; q < L::kStores; ++q) {
-      typename L::Out o;
-#pragma unroll
-      for (int j = 0; j < L::kOut; ++j)
-        o.e[j] = Convert<S, D>::of(a.e[q * L::kOut + j]);
-      out[i * L::kStores + q] = o.v;
-    }
-  }
-}
-
-template <typename S, typename D>
-__global__ void __launch_bounds__(Layout<S, D>::kThreads)
+__global__ void __launch_bounds__(kThreads)
     cast_kernel(const S* __restrict__ in, D* __restrict__ out, int64_t n_vec,
                 int64_t tail) {
   using L = Layout<S, D>;
   const int64_t c = blockIdx.x;
-  const int64_t first = c * L::kChunkVecs + threadIdx.x;
-  const auto* src = reinterpret_cast<const typename L::Load*>(in);
-  auto* dst = reinterpret_cast<typename L::Store*>(out);
-  typename L::In a[L::kVecs];
+  const int64_t i = c * kThreads + threadIdx.x;
+  if (i < n_vec) {
+    typename L::In a;
+    a.v = reinterpret_cast<const typename L::Load*>(in)[i];
+    typename L::Out o;
 #pragma unroll
-  for (int v = 0; v < L::kVecs; ++v) {
-    const int64_t i = first + static_cast<int64_t>(v) * L::kThreads;
-    if (i < n_vec) a[v].v = src[i];
+    for (int j = 0; j < L::kIn; ++j) o.e[j] = Convert<S, D>::of(a.e[j]);
+    reinterpret_cast<uint4*>(out)[i] = o.v;
   }
-#pragma unroll
-  for (int v = 0; v < L::kVecs; ++v)
-    store_vector<S, D>(a[v], dst, first + static_cast<int64_t>(v) * L::kThreads,
-                       n_vec);
 
   // The tail list: elements n_vec · kIn + j, chunk c of it here.
   const int64_t t0 = n_vec * L::kIn;
-  const int64_t end =
-      (c + 1) * L::kChunkElems < tail ? (c + 1) * L::kChunkElems : tail;
-  for (int64_t j = c * L::kChunkElems + threadIdx.x; j < end; j += L::kThreads)
+  const int64_t chunk = static_cast<int64_t>(kThreads) * L::kIn;
+  const int64_t end = (c + 1) * chunk < tail ? (c + 1) * chunk : tail;
+  for (int64_t j = c * chunk + threadIdx.x; j < end; j += kThreads)
     out[t0 + j] = Convert<S, D>::of(in[t0 + j]);
 }
 
 template <typename S, typename D>
 cudaError_t launch(const void* in, void* out, int64_t n, cudaStream_t s) {
   const Plan p = plan_of<S, D>(n);
-  cast_kernel<S, D><<<static_cast<unsigned>(p.ctas), Layout<S, D>::kThreads,
-                      0, s>>>(static_cast<const S*>(in), static_cast<D*>(out),
-                              p.n_vec, p.tail);
+  cast_kernel<S, D><<<static_cast<unsigned>(p.ctas), kThreads, 0, s>>>(
+      static_cast<const S*>(in), static_cast<D*>(out), p.n_vec, p.tail);
   return cudaGetLastError();
 }
 
 // The pair's plan for n elements: plan[0] vectors, [1] tail elements, [2]
-// CTAs, [3] elements a vector, [4] vectors a chunk, [5] threads a CTA, [6]
-// stores a vector, [7] 1 where the stores are regrouped by shuffles.
+// CTAs, [3] elements a vector, [4] threads a CTA (and vectors a chunk).
 template <typename S, typename D>
 void describe(int64_t n, long long* plan) {
-  using L = Layout<S, D>;
   const Plan p = plan_of<S, D>(n);
   plan[0] = p.n_vec;
   plan[1] = p.tail;
   plan[2] = p.ctas;
-  plan[3] = L::kIn;
-  plan[4] = L::kChunkVecs;
-  plan[5] = L::kThreads;
-  plan[6] = L::kStores;
-  plan[7] = L::kShuffle ? 1 : 0;
+  plan[3] = Layout<S, D>::kIn;
+  plan[4] = kThreads;
 }
 
 template <typename S, typename D>
@@ -277,8 +169,7 @@ cudaError_t attributes(int* regs, int* smem, int* ctas) {
   if (err != cudaSuccess) return err;
   *regs = attr.numRegs;
   *smem = static_cast<int>(attr.sharedSizeBytes);
-  return cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      ctas, fn, Layout<S, D>::kThreads, 0);
+  return cudaOccupancyMaxActiveBlocksPerMultiprocessor(ctas, fn, kThreads, 0);
 }
 
 // Runs CALL with S and D the pair's source and destination types; nothing
@@ -318,7 +209,7 @@ extern "C" int cast_launch(int pair, const void* in, void* out, long long n,
 }
 
 // The launch cast_launch makes for n ≥ 0 elements of the pair (describe's
-// eight numbers); cudaErrorInvalidValue for an unknown pair or n < 0.
+// five numbers); cudaErrorInvalidValue for an unknown pair or n < 0.
 extern "C" int cast_plan(int pair, long long n, long long* plan) {
   if (!known(pair) || n < 0) return cudaErrorInvalidValue;
   CAST_DISPATCH(pair, (describe<S, D>(n, plan)))

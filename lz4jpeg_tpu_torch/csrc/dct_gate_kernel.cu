@@ -19,15 +19,14 @@
 // row, completing on the slot's "full" mbarrier with the bytes as its
 // transaction count) as soon as the consumers have arrived on the slot's
 // "empty" mbarrier, so the loads of the next tiles overlap the FFMA of this
-// one.  A consumer thread owns a kBlockRows × kBlockCols register block:
-// the rows of one group, the columns 4 cg .. 4 cg + 3 (and, for 8 columns,
-// 32 + 4 cg ..).  A warp holds 32 / kColGroups row groups and every column
-// group, so a basis load (one float4 of mt[k]) is kColGroups contiguous
-// float4 broadcast to the row groups, and an x load (one float4 of a row,
-// four k) is one address a row group broadcast to its columns; the row
-// groups sit kGroupBytes + 16 bytes apart in the slot, so their float4
-// fall in distinct banks: no bank conflict, 16 wavefronts for 128 FFMA at
-// 8 × 4 (8 x loads of one, 4 basis loads of two).  A consumer warp
+// one.  A consumer thread owns a kBlockRows × 4 register block: the rows
+// of one group and the columns 4 cg .. 4 cg + 3.  A warp holds two row
+// groups and all 16 column groups, so a basis load (one float4 of mt[k]) is
+// 16 contiguous float4 broadcast to the row groups, and an x load (one
+// float4 of a row, four k) is one address a row group broadcast to its
+// columns; the row groups sit kGroupBytes + 16 bytes apart in the slot, so
+// their float4 fall in distinct banks: no bank conflict, 16 wavefronts for
+// 128 FFMA (8 x loads of one, 4 basis loads of two).  A consumer warp
 // releases the slot once its sums are in registers, then stores them as
 // 16-byte vectors with the default hints (a warp's store: the 256
 // contiguous bytes of each of its row groups' rows).  The producer waits on
@@ -37,8 +36,7 @@
 // its other rows' sums are not stored.  The shape, 64-row tiles, two
 // slots, three CTAs an SM and 8 × 4 blocks (4 consumer warps a CTA), is the
 // fastest of a sweep of 47 on an H100 (PERF.md §6: 8 × 8 blocks, with
-// half the basis loads, leave too few warps an SM); the BASIS_DOT_*
-// macros build another for such a sweep (profiles/kernel_sweep.py).
+// half the basis loads, leave too few warps an SM).
 // What bounds it: x read once and the result written once, 512 bytes a
 // row: at 2,097,152 rows 1,073,758,208 bytes with the basis, 0.3205 ms at
 // 3.35 TB/s; the 17.18 GFLOP of FFMA work take 0.2564 ms at the data
@@ -89,34 +87,14 @@ constexpr int kMaxTw = 64;
 constexpr int kVecThreads = 256;
 constexpr int kVecUnroll = 4;    // float4 loads in flight a lane
 
-// basis_dot's shape (see the design above); the BASIS_DOT_* macros build
-// another for a sweep.
-#ifndef BASIS_DOT_TILE_ROWS
-#define BASIS_DOT_TILE_ROWS 64
-#endif
-#ifndef BASIS_DOT_STAGES
-#define BASIS_DOT_STAGES 2
-#endif
-#ifndef BASIS_DOT_CTAS_PER_SM
-#define BASIS_DOT_CTAS_PER_SM 3
-#endif
-#ifndef BASIS_DOT_BLOCK_ROWS
-#define BASIS_DOT_BLOCK_ROWS 8
-#endif
-#ifndef BASIS_DOT_BLOCK_COLS
-#define BASIS_DOT_BLOCK_COLS 4
-#endif
-
-namespace dot {
-constexpr int kTileRows = BASIS_DOT_TILE_ROWS;
-constexpr int kStages = BASIS_DOT_STAGES;
-constexpr int kCtasPerSm = BASIS_DOT_CTAS_PER_SM;
-constexpr int kBlockRows = BASIS_DOT_BLOCK_ROWS;
-constexpr int kBlockCols = BASIS_DOT_BLOCK_COLS;
+namespace dot {  // basis_dot's shape (see the design above)
+constexpr int kTileRows = 64;
+constexpr int kStages = 2;
+constexpr int kCtasPerSm = 3;
+constexpr int kBlockRows = 8;
 constexpr int kRowBytes = kDepth * 4;                // 256: one row of x
-constexpr int kColGroups = kOutputs / kBlockCols;   // column groups
+constexpr int kColGroups = kOutputs / 4;            // 16 column groups
 constexpr int kRowGroups = kTileRows / kBlockRows;  // row groups a tile
-constexpr int kColVecs = kBlockCols / 4;            // float4 of mt[k]
 constexpr int kConsumers = kRowGroups * kColGroups; // compute threads
 constexpr int kThreads = kConsumers + 32;           // and the producer warp
 constexpr int kGroupBytes = kBlockRows * kRowBytes; // one bulk copy
@@ -125,12 +103,8 @@ constexpr int kTileBytes = kRowGroups * kGroupStride;
 constexpr int kBasisBytes = kDepth * kOutputs * 4;
 constexpr size_t kSmem =
     kBasisBytes + static_cast<size_t>(kStages) * kTileBytes + 16 * kStages;
-static_assert(kBlockCols == 4 || kBlockCols == 8, "4 or 8 columns");
-static_assert(kTileRows % kBlockRows == 0 && kConsumers % 32 == 0,
-              "whole row groups and whole warps");
-static_assert((32 / kColGroups) * 4 <= 32, "a warp's row groups in distinct banks");
+static_assert(kConsumers % 32 == 0, "whole warps");
 static_assert(kGroupBytes % 128 == 0, "a group starts 4 banks on from the last");
-static_assert(kStages >= 1 && kCtasPerSm >= 1, "a ring and a CTA");
 }  // namespace dot
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
@@ -230,11 +204,11 @@ __global__ void __launch_bounds__(dot::kThreads, dot::kCtasPerSm)
     mbar_wait(&full[s], (i / kStages) & 1);
     const float* xs =
         reinterpret_cast<const float*>(ring + s * kTileBytes + rg * kGroupStride);
-    float acc[kBlockRows][kBlockCols];
+    float acc[kBlockRows][4];
 #pragma unroll
     for (int r = 0; r < kBlockRows; ++r)
 #pragma unroll
-      for (int c = 0; c < kBlockCols; ++c) acc[r][c] = 0.f;
+      for (int c = 0; c < 4; ++c) acc[r][c] = 0.f;
 #pragma unroll 2
     for (int k = 0; k < kDepth; k += 4) {
       float4 xv[kBlockRows];
@@ -243,22 +217,14 @@ __global__ void __launch_bounds__(dot::kThreads, dot::kCtasPerSm)
         xv[r] = *reinterpret_cast<const float4*>(xs + r * kDepth + k);
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
-        float mv[kBlockCols];
-#pragma unroll
-        for (int v = 0; v < kColVecs; ++v) {
-          const float4 q = *reinterpret_cast<const float4*>(
-              mcol + (k + e) * kOutputs + v * (kOutputs / kColVecs));
-          mv[4 * v] = q.x;
-          mv[4 * v + 1] = q.y;
-          mv[4 * v + 2] = q.z;
-          mv[4 * v + 3] = q.w;
-        }
+        const float4 q =
+            *reinterpret_cast<const float4*>(mcol + (k + e) * kOutputs);
+        const float mv[4] = {q.x, q.y, q.z, q.w};
 #pragma unroll
         for (int r = 0; r < kBlockRows; ++r) {
           const float xk = reinterpret_cast<const float*>(&xv[r])[e];
 #pragma unroll
-          for (int c = 0; c < kBlockCols; ++c)
-            acc[r][c] = fmaf(xk, mv[c], acc[r][c]);
+          for (int c = 0; c < 4; ++c) acc[r][c] = fmaf(xk, mv[c], acc[r][c]);
         }
       }
     }
@@ -268,12 +234,8 @@ __global__ void __launch_bounds__(dot::kThreads, dot::kCtasPerSm)
 #pragma unroll
     for (int r = 0; r < kBlockRows; ++r) {
       if (r0 + r >= n) break;
-      float* row = out + (r0 + r) * kOutputs + 4 * cg;
-#pragma unroll
-      for (int v = 0; v < kColVecs; ++v)
-        *reinterpret_cast<float4*>(row + v * (kOutputs / kColVecs)) =
-            make_float4(acc[r][4 * v], acc[r][4 * v + 1], acc[r][4 * v + 2],
-                        acc[r][4 * v + 3]);
+      *reinterpret_cast<float4*>(out + (r0 + r) * kOutputs + 4 * cg) =
+          make_float4(acc[r][0], acc[r][1], acc[r][2], acc[r][3]);
     }
   }
 }
@@ -525,19 +487,18 @@ extern "C" int basis_dot_launch(const void* x, const void* m, void* out,
 
 // The launch basis_dot_launch makes for n ≥ 0 rows: plan[0] tiles, [1]
 // resident CTAs, [2] CTAs, [3] rows a tile, [4] ring slots, [5] threads a
-// CTA (the last warp the producer), [6] dynamic shared memory bytes, [7]
-// and [8] a thread's rows and columns; returns the first CUDA error of the
-// queries, cudaErrorInvalidValue for n < 0.
+// CTA (the last warp the producer), [6] dynamic shared memory bytes;
+// returns the first CUDA error of the queries, cudaErrorInvalidValue for
+// n < 0.
 extern "C" int basis_dot_plan(long long n, long long* plan) {
   if (n < 0) return cudaErrorInvalidValue;
   DotPlan p;
   const cudaError_t err = dot_plan(n, &p);
   if (err != cudaSuccess) return err;
-  const long long shape[9] = {p.tiles, p.resident, p.ctas, dot::kTileRows,
+  const long long shape[7] = {p.tiles, p.resident, p.ctas, dot::kTileRows,
                               dot::kStages, dot::kThreads,
-                              static_cast<long long>(dot::kSmem),
-                              dot::kBlockRows, dot::kBlockCols};
-  for (int i = 0; i < 9; ++i) plan[i] = shape[i];
+                              static_cast<long long>(dot::kSmem)};
+  for (int i = 0; i < 7; ++i) plan[i] = shape[i];
   return cudaSuccess;
 }
 

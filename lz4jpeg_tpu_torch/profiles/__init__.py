@@ -56,8 +56,6 @@ kernel or raises):
 * ``dct_gates``: the fp32 basis product and the minor-dims transpose
   (``csrc/dct_gate_kernel.cu``) and the lane split on the stream-copy
   kernel (``profiles/profile_fused_dct_gates.py``), and their run;
-* ``kernel_sweep``: the casts and the basis product built at other launch
-  shapes (``-D`` macros) and timed on the card;
 * ``pallas_color``: the colour probe's RGB → Y and odd-column chroma in
   the probe's float32 FMA order (``csrc/rgb_color_probe_kernel.cu``;
   ``profiles/profile_pallas_color.py``), and its run;

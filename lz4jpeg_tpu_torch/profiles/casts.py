@@ -12,11 +12,12 @@ bfloat16 → float32), bit-identical to ``x.to(dst)``; another pair raises
 <Src, Dst>, seven instantiations; a source off a 16-byte boundary is copied
 first) and adds one to ``cast.launches``, or raises.
 
-``cast_plan`` mirrors the kernel's launch in Python (one CTA a chunk of
-vectors in index order, the last ``n % elements a vector`` one by one) and
-``cta_ranges`` the elements each CTA converts, ``warp_stores`` which
-elements each store of a warp writes, so that the CPU tests hold their
-coverage; on the card ``launch_plan`` asks the C code for its plan.
+``cast_plan`` mirrors the kernel's launch in Python (a vector of 16 /
+the destination's item size elements a lane, one CTA a chunk of
+``THREADS`` vectors in index order, the last ``n % elements a vector`` one
+by one) and ``cta_ranges`` the elements each CTA converts, so that the CPU
+tests hold their coverage; on the card ``launch_plan`` asks the C code
+for its plan.
 
 The run (``python -m lz4jpeg_tpu_torch.profiles.casts``) holds every pair
 to ``x.to(dst)`` on the probe's tile and over the source type's whole range
@@ -61,90 +62,44 @@ PAIRS = (
 )
 
 
-# csrc/cast_kernel.cu's PairShape: (bytes of the source a vector, vectors a
-# thread, threads a CTA, stores regrouped by shuffles), in PAIRS' order.
-SHAPES = (
-    (8, 1, 512, False),
-    (16, 1, 1024, False),
-    (4, 1, 512, False),
-    (4, 1, 512, False),
-    (8, 1, 512, False),
-    (8, 1, 512, False),
-    (8, 1, 512, False),
-)
+THREADS = 512  # csrc/cast_kernel.cu's kThreads
 
 
 class CastPlan(NamedTuple):
     """The kernel's launch for one pair and ``n`` elements: ``n_vec``
     vectors of ``vec_elems`` elements, then ``tail`` elements one by one;
-    ``ctas`` CTAs of ``threads`` threads, each a chunk of ``chunk_vecs``
-    vectors (and of the tail list); a vector's results in ``stores``
-    stores, regrouped across the warp where ``shuffle``."""
+    ``ctas`` CTAs of ``threads`` threads, each a chunk of ``threads``
+    vectors (and of the tail list)."""
 
     n_vec: int
     tail: int
     ctas: int
     vec_elems: int
-    chunk_vecs: int
     threads: int
-    stores: int
-    shuffle: bool
 
 
-def cast_plan(pair: int, n: int, shape=None) -> CastPlan:
+def cast_plan(pair: int, n: int) -> CastPlan:
     """``csrc/cast_kernel.cu::plan_of`` and ``Layout`` for ``n`` ≥ 0
-    elements of the pair at its shape in ``SHAPES`` or at ``shape`` (load
-    bytes, vectors, threads, shuffle: a ``-DCAST_LOAD=...`` build's)."""
-    src, dst = PAIRS[pair]
-    load, vecs, threads, shuffle = SHAPES[pair] if shape is None else shape
-    k_in = load // src.itemsize
-    out_bytes = k_in * dst.itemsize
-    stores = out_bytes // min(out_bytes, 16)
+    elements of the pair."""
+    k_in = 16 // PAIRS[pair][1].itemsize
     n_vec, tail = divmod(n, k_in)
-    chunk_vecs = threads * vecs
-    ctas = max(-(-n_vec // chunk_vecs), -(-tail // (chunk_vecs * k_in)))
-    return CastPlan(n_vec, tail, ctas, k_in, chunk_vecs, threads, stores,
-                    bool(shuffle) and stores > 1)
+    ctas = max(-(-n_vec // THREADS), -(-tail // (THREADS * k_in)))
+    return CastPlan(n_vec, tail, ctas, k_in, THREADS)
 
 
 def cta_ranges(plan: CastPlan) -> np.ndarray:
     """(R, 3) int64 rows ``(cta, start, stop)``: the element ranges each CTA
     of ``cast_kernel`` converts, from its index arithmetic (chunk ``cta`` of
     the vectors, then chunk ``cta`` of the tail list)."""
-    chunk = plan.chunk_vecs * plan.vec_elems
+    chunk = plan.threads * plan.vec_elems
     body = plan.n_vec * plan.vec_elems
-    c = np.arange(-(-plan.n_vec // plan.chunk_vecs), dtype=np.int64)
+    c = np.arange(-(-plan.n_vec // plan.threads), dtype=np.int64)
     rows = [np.stack([c, c * chunk, np.minimum((c + 1) * chunk, body)], 1)]
     c = np.arange(-(-plan.tail // chunk), dtype=np.int64)
     rows.append(np.stack([c, body + c * chunk,
                           body + np.minimum((c + 1) * chunk, plan.tail)], 1))
     out = np.concatenate(rows).reshape(-1, 3)
     return out[out[:, 2] > out[:, 1]]
-
-
-def warp_stores(plan: CastPlan) -> np.ndarray:
-    """(stores, 32, elements a store) int64: the elements, counted from the
-    warp's first, whose results store instruction ``q`` of lane ``l``
-    writes.  With ``shuffle`` lane l takes chunk l % stores of lane (32 q +
-    l) // stores by ``__shfl_sync``; without, chunk q of its own vector."""
-    k, q = plan.stores, np.arange(plan.stores)[:, None]
-    lane = np.arange(32)[None, :]
-    per_store = plan.vec_elems // k
-    if plan.shuffle:
-        vec, chunk = (32 * q + lane) // k, lane % k
-    else:
-        vec, chunk = np.broadcast_to(lane, (k, 32)), np.broadcast_to(q, (k, 32))
-    first = vec * plan.vec_elems + chunk * per_store
-    return first[..., None] + np.arange(per_store)
-
-
-def store_slots(plan: CastPlan) -> np.ndarray:
-    """(stores, 32) int64: the store-sized slot of the warp's results that
-    store instruction ``q`` of lane ``l`` writes: 32 q + l with
-    ``shuffle``, l · stores + q without."""
-    k, q = plan.stores, np.arange(plan.stores)[:, None]
-    lane = np.arange(32)[None, :]
-    return 32 * q + lane if plan.shuffle else lane * k + q
 
 
 def pair_name(pair: int) -> str:
@@ -186,13 +141,13 @@ def load_kernel() -> ctypes.CDLL:
 def launch_plan(pair: int, n: int) -> CastPlan:
     """The plan the C code launches for ``n`` elements of the pair
     (``csrc/cast_kernel.cu::cast_plan``)."""
-    out = (ctypes.c_int64 * 8)()
+    out = (ctypes.c_int64 * 5)()
     lib = load_kernel()
     rc = lib.cast_plan(pair, n, out)
     if rc != 0:
         raise RuntimeError(f"cast_plan failed: "
                            f"{lib.cast_error_string(rc).decode()} ({rc})")
-    return CastPlan(*out[:7], bool(out[7]))
+    return CastPlan(*out)
 
 
 def cast(x: torch.Tensor, dst: torch.dtype) -> torch.Tensor:

@@ -79,11 +79,12 @@ DOT, TRANSPOSE, TRANSPOSE_VEC = 0, 1, 2  # csrc/dct_gate_kernel.cu's ids
 ROUTES = ("tile", "vector")  # minor_transpose_route's answers 0 and 1
 VECTOR_TW = (2, 4, 8)
 BANDS = {"lum": (256, 8), "chr": (128, 4)}  # (bw, tw) of the probe's bands
-# basis_dot's shape, csrc/dct_gate_kernel.cu's BASIS_DOT_* defaults.
+# basis_dot's shape, csrc/dct_gate_kernel.cu's dot:: constants: rows a
+# tile, ring slots, CTAs an SM, a thread's rows (× 4 outputs).
 DOT_TILE_ROWS = 64
 DOT_STAGES = 2
 DOT_CTAS_PER_SM = 3
-DOT_BLOCK = (8, 4)  # a thread's rows × outputs
+DOT_BLOCK_ROWS = 8
 
 
 # ---------------------------------------------------------------------------
@@ -148,8 +149,8 @@ class DotPlan(NamedTuple):
     """The product's launch for ``n`` rows: ``tiles`` tiles of
     ``tile_rows`` rows over ``ctas`` persistent CTAs (``resident`` fit on
     the card), each with a ring of ``stages`` slots, ``threads`` threads
-    (the last warp the producer), ``smem`` bytes of dynamic shared memory
-    and a ``block_rows`` × ``block_cols`` register block a thread."""
+    (the last warp the producer) and ``smem`` bytes of dynamic shared
+    memory."""
 
     tiles: int
     resident: int
@@ -158,22 +159,19 @@ class DotPlan(NamedTuple):
     stages: int
     threads: int
     smem: int
-    block_rows: int
-    block_cols: int
 
 
-def dot_plan(n: int, resident: int, tile_rows: int = DOT_TILE_ROWS,
-             stages: int = DOT_STAGES, block=DOT_BLOCK) -> DotPlan:
+def dot_plan(n: int, resident: int, stages: int = DOT_STAGES) -> DotPlan:
     """``csrc/dct_gate_kernel.cu::dot_plan`` and ``dot::`` for ``n`` rows on
-    a card where ``resident`` CTAs fit."""
-    br, bc = block
-    groups = tile_rows // br
-    consumers = groups * (DEPTH // bc)
-    tile_bytes = groups * (br * DEPTH * 4 + 16)
-    tiles = -(-n // tile_rows)
-    return DotPlan(tiles, resident, min(tiles, resident), tile_rows, stages,
-                   consumers + 32, DEPTH * DEPTH * 4 + stages * tile_bytes
-                   + 16 * stages, br, bc)
+    a card where ``resident`` CTAs fit; another ``stages`` models the ring
+    at that depth (the kernel's is ``DOT_STAGES``)."""
+    groups = DOT_TILE_ROWS // DOT_BLOCK_ROWS
+    consumers = groups * (DEPTH // 4)
+    tile_bytes = groups * (DOT_BLOCK_ROWS * DEPTH * 4 + 16)
+    tiles = -(-n // DOT_TILE_ROWS)
+    return DotPlan(tiles, resident, min(tiles, resident), DOT_TILE_ROWS,
+                   stages, consumers + 32,
+                   DEPTH * DEPTH * 4 + stages * tile_bytes + 16 * stages)
 
 
 def dot_schedule(plan: DotPlan):
@@ -192,23 +190,19 @@ def dot_schedule(plan: DotPlan):
     return out
 
 
-def dot_thread_map(tile_rows: int = DOT_TILE_ROWS, block=DOT_BLOCK):
+def dot_thread_map():
     """(consumers, rows, outputs) of the consumer threads' register blocks:
     ``rows[t]`` the tile rows of thread t (its row group ``rg``: rows
-    ``rg · block_rows ..``), ``outputs[t]`` its columns (4 cg .. 4 cg + 3,
-    and 32 + 4 cg .. for 8 columns), with cg = lane % column groups and
-    rg = warp · (32 / column groups) + lane / column groups."""
-    br, bc = block
-    col_groups = DEPTH // bc
-    consumers = tile_rows // br * col_groups
+    ``rg · DOT_BLOCK_ROWS ..``), ``outputs[t]`` its columns 4 cg .. 4 cg +
+    3, with cg = lane % 16 and rg = 2 · warp + lane / 16."""
+    col_groups = DEPTH // 4
+    consumers = DOT_TILE_ROWS // DOT_BLOCK_ROWS * col_groups
     t = np.arange(consumers)
     lane, warp = t % 32, t // 32
     cg = lane % col_groups
     rg = warp * (32 // col_groups) + lane // col_groups
-    rows = rg[:, None] * br + np.arange(br)
-    vecs = bc // 4
-    cols = (4 * cg[:, None, None] + (DEPTH // vecs) * np.arange(vecs)[:, None]
-            + np.arange(4)).reshape(consumers, bc)
+    rows = rg[:, None] * DOT_BLOCK_ROWS + np.arange(DOT_BLOCK_ROWS)
+    cols = 4 * cg[:, None] + np.arange(4)
     return consumers, rows, cols
 
 
@@ -243,7 +237,7 @@ def load_kernel() -> ctypes.CDLL:
 def dot_launch_plan(n: int, device="cuda") -> DotPlan:
     """The plan the C code launches for ``n`` rows on ``device``
     (``csrc/dct_gate_kernel.cu::basis_dot_plan``)."""
-    out = (ctypes.c_int64 * 9)()
+    out = (ctypes.c_int64 * 7)()
     lib = load_kernel()
     with torch.cuda.device(torch.device(device)):
         rc = lib.basis_dot_plan(n, out)

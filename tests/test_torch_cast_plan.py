@@ -1,16 +1,14 @@
-"""The cast kernel's launch plan and warp store layout on the CPU.
+"""The cast kernel's launch plan on the CPU.
 
 ``csrc/cast_kernel.cu`` is CUDA only.  Here ``profiles/casts.py::
-cast_plan``, ``cta_ranges`` and ``warp_stores``/``store_slots``, the Python
-mirror of its plan, of each CTA's index arithmetic and of where each store
-of a warp writes which elements, are held to cover every element of a cast
-exactly once, with one CTA a chunk and none idle, for each of the seven
-pairs at 0, 1, one vector - 1, a chunk ± 1 and a size whose output passes
-2^31 bytes (the plan only), and for every shape of the sweep
-(``profiles/kernel_sweep.py::CAST_SHAPES``) with and without the shuffle
-regrouping.  The mirror's shapes are read back from the source.  The card
-tests (``tests/test_torch_cuda.py``) hold the mirror equal to the C code's
-plan and the kernel bit-identical to ``x.to``.
+cast_plan`` and ``cta_ranges``, the Python mirror of its plan and of each
+CTA's index arithmetic, are held to cover every element of a cast exactly
+once, with one CTA a chunk and none idle, for each of the seven pairs at 0,
+1, one vector - 1, a chunk ± 1 and a size whose output passes 2^31 bytes
+(the plan only), and to load and store whole 128-byte lines a warp.  The
+mirror's threads a CTA are read back from the source.  The card tests
+(``tests/test_torch_cuda.py``) hold the mirror equal to the C code's plan
+and the kernel bit-identical to ``x.to``.
 """
 
 import re
@@ -20,11 +18,8 @@ import numpy as np
 import pytest
 
 from lz4jpeg_tpu_torch.profiles import casts
-from lz4jpeg_tpu_torch.profiles.kernel_sweep import CAST_SHAPES
 
 SOURCE = Path(casts.__file__).resolve().parent.parent / "csrc" / "cast_kernel.cu"
-C_TYPES = {"int16_t": "int16", "int32_t": "int32", "uint8_t": "uint8",
-           "int8_t": "int8", "float": "float32", "Bf16": "bfloat16"}
 
 
 def _covered_once(ranges: np.ndarray, n: int) -> bool:
@@ -38,7 +33,7 @@ def _covered_once(ranges: np.ndarray, n: int) -> bool:
 
 def _sizes(pair):
     plan = casts.cast_plan(pair, 0)
-    vec, chunk = plan.vec_elems, plan.vec_elems * plan.chunk_vecs
+    vec, chunk = plan.vec_elems, plan.vec_elems * plan.threads
     big = (1 << 31) // casts.PAIRS[pair][1].itemsize + 17
     return [0, 1, vec - 1, vec, chunk - 1, chunk, chunk + 1, 3 * chunk + 5, big]
 
@@ -54,8 +49,8 @@ def test_cast_plan_covers_every_element_once(pair):
         ctas = np.unique(ranges[:, 0])
         assert plan.ctas == len(ctas) and np.array_equal(
             ctas, np.arange(plan.ctas)), n
-        chunk = plan.chunk_vecs * plan.vec_elems
-        assert plan.ctas == max(-(-plan.n_vec // plan.chunk_vecs),
+        chunk = plan.threads * plan.vec_elems
+        assert plan.ctas == max(-(-plan.n_vec // plan.threads),
                                 -(-plan.tail // chunk))
         assert plan.ctas <= -(-n // chunk)
         if n > (1 << 31) // 4:
@@ -64,81 +59,19 @@ def test_cast_plan_covers_every_element_once(pair):
             assert ranges[:, 2].max() == n
 
 
-@pytest.mark.parametrize("shape", CAST_SHAPES,
-                         ids=lambda s: "_".join(map(str, s)))
-def test_every_store_writes_its_own_elements(shape):
-    """For each pair at each sweep shape: store q of lane l writes the
-    results of exactly the elements of its slot, the slots of a warp's
-    stores are each written once, and with the shuffle each store
-    instruction covers 32 adjacent slots (512 contiguous bytes)."""
-    for pair in range(len(casts.PAIRS)):
-        plan = casts.cast_plan(pair, 1 << 20, shape)
-        elems = casts.warp_stores(plan)
-        slots = casts.store_slots(plan)
-        per_store = plan.vec_elems // plan.stores
-        assert np.array_equal(elems, slots[..., None] * per_store
-                              + np.arange(per_store))
-        assert np.array_equal(np.sort(slots.ravel()),
-                              np.arange(32 * plan.stores))
-        if plan.shuffle:
-            assert plan.stores > 1
-            assert np.array_equal(slots, 32 * np.arange(plan.stores)[:, None]
-                                  + np.arange(32))
-        assert plan.shuffle == (bool(shape[3]) and plan.stores > 1)
+def test_mirror_threads_match_the_source():
+    found = re.findall(r"constexpr int kThreads = (\d+);", SOURCE.read_text())
+    assert [int(t) for t in found] == [casts.THREADS]
 
 
-def test_mirror_shapes_match_the_source():
-    text = SOURCE.read_text()
-    found = re.findall(r"template <> struct PairShape<(\w+), (\w+)> : "
-                       r"Shape<(\d+), (\d+), (\d+), (\d+)> \{\};", text)
-    assert len(found) == len(casts.PAIRS)
-    for (src, dst, *shape), (want_src, want_dst), mirror in zip(
-            found, casts.PAIRS, casts.SHAPES):
-        assert (C_TYPES[src], C_TYPES[dst]) == (str(want_src)[6:],
-                                                str(want_dst)[6:])
-        load, vecs, threads, shuffle = map(int, shape)
-        assert (load, vecs, threads, bool(shuffle)) == mirror
-
-
-def test_plan_shapes_are_whole_lines():
-    """A warp's load and each of its stores covers whole 128-byte lines."""
-    for pair, (src, dst) in enumerate(casts.PAIRS):
-        plan = casts.cast_plan(pair, 1 << 20)
-        assert (32 * plan.vec_elems * src.itemsize) % 128 == 0
-        store_bytes = plan.vec_elems * dst.itemsize // plan.stores
-        if plan.shuffle or plan.stores == 1:
-            assert (32 * store_bytes) % 128 == 0
-
-
-# -- the shape sweep (profiles/kernel_sweep.py): its builds and its parse -----------
-
-
-def test_sweep_defines_name_every_macro_of_the_sources():
-    """Each -D of a sweep build names a macro the source reads, so no shape
-    silently builds the default."""
-    from lz4jpeg_tpu_torch.profiles import kernel_sweep as ks
-
-    cast_src = SOURCE.read_text()
-    dot_src = (SOURCE.parent / "dct_gate_kernel.cu").read_text()
-    for flag in ks.cast_defines(ks.CAST_SHAPES[0]):
-        assert re.search(rf"\b{flag[2:].split('=')[0]}\b", cast_src), flag
-    for flag in ks.dot_defines(ks.DOT_SHAPES[0]):
-        assert f"#ifndef {flag[2:].split('=')[0]}" in dot_src, flag
-    assert all("," not in f for s in ks.CAST_SHAPES for f in ks.cast_defines(s))
-    assert len(set(ks.CAST_SHAPES)) == len(ks.CAST_SHAPES) == 45
-    assert len(set(ks.DOT_SHAPES)) == len(ks.DOT_SHAPES)
-
-
-def test_sweep_reads_ptxas_usage_and_needs_a_card():
-    from lz4jpeg_tpu_torch.profiles import kernel_sweep as ks
-
-    log = """ptxas info    : Compiling entry function '_Z1kv' for 'sm_90a'
-ptxas info    : Function properties for _Z1kv
-    0 bytes stack frame, 8 bytes spill stores, 4 bytes spill loads
-ptxas info    : Used 95 registers, used 1 barriers
-ptxas info    : Compiling entry function '_Z1jv' for 'sm_90a'
-ptxas info    : Used 32 registers, used 0 barriers"""
-    assert ks.ptxas_usage(log) == {"_Z1kv": {"spill_bytes": 12, "registers": 95},
-                                   "_Z1jv": {"registers": 32}}
-    with pytest.raises(RuntimeError, match="needs a card"):
-        ks.run_sweep("casts", device="cpu")
+@pytest.mark.parametrize("pair", range(len(casts.PAIRS)))
+def test_plan_shapes_are_whole_lines(pair):
+    """A lane loads its vector's source bytes (4, 8 or 16) as one load and
+    stores its results as one 16-byte vector, so a warp's load and its
+    store each cover whole 128-byte lines."""
+    src, dst = casts.PAIRS[pair]
+    plan = casts.cast_plan(pair, 1 << 20)
+    assert plan.vec_elems * dst.itemsize == 16
+    assert plan.vec_elems * src.itemsize in (4, 8, 16)
+    assert (32 * plan.vec_elems * src.itemsize) % 128 == 0
+    assert plan.threads % 32 == 0

@@ -1301,7 +1301,7 @@ def _cast_edges(pair):
     from lz4jpeg_tpu_torch.profiles import casts
 
     plan = casts.cast_plan(pair, 0)
-    vec, chunk = plan.vec_elems, plan.vec_elems * plan.chunk_vecs
+    vec, chunk = plan.vec_elems, plan.vec_elems * plan.threads
     return sorted({1, max(vec - 1, 1), chunk - 1, chunk, chunk + 1,
                    3 * chunk + vec - 1})
 

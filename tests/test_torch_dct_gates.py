@@ -293,8 +293,6 @@ def test_route_counts_start_at_zero_and_the_cpu_counts_none():
 import re
 from pathlib import Path
 
-from lz4jpeg_tpu_torch.profiles.kernel_sweep import DOT_SHAPES
-
 DOT_SOURCE = (Path(dg.__file__).resolve().parent.parent / "csrc"
               / "dct_gate_kernel.cu")
 DOT_ROWS = (0, 1, 63, 64, 65, 4099, 2_097_152)
@@ -403,34 +401,46 @@ def _wavefronts(byte_addrs, width=16):
     return max(per_bank.values())
 
 
-@pytest.mark.parametrize("shape", sorted({(s[0], s[3], s[4]) for s in DOT_SHAPES}))
-def test_dot_thread_map_is_a_bijection_with_cheap_loads(shape):
-    tile_rows, br, bc = shape
-    consumers, rows, cols = dg.dot_thread_map(tile_rows, (br, bc))
+@pytest.mark.parametrize("k", range(0, 64, 4))
+def test_dot_thread_map_is_a_bijection_with_cheap_loads(k):
+    """The map covers a tile once; at each k each warp's x load (row r of
+    its two row groups, the float4 at k) is one wavefront and its basis
+    load (16 contiguous float4 of mt[k + e]) two, the fewest 512 bytes can
+    take."""
+    consumers, rows, cols = dg.dot_thread_map()
+    br = dg.DOT_BLOCK_ROWS
     assert consumers % 32 == 0 and rows.shape == (consumers, br)
+    assert cols.shape == (consumers, 4)
     cells = (rows[:, :, None] * dg.DEPTH + cols[:, None, :]).ravel()
-    assert np.array_equal(np.sort(cells), np.arange(tile_rows * dg.DEPTH))
+    assert np.array_equal(np.sort(cells), np.arange(dg.DOT_TILE_ROWS * dg.DEPTH))
     group_stride = br * dg.DEPTH * 4 + 16
-    col_groups = dg.DEPTH // bc
     for w in range(consumers // 32):
         lanes = np.arange(32 * w, 32 * w + 32)
-        for k in (0, 4, 60):
-            for r in range(br):
-                # x: row r of each lane's group, float4 at k
-                rg = rows[lanes, 0] // br
-                x = rg * group_stride + r * dg.DEPTH * 4 + 4 * k
-                assert _wavefronts(x) == 1
-            for v in range(bc // 4):
-                m = (k * dg.DEPTH + cols[lanes, 4 * v]) * 4
-                assert _wavefronts(m) == col_groups * 16 // 128
+        rg = rows[lanes, 0] // br
+        assert len(set(rg)) == 2
+        for r in range(br):
+            x = rg * group_stride + r * dg.DEPTH * 4 + 4 * k
+            assert _wavefronts(x) == 1
+        for e in range(4):
+            m = ((k + e) * dg.DEPTH + cols[lanes, 0]) * 4
+            assert _wavefronts(m) == 2
+
+
+def test_a_bank_conflict_is_caught():
+    """Row groups a whole number of 128-byte lines apart (no 16-byte pad)
+    put a warp's two x loads in the same banks: two wavefronts."""
+    _, rows, _ = dg.dot_thread_map()
+    rg = rows[:32, 0] // dg.DOT_BLOCK_ROWS
+    assert _wavefronts(rg * dg.DOT_BLOCK_ROWS * dg.DEPTH * 4) == 2
 
 
 def test_dot_mirror_matches_the_source():
     text = DOT_SOURCE.read_text()
-    found = dict(re.findall(r"#define BASIS_DOT_(\w+) (\d+)", text))
+    body = text[text.index("namespace dot {"):text.index("}  // namespace dot")]
+    found = dict(re.findall(r"constexpr int k(TileRows|Stages|CtasPerSm|BlockRows)"
+                            r" = (\d+);", body))
     assert {k: int(v) for k, v in found.items()} == {
-        "TILE_ROWS": dg.DOT_TILE_ROWS, "STAGES": dg.DOT_STAGES,
-        "CTAS_PER_SM": dg.DOT_CTAS_PER_SM, "BLOCK_ROWS": dg.DOT_BLOCK[0],
-        "BLOCK_COLS": dg.DOT_BLOCK[1]}
+        "TileRows": dg.DOT_TILE_ROWS, "Stages": dg.DOT_STAGES,
+        "CtasPerSm": dg.DOT_CTAS_PER_SM, "BlockRows": dg.DOT_BLOCK_ROWS}
     plan = dg.dot_plan(2_097_152, 264)
     assert (plan.threads, plan.smem) == (160, 16_384 + 2 * 8 * 2_064 + 32)
