@@ -32,9 +32,18 @@ time_ms`` (best of 4 runs of 8 calls, queued behind a spin, so that the
 host's issue of a call drops out) in turns: other, this, library,
 library, this, other.  The casts' outputs must equal ``x.to``'s (NaN as
 NaN), the basis product's must be bit-identical between the two
-checkouts (both sum k in order from 0).  Prints the card's name and power
-limit, each block of runs, and one line per kernel and shape with both
-times, the ratio, the bound and its share.
+checkouts (both sum k in order from 0).  Then, in the same protocol, the
+matcher sort of ``profiles/bitonic_sort.py::bitonic_sort_blocks`` (P-sort,
+both variants, on 2,048 of the probe's blocks) with ``torch.sort`` of the
+keys and ``torch.sort`` + ``torch.gather`` as the library calls, and the
+membership decode of ``profiles/rle_decode.py::rle_decode_membership``
+(P-memb, the luma words of 64 frames of 2048²) with this checkout's K6 and
+K8; the sorts' outputs and the decodes' must be identical between the
+checkouts (and the sort's to ``torch.sort`` + ``torch.gather``, the
+decode's to K6 and K8), and their share is of the issue bound where that
+is the larger.  Prints the card's name and power limit, each block of
+runs, and one line per kernel and shape with both times, the ratio, the
+bound and its share.
 """
 
 from __future__ import annotations
@@ -51,12 +60,13 @@ HERE = Path(__file__).resolve().parent
 PACKAGE = "lz4jpeg_tpu_torch"
 CAST_ELEMENTS = 64 * 2_097_152  # profiles/casts.py::run_casts' elements
 DOT_ROWS = 2_097_152  # profiles/dct_gates.py::run_dct_gates' rows
+SORT_BLOCKS = 2048  # profiles/bitonic_sort.py::run_bitonic_sort's blocks
 
 
 def load_checkout(root: Path):
     """The kernel modules (fwd_megakernel, fused_match, pack16, stream, and
-    the probes' casts and dct_gates) of the checkout at ``root``, with every
-    kernel built and loaded.  Drops any other checkout's modules from
+    the probes' casts, dct_gates, bitonic_sort and rle_decode) of the
+    checkout at ``root``, with every kernel built and loaded.  Drops any other checkout's modules from
     ``sys.modules`` first; the modules stay alive through the returned
     references."""
     for name in [m for m in sys.modules
@@ -67,14 +77,15 @@ def load_checkout(root: Path):
         mods = [importlib.import_module(f"{PACKAGE}.{name}")
                 for name in ("ops.fwd_megakernel", "ops.fused_match",
                              "ops.pack16", "ops.stream", "profiles.casts",
-                             "profiles.dct_gates")]
+                             "profiles.dct_gates", "profiles.bitonic_sort",
+                             "profiles.rle_decode")]
     finally:
         sys.path.remove(str(root))
     for mod in mods:
         if not Path(mod.__file__).resolve().is_relative_to(root):
             raise RuntimeError(f"{mod.__name__} came from {mod.__file__}, "
                                f"not from {root}")
-    fwd, match, pack16, stream, casts, gates = mods
+    fwd, match, pack16, stream, casts, gates, sort, member = mods
     fwd.load_kernel()
     match.load_kernel()
     pack16.load_pack_kernels()
@@ -82,7 +93,9 @@ def load_checkout(root: Path):
     stream.load_kernel()
     casts.load_kernel()
     gates.load_kernel()
-    return fwd, match, pack16, stream, casts, gates
+    sort.load_kernel()
+    member.load_kernel()
+    return mods
 
 
 def main() -> int:
@@ -200,12 +213,13 @@ def main() -> int:
 
     from lz4jpeg_tpu_torch.profiles import timing
 
-    def ab_queued(label, fns, inputs, n_bytes, same):
-        """Each of ``fns`` (other, this, library) on ``inputs`` once, the
-        outputs held by ``same(name, out, this_out)``, then each timed by
-        ``timing.time_ms`` in turns: other, this, library, library, this,
-        other; prints both times of each, the ratio and the share of the
-        bytes bound."""
+    def ab_queued(label, fns, inputs, n_bytes, same, issue_ms=None):
+        """Each of ``fns`` (other, this, then the library calls and other
+        references) on ``inputs`` once, the outputs held by ``same(name,
+        out, this_out)``, then each timed by ``timing.time_ms`` in turns:
+        other, this, the rest, the rest reversed, this, other; prints both
+        times of each and its ratio to this, and the share of the bytes
+        bound or, if larger, of ``issue_ms``."""
         outs = {name: fn(inputs) for name, fn in fns.items()}
         torch.cuda.synchronize()
         for name, out in outs.items():
@@ -215,14 +229,16 @@ def main() -> int:
         for name in [*fns, *reversed(list(fns))]:
             t.setdefault(name, []).append(timing.time_ms(fns[name], inputs, dev))
             print(f"{label} {name}: {t[name][-1]:.4f} ms", flush=True)
-        b = bound(n_bytes)[0]
+        b, by = bound(n_bytes)[0], "bytes"
+        if issue_ms is not None and issue_ms > b:
+            b, by = issue_ms, "issue"
         mean = {k: sum(v) / 2 for k, v in t.items()}
-        print(f"{label}: this {t['this'][0]:.4f}, {t['this'][1]:.4f} ms, other "
-              f"{t['other'][0]:.4f}, {t['other'][1]:.4f} "
-              f"({mean['other'] / mean['this']:.3f}x this), library "
-              f"{t['library'][0]:.4f}, {t['library'][1]:.4f} "
-              f"({mean['library'] / mean['this']:.3f}x this); bound {b:.4f} ms "
-              f"(bytes), this {b / mean['this']:.1%} of it")
+        print(f"{label}: this {t['this'][0]:.4f}, {t['this'][1]:.4f} ms; "
+              + "; ".join(f"{k} {v[0]:.4f}, {v[1]:.4f} "
+                          f"({mean[k] / mean['this']:.3f}x this)"
+                          for k, v in t.items() if k != "this")
+              + f"; bound {b:.4f} ms ({by}), this {b / mean['this']:.1%} "
+              f"of it")
 
     casts = this[4]
     for pair, (src, dst) in enumerate(casts.PAIRS):
@@ -248,6 +264,51 @@ def main() -> int:
                "this": lambda a: this[5].basis_dot(a, m),
                "library": lambda a: a @ m.t()}, x,
               (2 * DOT_ROWS * gates.DEPTH + gates.DEPTH ** 2) * 4, bits_of)
+    del x
+
+    # P-sort: the probe's 2,048 blocks, both variants, with torch.sort of the
+    # keys and torch.sort + torch.gather (the probe's keys are unique).
+    bs = this[6]
+    k_np, p_np = bs.probe_blocks(SORT_BLOCKS, SEED)
+    blocks = (torch.from_numpy(k_np).to(dev), torch.from_numpy(p_np).to(dev))
+    del k_np, p_np
+    bounds = bs.sort_bounds(SORT_BLOCKS, dev)
+    for record in (False, True):
+        def sort_same(name, out, mine):
+            if name == "torch.sort":
+                return torch.equal(out[0], mine[0])
+            if name == "torch.sort + gather" and record:
+                return torch.equal(out[0], mine[0])
+            return torch.equal(out[0], mine[0]) and torch.equal(out[1], mine[1])
+
+        ab_queued(f"P-sort {SORT_BLOCKS} blocks record_masks={record}",
+                  {"other": lambda a: other[6].bitonic_sort_blocks(*a, record),
+                   "this": lambda a: this[6].bitonic_sort_blocks(*a, record),
+                   "torch.sort": lambda a: torch.sort(a[0], dim=1, stable=True),
+                   "torch.sort + gather": lambda a: bs.sort_gather(*a)},
+                  blocks, 4 * 4 * bs.SLOTS * SORT_BLOCKS, sort_same,
+                  bounds["replay_issue_bound_ms" if record else "issue_bound_ms"])
+        got = this[6].bitonic_sort_blocks(*blocks, record)
+        want = bs.sort_gather(*blocks)
+        check(torch.equal(got[0], want[0]) and torch.equal(
+            got[1], blocks[1] if record else want[1]),
+              f"P-sort record_masks={record}: not torch.sort + gather")
+    del blocks, got, want
+
+    # P-memb: the luma words of 64 frames of 2048², with K6 and K8 (this
+    # checkout's) in the same turns.
+    rd = this[7]
+    words, lens = rd.luma_words(TIME_FRAMES, SIDE, dev, SEED)
+    n, seg = words.shape
+    ab_queued(f"P-memb {n}x{seg}",
+              {"other": lambda a: other[7].rle_decode_membership(*a, seg),
+               "this": lambda a: this[7].rle_decode_membership(*a, seg),
+               "K6": lambda a: this[2].pack16_decode(*a, seg),
+               "K8": lambda a: this[2].pack16_decode_wide(*a)},
+              (words, lens), n * seg * 2 + n * 4 + n * seg * 4,
+              lambda name, a, b: torch.equal(a.to(torch.int32), b),
+              timing.issue_bound_ms(rd.MEMBERSHIP_INSTRUCTIONS
+                                    * rd.membership_pairs(lens, seg, seg), dev))
     return 0
 
 

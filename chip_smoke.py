@@ -233,15 +233,23 @@ another checkout's.
     and to ``torch.sort`` + ``torch.gather`` at 1, 3, 8 and 2,048 blocks of
     the probe's keys and on crafted sorted, reversed and all-same-bucket
     blocks, its replay variant returning the sorted keys and the input
-    payload, both on duplicate keys identical to the plain version; both
+    payload, both on duplicate keys identical to the plain version, and
+    each variant launched ``SORT_REPEATS`` = 20 times more at 2,048 blocks,
+    every launch identical to the plain version; both
     stage kernels (``csrc/stage_rate_kernel.cu``) identical to their plain
     versions at 256 and 2,048 blocks and on a view one element off a
     16-byte boundary; the membership kernel
     (``csrc/rle_membership_kernel.cu``) identical to K6 and to its plain
     version on phase 10's luma and Cr words and on crafted rows (a valid
-    word 0, lengths 0, runs past out_size; N = 1, 5, 4,099; out_size L and
-    L/2 + 3), and three refused shapes refused by the wrapper and the C
-    entry point; then the three runners at their defaults (2,048 sorted
+    word 0, lengths 0, runs past out_size; N = 1, 5, 4,099 and a CTA's row
+    tile ± 1; out_size L and L/2 + 3), and three refused shapes refused by
+    the wrapper and the C entry point; both kernels' registers, shared
+    memory and CTAs per SM and ptxas's spill stores
+    (``profiles/sass_loops.py::spill_stores``); ``compute-sanitizer``'s
+    racecheck and synccheck on 1 and 3 sorted blocks of each variant and
+    37 membership rows (``profiles/sanitize.py``; a case the tool cannot
+    run reads "unavailable", a hazard fails the phase); then the three
+    runners at their defaults (2,048 sorted
     blocks; stages at 256 and 2,048 blocks; the membership A/B against K6
     and K8 on the luma words of 64 frames of 2048²), each kernel's launch
     count set to 0 just before its run and read just after, every row
@@ -481,8 +489,9 @@ SORT_SOURCE = "lz4jpeg_tpu_torch/csrc/bitonic_sort_kernel.cu"
 STAGE_SOURCE = "lz4jpeg_tpu_torch/csrc/stage_rate_kernel.cu"
 MEMBERSHIP_SOURCE = "lz4jpeg_tpu_torch/csrc/rle_membership_kernel.cu"
 SORT_BLOCKS = (1, 3, 8, 2048)  # phase 24's sorts against plain and torch.sort
+SORT_REPEATS = 20  # phase 24: launches of the largest sort, each held to plain
 STAGE_BLOCKS = (256, 2048)  # phase 24's stage kernels against plain
-MEMBER_ROWS = (1, 5, 4099)  # phase 24's crafted packed16 rows
+MEMBER_ROWS = (1, 5, 4099)  # phase 24's crafted packed16 rows (and a row tile ± 1)
 MEMBER_REFUSED = ((64, 65), (16, 16), (128, 64))  # (L, out_size) refused
 SORT_RUN = {}  # the runners' defaults: 2,048 blocks, 8 checked
 STAGE_RUN = {}  # 256 and 2,048 blocks
@@ -3137,7 +3146,23 @@ def matcher_phase(dev, p10_words, k2_ms):
         held("bitonic_sort", f"duplicate keys (record_masks={record}) vs plain",
              bs.bitonic_sort_blocks(dup, dup_pay, record),
              bs.bitonic_sort_blocks_ref(dup, dup_pay, record))
-    del keys_np, pay_np, dup, dup_pay
+    del dup, dup_pay
+
+    # -- the largest sort launched again and again: a missing wait between
+    # threads shows only sometimes --------------------------------------
+    k = torch.from_numpy(keys_np).to(dev)
+    p = torch.from_numpy(pay_np).to(dev)
+    for record in (False, True):
+        want = bs.bitonic_sort_blocks_ref(k, p, record)
+        same = 0
+        for _ in range(SORT_REPEATS):
+            got = bs.bitonic_sort_blocks(k, p, record)
+            same += torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+        print(f"phase 24: sort {k.shape[0]} blocks (record_masks={record}) "
+              f"{same} of {SORT_REPEATS} launches identical to plain")
+        check(same == SORT_REPEATS, f"phase 24: {SORT_REPEATS - same} of "
+              f"{SORT_REPEATS} sorts (record_masks={record}) differ")
+    del keys_np, pay_np, k, p, want, got
 
     # -- both stage kernels, also on a view off a 16-byte boundary ----------
     for n in STAGE_BLOCKS:
@@ -3162,7 +3187,8 @@ def matcher_phase(dev, p10_words, k2_ms):
         del w, lens, got
     rng = np.random.default_rng(SEED + 24)
     for k in rd.SEGMENTS:
-        for n in MEMBER_ROWS:
+        tile = rd.WARPS * rd.membership_thread_map(k)[0]  # rows a CTA pass
+        for n in (*MEMBER_ROWS, tile - 1, tile, tile + 1):
             w_np, l_np = crafted_packed16_rows(k, rng, n_random=max(0, n - 12))
             w = torch.from_numpy(w_np[:n]).to(dev)
             lens = torch.from_numpy(l_np[:n]).to(dev)
@@ -3192,6 +3218,27 @@ def matcher_phase(dev, p10_words, k2_ms):
         check(refused and rc != 0,
               f"phase 24: L {k}, out_size {out_size} was not refused")
     torch.cuda.synchronize()
+
+    # -- resources, spills, and compute-sanitizer where it can run ---------
+    from lz4jpeg_tpu_torch.profiles import sanitize, sass_loops
+
+    for label, attrs in (("sort", bs.sort_attributes(False, dev)),
+                         ("sort + replay", bs.sort_attributes(True, dev)),
+                         ("membership L 64", rd.membership_attributes(64, dev)),
+                         ("membership L 32", rd.membership_attributes(32, dev))):
+        print(f"phase 24: {label}: {attrs['registers']} registers, "
+              f"{attrs['shared_bytes']} B of shared memory, "
+              f"{attrs['ctas_per_sm']} CTAs an SM")
+    for source in ("bitonic_sort_kernel", "rle_membership_kernel"):
+        for kernel, spilled in sass_loops.spill_stores(source).items():
+            print(f"phase 24: {kernel}: {spilled} bytes of spill stores")
+    found = sanitize.sanitize()
+    verdicts = [(src, r) for src, rs in found.items() for r in rs]
+    check(not [r for _, r in verdicts if r["verdict"] == "hazard"],
+          "phase 24: compute-sanitizer found a hazard or a checker failed")
+    print("phase 24: compute-sanitizer " + "; ".join(
+        f"{src} {' '.join(r['args'])} {r['tool']} {r['verdict']}"
+        for src, r in verdicts))
     print(f"phase 24: checks in {time.perf_counter() - t_phase:.2f} s; max "
           f"|kernel - plain| {err}")
 

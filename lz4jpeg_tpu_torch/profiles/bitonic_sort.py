@@ -177,6 +177,321 @@ def sort_attributes(record_masks: bool, device="cuda") -> Dict:
                              torch.device(device))
 
 
+# ---------------------------------------------------------------------------
+# The kernel's compile-time schedule, mirrored in numpy
+# (csrc/bitonic_sort_kernel.cu; the constants are the source's k* ones)
+# ---------------------------------------------------------------------------
+
+THREADS = 1024
+PER_THREAD = SLOTS // THREADS  # 16
+FIRST_EXCHANGE_MERGE = 10  # merges 2^10 and up leave layout B
+SMEM_LIMIT = 227 * 1024  # the most dynamic shared memory a CTA may take
+
+
+def smem_bytes(record: bool) -> int:
+    """The kernel's dynamic shared memory: two 64 KiB exchange buffers, or
+    with the replay one and a byte a thread a stage."""
+    return SLOTS * 4 + STAGES * THREADS if record else SLOTS * 8
+
+
+def stage_index(kk: int, j: int) -> int:
+    """Stage number of stride 2^j in merge kk (stages run from j = kk-1
+    down to 0)."""
+    return kk * (kk - 1) // 2 + (kk - 1 - j)
+
+
+def swizzle(slot):
+    """The word a slot takes in an exchange buffer."""
+    return slot ^ (((slot >> 5) & 3) << 2) ^ (((slot >> 13) & 1) << 4)
+
+
+def layout_slots(layout: str, kk: int = 0) -> np.ndarray:
+    """(THREADS, PER_THREAD) slot of each (thread, register) in layout
+    ``"B"``, ``"T"`` or ``"X"`` (merge ``kk``'s)."""
+    tid = np.arange(THREADS)[:, None]
+    r = np.arange(PER_THREAD)[None, :]
+    lane, warp = tid & 31, tid >> 5
+    if layout == "B":
+        return 16 * tid + r
+    if layout == "T":
+        return 512 * warp + 32 * r + lane
+    if kk == LOG_SLOTS:
+        return (lane & 15) | ((lane >> 4) << 13) | (warp << 4) | (r << 9)
+    xs = kk - 4
+    return (tid & ((1 << xs) - 1)) | ((tid >> xs) << (xs + 4)) | (r << xs)
+
+
+def layout_words(layout: str, kk: int = 0) -> np.ndarray:
+    """The word each (thread, register) reads and writes, by the kernel's own
+    address arithmetic (``store_b``/``load_b``, ``move_t``, ``move_x``)."""
+    tid = np.arange(THREADS)[:, None]
+    r = np.arange(PER_THREAD)[None, :]
+    if layout == "B":
+        return 4 * ((swizzle(16 * tid) >> 2) ^ (r >> 2)) + (r & 3)
+    if layout == "T":
+        base = swizzle((tid >> 5) * 512 + (tid & 31))
+        return (base ^ ((r & 3) << 2)) + 32 * r
+    xs = 9 if kk == LOG_SLOTS else kk - 4
+    part = layout_slots("X", kk)[:, :1]  # register 0 holds the thread's bits
+    return (swizzle(part) ^ (((r & 1) << 3) if xs == 6 else 0)) + (r << xs)
+
+
+def register_bit(layout: str, kk: int, j: int) -> Optional[int]:
+    """The register bit that holds slot bit j in a layout, else None."""
+    slots = layout_slots(layout, kk)
+    for q in range(4):
+        if (slots[0, 1 << q] ^ slots[0, 0]) == 1 << j:
+            return q
+    return None
+
+
+def lane_mask(layout: str, kk: int, j: int) -> Optional[int]:
+    """The lane bit that holds slot bit j in a layout, else None."""
+    slots = layout_slots(layout, kk)
+    for m in (1, 2, 4, 8, 16):
+        if (slots[m, 0] ^ slots[0, 0]) == 1 << j:
+            return m
+    return None
+
+
+def sync_scope(kk: int):
+    """(name, threads a group, first barrier id) of the wait between the
+    cross-warp exchanges of merge kk: the CTA (barrier 0) at merge 14, else
+    a named barrier per aligned group."""
+    if kk == LOG_SLOTS:
+        return ("cta", THREADS, 0)
+    log = 7 if kk <= 11 else kk - 4
+    first = 1 if kk <= 11 else (9 if kk == 12 else 13)
+    return ("group", 1 << log, first)
+
+
+def sort_schedule():
+    """The forward network as the kernel runs it: a list of steps, each a
+    dict with ``kind`` "flip" (complement the keys for merge ``merge``),
+    "stage" (``stage``, ``merge``, ``j``, ``layout``, ``route`` "register"
+    with ``reg_bit`` or "shuffle" with ``lane_mask``) or "exchange"
+    (``from``/``to`` layouts and ``sync``: ("warp", 32, None) or
+    ``sync_scope``)."""
+    steps = []
+
+    def stage(kk, j, layout):
+        q = register_bit(layout, kk, j)
+        step = {"kind": "stage", "stage": stage_index(kk, j), "merge": kk,
+                "j": j, "layout": (layout, kk)}
+        if q is not None:
+            step.update(route="register", reg_bit=q)
+        else:
+            step.update(route="shuffle", lane_mask=lane_mask(layout, kk, j))
+        steps.append(step)
+
+    def exchange(kk, src, dst, sync):
+        steps.append({"kind": "exchange", "merge": kk, "from": src, "to": dst,
+                      "sync": sync})
+
+    for kk in range(1, LOG_SLOTS + 1):
+        if kk >= 4:
+            steps.append({"kind": "flip", "merge": kk})
+        if kk < FIRST_EXCHANGE_MERGE:
+            for j in range(kk - 1, -1, -1):
+                stage(kk, j, "B")
+            continue
+        exchange(kk, ("B", kk), ("X", kk), sync_scope(kk))
+        for j in range(kk - 1, 8, -1):
+            stage(kk, j, "X")
+        exchange(kk, ("X", kk), ("T", kk), sync_scope(kk))
+        for j in range(8, 4, -1):
+            stage(kk, j, "T")
+        exchange(kk, ("T", kk), ("B", kk), ("warp", 32, None))
+        for j in range(4, -1, -1):
+            stage(kk, j, "B")
+    return steps
+
+
+def _pairs(q: int):
+    """The register pairs (r, r | 2^q) of a register stage, in the kernel's
+    bit order."""
+    lo = [r for r in range(PER_THREAD) if not r & (1 << q)]
+    return np.array(lo), np.array(lo) | (1 << q)
+
+
+def emulate_sort(keys: np.ndarray, payload: np.ndarray,
+                 record_masks: bool = False):
+    """Run ``sort_schedule`` on (n, 16384) int32 blocks as the kernel's
+    threads would: registers per (thread, register) of the current layout,
+    exchanges as relayouts, masks a byte per (stage, thread) with the
+    shuffle stages' lower/upper split, and with ``record_masks`` the replay
+    in reverse.  Returns (keys, payload) like the kernel's outputs."""
+    n = keys.shape[0]
+    layout = layout_slots("B")
+    k = keys.reshape(n, SLOTS)[:, layout].astype(np.int64)
+    p = payload.reshape(n, SLOTS)[:, layout].astype(np.int64)
+    masks = np.zeros((n, STAGES, THREADS), dtype=np.uint32)
+    tid = np.arange(THREADS)
+    steps = sort_schedule()
+
+    def relayout(v, src, dst):
+        full = np.empty((n, SLOTS), dtype=v.dtype)
+        full[:, layout_slots(*src)] = v
+        return full[:, layout_slots(*dst)]
+
+    for step in steps:
+        if step["kind"] == "flip":
+            kk = step["merge"]
+            s = layout_slots("B")
+            flip = -((s >> kk) & 1) ^ (-((s >> (kk - 1)) & 1) if kk > 4 else 0)
+            k = k ^ flip
+        elif step["kind"] == "exchange":
+            k = relayout(k, step["from"], step["to"])
+            p = relayout(p, step["from"], step["to"])
+        elif step["route"] == "register":
+            lo, hi = _pairs(step["reg_bit"])
+            a, b = k[:, :, lo], k[:, :, hi]
+            if step["merge"] <= 3:  # plain keys: direction by register bit
+                desc = (lo & (1 << step["merge"])) != 0
+                swap = np.where(desc, a < b, a > b)
+            else:
+                swap = a > b
+            k[:, :, lo], k[:, :, hi] = np.where(swap, b, a), np.where(swap, a, b)
+            pa, pb = p[:, :, lo], p[:, :, hi]
+            p[:, :, lo], p[:, :, hi] = (np.where(swap, pb, pa),
+                                        np.where(swap, pa, pb))
+            masks[:, step["stage"]] = (swap << np.arange(8)).sum(axis=2)
+        else:
+            m = step["lane_mask"]
+            partner = tid ^ m
+            lower = ((tid & m) == 0)[None, :, None]
+            yk, yp = k[:, partner], p[:, partner]
+            nk = np.where(lower, np.minimum(k, yk), np.maximum(k, yk))
+            swap = nk != k
+            p = np.where(swap, yp, p)
+            k = nk
+            bits = (swap << np.arange(PER_THREAD)).sum(axis=2)
+            masks[:, step["stage"]] = np.where(lower[..., 0], bits & 0xFF,
+                                               bits >> 8)
+    out_k = np.empty((n, SLOTS), dtype=np.int32)
+    out_k[:, layout_slots("B")] = k
+    if record_masks:
+        for step in reversed(steps):
+            if step["kind"] == "exchange":
+                p = relayout(p, step["to"], step["from"])
+            elif step["kind"] == "stage" and step["route"] == "register":
+                lo, hi = _pairs(step["reg_bit"])
+                byte = masks[:, step["stage"]][..., None]
+                swap = ((byte >> np.arange(8)) & 1) != 0
+                pa, pb = p[:, :, lo], p[:, :, hi]
+                p[:, :, lo], p[:, :, hi] = (np.where(swap, pb, pa),
+                                            np.where(swap, pa, pb))
+            elif step["kind"] == "stage":
+                m = step["lane_mask"]
+                byte = masks[:, step["stage"]]
+                other = byte[:, tid ^ m]
+                lower = (tid & m) == 0
+                bits = np.where(lower, byte | (other << 8), other | (byte << 8))
+                swap = ((bits[..., None] >> np.arange(PER_THREAD)) & 1) != 0
+                p = np.where(swap, p[:, tid ^ m], p)
+    out_p = np.empty((n, SLOTS), dtype=np.int32)
+    out_p[:, layout_slots("B")] = p
+    return out_k, out_p
+
+
+def buffer_program(record_masks: bool = False):
+    """Every thread's exchange-buffer accesses and waits in program order:
+    a list of ("store" | "load", buffer, layout) and ("sync", scope, kk).
+    The sort moves keys and payload through two buffers at once; with
+    ``record_masks`` through one buffer in turn (a wait after the keys are
+    read, and one after the payload is stored), then the replay moves the
+    payload alone through it."""
+    prog = []
+    for step in sort_schedule():
+        if step["kind"] != "exchange":
+            continue
+        sync = ("sync", step["sync"], step["merge"])
+        if record_masks:
+            prog += [("store", "keys", step["from"]), sync,
+                     ("load", "keys", step["to"]), sync,
+                     ("store", "keys", step["from"]), sync,
+                     ("load", "keys", step["to"])]
+        else:
+            prog += [("store", "keys", step["from"]),
+                     ("store", "payload", step["from"]), sync,
+                     ("load", "keys", step["to"]),
+                     ("load", "payload", step["to"])]
+    if record_masks:
+        for step in reversed(sort_schedule()):
+            if step["kind"] != "exchange":
+                continue
+            prog += [("store", "keys", step["to"]),
+                     ("sync", step["sync"], step["merge"]),
+                     ("load", "keys", step["from"])]
+    return prog
+
+
+def _group_of(scope, tid):
+    """The barrier a thread waits at under a sync scope, or its warp."""
+    name, threads, first = scope
+    if name == "warp":
+        return tid >> 5
+    return first + tid // threads
+
+
+def buffer_races(prog):
+    """Pairs of conflicting accesses to one word by two threads (a store
+    and any access) with no wait both threads take between them, over a
+    ``buffer_program``; [] when every exchange's flow stays inside the
+    group its wait covers.  Each entry: (buffer, word, first access index,
+    second access index)."""
+    tid = np.arange(THREADS)
+    syncs = [(i, ev[1]) for i, ev in enumerate(prog) if ev[0] == "sync"]
+    races = []
+    for buf in ("keys", "payload"):
+        accesses = [(i, ev[0], layout_words(*ev[2])) for i, ev in
+                    enumerate(prog) if ev[0] != "sync" and ev[1] == buf]
+        # per word: the thread of each access (a layout is a bijection)
+        owner = []
+        for i, op, words in accesses:
+            t = np.empty(SLOTS, dtype=np.int64)
+            t[words.ravel()] = np.repeat(tid, PER_THREAD)
+            owner.append((i, op, t))
+
+        def ordered(a, ta, b, tb):
+            ok = ta == tb
+            for i, scope in syncs:
+                if a < i < b:
+                    ok |= _group_of(scope, ta) == _group_of(scope, tb)
+            return ok
+
+        last_store = None
+        loads = []
+        for i, op, t in owner:
+            if op == "load":
+                if last_store is not None:
+                    bad = ~ordered(last_store[0], last_store[1], i, t)
+                    races += [(buf, int(w), last_store[0], i)
+                              for w in np.flatnonzero(bad)]
+                loads.append((i, t))
+            else:
+                prior = loads + ([last_store] if last_store is not None else [])
+                for j, tj in prior:
+                    bad = ~ordered(j, tj, i, t)
+                    races += [(buf, int(w), j, i) for w in np.flatnonzero(bad)]
+                last_store, loads = (i, t), []
+    return races
+
+
+def barrier_ids():
+    """{barrier id: the set of thread groups that wait at it} over the
+    schedule (each group a frozenset of thread ids)."""
+    ids = {}
+    tid = np.arange(THREADS)
+    for step in sort_schedule():
+        if step["kind"] != "exchange" or step["sync"][0] == "warp":
+            continue
+        g = _group_of(step["sync"], tid)
+        for b in np.unique(g):
+            ids.setdefault(int(b), set()).add(frozenset(tid[g == b].tolist()))
+    return ids
+
+
 def probe_blocks(n: int, seed: int = 0) -> Tuple[np.ndarray, np.ndarray]:
     """The probe's data (``profile_pallas_sort.py:167-172``): (n, 16384)
     int32 keys ``(bucket << 14) | position`` with 16-bit buckets, and

@@ -28,6 +28,8 @@ the verdict from this run's times.  Run on the card from the repository
 root (on the CPU add ``--device cpu --frames 1 --side 64``)::
 
     python -m lz4jpeg_tpu_torch.profiles.rle_decode --output rle_decode.json
+
+``--grids 0 1056 2112 ...`` adds the grid sweep (CTA counts, in turns).
 """
 
 from __future__ import annotations
@@ -35,7 +37,7 @@ from __future__ import annotations
 import argparse
 import ctypes
 import functools
-from typing import Dict, Optional
+from typing import Dict, Optional, Sequence
 
 import numpy as np
 import torch
@@ -48,9 +50,16 @@ from lz4jpeg_tpu_torch.profiles import timing
 
 SEGMENTS = (32, 64)
 # Lane instructions per (output position, valid run) pair at the least: the
-# offset from the run's begin, an unsigned compare with its count, a
-# predicated add.
-MEMBERSHIP_INSTRUCTIONS = 3
+# offset from the run's middle, a compare with its count and a masked add,
+# each on two pairs at once as packed halves: 3 instructions for 2 pairs.
+MEMBERSHIP_INSTRUCTIONS = 1.5
+# The kernel's thread map and table (csrc/rle_membership_kernel.cu's k*
+# constants): a lane holds POSITIONS slots and output positions, so a row
+# takes L / POSITIONS lanes; the reduction steps UNROLL table entries, two
+# a load.
+POSITIONS = 4
+UNROLL = 4
+WARPS = 8
 
 
 def _check_gate(seg: int, out_size: int) -> None:
@@ -77,6 +86,11 @@ def load_kernel() -> ctypes.CDLL:
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64,
         ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
     ]
+    lib.rle_membership_launch_grid.restype = ctypes.c_int
+    lib.rle_membership_launch_grid.argtypes = [
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64,
+        ctypes.c_int, ctypes.c_int, ctypes.c_int64, ctypes.c_void_p,
+    ]
     timing.bind_attributes(lib, "rle_membership_attributes")
     lib.rle_membership_error_string.restype = ctypes.c_char_p
     lib.rle_membership_error_string.argtypes = [ctypes.c_int]
@@ -91,24 +105,96 @@ def rle_decode_membership(packed: torch.Tensor, lengths: torch.Tensor,
     A CPU tensor runs ``rle_decode_membership_ref``.  A CUDA tensor launches
     the membership kernel on the current stream and adds one to
     ``rle_decode_membership.launches``."""
+    return _decode(packed, lengths, out_size, None)
+
+
+rle_decode_membership.launches = 0
+
+
+def membership_on_grid(packed: torch.Tensor, lengths: torch.Tensor,
+                       out_size: int, ctas: int) -> torch.Tensor:
+    """The kernel on ``ctas`` CTAs (0: the default; at most one a warp's
+    row group), CUDA tensors only: the grid sweep of ``run_rle_decode_ab``.
+    Counts in ``rle_decode_membership.launches``."""
+    return _decode(packed, lengths, out_size, ctas)
+
+
+def _decode(packed, lengths, out_size, ctas: Optional[int]):
+    """The wrapper's gate and launch; ``ctas`` None takes the C entry
+    point's own grid and lets a CPU tensor run the plain version."""
     packed, lengths = _packed(packed, lengths)
     n, seg = packed.shape
     _check_gate(seg, out_size)
     dev = _check_device(packed, lengths)
     if dev.type == "cpu":
+        if ctas is not None:
+            raise ValueError("membership_on_grid launches the kernel: CUDA only")
         return pack16.pack16_decode_ref(packed, lengths, out_size)
     if packed.data_ptr() % (seg // 16):  # one 4-byte word a lane at L = 64
         packed = packed.clone()
     out = torch.empty((n, out_size), dtype=torch.int32, device=dev)
     if n:
-        _launch(load_kernel(), "rle_membership_launch",
-                "rle_membership_error_string", dev, packed.data_ptr(),
-                lengths.data_ptr(), out.data_ptr(), n, seg, out_size)
+        entry, grid = (("rle_membership_launch", ()) if ctas is None else
+                       ("rle_membership_launch_grid", (ctas,)))
+        _launch(load_kernel(), entry, "rle_membership_error_string", dev,
+                packed.data_ptr(), lengths.data_ptr(), out.data_ptr(), n, seg,
+                out_size, *grid)
         rle_decode_membership.launches += 1
     return out
 
 
-rle_decode_membership.launches = 0
+def membership_thread_map(seg: int):
+    """The kernel's lane map: for each of a warp's 32 lanes, the row of the
+    warp it works on (``sub``) and its slots and output positions
+    (``4h .. 4h + 3``, h its lane within the row); returns (rows a warp,
+    sub (32,), positions (32, POSITIONS))."""
+    lanes = seg // POSITIONS
+    lane = np.arange(32)
+    h = lane % lanes
+    return 32 // lanes, lane // lanes, \
+        POSITIONS * h[:, None] + np.arange(POSITIONS)[None, :]
+
+
+def emulate_membership(words: np.ndarray, lengths: np.ndarray,
+                       out_size: int) -> np.ndarray:
+    """The kernel's decode in numpy: rows taken a warp's row group at a
+    time through ``membership_thread_map``, each row's float16 table
+    {lo + hi, hi - lo, value} of the runs cut to [0, L] (two entries a
+    16-byte load, so ``UNROLL`` is even), padded with empty
+    intervals to L, every lane's positions tested against the warp's
+    largest valid count rounded up to ``UNROLL`` entries by
+    |2q + 1 - (lo + hi)| < hi - lo and summed as value · the test, in
+    float16; (N, L) words (int16 or uint16 bits), (N,) lengths → (N,
+    out_size) int32."""
+    n, seg = words.shape
+    _check_gate(seg, out_size)
+    rows, sub, positions = membership_thread_map(seg)
+    groups = -(-n // rows)
+    w = np.zeros((groups * rows, seg), dtype=np.int64)
+    w[:n] = words.astype(np.int64) & 0xFFFF
+    npairs = np.zeros(groups * rows, dtype=np.int64)
+    npairs[:n] = np.floor_divide(lengths.astype(np.int64), 2)
+    slot = np.arange(seg)
+    count = np.where(slot[None, :] < npairs[:, None], (w >> 10) + 1, 0)
+    value = (w & 0x3FF) - 512
+    end = np.cumsum(count, axis=1)
+    lo, hi = np.minimum(end - count, seg), np.minimum(end, seg)
+    table = np.stack([lo + hi, hi - lo, value], -1)
+    assert np.abs(table).max() <= 2048  # integers exact in float16
+    table = table.astype(np.float16)
+    valid = np.clip(npairs, 0, seg).reshape(groups, rows)
+    entries = -(-valid.max(axis=1) // UNROLL) * UNROLL  # a warp's trip
+    assert (entries <= seg).all() and UNROLL % 2 == 0  # inside the table
+    out = np.zeros((groups * rows, seg), dtype=np.float16)
+    at = (2 * positions + 1).astype(np.float16)  # (32, POSITIONS)
+    for g in range(groups):
+        t = table[g * rows + sub][:, :entries[g]]  # (32, entries, 3)
+        hit = np.abs(at[:, :, None] - t[:, None, :, 0]) < t[:, None, :, 1]
+        acc = np.zeros(at.shape, dtype=np.float16)
+        for e in range(entries[g]):  # in the kernel's order, in float16
+            acc = acc + hit[:, :, e].astype(np.float16) * t[:, None, e, 2]
+        out[g * rows + sub[:, None], positions] = acc
+    return out[:n, :out_size].astype(np.int32)
 
 
 def membership_attributes(seg: int, device="cuda") -> Dict:
@@ -160,12 +246,17 @@ def luma_words(frames: int, side: int, dev: torch.device, seed: int = 0):
 
 def run_rle_decode_ab(device="cuda", frames: int = 64, side: int = 2048,
                       runs: int = 4, reps: int = 8,
-                      output: Optional[str] = None, seed: int = 0) -> Dict:
+                      output: Optional[str] = None, seed: int = 0,
+                      grids: Sequence[int] = ()) -> Dict:
     """The probe's check, then the membership kernel against K6, K8 and the
-    plain version on the luma words of ``frames`` noise frames of side²;
-    returns the result and writes it to ``output`` if given."""
+    plain version on the luma words of ``frames`` noise frames of side²,
+    and, on a card, at each CTA count of ``grids`` in turns (forward, then
+    back; 0 is the default grid); returns the result and writes it to
+    ``output`` if given."""
     dev = bench_device(device)
     cuda = dev.type == "cuda"
+    if grids and not cuda:
+        raise ValueError("the grid sweep launches the kernel: CUDA only")
     sym = torch.from_numpy(structured_symbols(seed=seed)).to(dev)
     words, lens = pack16.pack16_encode(sym)
     want = pack16.pack16_decode(words, lens, 64)
@@ -215,6 +306,13 @@ def run_rle_decode_ab(device="cuda", frames: int = 64, side: int = 2048,
                         f"(position, valid run) pair, {pairs} pairs",
     }
     rows["membership kernel"].update(membership_attributes(k, dev))
+    grid_rows = {}
+    for ctas in [*grids, *reversed(grids)]:
+        ms = timing.time_ms(lambda a: membership_on_grid(*a, k, ctas), x, dev,
+                            reps=reps, runs=runs, kernel=rle_decode_membership)
+        grid_rows.setdefault(str(ctas), []).append(ms)
+        print(f"membership kernel on {ctas or 'the default'} CTAs: {ms:.4f} ms",
+              flush=True)
     t = {label: r[key] for label, r in rows.items()}
     for label, r in rows.items():
         print(f"{label:26s} {r[key]:9.4f} ms"
@@ -247,6 +345,7 @@ def run_rle_decode_ab(device="cuda", frames: int = 64, side: int = 2048,
         **bounds,
         "mean_runs_per_row": float(torch.clamp(lens // 2, 0, k).float().mean()),
         "versions": rows,
+        "grid_ms": grid_rows,
         "verdict": verdict,
     }
     return timing.write_result(result, output)
@@ -258,10 +357,13 @@ def main(argv=None) -> int:
         description="A/B of the membership packed16 decode against K6 and K8.")
     ap.add_argument("--frames", type=int, default=64)
     ap.add_argument("--side", type=int, default=2048)
+    ap.add_argument("--grids", type=int, nargs="*", default=(),
+                    help="also time the kernel on these CTA counts (0: the "
+                         "default grid), in turns; a card only")
     timing.add_arguments(ap)
     args = ap.parse_args(argv)
     run_rle_decode_ab(args.device, args.frames, args.side, args.runs,
-                      args.reps, args.output, args.seed)
+                      args.reps, args.output, args.seed, args.grids)
     return 0
 
 

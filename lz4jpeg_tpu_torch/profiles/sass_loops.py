@@ -14,7 +14,8 @@ each innermost loop's length and its tensor-core instructions (``HMMA``,
 (``STS``, ``LDS``), generic loads (``LD``: what ``nvcuda::wmma`` fragment
 loads became), global loads (``LDG``) and shuffles (``SHFL``).  The one-hot
 gathers' k-loop is the innermost loop with ``HMMA`` or ``IMMA``: two
-k-slices an iteration.  Needs the CUDA toolkit (``nvcc``, ``cuobjdump``,
+k-slices an iteration.  ``spill_stores(source)`` gives each kernel's
+spill-store bytes from ptxas.  Needs the CUDA toolkit (``nvcc``, ``cuobjdump``,
 ``cu++filt``), not a card.
 """
 
@@ -24,6 +25,7 @@ import argparse
 import importlib.util
 import json
 import re
+import subprocess
 import sys
 import tempfile
 from pathlib import Path
@@ -80,6 +82,28 @@ def source_loops(source: str) -> Dict[str, List[Dict]]:
         functions = sd.sass(REPO, source, Path(tmp))
     names = sd.demangle(list(functions))
     return {name: loops(ins) for name, ins in zip(names, functions.values())}
+
+
+def spill_stores(source: str) -> Dict[str, int]:
+    """{demangled kernel: bytes of spill stores} of ``csrc/{source}.cu``,
+    as ptxas reports them (``nvcc -cubin -Xptxas -v`` with ``sass_diff``'s
+    device flags)."""
+    sd = _sass_diff()
+    src = REPO / "lz4jpeg_tpu_torch" / "csrc" / f"{source}.cu"
+    with tempfile.TemporaryDirectory() as tmp:
+        proc = subprocess.run(
+            [sd.tool("nvcc"), "-cubin", *sd.DEVICE_FLAGS, "-Xptxas", "-v",
+             "-o", str(Path(tmp) / "k.cubin"), str(src)],
+            capture_output=True, text=True, check=True)
+    names, spills = [], []
+    for line in (proc.stdout + proc.stderr).splitlines():
+        m = re.search(r"Function properties for (\S+)", line)
+        if m:
+            names.append(m.group(1))
+        m = re.search(r"(\d+) bytes spill stores", line)
+        if m and len(spills) < len(names):
+            spills.append(int(m.group(1)))
+    return dict(zip(sd.demangle(names), spills))
 
 
 def main(argv=None) -> int:

@@ -17,6 +17,8 @@ Tolerance: none.  Every comparison is exact equality of int32 arrays.
 import importlib.util
 import json
 import os
+import re
+from pathlib import Path
 
 import jax.numpy as jnp
 import numpy as np
@@ -161,3 +163,67 @@ def test_runner_on_the_cpu(tmp_path, monkeypatch):
                                     "plain pack16_decode_ref"}
     assert all(v["host_ms"] > 0 for v in art["versions"].values())
     assert art["verdict"].startswith("on cpu:")
+
+
+# ---------------------------------------------------------------------------
+# The kernel's thread map and padded table, mirrored in numpy
+# (``rd.emulate_membership``; csrc/rle_membership_kernel.cu)
+# ---------------------------------------------------------------------------
+
+_SOURCE = (Path(__file__).resolve().parents[1] / "lz4jpeg_tpu_torch" / "csrc"
+           / "rle_membership_kernel.cu")
+
+
+def test_membership_mirror_constants_are_the_sources():
+    found = dict(re.findall(r"constexpr int k(Warps|Positions|Unroll) = (\d+);",
+                            _SOURCE.read_text()))
+    assert {k: int(v) for k, v in found.items()} == {
+        "Warps": rd.WARPS, "Positions": rd.POSITIONS, "Unroll": rd.UNROLL}
+
+
+@pytest.mark.parametrize("k", [32, 64])
+def test_membership_thread_map_owns_each_position_once(k):
+    rows, sub, positions = rd.membership_thread_map(k)
+    assert rows * (k // rd.POSITIONS) == 32 and k % rd.UNROLL == 0
+    for r in range(rows):
+        assert sorted(positions[sub == r].ravel()) == list(range(k))
+
+
+@pytest.mark.parametrize("k", [32, 64])
+@pytest.mark.parametrize("out_size_of", ["1", "L/2 + 3", "L"])
+def test_membership_mirror_equals_the_plain_version(k, out_size_of):
+    """Crafted rows (lengths 0, odd, negative and above 2L, a valid word 0,
+    counts summing past L) and random ones, N off the rows a warp takes."""
+    out_size = {"1": 1, "L/2 + 3": k // 2 + 3, "L": k}[out_size_of]
+    words, lengths = crafted_packed16_rows(k, np.random.default_rng(k + 7),
+                                           n_random=45)
+    assert {0, 7, 2 * k + 10} <= set(lengths.tolist())
+    got = rd.emulate_membership(words, lengths, out_size)
+    want = rd.rle_decode_membership_ref(torch.from_numpy(words),
+                                        torch.from_numpy(lengths), out_size)
+    np.testing.assert_array_equal(got, want.numpy())
+
+
+def test_membership_mirror_on_the_probes_check():
+    w, l = _encoded(rd.structured_symbols(n=96))
+    ours, pallas, einsum = _both(w, l, 64)
+    got = rd.emulate_membership(w.view(np.int16), l, 64)
+    np.testing.assert_array_equal(got, pallas)
+    np.testing.assert_array_equal(got, einsum)
+
+
+def test_the_floor_counts_packed_halves():
+    # three instructions (HADD2, HSET2, HFMA2) test two pairs at once
+    assert rd.MEMBERSHIP_INSTRUCTIONS == 1.5
+    text = _SOURCE.read_text()
+    assert "__hfma2(__hlt2(__habs2(__hsub2(" in text
+    assert "const uint4 r = mine[e / 2 + u];" in text  # two entries a load
+
+
+def test_the_grid_sweep_launches_the_kernel_only():
+    w, l = crafted_packed16_rows(64, np.random.default_rng(1), n_random=0)
+    with pytest.raises(ValueError):
+        rd.membership_on_grid(torch.from_numpy(w), torch.from_numpy(l), 64, 0)
+    with pytest.raises(ValueError):
+        rd.run_rle_decode_ab("cpu", frames=1, side=32, runs=1, reps=1,
+                             grids=(0,))
