@@ -245,10 +245,7 @@ another checkout's.
     tile ± 1; out_size L and L/2 + 3), and three refused shapes refused by
     the wrapper and the C entry point; both kernels' registers, shared
     memory and CTAs per SM and ptxas's spill stores
-    (``profiles/sass_loops.py::spill_stores``); ``compute-sanitizer``'s
-    racecheck and synccheck on 1 and 3 sorted blocks of each variant and
-    37 membership rows (``profiles/sanitize.py``; a case the tool cannot
-    run reads "unavailable", a hazard fails the phase); then the three
+    (``profiles/sass_loops.py::spill_stores``); then the three
     runners at their defaults (2,048 sorted
     blocks; stages at 256 and 2,048 blocks; the membership A/B against K6
     and K8 on the luma words of 64 frames of 2048²), each kernel's launch
@@ -3219,8 +3216,8 @@ def matcher_phase(dev, p10_words, k2_ms):
               f"phase 24: L {k}, out_size {out_size} was not refused")
     torch.cuda.synchronize()
 
-    # -- resources, spills, and compute-sanitizer where it can run ---------
-    from lz4jpeg_tpu_torch.profiles import sanitize, sass_loops
+    # -- resources and spills ----------------------------------------------
+    from lz4jpeg_tpu_torch.profiles import sass_loops
 
     for label, attrs in (("sort", bs.sort_attributes(False, dev)),
                          ("sort + replay", bs.sort_attributes(True, dev)),
@@ -3232,13 +3229,6 @@ def matcher_phase(dev, p10_words, k2_ms):
     for source in ("bitonic_sort_kernel", "rle_membership_kernel"):
         for kernel, spilled in sass_loops.spill_stores(source).items():
             print(f"phase 24: {kernel}: {spilled} bytes of spill stores")
-    found = sanitize.sanitize()
-    verdicts = [(src, r) for src, rs in found.items() for r in rs]
-    check(not [r for _, r in verdicts if r["verdict"] == "hazard"],
-          "phase 24: compute-sanitizer found a hazard or a checker failed")
-    print("phase 24: compute-sanitizer " + "; ".join(
-        f"{src} {' '.join(r['args'])} {r['tool']} {r['verdict']}"
-        for src, r in verdicts))
     print(f"phase 24: checks in {time.perf_counter() - t_phase:.2f} s; max "
           f"|kernel - plain| {err}")
 

@@ -42,10 +42,9 @@
 //
 // Rows in flight.  A warp's next rows' words and lengths are loaded into
 // registers before it reduces the current ones.  The grid: CTAs of 8
-// warps in a grid-stride loop, by default kWaves = 8 times as many as are
-// resident, which measured ahead of the resident count (the capped
-// persistent grid) and of one row group a warp in index order; a caller
-// may give any count to rle_membership_launch_grid.
+// warps in a grid-stride loop, kWaves = 8 times as many as are resident,
+// which measured ahead of the resident count (the capped persistent grid)
+// and of one row group a warp in index order.
 //
 // What bounds it.  Bytes: 2L + 4 in and 4 out_size out a row, 0.4858 ms at
 // 4,194,304 x 64 (the luma of 64 frames of 2048^2) at 3.35 TB/s.  The
@@ -67,7 +66,7 @@ constexpr int kValueBias = 512;
 constexpr int kPositions = 4;  // slots and output positions a lane
 constexpr int kUnroll = 4;     // table entries a loop step, two a load
 constexpr int kMinCtas = 5;    // CTAs an SM ptxas must fit
-constexpr int kWaves = 8;      // default grid: 8 x the resident CTAs
+constexpr int kWaves = 8;      // the grid: 8 x the resident CTAs
 
 // A lane's four packed16 words: two 4-byte loads at L = 64 (rows are
 // 4-byte aligned), four 2-byte loads at L = 32.
@@ -222,13 +221,15 @@ long long row_groups(long long n_rows, int seg) {
 
 }  // namespace
 
-// Like rle_membership_launch, on `ctas` CTAs (at most one a warp's row
-// group); ctas <= 0 takes the default, kWaves times the resident CTAs.
-extern "C" int rle_membership_launch_grid(const void* packed,
-                                          const void* lengths, void* out,
-                                          long long n_rows, int seg,
-                                          int out_size, long long ctas,
-                                          void* stream) {
+// packed: (n_rows, seg) uint16 words, 4-byte aligned (seg 64) or 2-byte
+// (seg 32); lengths: (n_rows,) int32; out: (n_rows, out_size) int32; all
+// contiguous.  seg is 32 or 64 and 1 <= out_size <= seg.  Grid-stride CTAs,
+// kWaves times as many as are resident (at most one a warp's row group).
+// Launches on `stream` and returns the first CUDA error of the device and
+// occupancy queries or the launch (0 on success); never synchronises.
+extern "C" int rle_membership_launch(const void* packed, const void* lengths,
+                                     void* out, long long n_rows, int seg,
+                                     int out_size, void* stream) {
   const void* kernel = kernel_for(seg);
   if (kernel == nullptr || out_size < 1 || out_size > seg || n_rows < 0)
     return cudaErrorInvalidValue;
@@ -237,18 +238,17 @@ extern "C" int rle_membership_launch_grid(const void* packed,
       reinterpret_cast<uintptr_t>(out) % 4)
     return cudaErrorMisalignedAddress;
   if (n_rows == 0) return cudaSuccess;
+  int dev = 0, sms = 0, per_sm = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err != cudaSuccess) return err;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
+                                                      kWarps * 32, 0);
+  if (err != cudaSuccess) return err;
+  const long long ctas =
+      static_cast<long long>(sms) * (per_sm > 0 ? per_sm : 1) * kWaves;
   const long long need = (row_groups(n_rows, seg) + kWarps - 1) / kWarps;
-  if (ctas <= 0) {
-    int dev = 0, sms = 0, per_sm = 0;
-    cudaError_t err = cudaGetDevice(&dev);
-    if (err != cudaSuccess) return err;
-    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-    if (err != cudaSuccess) return err;
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
-                                                        kWarps * 32, 0);
-    if (err != cudaSuccess) return err;
-    ctas = static_cast<long long>(sms) * (per_sm > 0 ? per_sm : 1) * kWaves;
-  }
   const unsigned grid = static_cast<unsigned>(need < ctas ? need : ctas);
   const bool vec_store =
       out_size % kPositions == 0 && reinterpret_cast<uintptr_t>(out) % 16 == 0;
@@ -263,19 +263,6 @@ extern "C" int rle_membership_launch_grid(const void* packed,
     membership_kernel<32><<<grid, kWarps * 32, 0, s>>>(p, l, o, n_rows,
                                                        out_size, vec_store);
   return cudaGetLastError();
-}
-
-// packed: (n_rows, seg) uint16 words, 4-byte aligned (seg 64) or 2-byte
-// (seg 32); lengths: (n_rows,) int32; out: (n_rows, out_size) int32; all
-// contiguous.  seg is 32 or 64 and 1 <= out_size <= seg.  Grid-stride CTAs,
-// kWaves times as many as are resident.
-// Launches on `stream` and returns the first CUDA error of the device and
-// occupancy queries or the launch (0 on success); never synchronises.
-extern "C" int rle_membership_launch(const void* packed, const void* lengths,
-                                     void* out, long long n_rows, int seg,
-                                     int out_size, void* stream) {
-  return rle_membership_launch_grid(packed, lengths, out, n_rows, seg,
-                                    out_size, 0, stream);
 }
 
 // Registers per thread, static shared memory per CTA and resident CTAs per

@@ -28,8 +28,6 @@ the verdict from this run's times.  Run on the card from the repository
 root (on the CPU add ``--device cpu --frames 1 --side 64``)::
 
     python -m lz4jpeg_tpu_torch.profiles.rle_decode --output rle_decode.json
-
-``--grids 0 1056 2112 ...`` adds the grid sweep (CTA counts, in turns).
 """
 
 from __future__ import annotations
@@ -37,7 +35,7 @@ from __future__ import annotations
 import argparse
 import ctypes
 import functools
-from typing import Dict, Optional, Sequence
+from typing import Dict, Optional
 
 import numpy as np
 import torch
@@ -86,11 +84,6 @@ def load_kernel() -> ctypes.CDLL:
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64,
         ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
     ]
-    lib.rle_membership_launch_grid.restype = ctypes.c_int
-    lib.rle_membership_launch_grid.argtypes = [
-        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64,
-        ctypes.c_int, ctypes.c_int, ctypes.c_int64, ctypes.c_void_p,
-    ]
     timing.bind_attributes(lib, "rle_membership_attributes")
     lib.rle_membership_error_string.restype = ctypes.c_char_p
     lib.rle_membership_error_string.argtypes = [ctypes.c_int]
@@ -105,42 +98,24 @@ def rle_decode_membership(packed: torch.Tensor, lengths: torch.Tensor,
     A CPU tensor runs ``rle_decode_membership_ref``.  A CUDA tensor launches
     the membership kernel on the current stream and adds one to
     ``rle_decode_membership.launches``."""
-    return _decode(packed, lengths, out_size, None)
-
-
-rle_decode_membership.launches = 0
-
-
-def membership_on_grid(packed: torch.Tensor, lengths: torch.Tensor,
-                       out_size: int, ctas: int) -> torch.Tensor:
-    """The kernel on ``ctas`` CTAs (0: the default; at most one a warp's
-    row group), CUDA tensors only: the grid sweep of ``run_rle_decode_ab``.
-    Counts in ``rle_decode_membership.launches``."""
-    return _decode(packed, lengths, out_size, ctas)
-
-
-def _decode(packed, lengths, out_size, ctas: Optional[int]):
-    """The wrapper's gate and launch; ``ctas`` None takes the C entry
-    point's own grid and lets a CPU tensor run the plain version."""
     packed, lengths = _packed(packed, lengths)
     n, seg = packed.shape
     _check_gate(seg, out_size)
     dev = _check_device(packed, lengths)
     if dev.type == "cpu":
-        if ctas is not None:
-            raise ValueError("membership_on_grid launches the kernel: CUDA only")
         return pack16.pack16_decode_ref(packed, lengths, out_size)
     if packed.data_ptr() % (seg // 16):  # one 4-byte word a lane at L = 64
         packed = packed.clone()
     out = torch.empty((n, out_size), dtype=torch.int32, device=dev)
     if n:
-        entry, grid = (("rle_membership_launch", ()) if ctas is None else
-                       ("rle_membership_launch_grid", (ctas,)))
-        _launch(load_kernel(), entry, "rle_membership_error_string", dev,
-                packed.data_ptr(), lengths.data_ptr(), out.data_ptr(), n, seg,
-                out_size, *grid)
+        _launch(load_kernel(), "rle_membership_launch",
+                "rle_membership_error_string", dev, packed.data_ptr(),
+                lengths.data_ptr(), out.data_ptr(), n, seg, out_size)
         rle_decode_membership.launches += 1
     return out
+
+
+rle_decode_membership.launches = 0
 
 
 def membership_thread_map(seg: int):
@@ -246,17 +221,12 @@ def luma_words(frames: int, side: int, dev: torch.device, seed: int = 0):
 
 def run_rle_decode_ab(device="cuda", frames: int = 64, side: int = 2048,
                       runs: int = 4, reps: int = 8,
-                      output: Optional[str] = None, seed: int = 0,
-                      grids: Sequence[int] = ()) -> Dict:
+                      output: Optional[str] = None, seed: int = 0) -> Dict:
     """The probe's check, then the membership kernel against K6, K8 and the
-    plain version on the luma words of ``frames`` noise frames of side²,
-    and, on a card, at each CTA count of ``grids`` in turns (forward, then
-    back; 0 is the default grid); returns the result and writes it to
-    ``output`` if given."""
+    plain version on the luma words of ``frames`` noise frames of side²;
+    returns the result and writes it to ``output`` if given."""
     dev = bench_device(device)
     cuda = dev.type == "cuda"
-    if grids and not cuda:
-        raise ValueError("the grid sweep launches the kernel: CUDA only")
     sym = torch.from_numpy(structured_symbols(seed=seed)).to(dev)
     words, lens = pack16.pack16_encode(sym)
     want = pack16.pack16_decode(words, lens, 64)
@@ -306,13 +276,6 @@ def run_rle_decode_ab(device="cuda", frames: int = 64, side: int = 2048,
                         f"(position, valid run) pair, {pairs} pairs",
     }
     rows["membership kernel"].update(membership_attributes(k, dev))
-    grid_rows = {}
-    for ctas in [*grids, *reversed(grids)]:
-        ms = timing.time_ms(lambda a: membership_on_grid(*a, k, ctas), x, dev,
-                            reps=reps, runs=runs, kernel=rle_decode_membership)
-        grid_rows.setdefault(str(ctas), []).append(ms)
-        print(f"membership kernel on {ctas or 'the default'} CTAs: {ms:.4f} ms",
-              flush=True)
     t = {label: r[key] for label, r in rows.items()}
     for label, r in rows.items():
         print(f"{label:26s} {r[key]:9.4f} ms"
@@ -345,7 +308,6 @@ def run_rle_decode_ab(device="cuda", frames: int = 64, side: int = 2048,
         **bounds,
         "mean_runs_per_row": float(torch.clamp(lens // 2, 0, k).float().mean()),
         "versions": rows,
-        "grid_ms": grid_rows,
         "verdict": verdict,
     }
     return timing.write_result(result, output)
@@ -357,13 +319,10 @@ def main(argv=None) -> int:
         description="A/B of the membership packed16 decode against K6 and K8.")
     ap.add_argument("--frames", type=int, default=64)
     ap.add_argument("--side", type=int, default=2048)
-    ap.add_argument("--grids", type=int, nargs="*", default=(),
-                    help="also time the kernel on these CTA counts (0: the "
-                         "default grid), in turns; a card only")
     timing.add_arguments(ap)
     args = ap.parse_args(argv)
     run_rle_decode_ab(args.device, args.frames, args.side, args.runs,
-                      args.reps, args.output, args.seed, args.grids)
+                      args.reps, args.output, args.seed)
     return 0
 
 

@@ -14,8 +14,10 @@ and ``--tool synccheck`` (shared-memory hazards; barriers and warp
 synchronisation misused).  Needs the CUDA toolkit and a card; prints one
 line a case and tool and returns nonzero if a tool reports an error or a
 checker's check fails.  Where the tool cannot run a program at all (under
-it the checker never reaches its launch, while it passes alone), the case
-reads "unavailable", not as a failure.
+it the checker's device set-up, its first allocations and copies, fails,
+while it passes alone), the case reads "unavailable", not as a failure; a
+launch that fails only under a tool is a hazard.  Each record keeps the
+checker's own lines and the tool's first error lines.
 """
 
 from __future__ import annotations
@@ -42,13 +44,6 @@ static uint32_t next_random(uint32_t& x) {
   x = x * 1664525u + 1013904223u;
   return x >> 8;
 }
-
-// "launched", flushed at once, marks a checker that got its kernel going.
-#define LAUNCHED()                  \
-  do {                              \
-    std::printf("launched\n");      \
-    std::fflush(stdout);            \
-  } while (0)
 
 #define CHECK(stage, call)                                            \
   do {                                                                \
@@ -84,7 +79,6 @@ int main(int argc, char** argv) {
   CHECK("setup", cudaMemcpy(dp, p.data(), n * 4, cudaMemcpyHostToDevice));
   CHECK("launch", static_cast<cudaError_t>(
       bitonic_sort_launch(dk, dp, dok, dop, blocks, record, nullptr)));
-  LAUNCHED();
   CHECK("launch", cudaDeviceSynchronize());
   CHECK("launch", cudaMemcpy(ok.data(), dok, n * 4, cudaMemcpyDeviceToHost));
   CHECK("launch", cudaMemcpy(op.data(), dop, n * 4, cudaMemcpyDeviceToHost));
@@ -121,7 +115,6 @@ int main(int argc, char** argv) {
   CHECK("setup", cudaMemcpy(dl, len.data(), len.size() * 4, cudaMemcpyHostToDevice));
   CHECK("launch", static_cast<cudaError_t>(
       rle_membership_launch(dw, dl, dout, rows, seg, seg, nullptr)));
-  LAUNCHED();
   CHECK("launch", cudaDeviceSynchronize());
   CHECK("launch", cudaMemcpy(out.data(), dout, out.size() * 4, cudaMemcpyDeviceToHost));
   for (long long r = 0; r < rows; ++r) {
@@ -169,13 +162,21 @@ def build_checker(source: str, checker: str, work: Path) -> Path:
 
 def verdict(tool_name: Optional[str], out: str, rc: int) -> str:
     """"clean": the checker's check passed and the tool (if any) counted no
-    error; "hazard": the checker launched its kernel and the tool counted
-    errors or the check failed, or the checker failed alone; "unavailable":
-    under the tool the checker never reached its launch (its first CUDA
-    calls failed or crashed), so the tool could not run it."""
-    if tool_name is not None and "launched" not in out:
+    error; "unavailable": under a tool the checker's set-up failed (its
+    "setup failed" line), so the tool could not run it; "hazard": anything
+    else, a launch that failed under the tool included."""
+    if tool_name is not None and "setup failed" in out:
         return "unavailable"
     return "clean" if rc == 0 and "checked" in out else "hazard"
+
+
+def evidence(out: str, tool_lines: int = 4) -> List[str]:
+    """The checker's own lines (its failure or its "checked" line) and the
+    tool's first ``tool_lines`` lines, which name the error it caught."""
+    lines = [line.rstrip() for line in out.splitlines() if line.strip()]
+    own = [line for line in lines if not line.startswith("=========")]
+    return own[-3:] + [line for line in lines
+                       if line.startswith("=========")][:tool_lines]
 
 
 def sanitize(timeout: float = 600.0) -> Dict[str, List[Dict]]:
@@ -197,13 +198,12 @@ def sanitize(timeout: float = 600.0) -> Dict[str, List[Dict]]:
                         "args": args, "tool": name or "plain",
                         "rc": proc.returncode,
                         "verdict": verdict(name, out, proc.returncode),
-                        "tail": out.strip().splitlines()[-3:],
+                        "tail": evidence(out),
                     })
                     print(f"{source} {' '.join(args)} {name or 'plain'}: "
                           f"{found[source][-1]['verdict']} (rc "
                           f"{proc.returncode}); "
-                          + " | ".join(out.strip().splitlines()[-2:]),
-                          flush=True)
+                          + " | ".join(found[source][-1]["tail"]), flush=True)
     return found
 
 

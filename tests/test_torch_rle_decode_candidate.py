@@ -220,10 +220,18 @@ def test_the_floor_counts_packed_halves():
     assert "const uint4 r = mine[e / 2 + u];" in text  # two entries a load
 
 
-def test_the_grid_sweep_launches_the_kernel_only():
-    w, l = crafted_packed16_rows(64, np.random.default_rng(1), n_random=0)
-    with pytest.raises(ValueError):
-        rd.membership_on_grid(torch.from_numpy(w), torch.from_numpy(l), 64, 0)
-    with pytest.raises(ValueError):
-        rd.run_rle_decode_ab("cpu", frames=1, side=32, runs=1, reps=1,
-                             grids=(0,))
+@pytest.mark.parametrize("k", [32, 64])
+def test_membership_mirror_at_a_row_tile(k):
+    """N at the rows a CTA takes in one pass of its grid-stride loop, and
+    one off either side: the last row group full, or part empty."""
+    tile = rd.WARPS * rd.membership_thread_map(k)[0]
+    rng = np.random.default_rng(k + 11)
+    for n in (tile - 1, tile, tile + 1):
+        words, lengths = crafted_packed16_rows(k, rng, n_random=n)
+        words, lengths = words[:n], lengths[:n]
+        for out_size in (k, k // 2 + 3, 1):
+            want = rd.rle_decode_membership_ref(torch.from_numpy(words),
+                                                torch.from_numpy(lengths),
+                                                out_size)
+            np.testing.assert_array_equal(
+                rd.emulate_membership(words, lengths, out_size), want.numpy())

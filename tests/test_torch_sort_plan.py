@@ -198,7 +198,10 @@ def test_sanitizer_verdicts():
     assert sanitize.verdict("racecheck", "setup failed: unknown error at 74", 2) \
         == "unavailable"
     assert sanitize.verdict("racecheck", "========= 1 hazard displayed", 3) \
-        == "unavailable"  # crashed before its launch
+        == "hazard"  # no set-up failure of the checker's own: the tool's
+    assert sanitize.verdict("synccheck", "launch failed: unspecified launch "
+                            "failure at 81\n========= ERROR SUMMARY: 1 "
+                            "error", 3) == "hazard"
     assert sanitize.verdict(None, "setup failed: out of memory at 74", 2) \
         == "hazard"
     assert sanitize.verdict("synccheck", "launched\nsort blocks 1 record 0: "
@@ -208,6 +211,13 @@ def test_sanitizer_verdicts():
                             "checked\n========= ERROR SUMMARY: 2 errors", 3) \
         == "hazard"
     assert sanitize.verdict(None, "launched\nunsorted at 17", 1) == "hazard"
+    out = ("========= COMPUTE-SANITIZER\n========= Program hit cudaErrorUnknown"
+           " on CUDA API call to cudaMalloc.\n=========     Saved host "
+           "backtrace\nsetup failed: unknown error at 74\n========= Target "
+           "application returned an error\n========= ERROR SUMMARY: 1 error")
+    assert sanitize.evidence(out, tool_lines=2) == [
+        "setup failed: unknown error at 74", "========= COMPUTE-SANITIZER",
+        "========= Program hit cudaErrorUnknown on CUDA API call to cudaMalloc."]
     assert "bitonic_sort_launch(dk, dp, dok, dop, blocks, record, nullptr)" \
         in sanitize.SORT_CHECKER
     assert "rle_membership_launch(dw, dl, dout, rows, seg, seg, nullptr)" \
