@@ -481,8 +481,7 @@ __global__ void __launch_bounds__(kThreads, 1)
     bitonic_sort_kernel(const int32_t* __restrict__ keys,
                         const int32_t* __restrict__ payload,
                         int32_t* __restrict__ out_keys,
-                        int32_t* __restrict__ out_payload,
-                        unsigned ahead) {
+                        int32_t* __restrict__ out_payload) {
   extern __shared__ __align__(16) unsigned char smem[];
   const size_t row = static_cast<size_t>(blockIdx.x) * kSlots;
   BlockSort<kRecord> s;
@@ -493,17 +492,6 @@ __global__ void __launch_bounds__(kThreads, 1)
   s.masks = smem + static_cast<size_t>(kSlots) * 4;
   load_row(keys + row, s.k, s.tid);
   load_row(payload + row, s.p, s.tid);
-  if (ahead != 0 && s.tid < 32) {  // block blockIdx.x + ahead into L2
-    const unsigned next = blockIdx.x + ahead;
-    if (next < gridDim.x) {
-      const int32_t* src = (s.tid < 16 ? keys : payload) +
-                           static_cast<size_t>(next) * kSlots +
-                           (s.tid & 15) * (kSlots / 16);
-      asm volatile("cp.async.bulk.prefetch.L2.global [%0], %1;" ::"l"(src),
-                   "n"(kSlots / 16 * 4)
-                   : "memory");
-    }
-  }
   s.template merges<1>();
   // Merge 14 ended in layout B with plain keys.
   store_row(out_keys + row, s.k, s.tid);
@@ -518,14 +506,14 @@ const void* kernel_of(bool record) {
 
 }  // namespace
 
-// Like bitonic_sort_launch; each CTA first asks for block blockIdx.x +
-// ahead's keys and payload into L2 (ahead 0: none).
-extern "C" int bitonic_sort_launch_ahead(const void* keys, const void* payload,
-                                         void* out_keys, void* out_payload,
-                                         long long n_blocks, int record,
-                                         int ahead, void* stream) {
-  if (n_blocks < 0 || n_blocks > 0x7fffffffLL || ahead < 0)
-    return cudaErrorInvalidValue;
+// keys, payload, out_keys, out_payload: (n_blocks, 16384) int32, contiguous,
+// 16-byte aligned.  Launches on `stream` and returns the first CUDA error
+// of the attribute call or the launch (0 on success); never synchronises.
+extern "C" int bitonic_sort_launch(const void* keys, const void* payload,
+                                   void* out_keys, void* out_payload,
+                                   long long n_blocks, int record,
+                                   void* stream) {
+  if (n_blocks < 0 || n_blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
   if ((reinterpret_cast<uintptr_t>(keys) | reinterpret_cast<uintptr_t>(payload) |
        reinterpret_cast<uintptr_t>(out_keys) |
        reinterpret_cast<uintptr_t>(out_payload)) % 16)
@@ -543,23 +531,11 @@ extern "C" int bitonic_sort_launch_ahead(const void* keys, const void* payload,
   const auto* p = static_cast<const int32_t*>(payload);
   auto* ok = static_cast<int32_t*>(out_keys);
   auto* op = static_cast<int32_t*>(out_payload);
-  const unsigned a = static_cast<unsigned>(ahead);
   if (rec)
-    bitonic_sort_kernel<true><<<grid, kThreads, smem, s>>>(k, p, ok, op, a);
+    bitonic_sort_kernel<true><<<grid, kThreads, smem, s>>>(k, p, ok, op);
   else
-    bitonic_sort_kernel<false><<<grid, kThreads, smem, s>>>(k, p, ok, op, a);
+    bitonic_sort_kernel<false><<<grid, kThreads, smem, s>>>(k, p, ok, op);
   return cudaGetLastError();
-}
-
-// keys, payload, out_keys, out_payload: (n_blocks, 16384) int32, contiguous,
-// 16-byte aligned.  Launches on `stream` and returns the first CUDA error
-// of the attribute call or the launch (0 on success); never synchronises.
-extern "C" int bitonic_sort_launch(const void* keys, const void* payload,
-                                   void* out_keys, void* out_payload,
-                                   long long n_blocks, int record,
-                                   void* stream) {
-  return bitonic_sort_launch_ahead(keys, payload, out_keys, out_payload,
-                                   n_blocks, record, 0, stream);
 }
 
 // Registers per thread, dynamic shared memory per CTA and resident CTAs per

@@ -13,10 +13,11 @@ decode.  Every case then runs under ``compute-sanitizer --tool racecheck``
 and ``--tool synccheck`` (shared-memory hazards; barriers and warp
 synchronisation misused).  Needs the CUDA toolkit and a card; prints one
 line a case and tool and returns nonzero if a tool reports an error or a
-checker's check fails.  Where the tool cannot run a program at all (under
-it the checker's device set-up, its first allocations and copies, fails,
-while it passes alone), the case reads "unavailable", not as a failure; a
-launch that fails only under a tool is a hazard.  Each record keeps the
+checker's check fails.  Where the tool cannot run a program at all (it
+says the device is not supported, or under it the checker's device
+set-up, its first allocations and copies, fails, while it passes alone),
+the case reads "unavailable", not as a failure; a launch that fails only
+under a tool is a hazard.  Each record keeps the
 checker's own lines and the tool's first error lines.
 """
 
@@ -160,12 +161,20 @@ def build_checker(source: str, checker: str, work: Path) -> Path:
     return exe
 
 
+# The tool's own line where it cannot run a program on the card at all.
+UNSUPPORTED = "Error: Device not supported"
+
+
 def verdict(tool_name: Optional[str], out: str, rc: int) -> str:
     """"clean": the checker's check passed and the tool (if any) counted no
     error; "unavailable": under a tool the checker's set-up failed (its
-    "setup failed" line), so the tool could not run it; "hazard": anything
-    else, a launch that failed under the tool included."""
-    if tool_name is not None and "setup failed" in out:
+    "setup failed" line) or the tool said it does not support the device,
+    and the checker neither launched and failed nor passed its check;
+    "hazard": anything else, a launch that failed under the tool
+    included."""
+    if (tool_name is not None
+            and ("setup failed" in out or UNSUPPORTED in out)
+            and "launch failed" not in out and "checked" not in out):
         return "unavailable"
     return "clean" if rc == 0 and "checked" in out else "hazard"
 

@@ -202,6 +202,13 @@ def test_sanitizer_verdicts():
     assert sanitize.verdict("synccheck", "launch failed: unspecified launch "
                             "failure at 81\n========= ERROR SUMMARY: 1 "
                             "error", 3) == "hazard"
+    unsupported = ("========= Error: Device not supported. Please refer to "
+                   "the \"Supported Devices\" section\n========= Error: "
+                   "process didn't terminate successfully")
+    assert sanitize.verdict("racecheck", unsupported, 3) == "unavailable"
+    assert sanitize.verdict("racecheck", "launch failed: unknown error at 81\n"
+                            + unsupported, 3) == "hazard"
+    assert sanitize.verdict(None, unsupported, 3) == "hazard"
     assert sanitize.verdict(None, "setup failed: out of memory at 74", 2) \
         == "hazard"
     assert sanitize.verdict("synccheck", "launched\nsort blocks 1 record 0: "
