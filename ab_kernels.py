@@ -41,7 +41,15 @@ membership decode of ``profiles/rle_decode.py::rle_decode_membership``
 K8; the sorts' outputs and the decodes' must be identical between the
 checkouts (and the sort's to ``torch.sort`` + ``torch.gather``, the
 decode's to K6 and K8), and their share is of the issue bound where that
-is the larger.  Prints the card's name and power limit, each block of
+is the larger.  Then, in the same protocol, the fused MCU transforms of
+``profiles/mcu.py`` (P-mcu-f, P-mcu-i) on the candidate A/B's 2,097,152
+random luma tiles and their quantized coefficients, and P-mcu-i also on
+those coefficients plus a uniform fraction (all nine part products), with
+cuBLAS fp32 of the bare product (TF32 off) as the library call; the
+outputs of the two checkouts, and the library's through the plain
+versions' epilogues, held to each other by
+``utils/parity.py::transform_flips`` (at most 1e-5 of the outputs, each
+count printed).  Prints the card's name and power limit, each block of
 runs, and one line per kernel and shape with both times, the ratio, the
 bound and its share.
 """
@@ -61,11 +69,12 @@ PACKAGE = "lz4jpeg_tpu_torch"
 CAST_ELEMENTS = 64 * 2_097_152  # profiles/casts.py::run_casts' elements
 DOT_ROWS = 2_097_152  # profiles/dct_gates.py::run_dct_gates' rows
 SORT_BLOCKS = 2048  # profiles/bitonic_sort.py::run_bitonic_sort's blocks
+MCU_TILES = 2 * 1024 * 1024  # profiles/candidates_ab.py's luma tiles
 
 
 def load_checkout(root: Path):
     """The kernel modules (fwd_megakernel, fused_match, pack16, stream, and
-    the probes' casts, dct_gates, bitonic_sort and rle_decode) of the
+    the probes' casts, dct_gates, bitonic_sort, rle_decode and mcu) of the
     checkout at ``root``, with every kernel built and loaded.  Drops any other checkout's modules from
     ``sys.modules`` first; the modules stay alive through the returned
     references."""
@@ -78,14 +87,14 @@ def load_checkout(root: Path):
                 for name in ("ops.fwd_megakernel", "ops.fused_match",
                              "ops.pack16", "ops.stream", "profiles.casts",
                              "profiles.dct_gates", "profiles.bitonic_sort",
-                             "profiles.rle_decode")]
+                             "profiles.rle_decode", "profiles.mcu")]
     finally:
         sys.path.remove(str(root))
     for mod in mods:
         if not Path(mod.__file__).resolve().is_relative_to(root):
             raise RuntimeError(f"{mod.__name__} came from {mod.__file__}, "
                                f"not from {root}")
-    fwd, match, pack16, stream, casts, gates, sort, member = mods
+    fwd, match, pack16, stream, casts, gates, sort, member, mcu = mods
     fwd.load_kernel()
     match.load_kernel()
     pack16.load_pack_kernels()
@@ -95,6 +104,7 @@ def load_checkout(root: Path):
     gates.load_kernel()
     sort.load_kernel()
     member.load_kernel()
+    mcu.load_kernel()
     return mods
 
 
@@ -115,6 +125,7 @@ def main() -> int:
         COPY_COLUMNS,
         K1_FLOP_PER_TILE,
         MAIN_BYTES,
+        MAX_FLIP_SHARE,
         SEED,
         SIDE,
         TIME_FRAMES,
@@ -309,6 +320,54 @@ def main() -> int:
               lambda name, a, b: torch.equal(a.to(torch.int32), b),
               timing.issue_bound_ms(rd.MEMBERSHIP_INSTRUCTIONS
                                     * rd.membership_pairs(lens, seg, seg), dev))
+    del words, lens
+
+    # P-mcu-f and P-mcu-i: the candidate A/B's luma tiles, the inverse on
+    # their coefficients and on those plus a fraction; cuBLAS fp32 of the
+    # bare product, its output through the plain version's epilogue.
+    from lz4jpeg_tpu_torch.ops.color import _snap_trunc
+    from lz4jpeg_tpu_torch.ops.fused import _round_clamp, _table_key
+    from lz4jpeg_tpu_torch.utils.parity import transform_flips
+
+    mcu = this[8]
+    key = _table_key(LUM)
+    _, m, off = mcu._forward_basis_on(8, 8, key, dev)
+    _, minv = mcu._inverse_basis_on(8, 8, key, dev)
+    tiles = torch.randint(0, 256, (MCU_TILES, 8, 8), generator=gen,
+                          device=dev, dtype=torch.uint8)
+    pixels = tiles.reshape(MCU_TILES, 64).float()
+    zz = mcu.fused_forward_candidate_ref(tiles, LUM, 8, 8)
+    frac = zz + torch.rand(zz.shape, generator=gen, device=dev) - 0.5
+    n_bytes = MCU_TILES * (64 + 4 * 64)
+
+    def flips(kind, x):
+        def same(name, out, mine):
+            if name == "library":
+                out = (_snap_trunc(out - off, 1e-5) if kind == "forward"
+                       else _round_clamp(out + 128.0).reshape(mine.shape))
+            count = transform_flips(kind, x, out, mine, LUM, 8, 8)
+            print(f"P-mcu {kind}: {name} against this: {count} flips in "
+                  f"{mine.numel()} outputs")
+            return count <= MAX_FLIP_SHARE * mine.numel()
+        return same
+
+    with timing.no_tf32():
+        ab_queued(f"P-mcu-f {MCU_TILES}x64",
+                  {"other": lambda a: other[8].fused_forward_candidate(
+                       a, LUM, 8, 8),
+                   "this": lambda a: this[8].fused_forward_candidate(
+                       a, LUM, 8, 8),
+                   "library": lambda a: pixels @ m.t()},
+                  tiles, n_bytes, flips("forward", tiles))
+        del pixels
+        for label, z in (("", zz), (" fractions", frac)):
+            ab_queued(f"P-mcu-i {MCU_TILES}x64{label}",
+                      {"other": lambda a: other[8].fused_inverse_candidate(
+                           a, LUM, 8, 8),
+                       "this": lambda a: this[8].fused_inverse_candidate(
+                           a, LUM, 8, 8),
+                       "library": lambda a: a @ minv.t()},
+                      z, n_bytes, flips("inverse", z))
     return 0
 
 

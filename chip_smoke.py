@@ -179,18 +179,26 @@ another checkout's.
 21. the kernel candidates (``lz4jpeg_tpu_torch/profiles/``), a few
     seconds: the MCU forward and inverse kernels
     (``csrc/mcu_transform_kernel.cu``) against their plain versions (cuBLAS)
-    at HW 64 and 32 on 1, 5, 511, 513 and 2,097,152 random tiles, identical
-    up to one-step flips at summation ties
-    (``utils/parity.py::transform_flips``: forward ratios within 1e-4 of an
-    integer, inverse pixels within the float32 error bound of a round-half
-    tie; at most 1e-5 of the outputs each, the counts printed); the RLE
+    at HW 64 and 32 on 1, 5, 63, 64, 65 (a ring chunk ± 1), 511, 513 and
+    2,097,152 random tiles, the inverse on the forward's coefficients, on
+    the same × 8 ± 256 + 0.1 (|z| ≥ 256 with a fraction: the mid and lo
+    parts' votes) and on the same plus a uniform fraction, identical up to
+    one-step flips at summation ties (``utils/parity.py::transform_flips``:
+    forward ratios within 1e-4 of an integer, inverse pixels within the
+    float32 error bound of a round-half tie; at most 1e-5 of the outputs
+    of each kind of input, every count printed), both kernels' registers,
+    shared memory, CTAs an SM and spill bytes printed and each launch's C
+    plan held to its mirror (``profiles/mcu.py::chunk_plan``); the RLE
     compaction kernel (``csrc/rle_compact_kernel.cu``) identical at L = 2,
     32, 64, 128 on 1, 5, 4,099 and 2,097,152 rows (crafted all-equal,
     all-distinct and int16-extreme rows first; at 4,099 rows also int32
     input and a view one element off a 16-byte boundary); the plane colour
     kernel (``csrc/plane_color_kernel.cu``) identical at 131,072 × 2048,
     7 × 2 and 3 × 130; each kernel and its plain version timed at the A/B
-    shapes (phase 4's method); then ``run_candidates_ab`` and
+    shapes (phase 4's method; the MCU kernels with cuBLAS fp32 of the bare
+    product, TF32 off, as the library call, and the inverse also on
+    coefficients with a fraction, all nine part products); then
+    ``run_candidates_ab`` and
     ``run_plane_color_ab`` at their defaults (artifacts in a temporary
     directory, each naming the card), each kernel's count set to 0 just
     before its A/B and read just after (every kernel launched), every time
@@ -336,12 +344,14 @@ plain version, its time, the plain version's, its bound (the larger of
 the bytes it must move over 3.35 TB/s and the operations as bf16
 tensor-core work over 989 TFLOP/s, the H100 SXM data sheet's rates: K1's
 three-part product, and the MCU kernels' product counted the same way,
-three basis parts against exact pixel values, and against the two exact
-bf16 parts of integer coefficients for the inverse, which leaves both
-MCU kernels bound by their bytes) and the time of one PyTorch call that computes the same function
-where there is one (K3: ``torch.gather``; the copy kernel:
-``Tensor.copy_``; the sort: ``torch.sort`` of the keys alone; none for
-phase 21's, 22's and 23's kernels, the stage kernels and the membership
+three basis parts against exact pixel values, and against the parts each
+tile of the timed coefficients needs for the inverse
+(``profiles/mcu.py::inverse_products``), which leaves both MCU kernels
+bound by their bytes) and the time of one PyTorch call that computes the
+same function where there is one (K3: ``torch.gather``; the copy kernel:
+``Tensor.copy_``; the sort: ``torch.sort`` of the keys alone; the MCU
+kernels: cuBLAS fp32 of the bare product; none for the rest of phase
+21's, for 22's and 23's kernels, the stage kernels and the membership
 decode; phase 25's copies: ``Tensor.copy_`` and, for the transposes,
 their plain version, which is that call; none for the phase variants;
 phase 26's: none for the sublane RLE, ``x.to(dst)`` for the casts (also
@@ -465,7 +475,8 @@ ROOFLINE_INVERSE = {}  # 2048², batch 64, chain 8
 MCU_SOURCE = "lz4jpeg_tpu_torch/csrc/mcu_transform_kernel.cu"
 RLE_SOURCE = "lz4jpeg_tpu_torch/csrc/rle_compact_kernel.cu"
 COLOR_SOURCE = "lz4jpeg_tpu_torch/csrc/plane_color_kernel.cu"
-CAND_TILES = (1, 5, 511, 513, 2 * 1024 * 1024)  # phase 21's MCU tile counts
+# Phase 21's MCU tile counts: 64 is a ring chunk (profiles/mcu.py::CHUNK).
+CAND_TILES = (1, 5, 63, 64, 65, 511, 513, 2 * 1024 * 1024)
 CAND_SEGS = (2, 32, 64, 128)  # phase 21's RLE row lengths
 CAND_ROWS = (1, 5, 4099, 2 * 1024 * 1024)  # and row counts
 CAND_PLANES = ((131_072, 2048), (7, 2), (3, 130))  # phase 21's (n, w) planes
@@ -554,11 +565,12 @@ INT8_OP_PER_S = 1979e12  # H100 SXM dense int8 tensor cores (data sheet)
 # K1's tensor-core work per 8x8 tile: three bf16 passes of a 64-deep luma
 # and two 32-deep chroma products, 2 operations per multiply-add.
 K1_FLOP_PER_TILE = 3 * 2 * (64 * 64 + 2 * 32 * 32)
-# The MCU candidates' product counted the same way, per 64-deep luma tile:
-# three bf16 basis parts against exact pixel values (forward), and against
-# the two exact bf16 parts of integer coefficients up to 1024 (inverse).
-MCU_FWD_FLOP_PER_TILE = 3 * 2 * 64 * 64
-MCU_INV_FLOP_PER_TILE = 2 * 3 * 2 * 64 * 64
+# The MCU candidates' product counted the same way, per 64-deep luma tile
+# and part product: three bf16 basis parts against exact pixel values
+# (forward); the inverse's parts are those each tile's coefficients need
+# (profiles/mcu.py::inverse_products).
+MCU_FLOP_PER_PRODUCT = 2 * 64 * 64
+MCU_FWD_FLOP_PER_TILE = 3 * MCU_FLOP_PER_PRODUCT
 
 
 def check(cond: bool, msg: str) -> None:
@@ -2655,6 +2667,8 @@ def candidates_phase(dev):
         CHROMINANCE_QUANTIZATION_TABLE as CHR,
         LUMINANCE_QUANTIZATION_TABLE as LUM,
     )
+    from lz4jpeg_tpu_torch.ops.fused import _table_key
+    from lz4jpeg_tpu_torch.profiles import mcu, sass_loops, timing
     from lz4jpeg_tpu_torch.profiles.candidates_ab import run_candidates_ab
     from lz4jpeg_tpu_torch.profiles.mcu import (
         fused_forward_candidate,
@@ -2681,31 +2695,62 @@ def candidates_phase(dev):
     rng = np.random.default_rng(SEED + 21)
 
     # -- the MCU transforms: identical up to one-step flips at ties ----------
-    counts = {"forward": [0, 0], "inverse": [0, 0]}  # flips, outputs
+    # The inverse also on |z| ≥ 256 with a fraction (mid and lo parts) and
+    # on fractions: every branch of its vote.
+    def wide(zz):
+        return zz * 8.0 + torch.sign(zz) * 256.0 + 0.1
+
+    def fractions(zz):
+        return zz + torch.rand(zz.shape, generator=gen, device=dev) - 0.5
+
+    counts = {k: [0, 0] for k in ("forward", "inverse", "inverse |z| >= 256",
+                                  "inverse fractions")}  # flips, outputs
     for width, table in ((8, LUM), (4, CHR)):
         for n in CAND_TILES:
             tiles = torch.randint(0, 256, (n, 8, width), generator=gen,
                                   device=dev, dtype=torch.uint8)
             zz = fused_forward_candidate_ref(tiles, table, width, 8)
             fwd = fused_forward_candidate(tiles, table, width, 8)
-            inv = fused_inverse_candidate(zz, table, width, 8)
-            inv_ref = fused_inverse_candidate_ref(zz, table, width, 8)
             torch.cuda.synchronize()
             f = transform_flips("forward", tiles, fwd, zz, table, width, 8)
-            i = transform_flips("inverse", zz, inv, inv_ref, table, width, 8)
             counts["forward"][0] += f
             counts["forward"][1] += fwd.numel()
-            counts["inverse"][0] += i
-            counts["inverse"][1] += inv.numel()
-            print(f"phase 21: mcu HW {8 * width} N {n}: forward {f} flips, "
-                  f"inverse {i} flips in {fwd.numel()} outputs")
-            del tiles, zz, fwd, inv, inv_ref
+            line = f"forward {f}"
+            for kind, z in (("inverse", zz), ("inverse |z| >= 256", wide(zz)),
+                            ("inverse fractions", fractions(zz))):
+                inv = fused_inverse_candidate(z, table, width, 8)
+                inv_ref = fused_inverse_candidate_ref(z, table, width, 8)
+                torch.cuda.synchronize()
+                i = transform_flips("inverse", z, inv, inv_ref, table, width, 8)
+                counts[kind][0] += i
+                counts[kind][1] += inv.numel()
+                line += f", {kind} {i}"
+                del z, inv, inv_ref
+            print(f"phase 21: mcu HW {8 * width} N {n}: flips {line} in "
+                  f"{fwd.numel()} outputs each")
+            del tiles, zz, fwd
     for kind, (flips, total) in counts.items():
         check(flips <= MAX_FLIP_SHARE * total,
               f"mcu {kind}: {flips} flips in {total} outputs")
         print(f"phase 21: mcu {kind}: {flips} admissible flips in {total} "
               f"outputs ({flips / total:.3g}, at most {MAX_FLIP_SHARE})")
-    mcu_err = {k: float(v[0] > 0) for k, v in counts.items()}
+    mcu_err = {"forward": float(counts["forward"][0] > 0),
+               "inverse": float(any(v[0] for k, v in counts.items()
+                                    if k.startswith("inverse")))}
+    n_ab = CAND_AB.get("n_blocks", 2 * 1024 * 1024)
+    for kind in mcu.KINDS:
+        for hw in (64, 32):
+            attrs = mcu.attributes(kind, hw, dev)
+            line = f"phase 21: mcu {kind} HW {hw}: {attrs}"
+            if attrs["ctas_per_sm"] is not None:  # the C plan, its mirror
+                plan = mcu.launch_plan(kind, hw, n_ab, dev)
+                check(plan == mcu.chunk_plan(n_ab, plan.resident, kind, hw),
+                      f"mcu {kind} HW {hw}: plan {plan} is not its mirror's")
+                line += f"; {plan}"
+            print(line)
+    for kernel, spilled in sass_loops.spill_stores(
+            "mcu_transform_kernel").items():
+        print(f"phase 21: {kernel}: {spilled} bytes of spill stores")
 
     # -- the RLE compaction: identical ----------------------------------------
     for length in CAND_SEGS:
@@ -2747,17 +2792,40 @@ def candidates_phase(dev):
     tiles = torch.randint(0, 256, (n, 8, 8), generator=gen, device=dev,
                           dtype=torch.uint8)
     zz = fused_forward_candidate_ref(tiles, LUM, 8, 8)
+    key = _table_key(LUM)
+    pixels = tiles.reshape(n, 64).float()
+    m = mcu._forward_basis_on(8, 8, key, dev)[1]
+    minv = mcu._inverse_basis_on(8, 8, key, dev)[1]
     times = {}
-    times["mcu_forward"] = time_versions(
-        f"phase 21: mcu forward {n} x 64",
-        {"plain": lambda x: fused_forward_candidate_ref(x, LUM, 8, 8),
-         "kernel": lambda x: fused_forward_candidate(x, LUM, 8, 8)},
-        tiles, identical=False)
-    times["mcu_inverse"] = time_versions(
-        f"phase 21: mcu inverse {n} x 64",
-        {"plain": lambda z: fused_inverse_candidate_ref(z, LUM, 8, 8),
-         "kernel": lambda z: fused_inverse_candidate(z, LUM, 8, 8)},
-        zz, identical=False)
+    with timing.no_tf32():
+        times["mcu_forward"] = time_versions(
+            f"phase 21: mcu forward {n} x 64",
+            {"plain": lambda x: fused_forward_candidate_ref(x, LUM, 8, 8),
+             "kernel": lambda x: fused_forward_candidate(x, LUM, 8, 8),
+             "library": lambda x: pixels @ m.t()},
+            tiles, identical=False)
+        del pixels
+        times["mcu_inverse"] = time_versions(
+            f"phase 21: mcu inverse {n} x 64",
+            {"plain": lambda z: fused_inverse_candidate_ref(z, LUM, 8, 8),
+             "kernel": lambda z: fused_inverse_candidate(z, LUM, 8, 8),
+             "library": lambda z: z @ minv.t()},
+            zz, identical=False)
+        # The inverse's worst case: fractions need all nine part products.
+        frac = fractions(zz)
+        worst = time_versions(
+            f"phase 21: mcu inverse {n} x 64, fractions",
+            {"plain": lambda z: fused_inverse_candidate_ref(z, LUM, 8, 8),
+             "kernel": lambda z: fused_inverse_candidate(z, LUM, 8, 8)},
+            frac, identical=False)
+    inv_flops = {"codec": mcu.inverse_products(zz) * MCU_FLOP_PER_PRODUCT,
+                 "fractions": mcu.inverse_products(frac) * MCU_FLOP_PER_PRODUCT}
+    b_ms, by = bound(n * (4 * 64 + 64), inv_flops["fractions"])
+    print(f"phase 21: mcu inverse on fractions: kernel {worst['kernel']:.4f} "
+          f"ms, plain {worst['plain']:.4f} ms; bound {b_ms:.4f} ms ({by}; "
+          f"{inv_flops['fractions'] / 1e9:.1f} GFLOP of part products), "
+          f"{b_ms / worst['kernel']:.1%} of it")
+    del frac
     zz16 = zz.to(torch.int16)
     times["rle_compact"] = time_versions(
         f"phase 21: rle {n} x 64 int16",
@@ -2777,7 +2845,7 @@ def candidates_phase(dev):
     del planes
     bounds = {
         "mcu_forward": bound(n * (64 + 4 * 64), n * MCU_FWD_FLOP_PER_TILE),
-        "mcu_inverse": bound(n * (4 * 64 + 64), n * MCU_INV_FLOP_PER_TILE),
+        "mcu_inverse": bound(n * (4 * 64 + 64), inv_flops["codec"]),
         "rle_compact": bound(n * 64 * 2 + n * (128 * 2 + 4)),
         "plane_color": bound(h * w * 2 + h * w * 3),
     }
@@ -2853,7 +2921,7 @@ def candidates_phase(dev):
         "plain_ms": times[name]["plain"],
         "bound_ms": bounds[name][0],
         "bound_by": bounds[name][1],
-        "library_ms": None,
+        "library_ms": times[name].get("library"),
     } for name in wrappers]
 
 

@@ -19,7 +19,8 @@
 // row, completing on the slot's "full" mbarrier with the bytes as its
 // transaction count) as soon as the consumers have arrived on the slot's
 // "empty" mbarrier, so the loads of the next tiles overlap the FFMA of this
-// one.  A consumer thread owns a kBlockRows × 4 register block: the rows
+// one (the mbarrier and copy helpers: csrc/bulk_ring.cuh).  A consumer
+// thread owns a kBlockRows × 4 register block: the rows
 // of one group and the columns 4 cg .. 4 cg + 3.  A warp holds two row
 // groups and all 16 column groups, so a basis load (one float4 of mt[k]) is
 // 16 contiguous float4 broadcast to the row groups, and an x load (one
@@ -77,6 +78,8 @@
 
 #include <cuda_runtime.h>
 
+#include "bulk_ring.cuh"
+
 namespace {
 
 constexpr int kDepth = 64;       // basis_dot: k
@@ -106,52 +109,6 @@ constexpr size_t kSmem =
 static_assert(kConsumers % 32 == 0, "whole warps");
 static_assert(kGroupBytes % 128 == 0, "a group starts 4 banks on from the last");
 }  // namespace dot
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(smem_u32(bar)),
-               "r"(count)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(smem_u32(bar))
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(
-                   smem_u32(bar)),
-               "r"(bytes)
-               : "memory");
-}
-
-// Spin until the phase of `bar` with this parity has completed.
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
-  asm volatile(
-      "{\n"
-      ".reg .pred p;\n"
-      "WAIT:\n"
-      "mbarrier.try_wait.parity.shared::cta.b64 p, [%0], %1;\n"
-      "@!p bra WAIT;\n"
-      "}\n" ::"r"(smem_u32(bar)),
-      "r"(parity)
-      : "memory");
-}
-
-// `bytes` (a multiple of 16) from global `src` to shared `dst` (both
-// 16-byte aligned), completing on `bar`.
-__device__ __forceinline__ void bulk_load(void* dst, const void* src,
-                                          uint32_t bytes, uint64_t* bar) {
-  asm volatile(
-      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
-      "[%0], [%1], %2, [%3];" ::"r"(smem_u32(dst)),
-      "l"(src), "r"(bytes), "r"(smem_u32(bar))
-      : "memory");
-}
 
 __global__ void __launch_bounds__(dot::kThreads, dot::kCtasPerSm)
     basis_dot_kernel(const float* __restrict__ x, const float* __restrict__ m,

@@ -2,8 +2,10 @@
 
 Every library is keyed by a hash of its source bytes, the bytes of the
 ``.cuh`` headers beside it (``csrc/fwd_megakernel.cuh`` holds K1's body,
-``csrc/expand16_plane.cuh`` K7's and ``csrc/stream_copy.cuh`` the
-streaming copy, each included by two sources) and its compiler command,
+also included by the MCU transforms for its mma helpers,
+``csrc/expand16_plane.cuh`` K7's, ``csrc/stream_copy.cuh`` the streaming
+copy and ``csrc/bulk_ring.cuh`` the bulk-copy ring's mbarrier helpers,
+each included by two or more sources) and its compiler command,
 so a changed source, header or flag gives a new file and a stale build is
 never loaded.  Builds
 go into ``lz4jpeg_tpu_torch/_build/`` (git-ignored): the compiler writes a

@@ -88,16 +88,23 @@ def test_mcu_forward_matches_pallas(rng, w, h, n):
 @pytest.mark.parametrize("w,h", [(8, 8), (4, 8)])
 @pytest.mark.parametrize("n", [700, 5])
 def test_mcu_inverse_matches_pallas(rng, w, h, n):
+    """On the codec's quantized coefficients; on the same scaled so that
+    |z| ≥ 256, with a fraction that bf16 does not hold (the kernel's mid and
+    lo parts); and on the codec's plus a uniform fraction in [-0.5, 0.5)."""
     tiles = _tiles(rng, n, w)
-    zz = np.array(fused_forward_jnp(jnp.asarray(tiles), _table(w), w, h,
-                                    jnp.float32))
-    ours = mcu.fused_inverse_candidate(torch.from_numpy(zz), _table(w), w, h)
-    theirs = torch.from_numpy(np.asarray(pallas_mcu.fused_inverse_pallas(
-        jnp.asarray(zz), _table(w), w, h, interpret=True)))
-    assert ours.dtype == torch.uint8 and ours.shape == (n, h, w)
-    flips = transform_flips("inverse", torch.from_numpy(zz), ours, theirs,
-                            _table(w), w, h)
-    assert flips <= MAX_FLIP_SHARE * ours.numel()
+    codec = np.array(fused_forward_jnp(jnp.asarray(tiles), _table(w), w, h,
+                                       jnp.float32))
+    large = (codec * 97 + np.sign(codec) * 256 + 0.1).astype(np.float32)
+    assert (np.abs(large) >= 256).any()
+    fractions = (codec + rng.uniform(-0.5, 0.5, codec.shape)).astype(np.float32)
+    for zz in (codec, large, fractions):
+        ours = mcu.fused_inverse_candidate(torch.from_numpy(zz), _table(w), w, h)
+        theirs = torch.from_numpy(np.asarray(pallas_mcu.fused_inverse_pallas(
+            jnp.asarray(zz), _table(w), w, h, interpret=True)))
+        assert ours.dtype == torch.uint8 and ours.shape == (n, h, w)
+        flips = transform_flips("inverse", torch.from_numpy(zz), ours, theirs,
+                                _table(w), w, h)
+        assert flips <= MAX_FLIP_SHARE * ours.numel()
 
 
 @pytest.mark.parametrize("w", [8, 4])

@@ -685,11 +685,15 @@ def _offset(x):
 
 
 @pytest.mark.parametrize("width", [8, 4])
-@pytest.mark.parametrize("n", [1, 5, 513, 70_000, "offset view"])
+@pytest.mark.parametrize("n", [1, 5, 63, 64, 65, 513, 70_000, "offset view"])
 def test_mcu_kernels_match_plain_versions(cuda, width, n):
     """The MCU transform kernels (``profiles/mcu.py``) against their plain
     versions (cuBLAS): identical up to one-step flips at summation ties
-    (``utils/parity.py::transform_flips``), at most 1e-5 of the outputs."""
+    (``utils/parity.py::transform_flips``), at most 1e-5 of the outputs, at
+    tile counts around a ring chunk (64) and in unaligned views; the
+    inverse on the forward's coefficients, on the same × 8 ± 256 + 0.1
+    (|z| ≥ 256 with a fraction: the mid and lo parts' votes) and on the
+    same plus a uniform fraction.  Each flip count is printed."""
     from lz4jpeg_tpu_torch.profiles import mcu
     from lz4jpeg_tpu_torch.utils.parity import transform_flips
 
@@ -699,23 +703,34 @@ def test_mcu_kernels_match_plain_versions(cuda, width, n):
     tiles = torch.from_numpy(rng.integers(0, 256, size=(rows, 8, width),
                                           dtype=np.uint8)).to(cuda)
     zz = mcu.fused_forward_candidate_ref(tiles, table, width, 8)
+    frac = torch.from_numpy(rng.uniform(-0.5, 0.5, tuple(zz.shape))).to(cuda)
+    inputs = {"codec": zz, "|z| >= 256": zz * 8 + torch.sign(zz) * 256 + 0.1,
+              "fractions": (zz + frac).float()}
     if n == "offset view":
-        tiles, zz = _offset(tiles), _offset(zz)
+        tiles = _offset(tiles)
+        inputs = {k: _offset(v) for k, v in inputs.items()}
     before = (mcu.fused_forward_candidate.launches,
               mcu.fused_inverse_candidate.launches)
     fwd = mcu.fused_forward_candidate(tiles, table, width, 8)
-    inv = mcu.fused_inverse_candidate(zz, table, width, 8)
+    invs = {k: mcu.fused_inverse_candidate(z, table, width, 8)
+            for k, z in inputs.items()}
     torch.cuda.synchronize()
     assert (mcu.fused_forward_candidate.launches,
             mcu.fused_inverse_candidate.launches) == (before[0] + 1,
-                                                      before[1] + 1)
+                                                      before[1] + 3)
     assert fwd.dtype == torch.float32 and fwd.shape == (rows, 8 * width)
-    assert inv.dtype == torch.uint8 and inv.shape == (rows, 8, width)
-    f = transform_flips("forward", tiles, fwd, zz, table, width, 8)
-    i = transform_flips("inverse", zz, inv,
-                        mcu.fused_inverse_candidate_ref(zz, table, width, 8),
-                        table, width, 8)
-    assert f <= MAX_FLIP_SHARE * fwd.numel() and i <= MAX_FLIP_SHARE * inv.numel()
+    f = transform_flips("forward", tiles, fwd, inputs["codec"], table, width, 8)
+    print(f"HW {8 * width} N {n}: forward {f} flips in {fwd.numel()}")
+    assert f <= MAX_FLIP_SHARE * fwd.numel()
+    for kind, inv in invs.items():
+        z = inputs[kind]
+        assert inv.dtype == torch.uint8 and inv.shape == (rows, 8, width)
+        i = transform_flips("inverse", z, inv,
+                            mcu.fused_inverse_candidate_ref(z, table, width, 8),
+                            table, width, 8)
+        print(f"HW {8 * width} N {n}: inverse {kind} {i} flips in "
+              f"{inv.numel()}")
+        assert i <= MAX_FLIP_SHARE * inv.numel()
 
 
 @pytest.mark.parametrize("length", [1, 2, 8, 32, 64, 128])
