@@ -182,11 +182,15 @@ another checkout's.
     at HW 64 and 32 on 1, 5, 63, 64, 65 (a ring chunk ± 1), 511, 513 and
     2,097,152 random tiles, the inverse on the forward's coefficients, on
     the same × 8 ± 256 + 0.1 (|z| ≥ 256 with a fraction: the mid and lo
-    parts' votes) and on the same plus a uniform fraction, identical up to
+    parts' votes; most pixels clamp), on the same plus a uniform fraction,
+    on the coefficients of smooth tiles under the quality-100 table (|z|
+    past 256 with pixels in range) and with the DC set so that every sum
+    lies near -1.2e7 (every byte 0), identical up to
     one-step flips at summation ties (``utils/parity.py::transform_flips``:
     forward ratios within 1e-4 of an integer, inverse pixels within the
     float32 error bound of a round-half tie; at most 1e-5 of the outputs
-    of each kind of input, every count printed), both kernels' registers,
+    of each kind of input, every count printed with the share of pixels
+    at 0 or 255), both kernels' registers,
     shared memory, CTAs an SM and spill bytes printed and each launch's C
     plan held to its mirror (``profiles/mcu.py::chunk_plan``); the RLE
     compaction kernel (``csrc/rle_compact_kernel.cu``) identical at L = 2,
@@ -2666,8 +2670,9 @@ def candidates_phase(dev):
     from lz4jpeg_tpu_torch.ops.quantize import (
         CHROMINANCE_QUANTIZATION_TABLE as CHR,
         LUMINANCE_QUANTIZATION_TABLE as LUM,
+        scale_table,
     )
-    from lz4jpeg_tpu_torch.ops.fused import _table_key
+    from lz4jpeg_tpu_torch.ops.fused import _table_key, inverse_basis
     from lz4jpeg_tpu_torch.profiles import mcu, sass_loops, timing
     from lz4jpeg_tpu_torch.profiles.candidates_ab import run_candidates_ab
     from lz4jpeg_tpu_torch.profiles.mcu import (
@@ -2685,7 +2690,7 @@ def candidates_phase(dev):
         rle_encode_candidate,
         rle_encode_candidate_ref,
     )
-    from lz4jpeg_tpu_torch.utils.inputs import crafted_rle_rows
+    from lz4jpeg_tpu_torch.utils.inputs import crafted_rle_rows, smooth_tiles
     from lz4jpeg_tpu_torch.utils.parity import transform_flips
 
     gc.collect()
@@ -2695,16 +2700,34 @@ def candidates_phase(dev):
     rng = np.random.default_rng(SEED + 21)
 
     # -- the MCU transforms: identical up to one-step flips at ties ----------
-    # The inverse also on |z| ≥ 256 with a fraction (mid and lo parts) and
-    # on fractions: every branch of its vote.
-    def wide(zz):
-        return zz * 8.0 + torch.sign(zz) * 256.0 + 0.1
+    # The inverse also on |z| ≥ 256 with a fraction (mid and lo parts; most
+    # pixels clamp), on fractions (every branch of its vote), on the
+    # coefficients of smooth tiles under the quality-100 table (|z| past 256
+    # with pixels in range), and with the DC set so that every sum lies near
+    # -1.2e7, where the epilogue's 32-bit floor would wrap to 255.
+    def wide(zz, table, width):
+        return zz * 8.0 + torch.sign(zz) * 256.0 + 0.1, table
 
-    def fractions(zz):
-        return zz + torch.rand(zz.shape, generator=gen, device=dev) - 0.5
+    def fractions(zz, table, width):
+        return zz + torch.rand(zz.shape, generator=gen, device=dev) - 0.5, table
 
-    counts = {k: [0, 0] for k in ("forward", "inverse", "inverse |z| >= 256",
-                                  "inverse fractions")}  # flips, outputs
+    def quality_100(zz, table, width):
+        top = scale_table(table, 100)
+        smooth = torch.from_numpy(smooth_tiles(zz.shape[0], width, rng)).to(dev)
+        return fused_forward_candidate_ref(smooth, top, width, 8), top
+
+    def far_below_zero(zz, table, width):
+        far = zz.clone()
+        far[:, 0] = -1.2e7 / float(inverse_basis(width, 8,
+                                                 _table_key(table))[0, 0])
+        return far, table
+
+    variants = {"inverse": lambda zz, table, width: (zz, table),
+                "inverse |z| >= 256": wide, "inverse fractions": fractions,
+                "inverse quality 100": quality_100,
+                "inverse far below zero": far_below_zero}
+    counts = {k: [0, 0, 0] for k in ("forward", *variants)}
+    # flips, outputs, outputs at 0 or 255
     for width, table in ((8, LUM), (4, CHR)):
         for n in CAND_TILES:
             tiles = torch.randint(0, 256, (n, 8, width), generator=gen,
@@ -2716,24 +2739,32 @@ def candidates_phase(dev):
             counts["forward"][0] += f
             counts["forward"][1] += fwd.numel()
             line = f"forward {f}"
-            for kind, z in (("inverse", zz), ("inverse |z| >= 256", wide(zz)),
-                            ("inverse fractions", fractions(zz))):
-                inv = fused_inverse_candidate(z, table, width, 8)
-                inv_ref = fused_inverse_candidate_ref(z, table, width, 8)
+            for kind, make in variants.items():
+                z, t = make(zz, table, width)
+                inv = fused_inverse_candidate(z, t, width, 8)
+                inv_ref = fused_inverse_candidate_ref(z, t, width, 8)
                 torch.cuda.synchronize()
-                i = transform_flips("inverse", z, inv, inv_ref, table, width, 8)
+                i = transform_flips("inverse", z, inv, inv_ref, t, width, 8)
                 counts[kind][0] += i
                 counts[kind][1] += inv.numel()
+                counts[kind][2] += int(((inv_ref == 0) | (inv_ref == 255)).sum())
                 line += f", {kind} {i}"
+                if kind == "inverse far below zero":
+                    check(bool((inv == 0).all()),
+                          f"mcu HW {8 * width} N {n}: a sum near -1.2e7 "
+                          f"did not give the byte 0")
                 del z, inv, inv_ref
             print(f"phase 21: mcu HW {8 * width} N {n}: flips {line} in "
                   f"{fwd.numel()} outputs each")
             del tiles, zz, fwd
-    for kind, (flips, total) in counts.items():
+    for kind, (flips, total, clamped) in counts.items():
         check(flips <= MAX_FLIP_SHARE * total,
               f"mcu {kind}: {flips} flips in {total} outputs")
+        at_edge = ("" if kind == "forward" else
+                   f"; {clamped / total:.1%} of the pixels at 0 or 255")
         print(f"phase 21: mcu {kind}: {flips} admissible flips in {total} "
-              f"outputs ({flips / total:.3g}, at most {MAX_FLIP_SHARE})")
+              f"outputs ({flips / total:.3g}, at most {MAX_FLIP_SHARE})"
+              f"{at_edge}")
     mcu_err = {"forward": float(counts["forward"][0] > 0),
                "inverse": float(any(v[0] for k, v in counts.items()
                                     if k.startswith("inverse")))}
@@ -2812,7 +2843,7 @@ def candidates_phase(dev):
              "library": lambda z: z @ minv.t()},
             zz, identical=False)
         # The inverse's worst case: fractions need all nine part products.
-        frac = fractions(zz)
+        frac, _ = fractions(zz, LUM, 8)
         worst = time_versions(
             f"phase 21: mcu inverse {n} x 64, fractions",
             {"plain": lambda z: fused_inverse_candidate_ref(z, LUM, 8, 8),

@@ -67,12 +67,11 @@
 //   from a round-half tie.
 //   Ties.  Where the tensor-core value lies within kTieWindow = 2^-12 of a
 //   point where the output steps (the forward's |ratio| + snap_eps at an
-//   integer; the inverse's acc + 128.5 where the clamped byte changes, in a
-//   window that grows with the warp's largest |z| beyond 8-bit integers,
-//   inverse_block), the lane recomputes that output by the fp32 FMA chain
-//   over k in index order from 0 (the order of cuBLAS's product on the
-//   card, which the plain versions run) from the tile in the ring slot and
-//   the fp32 basis row in device memory, before the block is stored.
+//   integer; the inverse's acc + 128.5 where the clamped byte changes), the
+//   lane recomputes that output by the fp32 FMA chain over k in index
+//   order from 0 (the order of cuBLAS's product on the card, which the
+//   plain versions run) from the tile in the ring slot and the fp32 basis
+//   row in device memory, before the block is stored.
 //   Two fp32 orders round a value within their noise of such a point
 //   either way; for the coefficients of 8-bit tiles that noise is below
 //   2^-13, so elsewhere every order gives the same output and here the
@@ -101,12 +100,13 @@
 // product and tile: the forward's 3 products are 51.5 GFLOP, 0.0521 ms at
 // its 989 TFLOP/s dense bf16; the inverse's 3 (integer coefficients under
 // 256) to 9 (non-integer ones), 0.0521 to 0.1563 ms.  Bytes bound both
-// directions.  What holds the kernels back (profiles/mcu_ablate.py,
-// PERF.md section 6): the ring, the operand loads and the staged stores
-// alone run at about 82% (forward) and 90% (inverse) of the bound's rate;
-// the inverse's tie test and pass cost about a tenth more; with all nine
-// part products, `mma.sync` and the B operand's ldmatrix reads (8 KiB a
-// warp, product and 16 tiles at luma) bound it.
+// directions.  What holds the kernels back (PERF.md section 6, the kernel
+// timed in turns with its tie test or its products taken out): the ring,
+// the operand loads and the staged stores alone run at about 82% (forward)
+// and 90% (inverse) of the bound's rate; the inverse's tie test and pass
+// cost about a tenth more; with all nine part products, `mma.sync` and the
+// B operand's ldmatrix reads (8 KiB a warp, product and 16 tiles at luma)
+// bound it.
 //
 // Resources (ptxas and the occupancy query on an H100, sm_90a; phase 21 of
 // chip_smoke.py prints them): registers, shared memory a CTA, CTAs an SM,
@@ -261,18 +261,27 @@ __device__ __forceinline__ float snap_trunc_fast(float ratio, float snap_eps,
 // The inverse's pixel byte of the product sum: v = acc + 128.5 and
 // clamp(floor(v), 0, 255), which is c_round(acc + 128)'s byte wherever v
 // is not within an ulp or two of an integer (C's round is floor(p + 0.5)
-// for p >= 0, and every p < 0 gives 0): inside the tie window `tau`, where
-// `near` is set, the tie pass recomputes the byte in the reference's order;
-// only where the step changes the clamped byte (floor(v) in [0, 255]).
-__device__ __forceinline__ uint32_t pixel_fast(float acc, float tau,
-                                               bool& near) {
+// for p >= 0, and every p < 0 gives 0): inside kTieWindow, where `near` is
+// set, the tie pass recomputes the byte in the reference's order; only
+// where the step changes the clamped byte (floor(v) in [0, 255]).  The
+// clamp acts on the bits of v + 2^23 rounded toward zero as signed ints:
+// from v = 0 up they are 2^23's plus floor(v) and order as the floats, and
+// every v < 0 gives bits below 2^23's (negative ones below v = -2^23).
+// Their difference with 2^23's bits is taken unsigned, for the tie test
+// alone: as a signed int it wraps for -2^24 < v < -2^23, to a large
+// positive floor.
+constexpr int kBits23 = 0x4B000000;  // the bits of k23
+
+__device__ __forceinline__ uint32_t pixel_fast(float acc, bool& near) {
   const float v = __fadd_rn(acc, 128.5f);
   const float shifted = __fadd_rz(v, k23);
-  const int fl = __float_as_int(shifted) - __float_as_int(k23);
+  const int bits = __float_as_int(shifted);
   // v - (floor(v) + 0.5), exact: 2^23 - 0.5 is a float, as is floor(v) + 0.5.
-  near = fabsf(__fsub_rn(v, __fsub_rn(shifted, k23 - 0.5f))) > 0.5f - tau &&
-         static_cast<unsigned>(fl) <= 255u;
-  return static_cast<uint32_t>(min(max(fl, 0), 255));
+  near = fabsf(__fsub_rn(v, __fsub_rn(shifted, k23 - 0.5f))) >
+             0.5f - kTieWindow &&
+         static_cast<unsigned>(bits) - static_cast<unsigned>(kBits23) <= 255u;
+  // kBits23's low byte is 0, so the clamped bits' low byte is the pixel.
+  return static_cast<uint32_t>(min(max(bits, kBits23), kBits23 + 255)) & 0xFFu;
 }
 
 // The rows of the warp's block that exist: bits 4 nt + 2 h + e of a lane's
@@ -456,41 +465,19 @@ __device__ __forceinline__ void inverse_operand(
     live[p] = __any_sync(0xFFFFFFFFu, (seen[p] & 0x7FFF7FFFu) != 0u);
 }
 
-// The fragment's largest |hi| (within a bf16 rounding of its largest |z|):
-// the bf16 magnitudes order as their bits, two a __vmaxu2.
-template <int HW>
-__device__ __forceinline__ float hi_max(const uint32_t (&hi)[HW / 16][4]) {
-  uint32_t m = 0u;
-#pragma unroll
-  for (int v = 0; v < HW / 16; ++v)
-#pragma unroll
-    for (int r = 0; r < 4; ++r) m = __vmaxu2(m, hi[v][r] & 0x7FFF7FFFu);
-  m = max(m & 0xFFFFu, m >> 16);
-  return __uint_as_float(__reduce_max_sync(0xFFFFFFFFu, m) << 16);
-}
-
 // One warp's 16 tiles of the inverse, from the rows at `z` (the ring
 // slot): the live parts' products, the pixels and the tie pass staged at
-// `st` (u8 rows of kStageRow bytes), and the block's rows stored.  Where
-// the fragment holds coefficients beyond 8-bit integers, the tie window
-// grows with its largest |z| (the reference's rounding noise grows with
-// its sums): max(kTieWindow, |hi|max * tie_rel), tie_rel = 2^-25 times the
-// basis's largest row sum of |Minv| (the wrapper's).
+// `st` (u8 rows of kStageRow bytes), and the block's rows stored.
 template <int HW>
 __device__ __forceinline__ void inverse_block(
     const float* z, const uint16_t* parts, const float* __restrict__ m32,
-    uint8_t* st, uint8_t* __restrict__ out, int rows, float tie_rel,
-    int lane) {
+    uint8_t* st, uint8_t* __restrict__ out, int rows, int lane) {
   constexpr int kPart = HW * (HW + 8);
   constexpr int kRow = HW == 64 ? 80 : 48;
   const int g = lane >> 2, c = lane & 3;
   uint32_t a[kParts][HW / 16][4];
   bool live[kParts];
   inverse_operand<HW>(a, live, z, lane);
-  // Integers below 2^8 (no mid part anywhere in the fragment) keep
-  // kTieWindow; otherwise the window follows the largest |z|.
-  const float tau =
-      live[1] ? fmaxf(kTieWindow, hi_max<HW>(a[0]) * tie_rel) : kTieWindow;
   float acc[HW / 8][4] = {};
   // Level pa + pb from 4 (lo . lo) down to 0 (hi . hi); a part that the
   // vote found all ±0 adds nothing, and its products are not issued.
@@ -513,7 +500,7 @@ __device__ __forceinline__ void inverse_block(
 #pragma unroll
       for (int e = 0; e < 2; ++e) {
         bool near;
-        px[e] = pixel_fast(acc[nt][2 * h + e], tau, near);
+        px[e] = pixel_fast(acc[nt][2 * h + e], near);
         if (near) ties |= 1u << (4 * nt + 2 * h + e);
       }
       *reinterpret_cast<uint16_t*>(st + (g + 8 * h) * kRow + 8 * nt + 2 * c) =
@@ -543,14 +530,14 @@ __device__ __forceinline__ void inverse_block(
 // take 16 tiles of each chunk.  `in` is (n, HW) u8 (forward) or f32
 // (inverse); `parts` the (3, HW, HW) bf16 bits in slot order; `m32` the fp32
 // basis row-major and `off` the forward's offsets (the tie pass's
-// operands); `scalar` the forward's snap_eps or the inverse's tie_rel.
+// operands); `snap_eps` the forward's.
 template <int HW, bool Forward>
 __device__ __forceinline__ void run(const void* __restrict__ in,
                                     const uint16_t* __restrict__ parts,
                                     const float* __restrict__ m32,
                                     const float* __restrict__ off,
                                     void* __restrict__ out, long long n,
-                                    float scalar) {
+                                    float snap_eps) {
   using S = Shape<HW, Forward>;
   extern __shared__ __align__(128) unsigned char smem[];
   uint16_t* basis = reinterpret_cast<uint16_t*>(smem);
@@ -599,12 +586,11 @@ __device__ __forceinline__ void run(const void* __restrict__ in,
           ring + s * S::kSlotBytes + 16 * warp * S::kInBytes;
       if constexpr (Forward) {
         forward_block<HW>(slot, basis, m32, off, reinterpret_cast<float*>(st),
-                          static_cast<float*>(out) + tile0 * HW, rows, scalar,
-                          lane);
+                          static_cast<float*>(out) + tile0 * HW, rows,
+                          snap_eps, lane);
       } else {
         inverse_block<HW>(reinterpret_cast<const float*>(slot), basis, m32, st,
-                          static_cast<uint8_t*>(out) + tile0 * HW, rows,
-                          scalar, lane);
+                          static_cast<uint8_t*>(out) + tile0 * HW, rows, lane);
       }
     }
     __syncwarp();
@@ -627,8 +613,8 @@ __global__ void __launch_bounds__(kThreads, Shape<HW, false>::kCtasPerSm)
     mcu_inverse_kernel(const float* __restrict__ zz,
                        const uint16_t* __restrict__ parts,
                        const float* __restrict__ basis,
-                       uint8_t* __restrict__ out, long long n, float tie_rel) {
-  run<HW, false>(zz, parts, basis, nullptr, out, n, tie_rel);
+                       uint8_t* __restrict__ out, long long n) {
+  run<HW, false>(zz, parts, basis, nullptr, out, n, 0.0f);
 }
 
 // The kernel of (direction, HW) as a function pointer, with its Shape's
@@ -733,11 +719,10 @@ extern "C" int mcu_forward_launch(const void* tiles, const void* parts,
 
 // zz: (n, hw) float32; parts: (3, hw, hw) bf16 bits of split_basis(Minv) in
 // slot order; basis: (hw, hw) float32 Minv, row p the basis of pixel p; out:
-// (n, hw) uint8; all contiguous, zz, parts and out 16-byte aligned; tie_rel:
-// 2^-25 times the largest row sum of |Minv| (profiles/mcu.py::tie_scale).
+// (n, hw) uint8; all contiguous, zz, parts and out 16-byte aligned.
 extern "C" int mcu_inverse_launch(const void* zz, const void* parts,
                                   const void* basis, void* out, long long n,
-                                  int hw, float tie_rel, void* stream) {
+                                  int hw, void* stream) {
   if ((hw != 64 && hw != 32) || n < 0) return cudaErrorInvalidValue;
   if (!mcu::aligned(zz, 16) || !mcu::aligned(parts, 16) ||
       !mcu::aligned(out, 16) || !mcu::aligned(basis, 4))
@@ -754,10 +739,10 @@ extern "C" int mcu_inverse_launch(const void* zz, const void* parts,
   const unsigned grid = static_cast<unsigned>(p.ctas);
   if (hw == 64)
     mcu::mcu_inverse_kernel<64><<<grid, mcu::kThreads, p.smem, s>>>(
-        z, b, m, y, n, tie_rel);
+        z, b, m, y, n);
   else
     mcu::mcu_inverse_kernel<32><<<grid, mcu::kThreads, p.smem, s>>>(
-        z, b, m, y, n, tie_rel);
+        z, b, m, y, n);
   return cudaGetLastError();
 }
 

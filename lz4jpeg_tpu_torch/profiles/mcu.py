@@ -35,8 +35,8 @@ for the CPU tests (``tests/test_torch_mcu_plan.py``): the k slots
 ``basis_loads``), the accumulator → staged block → device memory maps
 (``accumulator_map``, ``stage_stores``, ``store_map``), the split and the
 vote (``split_coefficients``, ``fragment_votes``, ``products_issued``), the
-epilogues and their tie tests (``snap_trunc_fast``, ``pixel_fast``,
-``tie_window``), the ring (``chunk_plan``, ``chunk_schedule``), and
+epilogues and their tie tests (``snap_trunc_fast``, ``pixel_fast``), the
+ring (``chunk_plan``, ``chunk_schedule``), and
 ``emulate``, which composes them into the product.
 """
 
@@ -187,29 +187,6 @@ def _slot_parts(kind: str, width: int, height: int, table_key: bytes):
     out = np.empty(parts.shape, dtype=np.float32)
     out[:, :, slot_map(hw, kind)] = parts
     return out
-
-
-@functools.lru_cache(maxsize=None)
-def tie_scale(width: int, height: int, table_key: bytes) -> float:
-    """The inverse's tie window per unit of the warp's largest |z|: 2⁻²⁵
-    times the largest row sum of |Minv| in float32.  The window,
-    max(TIE_WINDOW, |z|max · tie_scale), stays TIE_WINDOW for the
-    coefficients of 8-bit tiles and grows with larger ones, as the fp32
-    rounding noise of the reference's sums does."""
-    minv = inverse_basis(width, height, table_key).astype(np.float32)
-    return float(np.abs(minv.astype(np.float64)).sum(axis=1).max() * 2.0**-25)
-
-
-def tie_window(block: torch.Tensor, scale: float) -> float:
-    """``inverse_block``'s window for a warp's (16, HW) block of
-    coefficients: TIE_WINDOW where no coefficient has a mid part (integers
-    below 2⁸), else max(TIE_WINDOW, |hi|max · scale) in float32."""
-    parts = split_coefficients(block.to(torch.float32))
-    if not bool((parts[1] != 0).any()):
-        return TIE_WINDOW
-    f32 = np.float32
-    hi_max = f32(parts[0].abs().max().item())
-    return float(max(f32(TIE_WINDOW), hi_max * f32(scale)))
 
 
 @functools.lru_cache(maxsize=None)
@@ -488,23 +465,26 @@ def snap_trunc_fast(ratio: np.ndarray, snap_eps: float = 1e-5):
     return np.copysign(mag, r), near
 
 
-def pixel_fast(acc: np.ndarray, tau: float = TIE_WINDOW):
+def pixel_fast(acc: np.ndarray):
     """The inverse kernel's epilogue on float32 ``acc``, step for step: v =
-    acc + 128.5, fl = floor(v) (the bits of v + 2²³ rounded toward zero),
-    the byte clamp(fl, 0, 255); ``near`` where v lies within ``tau`` of an
-    integer (p = acc + 128 of a round-half tie) and 0 ≤ fl ≤ 255 (where the
-    step changes the clamped byte): there the tie pass takes the byte.
-    Returns (bytes as uint8, near)."""
+    acc + 128.5, ``bits`` the int32 bits of v + 2²³ rounded toward zero,
+    the byte clamp(bits, 2²³'s bits, 2²³'s + 255) less 2²³'s (floor(v)
+    clamped to [0, 255]); ``near`` where v lies within ``TIE_WINDOW`` of an
+    integer (p = acc + 128 of a round-half tie) and the unsigned 32-bit
+    difference of ``bits`` and 2²³'s is at most 255 (where the step changes
+    the clamped byte): there the tie pass takes the byte.  Returns (bytes
+    as uint8, near)."""
     f32 = np.float32
     v = np.asarray(acc, dtype=f32) + f32(128.5)
+    k = int(np.float32(K23).view(np.int32))
     with np.errstate(invalid="ignore", over="ignore"):
         shifted = _rz32(v.astype(np.float64) + K23)
-        fl = shifted.view(np.int32).astype(np.int64) - int(
-            np.float32(K23).view(np.int32))
+        bits = shifted.view(np.int32).astype(np.int64)
+        diff = (bits - k) % 2**32  # unsigned
         frac = v - (shifted - f32(K23))
-        near = ((np.abs(frac - f32(0.5)) > f32(0.5) - f32(tau))
-                & (fl >= 0) & (fl <= 255))
-    return np.clip(fl, 0, 255).astype(np.uint8), near
+        near = ((np.abs(frac - f32(0.5)) > f32(0.5) - f32(TIE_WINDOW))
+                & (diff <= 255))
+    return (np.clip(bits, k, k + 255) - k).astype(np.uint8), near
 
 
 # ---------------------------------------------------------------------------
@@ -577,9 +557,10 @@ def chunk_rows(plan: McuPlan, n: int, chunk: int) -> List[Tuple[int, int]]:
 # ---------------------------------------------------------------------------
 
 
-def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
-    """Declare the C entries of ``csrc/mcu_transform_kernel.cu`` (or of a
-    variant built from it, ``profiles/mcu_ablate.py``) on ``lib``."""
+@functools.lru_cache(maxsize=None)
+def load_kernel() -> ctypes.CDLL:
+    """Build ``csrc/mcu_transform_kernel.cu`` at first use and bind it."""
+    lib = load_cuda_library("mcu_transform_kernel")
     lib.mcu_forward_launch.restype = ctypes.c_int
     lib.mcu_forward_launch.argtypes = [
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
@@ -589,7 +570,7 @@ def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.mcu_inverse_launch.restype = ctypes.c_int
     lib.mcu_inverse_launch.argtypes = [
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-        ctypes.c_int64, ctypes.c_int, ctypes.c_float, ctypes.c_void_p,
+        ctypes.c_int64, ctypes.c_int, ctypes.c_void_p,
     ]
     lib.mcu_plan.restype = ctypes.c_int
     lib.mcu_plan.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_int64,
@@ -598,12 +579,6 @@ def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.mcu_transform_error_string.restype = ctypes.c_char_p
     lib.mcu_transform_error_string.argtypes = [ctypes.c_int]
     return lib
-
-
-@functools.lru_cache(maxsize=None)
-def load_kernel() -> ctypes.CDLL:
-    """Build ``csrc/mcu_transform_kernel.cu`` at first use and bind it."""
-    return bind(load_cuda_library("mcu_transform_kernel"))
 
 
 def launch_plan(kind: str, hw: int, n: int, device="cuda") -> McuPlan:
@@ -678,7 +653,7 @@ def fused_inverse_candidate(zz: torch.Tensor, table: np.ndarray,
         _launch(load_kernel(), "mcu_inverse_launch",
                 "mcu_transform_error_string", z.device, z.data_ptr(),
                 parts.data_ptr(), minv.data_ptr(), out.data_ptr(), n,
-                width * height, tie_scale(width, height, key))
+                width * height)
         fused_inverse_candidate.launches += 1
     return out
 

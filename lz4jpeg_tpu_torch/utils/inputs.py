@@ -14,7 +14,10 @@
   uniform noise has no matches and only exercises the raw-stored path;
 * ``crafted_packed16_rows`` — packed16 run words and lengths that no
   canonical encoder writes but the decoders must take as the spec does;
-* ``crafted_match_blocks`` — LZ4 blocks at the edges of the matcher's sort.
+* ``crafted_match_blocks`` — LZ4 blocks at the edges of the matcher's sort;
+* ``smooth_tiles`` — 8-row image tiles of a ramp plus a little noise, whose
+  quantized coefficients under a quality-100 table reach the hundreds and
+  past 256 (the DC and the low AC terms) while their pixels stay in range.
 """
 
 from __future__ import annotations
@@ -175,3 +178,17 @@ def crafted_match_blocks(p: int, rng: np.random.Generator):
     blocks[5, :half] = text[:half]
     lengths = np.array([p, p, short, p, 0, half], np.int32)
     return blocks, lengths
+
+
+def smooth_tiles(n: int, width: int, rng: np.random.Generator) -> np.ndarray:
+    """(n, 8, width) uint8 tiles, each a ramp (a level in [16, 240], a slope
+    of up to ±6 a pixel down and across) plus integer noise in [-3, 3],
+    clipped to [0, 255]."""
+    rows = np.arange(8, dtype=np.float64)[:, None]
+    cols = np.arange(width, dtype=np.float64)[None, :]
+    level = rng.uniform(16, 240, (n, 1, 1))
+    down, across = (rng.uniform(-6, 6, (n, 1, 1)) for _ in range(2))
+    noise = rng.integers(-3, 4, (n, 8, width))
+    tiles = level + down * (rows - 3.5) + across * (cols - (width - 1) / 2)
+    return np.clip(np.rint(tiles) + noise, 0, 255).astype(np.uint8)
+

@@ -38,10 +38,11 @@ from lz4jpeg_tpu_torch.ops.fused import (
 from lz4jpeg_tpu_torch.ops.quantize import (
     CHROMINANCE_QUANTIZATION_TABLE as CHR,
     LUMINANCE_QUANTIZATION_TABLE as LUM,
+    scale_table,
 )
 from lz4jpeg_tpu_torch.profiles import mcu, plane_color, rle
 from lz4jpeg_tpu_torch.profiles.candidates_ab import run_candidates_ab
-from lz4jpeg_tpu_torch.utils.inputs import crafted_rle_rows
+from lz4jpeg_tpu_torch.utils.inputs import crafted_rle_rows, smooth_tiles
 from lz4jpeg_tpu_torch.utils.parity import transform_flips
 
 _PROFILES = os.path.join(os.path.dirname(os.path.dirname(__file__)), "profiles")
@@ -90,20 +91,27 @@ def test_mcu_forward_matches_pallas(rng, w, h, n):
 def test_mcu_inverse_matches_pallas(rng, w, h, n):
     """On the codec's quantized coefficients; on the same scaled so that
     |z| ≥ 256, with a fraction that bf16 does not hold (the kernel's mid and
-    lo parts); and on the codec's plus a uniform fraction in [-0.5, 0.5)."""
+    lo parts); on the codec's plus a uniform fraction in [-0.5, 0.5); and
+    on the codec's coefficients of smooth tiles under the quality-100 table
+    (|z| past 256 with pixels in range)."""
     tiles = _tiles(rng, n, w)
     codec = np.array(fused_forward_jnp(jnp.asarray(tiles), _table(w), w, h,
                                        jnp.float32))
     large = (codec * 97 + np.sign(codec) * 256 + 0.1).astype(np.float32)
     assert (np.abs(large) >= 256).any()
     fractions = (codec + rng.uniform(-0.5, 0.5, codec.shape)).astype(np.float32)
-    for zz in (codec, large, fractions):
-        ours = mcu.fused_inverse_candidate(torch.from_numpy(zz), _table(w), w, h)
+    top = scale_table(_table(w), 100)
+    fine = np.array(fused_forward_jnp(jnp.asarray(smooth_tiles(n, w, rng)),
+                                      top, w, h, jnp.float32))
+    assert n < 100 or (np.abs(fine) >= 256).any()
+    for zz, table in ((codec, _table(w)), (large, _table(w)),
+                      (fractions, _table(w)), (fine, top)):
+        ours = mcu.fused_inverse_candidate(torch.from_numpy(zz), table, w, h)
         theirs = torch.from_numpy(np.asarray(pallas_mcu.fused_inverse_pallas(
-            jnp.asarray(zz), _table(w), w, h, interpret=True)))
+            jnp.asarray(zz), table, w, h, interpret=True)))
         assert ours.dtype == torch.uint8 and ours.shape == (n, h, w)
         flips = transform_flips("inverse", torch.from_numpy(zz), ours, theirs,
-                                _table(w), w, h)
+                                table, w, h)
         assert flips <= MAX_FLIP_SHARE * ours.numel()
 
 

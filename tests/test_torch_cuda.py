@@ -690,47 +690,64 @@ def test_mcu_kernels_match_plain_versions(cuda, width, n):
     """The MCU transform kernels (``profiles/mcu.py``) against their plain
     versions (cuBLAS): identical up to one-step flips at summation ties
     (``utils/parity.py::transform_flips``), at most 1e-5 of the outputs, at
-    tile counts around a ring chunk (64) and in unaligned views; the
-    inverse on the forward's coefficients, on the same × 8 ± 256 + 0.1
-    (|z| ≥ 256 with a fraction: the mid and lo parts' votes) and on the
-    same plus a uniform fraction.  Each flip count is printed."""
+    tile counts around a ring chunk (64) and in unaligned views.  The
+    inverse runs on the forward's coefficients; on the same × 8 ± 256 + 0.1
+    (|z| ≥ 256 with a fraction: the mid and lo parts' votes; most pixels
+    clamp); on the same plus a uniform fraction; on the coefficients of
+    smooth tiles under the quality-100 table (|z| past 256 with pixels in
+    range); and on the forward's with the DC set so that every sum lies
+    near -1.2e7, where the epilogue's 32-bit floor would wrap to 255.  Each
+    flip count is printed, with the share of pixels at 0 or 255."""
+    from lz4jpeg_tpu_torch.ops.fused import _table_key, inverse_basis
+    from lz4jpeg_tpu_torch.ops.quantize import scale_table
     from lz4jpeg_tpu_torch.profiles import mcu
+    from lz4jpeg_tpu_torch.utils.inputs import smooth_tiles
     from lz4jpeg_tpu_torch.utils.parity import transform_flips
 
     table = LUM if width == 8 else CHR
+    top = scale_table(table, 100)
     rows = 517 if n == "offset view" else n
     rng = np.random.default_rng(rows + width)
     tiles = torch.from_numpy(rng.integers(0, 256, size=(rows, 8, width),
                                           dtype=np.uint8)).to(cuda)
     zz = mcu.fused_forward_candidate_ref(tiles, table, width, 8)
     frac = torch.from_numpy(rng.uniform(-0.5, 0.5, tuple(zz.shape))).to(cuda)
-    inputs = {"codec": zz, "|z| >= 256": zz * 8 + torch.sign(zz) * 256 + 0.1,
-              "fractions": (zz + frac).float()}
+    smooth = torch.from_numpy(smooth_tiles(rows, width, rng)).to(cuda)
+    far = zz.clone()
+    far[:, 0] = -1.2e7 / float(inverse_basis(width, 8, _table_key(table))[0, 0])
+    inputs = {"codec": (zz, table),
+              "|z| >= 256": (zz * 8 + torch.sign(zz) * 256 + 0.1, table),
+              "fractions": ((zz + frac).float(), table),
+              "quality 100": (mcu.fused_forward_candidate_ref(
+                  smooth, top, width, 8), top),
+              "far below zero": (far, table)}
     if n == "offset view":
         tiles = _offset(tiles)
-        inputs = {k: _offset(v) for k, v in inputs.items()}
+        inputs = {k: (_offset(v), t) for k, (v, t) in inputs.items()}
     before = (mcu.fused_forward_candidate.launches,
               mcu.fused_inverse_candidate.launches)
     fwd = mcu.fused_forward_candidate(tiles, table, width, 8)
-    invs = {k: mcu.fused_inverse_candidate(z, table, width, 8)
-            for k, z in inputs.items()}
+    invs = {k: mcu.fused_inverse_candidate(z, t, width, 8)
+            for k, (z, t) in inputs.items()}
     torch.cuda.synchronize()
     assert (mcu.fused_forward_candidate.launches,
             mcu.fused_inverse_candidate.launches) == (before[0] + 1,
-                                                      before[1] + 3)
+                                                      before[1] + len(inputs))
     assert fwd.dtype == torch.float32 and fwd.shape == (rows, 8 * width)
-    f = transform_flips("forward", tiles, fwd, inputs["codec"], table, width, 8)
+    f = transform_flips("forward", tiles, fwd, inputs["codec"][0], table,
+                        width, 8)
     print(f"HW {8 * width} N {n}: forward {f} flips in {fwd.numel()}")
     assert f <= MAX_FLIP_SHARE * fwd.numel()
     for kind, inv in invs.items():
-        z = inputs[kind]
+        z, t = inputs[kind]
         assert inv.dtype == torch.uint8 and inv.shape == (rows, 8, width)
-        i = transform_flips("inverse", z, inv,
-                            mcu.fused_inverse_candidate_ref(z, table, width, 8),
-                            table, width, 8)
+        want = mcu.fused_inverse_candidate_ref(z, t, width, 8)
+        i = transform_flips("inverse", z, inv, want, t, width, 8)
+        clamped = ((want == 0) | (want == 255)).float().mean().item()
         print(f"HW {8 * width} N {n}: inverse {kind} {i} flips in "
-              f"{inv.numel()}")
+              f"{inv.numel()}, {clamped:.1%} of the pixels at 0 or 255")
         assert i <= MAX_FLIP_SHARE * inv.numel()
+    assert (invs["far below zero"] == 0).all()
 
 
 @pytest.mark.parametrize("length", [1, 2, 8, 32, 64, 128])

@@ -15,7 +15,8 @@ their mirrors, each test naming the inputs it covers:
   fragment issues, smallest first;
 * the epilogues (``snap_trunc_fast``, ``pixel_fast``): the plain versions'
   values bit for bit, and the outputs their tie tests send to the tie pass;
-  the tie pass needed (the fp32 chain and exact rounding part at about
+  the inverse's sums far below zero clamped on the float's bits, where a
+  32-bit floor would wrap to 255; the tie pass needed (the fp32 chain and exact rounding part at about
   1e-5 of the A/B's pixels) and enough (every such pixel in its window);
 * the maps: the k slots a permutation, the operand fragments' slots those
   of the PTX A fragment, the accumulators → staged block → device memory a
@@ -25,8 +26,7 @@ their mirrors, each test naming the inputs it covers:
 * the ring (``chunk_plan``, ``chunk_schedule``, ``chunk_rows``): every tile
   computed once at N = 1, 5, 511, 513, a chunk ± 1 and ragged last chunks,
   every slot filled before it is read and released before it is refilled;
-* the mirror's constants against the source, and the ablation's edits
-  (``profiles/mcu_ablate.py``) against it.
+* the mirror's constants against the source.
 """
 
 import math
@@ -248,6 +248,12 @@ def test_the_forward_epilogue_is_the_plain_snap_trunc():
     assert 1.5 * mcu.TIE_WINDOW < share < 2.5 * mcu.TIE_WINDOW
 
 
+# Sums whose v = acc + 128.5 lies in (-2²⁴, -2²³), where v + 2²³ rounded
+# toward zero is a negative float: its bits less 2²³'s wrap in 32 bits.
+WRAPPING = [-1.2e7, -(2.0**23) - 200, -(2.0**24) + 129, -9e6, -1.6e7,
+            -(2.0**23) - 131]
+
+
 def test_the_inverse_epilogue_is_the_plain_round_clamp_off_ties():
     """``pixel_fast`` gives ``ops/fused.py::_round_clamp(acc + 128)``'s byte
     wherever it does not mark the sum ``near`` (there the tie pass takes
@@ -256,7 +262,9 @@ def test_the_inverse_epilogue_is_the_plain_round_clamp_off_ties():
     ±inf; ``near`` marks the pixels within the tie window of a
     half-integer whose byte the tie can change, about 2 · TIE_WINDOW of
     the random sums in [0, 255], every half-integer pixel from 0.5 to
-    254.5, and no pixel the clamp decides."""
+    254.5, and no pixel the clamp decides.  Also far below zero, where v +
+    2²³ is a negative float (-2²⁴ < v < -2²³) and a 32-bit floor would
+    wrap to 255."""
     from lz4jpeg_tpu_torch.ops.fused import _round_clamp
 
     f32 = np.float32
@@ -267,7 +275,8 @@ def test_the_inverse_epilogue_is_the_plain_round_clamp_off_ties():
         rng.uniform(-1000, 1000, 200_000).astype(f32), halves,
         np.nextafter(halves, f32(1e9)), np.nextafter(halves, f32(-1e9)),
         halves * (f32(1) + ulps * f32(2**-23)),
-        [0.0, -0.0, -128.0, 3e7, -3e7, 2.0**30, np.inf, -np.inf]]).astype(f32)
+        [0.0, -0.0, -128.0, 3e7, -3e7, 2.0**30, np.inf, -np.inf],
+        WRAPPING]).astype(f32)
     got, near = mcu.pixel_fast(acc)
     want = _round_clamp(torch.from_numpy(acc) + 128.0).numpy()
     assert np.array_equal(got[~near], want[~near])
@@ -283,30 +292,23 @@ def test_the_inverse_epilogue_is_the_plain_round_clamp_off_ties():
     assert near[200_000:200_000 + halves.size][(h >= 0.5) & (h <= 254.5)].all()
 
 
-@pytest.mark.parametrize("width,table", SHAPES)
-def test_the_inverse_tie_window_grows_with_the_coefficients(width, table):
-    """A block of integers below 2⁸ keeps TIE_WINDOW; one with a mid part
-    (|z| ≥ 2⁸ or a fraction) takes max(TIE_WINDOW, |hi|max · tie_scale),
-    tie_scale 2⁻²⁵ times the largest row sum of |Minv|: the codec's
-    coefficients with a fraction keep about TIE_WINDOW, the same × 8 ± 256
-    widen it with their magnitude."""
-    key = _table_key(table)
-    hw = 8 * width
-    scale = mcu.tie_scale(width, 8, key)
-    rows = np.abs(_basis("inverse", width, table).astype(np.float64)).sum(1)
-    assert scale == rows.max() * 2.0**-25
-    rng = np.random.default_rng(width)
-    tiles = torch.from_numpy(rng.integers(0, 256, (16, 8, width),
-                                          dtype=np.uint8))
-    codec = mcu.fused_forward_candidate_ref(tiles, table, width, 8)
-    assert mcu.tie_window(codec, scale) == mcu.TIE_WINDOW
-    assert mcu.tie_window(torch.full((16, hw), 255.0), scale) == mcu.TIE_WINDOW
-    frac = codec + 0.25
-    assert mcu.tie_window(frac, scale) < 2 * mcu.TIE_WINDOW
-    wide = codec * 8 + torch.sign(codec) * 256 + 0.1
-    want = float(np.float32(wide.abs().max()) * np.float32(scale))
-    assert mcu.tie_window(wide, scale) == pytest.approx(want, rel=2**-8)
-    assert mcu.tie_window(wide, scale) > 4 * mcu.TIE_WINDOW
+@pytest.mark.parametrize("acc", WRAPPING)
+def test_the_inverse_epilogue_clamps_sums_far_below_zero(acc):
+    """A sum far below zero gives the byte 0, as ``_round_clamp`` does, and
+    is no tie; clamping the signed 32-bit floor, not the bits, would wrap
+    to a large positive int and give 255."""
+    from lz4jpeg_tpu_torch.ops.fused import _round_clamp
+
+    a = np.array([acc], dtype=np.float32)
+    v = a + np.float32(128.5)  # the kernel's float32 sum
+    assert -(2.0**24) < v[0] < -(2.0**23)
+    got, near = mcu.pixel_fast(a)
+    want = _round_clamp(torch.from_numpy(a) + 128.0).numpy()
+    assert got[0] == want[0] == 0 and not near[0]
+    bits = mcu._rz32(v.astype(np.float64) + mcu.K23).view(np.int32)
+    signed = (bits.astype(np.int64) - int(np.float32(mcu.K23).view(np.int32))
+              + 2**31) % 2**32 - 2**31  # the card's int32 subtraction
+    assert signed[0] > 255
 
 
 @pytest.mark.parametrize("width,table", SHAPES)
@@ -582,6 +584,9 @@ def test_the_mirror_matches_the_source():
     assert mcu.CTAS_PER_SM["forward"] == mcu.CTAS_PER_SM["inverse"]
     assert f"kCtasPerSm = {mcu.CTAS_PER_SM['forward']};" in text
     assert "kTieWindow = 1.0f / 4096.0f" in text and mcu.TIE_WINDOW == 2**-12
+    assert "min(max(bits, kBits23), kBits23 + 255)" in text
+    assert re.search(r"kBits23 = 0x([0-9A-F]+);", text)[1] == (
+        f"{int(np.float32(mcu.K23).view(np.int32)):X}")
     assert (f"(HW == 64 ? {mcu.PIXEL_ROW[64]} : {mcu.PIXEL_ROW[32]})") in text
     assert {(k, hw): mcu.smem_bytes(hw, k) for k in mcu.KINDS
             for hw in (64, 32)} == {
@@ -590,24 +595,3 @@ def test_the_mirror_matches_the_source():
         ("inverse", 64): 27_648 + 2 * 16_384 + 4 * 16 * 80 + 32,
         ("inverse", 32): 7_680 + 2 * 8192 + 4 * 16 * 48 + 32}
     assert mcu.chunk_plan(2_097_152, 264, "forward").threads == 160
-
-
-@pytest.mark.parametrize("name", ["full", "no ties", "floor"])
-def test_the_ablation_edits_fit_the_source(name):
-    """``profiles/mcu_ablate.py``'s variants: each edit occurs once in the
-    kernel's source, and a variant differs from the kernel exactly where
-    its edits say; an edit that no longer fits raises."""
-    from lz4jpeg_tpu_torch.profiles import mcu_ablate
-
-    text = mcu_ablate.variant_source(name)
-    assert (text == SOURCE.read_text()) == (name == "full")
-    for old, new in mcu_ablate.EDITS[name]:
-        assert old not in text or old in new
-        assert new in text
-    saved = mcu_ablate.EDITS[name]
-    try:
-        mcu_ablate.EDITS[name] = saved + (("no such line", ""),)
-        with pytest.raises(ValueError):
-            mcu_ablate.variant_source(name)
-    finally:
-        mcu_ablate.EDITS[name] = saved
