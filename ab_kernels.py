@@ -49,9 +49,15 @@ cuBLAS fp32 of the bare product (TF32 off) as the library call; the
 outputs of the two checkouts, and the library's through the plain
 versions' epilogues, held to each other by
 ``utils/parity.py::transform_flips`` (at most 1e-5 of the outputs, each
-count printed).  Prints the card's name and power limit, each block of
-runs, and one line per kernel and shape with both times, the ratio, the
-bound and its share.
+count printed).  Then, in the same protocol, the probe's stage kernels
+of ``profiles/bucket_partition.py`` (P-conc, ``concentration_stages``,
+and P-cex, ``compare_exchange_stages``, the control) on 2,048 of the
+probe's blocks, the outputs identical between the checkouts, each share
+taken of the issue floor at ``INSTRUCTIONS`` lane instructions per
+stage-element and of each checkout's own floor at the count of its SASS
+loop (``bucket_partition.stage_sass_counts``, which needs the toolkit).
+Prints the card's name and power limit, each block of runs, and one line
+per kernel and shape with both times, the ratio, the bound and its share.
 """
 
 from __future__ import annotations
@@ -70,11 +76,13 @@ CAST_ELEMENTS = 64 * 2_097_152  # profiles/casts.py::run_casts' elements
 DOT_ROWS = 2_097_152  # profiles/dct_gates.py::run_dct_gates' rows
 SORT_BLOCKS = 2048  # profiles/bitonic_sort.py::run_bitonic_sort's blocks
 MCU_TILES = 2 * 1024 * 1024  # profiles/candidates_ab.py's luma tiles
+STAGE_BLOCKS = 2048  # profiles/bucket_partition.py's larger size
 
 
 def load_checkout(root: Path):
     """The kernel modules (fwd_megakernel, fused_match, pack16, stream, and
-    the probes' casts, dct_gates, bitonic_sort, rle_decode and mcu) of the
+    the probes' casts, dct_gates, bitonic_sort, rle_decode, mcu and
+    bucket_partition) of the
     checkout at ``root``, with every kernel built and loaded.  Drops any other checkout's modules from
     ``sys.modules`` first; the modules stay alive through the returned
     references."""
@@ -87,14 +95,16 @@ def load_checkout(root: Path):
                 for name in ("ops.fwd_megakernel", "ops.fused_match",
                              "ops.pack16", "ops.stream", "profiles.casts",
                              "profiles.dct_gates", "profiles.bitonic_sort",
-                             "profiles.rle_decode", "profiles.mcu")]
+                             "profiles.rle_decode", "profiles.mcu",
+                             "profiles.bucket_partition")]
     finally:
         sys.path.remove(str(root))
     for mod in mods:
         if not Path(mod.__file__).resolve().is_relative_to(root):
             raise RuntimeError(f"{mod.__name__} came from {mod.__file__}, "
                                f"not from {root}")
-    fwd, match, pack16, stream, casts, gates, sort, member, mcu = mods
+    (fwd, match, pack16, stream, casts, gates, sort, member, mcu,
+     stages) = mods
     fwd.load_kernel()
     match.load_kernel()
     pack16.load_pack_kernels()
@@ -105,6 +115,7 @@ def load_checkout(root: Path):
     sort.load_kernel()
     member.load_kernel()
     mcu.load_kernel()
+    stages.load_kernel()
     return mods
 
 
@@ -230,7 +241,7 @@ def main() -> int:
         out, this_out)``, then each timed by ``timing.time_ms`` in turns:
         other, this, the rest, the rest reversed, this, other; prints both
         times of each and its ratio to this, and the share of the bytes
-        bound or, if larger, of ``issue_ms``."""
+        bound or, if larger, of ``issue_ms``; returns each one's mean."""
         outs = {name: fn(inputs) for name, fn in fns.items()}
         torch.cuda.synchronize()
         for name, out in outs.items():
@@ -250,6 +261,7 @@ def main() -> int:
                           for k, v in t.items() if k != "this")
               + f"; bound {b:.4f} ms ({by}), this {b / mean['this']:.1%} "
               f"of it")
+        return mean
 
     casts = this[4]
     for pair, (src, dst) in enumerate(casts.PAIRS):
@@ -368,6 +380,29 @@ def main() -> int:
                            a, LUM, 8, 8),
                        "library": lambda a: a @ minv.t()},
                       z, n_bytes, flips("inverse", z))
+
+    # P-conc and P-cex: the probe's 2,048 blocks, P-cex timed beside P-conc
+    # as a control.  Each checkout's time against the floor of its own SASS
+    # loop.
+    bp = this[9]
+    x = bp.probe_tiles(STAGE_BLOCKS, SEED).to(dev)
+    elements = bp.STAGES * x.numel()
+    counts = {"other": bp.stage_sass_counts(args.other.resolve()),
+              "this": bp.stage_sass_counts(HERE)}
+    for label, name in (("P-conc", "concentration_stages"),
+                        ("P-cex", "compare_exchange_stages")):
+        kind = bp.KERNELS[name][0]
+        mean = ab_queued(
+            f"{label} {STAGE_BLOCKS} blocks",
+            {"other": lambda a: other[9].KERNELS[name][1](a),
+             "this": lambda a: this[9].KERNELS[name][1](a)},
+            x, 2 * 4 * x.numel(), lambda _, a, b: torch.equal(a, b),
+            timing.issue_bound_ms(bp.INSTRUCTIONS[kind] * elements, dev))
+        for side in ("other", "this"):
+            floor = timing.issue_bound_ms(counts[side][kind] * elements, dev)
+            print(f"{label} {side}: {counts[side][kind]:.4f} lane "
+                  f"instructions per stage-element in its SASS loop, floor "
+                  f"{floor:.4f} ms, {floor / mean[side]:.1%} of it")
     return 0
 
 

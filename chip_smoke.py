@@ -249,15 +249,20 @@ another checkout's.
     each variant launched ``SORT_REPEATS`` = 20 times more at 2,048 blocks,
     every launch identical to the plain version; both
     stage kernels (``csrc/stage_rate_kernel.cu``) identical to their plain
-    versions at 256 and 2,048 blocks and on a view one element off a
-    16-byte boundary; the membership kernel
+    versions at 256 and 2,048 blocks, at 1 block and at one resident wave
+    of the concentration's grid ± 1 block (``STAGE_EDGES``), on a view one
+    element off a 16-byte boundary and on crafted rows, and each launched
+    ``STAGE_REPEATS`` = 20 times more at 2,048 blocks; the membership kernel
     (``csrc/rle_membership_kernel.cu``) identical to K6 and to its plain
     version on phase 10's luma and Cr words and on crafted rows (a valid
     word 0, lengths 0, runs past out_size; N = 1, 5, 4,099 and a CTA's row
     tile ± 1; out_size L and L/2 + 3), and three refused shapes refused by
-    the wrapper and the C entry point; both kernels' registers, shared
+    the wrapper and the C entry point; the kernels' registers, shared
     memory and CTAs per SM and ptxas's spill stores
-    (``profiles/sass_loops.py::spill_stores``); then the three
+    (``profiles/sass_loops.py::spill_stores``), and the stage kernels'
+    lane instructions per stage-element counted in their SASS loops
+    (``bucket_partition.stage_sass_counts``), which the stage runner's
+    records take for their SASS floor; then the three
     runners at their defaults (2,048 sorted
     blocks; stages at 256 and 2,048 blocks; the membership A/B against K6
     and K8 on the luma words of 64 frames of 2048²), each kernel's launch
@@ -367,7 +372,9 @@ drops out.  Phase 24's
 records add an issue bound (``issue_bound_ms``: the
 least lane instructions the algorithm needs, as warp instructions over
 132 SMs × 4 schedulers at the card's highest SM clock, labelled by what
-they count in ``issue_counts``): integer compares and selects have no
+they count in ``issue_counts``; the stage kernels' records also the
+floor at the count of this run's SASS loop, ``sass_issue_bound_ms`` and
+``sass_counts``): integer compares and selects have no
 data-sheet rate, so ``bound_ms`` stays the bytes bound.  Phase
 22's two records (``megakernel_ablate``, ``megakernel_dma``) and phase
 23's three (``megakernel_kt``, ``megakernel_t``, ``megakernel_v2``) give
@@ -503,6 +510,10 @@ MEMBERSHIP_SOURCE = "lz4jpeg_tpu_torch/csrc/rle_membership_kernel.cu"
 SORT_BLOCKS = (1, 3, 8, 2048)  # phase 24's sorts against plain and torch.sort
 SORT_REPEATS = 20  # phase 24: launches of the largest sort, each held to plain
 STAGE_BLOCKS = (256, 2048)  # phase 24's stage kernels against plain
+# and at 1 block and one resident wave of the concentration's grid (396
+# blocks: 132 SMs x 3 CTAs x 4 warps x 32 rows) ± 1 block
+STAGE_EDGES = (1, 395, 396, 397)
+STAGE_REPEATS = 20  # phase 24: launches of each stage kernel at 2,048 blocks
 MEMBER_ROWS = (1, 5, 4099)  # phase 24's crafted packed16 rows (and a row tile ± 1)
 MEMBER_REFUSED = ((64, 65), (16, 16), (128, 64))  # (L, out_size) refused
 SORT_RUN = {}  # the runners' defaults: 2,048 blocks, 8 checked
@@ -3260,8 +3271,10 @@ def matcher_phase(dev, p10_words, k2_ms):
               f"{SORT_REPEATS} sorts (record_masks={record}) differ")
     del keys_np, pay_np, k, p, want, got
 
-    # -- both stage kernels, also on a view off a 16-byte boundary ----------
-    for n in STAGE_BLOCKS:
+    # -- both stage kernels, also on a view off a 16-byte boundary, at the
+    # concentration's wave edges, on crafted rows, and launched again and
+    # again ---------------------------------------------------------------
+    for n in (*STAGE_BLOCKS, *STAGE_EDGES):
         x = bp.probe_tiles(n, SEED + 24).to(dev)
         views = [(f"{n} blocks", x)] + ([("offset view", offset_view(x))]
                                         if n == min(STAGE_BLOCKS) else [])
@@ -3269,6 +3282,18 @@ def matcher_phase(dev, p10_words, k2_ms):
             for name, (_, fn, ref, _) in bp.KERNELS.items():
                 held(name, f"{name} {label} vs plain", fn(v), ref(v))
         del x, views
+    x = bp.crafted_tiles().to(dev)
+    for name, (_, fn, ref, _) in bp.KERNELS.items():
+        held(name, f"{name} crafted rows vs plain", fn(x), ref(x))
+    x = bp.probe_tiles(max(STAGE_BLOCKS), SEED + 25).to(dev)
+    for name, (_, fn, ref, _) in bp.KERNELS.items():
+        want = ref(x)
+        same = sum(torch.equal(fn(x), want) for _ in range(STAGE_REPEATS))
+        print(f"phase 24: {name} {x.shape[0]} blocks {same} of "
+              f"{STAGE_REPEATS} launches identical to plain")
+        check(same == STAGE_REPEATS, f"phase 24: {STAGE_REPEATS - same} of "
+              f"{STAGE_REPEATS} launches of {name} differ")
+    del x, want
 
     # -- the membership decode: K6 and plain, crafted rows, refusals --------
     for c, (w_np, l_np) in p10_words.items():
@@ -3321,20 +3346,34 @@ def matcher_phase(dev, p10_words, k2_ms):
     for label, attrs in (("sort", bs.sort_attributes(False, dev)),
                          ("sort + replay", bs.sort_attributes(True, dev)),
                          ("membership L 64", rd.membership_attributes(64, dev)),
-                         ("membership L 32", rd.membership_attributes(32, dev))):
+                         ("membership L 32", rd.membership_attributes(32, dev)),
+                         ("concentration stages",
+                          bp.stage_attributes(bp.CONCENTRATION, dev)),
+                         ("compare-exchange stages",
+                          bp.stage_attributes(bp.COMPARE_EXCHANGE, dev))):
         print(f"phase 24: {label}: {attrs['registers']} registers, "
               f"{attrs['shared_bytes']} B of shared memory, "
               f"{attrs['ctas_per_sm']} CTAs an SM")
-    for source in ("bitonic_sort_kernel", "rle_membership_kernel"):
+    for source in ("bitonic_sort_kernel", "rle_membership_kernel",
+                   "stage_rate_kernel"):
         for kernel, spilled in sass_loops.spill_stores(source).items():
             print(f"phase 24: {kernel}: {spilled} bytes of spill stores")
+    sass_counts = bp.stage_sass_counts()
+    for kind, name in ((bp.CONCENTRATION, "concentration_stages"),
+                       (bp.COMPARE_EXCHANGE, "compare_exchange_stages")):
+        check(kind in sass_counts and sass_counts[kind] > 0,
+              f"phase 24: {name}'s SASS loop was not counted")
+        print(f"phase 24: {name}: {sass_counts[kind]:.4f} lane instructions "
+              f"per stage-element in its SASS loop (the runner's SASS floor "
+              f"takes this count)")
     print(f"phase 24: checks in {time.perf_counter() - t_phase:.2f} s; max "
           f"|kernel - plain| {err}")
 
     # -- the three runners at their defaults, each count zeroed before -----
     runners = {"bitonic_sort": (bs.run_bitonic_sort, SORT_RUN,
                                 (bs.bitonic_sort_blocks,)),
-               "bucket_partition": (bp.run_bucket_partition, STAGE_RUN,
+               "bucket_partition": (bp.run_bucket_partition,
+                                    {**STAGE_RUN, "sass_counts": sass_counts},
                                     (bp.concentration_stages,
                                      bp.compare_exchange_stages)),
                "rle_decode": (rd.run_rle_decode_ab, RLE_RUN,
@@ -3384,6 +3423,8 @@ def matcher_phase(dev, p10_words, k2_ms):
             "bound_ms": r["bytes_bound_ms"], "bound_by": "bytes",
             "library_ms": None, "issue_bound_ms": r["issue_bound_ms"],
             "issue_counts": r["issue_counts"],
+            "sass_issue_bound_ms": r["sass_issue_bound_ms"],
+            "sass_counts": r["sass_counts"],
             "blocks": stages["blocks"],
             "ps_per_stage_elem": r["ps_per_stage_elem"],
         })

@@ -3,7 +3,8 @@
 // "full" mbarrier (the copy's bytes as its transaction count) and an
 // "empty" one (the consumers' arrivals): the ring of basis_dot
 // (csrc/dct_gate_kernel.cu) and of the MCU transforms
-// (csrc/mcu_transform_kernel.cu).
+// (csrc/mcu_transform_kernel.cu); and the bulk stores back out of shared
+// memory of the concentration stages (csrc/stage_rate_kernel.cu).
 
 #pragma once
 
@@ -57,6 +58,29 @@ __device__ __forceinline__ void bulk_load(void* dst, const void* src,
       "[%0], [%1], %2, [%3];" ::"r"(smem_u32(dst)),
       "l"(src), "r"(bytes), "r"(smem_u32(bar))
       : "memory");
+}
+
+// Orders this thread's earlier writes to shared memory before its later
+// bulk copies out of it (the writes are the generic proxy's, the copies the
+// async proxy's).
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+}
+
+// `bytes` (a multiple of 16) from shared `src` to global `dst` (both
+// 16-byte aligned), committed as one bulk group of this thread.
+__device__ __forceinline__ void bulk_store(void* dst, const void* src,
+                                           uint32_t bytes) {
+  asm volatile(
+      "cp.async.bulk.global.shared::cta.bulk_group [%0], [%1], %2;\n"
+      "cp.async.bulk.commit_group;" ::"l"(dst),
+      "r"(smem_u32(src)), "r"(bytes)
+      : "memory");
+}
+
+// Waits until every bulk group of this thread has read its shared memory.
+__device__ __forceinline__ void bulk_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read 0;" ::: "memory");
 }
 
 }  // namespace

@@ -12,7 +12,8 @@ an innermost loop one that holds no other.  For every kernel it prints
 each innermost loop's length and its tensor-core instructions (``HMMA``,
 ``IMMA``), shared-memory fragment loads (``LDSM``), shared stores and loads
 (``STS``, ``LDS``), generic loads (``LD``: what ``nvcuda::wmma`` fragment
-loads became), global loads (``LDG``) and shuffles (``SHFL``).  The one-hot
+loads became), global loads (``LDG``) and shuffles (``SHFL``), and with
+``--output`` every opcode's count (``mix``).  The one-hot
 gathers' k-loop is the innermost loop with ``HMMA`` or ``IMMA``: two
 k-slices an iteration.  ``spill_stores(source)`` gives each kernel's
 spill-store bytes from ptxas.  Needs the CUDA toolkit (``nvcc``, ``cuobjdump``,
@@ -28,6 +29,7 @@ import re
 import subprocess
 import sys
 import tempfile
+from collections import Counter
 from pathlib import Path
 from typing import Dict, List
 
@@ -47,9 +49,10 @@ def opcode(instruction: str) -> str:
 
 def loops(instructions: List[str]) -> List[Dict]:
     """The innermost loops of a function's instructions: each as its first
-    and last index, its length and the count of every opcode of
-    ``COUNTED``, both over the instructions that can execute (ptxas pads
-    each ``LDGSTS`` with ``@!PT LDS``, never executed)."""
+    and last index, its length, the count of every opcode of ``COUNTED``
+    and of every opcode (``mix``), all over the instructions that can
+    execute (ptxas pads each ``LDGSTS`` with ``@!PT LDS``, never
+    executed)."""
     spans = []
     for i, ins in enumerate(instructions):
         m = _TARGET.search(ins)
@@ -63,7 +66,8 @@ def loops(instructions: List[str]) -> List[Dict]:
         ops = [opcode(x) for x in instructions[first:last + 1]
                if not x.startswith("@!PT ")]  # never executed
         result.append({"first": first, "last": last, "length": len(ops),
-                       **{c: ops.count(c) for c in COUNTED}})
+                       **{c: ops.count(c) for c in COUNTED},
+                       "mix": dict(Counter(ops).most_common())})
     return result
 
 
@@ -75,11 +79,12 @@ def _sass_diff():
     return module
 
 
-def source_loops(source: str) -> Dict[str, List[Dict]]:
-    """{demangled kernel: its innermost loops} of ``csrc/{source}.cu``."""
+def source_loops(source: str, root: Path = REPO) -> Dict[str, List[Dict]]:
+    """{demangled kernel: its innermost loops} of ``csrc/{source}.cu`` in
+    the checkout at ``root``."""
     sd = _sass_diff()
     with tempfile.TemporaryDirectory() as tmp:
-        functions = sd.sass(REPO, source, Path(tmp))
+        functions = sd.sass(Path(root), source, Path(tmp))
     names = sd.demangle(list(functions))
     return {name: loops(ins) for name, ins in zip(names, functions.values())}
 

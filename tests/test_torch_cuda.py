@@ -1093,21 +1093,92 @@ def test_sort_and_membership_under_compute_sanitizer(cuda):
         pytest.skip("compute-sanitizer cannot run a program on this machine")
 
 
+# The stage kernels at 1 block, the probe's 256, one resident wave of the
+# concentration's persistent grid (profiles/bucket_partition.py::
+# concentration_plan: 396 blocks on 132 SMs) ± 1 block, on a view one element
+# past a 16-byte boundary (the concentration's direct-load path) and on the
+# crafted rows.
+STAGE_CASES = [(1, "aligned"), (3, "aligned"), (3, "offset"),
+               (256, "aligned"), (395, "aligned"), (396, "aligned"),
+               (397, "aligned"), (397, "offset"), (1, "crafted")]
+
+
+@pytest.mark.parametrize("blocks,case", STAGE_CASES)
 @pytest.mark.parametrize("name", ["concentration_stages",
                                   "compare_exchange_stages"])
-def test_stage_kernels_match_plain(cuda, name):
+def test_stage_kernels_match_plain(cuda, name, blocks, case):
     from lz4jpeg_tpu_torch.profiles import bucket_partition as bp
 
     _, fn, ref, _ = bp.KERNELS[name]
-    x = bp.probe_tiles(3, seed=2).to(cuda)
-    buf = torch.empty(x.numel() + 1, dtype=torch.int32, device=cuda)
-    view = buf[1:].view(x.shape).copy_(x)
-    for v in (x, view):
-        before = fn.launches
-        got = fn(v)
-        torch.cuda.synchronize()
-        assert fn.launches == before + 1
-        assert torch.equal(got, ref(x))
+    x = (bp.crafted_tiles() if case == "crafted"
+         else bp.probe_tiles(blocks, seed=blocks)).to(cuda)
+    v = x
+    if case == "offset":
+        buf = torch.empty(x.numel() + 1, dtype=torch.int32, device=cuda)
+        v = buf[1:].view(x.shape).copy_(x)
+        assert v.data_ptr() % 16
+    before = fn.launches
+    got = fn(v)
+    torch.cuda.synchronize()
+    assert fn.launches == before + 1
+    assert torch.equal(got, ref(x))
+
+
+@pytest.mark.parametrize("name", ["concentration_stages",
+                                  "compare_exchange_stages"])
+def test_stage_kernels_repeated_at_2048_blocks(cuda, name):
+    """Twenty launches, each against the plain version: a missing wait on a
+    bulk copy shows only sometimes."""
+    from lz4jpeg_tpu_torch.profiles import bucket_partition as bp
+
+    _, fn, ref, _ = bp.KERNELS[name]
+    x = bp.probe_tiles(2048, seed=22).to(cuda)
+    want = ref(x)
+    for _ in range(20):
+        assert torch.equal(fn(x), want)
+
+
+@pytest.mark.parametrize("aligned", [True, False])
+def test_stage_entry_takes_any_row_count(cuda, aligned):
+    """The C entry point on row counts that leave a tile, or a CTA's group
+    of tiles, part full: every row up to n_rows equals the plain version's
+    and no row past it is written."""
+    from lz4jpeg_tpu_torch.profiles import bucket_partition as bp
+
+    lib = bp.load_kernel()
+    stream = torch.cuda.current_stream(cuda).cuda_stream
+    x = bp.probe_tiles(4, seed=5).to(cuda)
+    want = bp.concentration_stages_ref(x).view(-1, bp.LANES)
+    src = x.view(-1, bp.LANES)
+    if not aligned:
+        buf = torch.empty(src.numel() + 1, dtype=torch.int32, device=cuda)
+        src = buf[1:].view(src.shape).copy_(src)
+    for kind, ref in ((bp.CONCENTRATION, want),
+                      (bp.COMPARE_EXCHANGE,
+                       bp.compare_exchange_stages_ref(x).view(-1, bp.LANES))):
+        for n_rows in (1, 31, 33, 100, 3 * bp.ROWS + 77):
+            out = torch.full_like(src, -7)
+            assert lib.stage_rate_launch(kind, src.data_ptr(), out.data_ptr(),
+                                         n_rows, stream) == 0
+            torch.cuda.synchronize()
+            assert torch.equal(out[:n_rows], ref[:n_rows])
+            assert (out[n_rows:] == -7).all()
+
+
+def test_stage_kernels_spill_nothing(cuda):
+    from lz4jpeg_tpu_torch.profiles import bucket_partition as bp
+    from lz4jpeg_tpu_torch.profiles.sass_loops import spill_stores
+
+    spills = spill_stores("stage_rate_kernel")
+    assert len(spills) == 3 and set(spills.values()) == {0}, spills
+    conc = bp.stage_attributes(bp.CONCENTRATION, cuda)
+    assert conc["ctas_per_sm"] == bp.CONC_CTAS_PER_SM
+    assert conc["shared_bytes"] >= bp.CONC_WARPS * bp.TILE_ROWS * bp.PITCH
+    counts = bp.stage_sass_counts()
+    assert set(counts) == {bp.CONCENTRATION, bp.COMPARE_EXCHANGE}
+    # the redesign's target: at most 4 lane instructions a stage-element
+    assert 0 < counts[bp.CONCENTRATION] <= bp.INSTRUCTIONS[bp.CONCENTRATION]
+    assert counts[bp.COMPARE_EXCHANGE] > 0
 
 
 @pytest.mark.parametrize("k", [64, 32])
@@ -1174,6 +1245,7 @@ def test_matcher_sort_runners_on_the_card(cuda, tmp_path):
     stages = run_bucket_partition(cuda, blocks=(4,), runs=1, reps=1)
     for rec in stages["sizes"][0]["kernels"].values():
         assert rec["ms"] > 0 and rec["registers"] > 0
+        assert rec["sass_issue_bound_ms"] > 0  # counted in this build's SASS
     ab = run_rle_decode_ab(cuda, frames=1, side=256, runs=1, reps=1)
     assert ab["versions"]["membership kernel"]["ms"] > 0 and ab["card"]
 
