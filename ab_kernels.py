@@ -20,9 +20,16 @@ on 32 MiB of generated text in 2048 blocks of 16 KiB (stride 1, lcp 4);
 K4-K7 on the zigzag values of the luma (K = 64) and Cr chroma (K = 32)
 channels of 64 such frames, K4 in int16 and int32; the copy kernel on
 512 MiB of u8 as (rows, 2048), with ``Tensor.copy_`` of the same bytes,
-the library call, timed in the same turns.  K2's, K4-K7's and the copy's
-outputs must be identical; K1's may differ by sum-order flips, which
-``chip_smoke.py`` phase 2 holds to their limit.  Then the probe kernels
+the library call, timed in the same turns.  K1's, K2's, K4-K7's and the
+copy's outputs must be identical.  Before K1: each checkout's K1 and
+kt_split_runs builds (registers, shared memory, CTAs an SM, ptxas's spill
+bytes, and their band loop's warp instructions a tile in the SASS by
+``profiles/megakernel.py::band_sass_counts``, the toolkit's); after it, in
+``time_ms``'s protocol below, P-abl's full row (K1's instantiation in the
+probe library) and P-kt's kt_split_runs through each checkout's
+``profiles/megakernel.py::megakernel_variant`` on 32 frames of 2048² noise
+and its ``rgb_to_kt``, outputs identical, each with the issue floor of
+each checkout's SASS count.  Then the probe kernels
 of ``profiles/casts.py::cast`` (P-cast, the seven pairs at 134,217,728
 random source words, ``casts.run_casts``' size) and
 ``profiles/dct_gates.py::basis_dot`` (P-dot, 2,097,152 × 64 pixels and the
@@ -81,8 +88,8 @@ STAGE_BLOCKS = 2048  # profiles/bucket_partition.py's larger size
 
 def load_checkout(root: Path):
     """The kernel modules (fwd_megakernel, fused_match, pack16, stream, and
-    the probes' casts, dct_gates, bitonic_sort, rle_decode, mcu and
-    bucket_partition) of the
+    the probes' casts, dct_gates, bitonic_sort, rle_decode, mcu,
+    bucket_partition and megakernel, and sass_loops) of the
     checkout at ``root``, with every kernel built and loaded.  Drops any other checkout's modules from
     ``sys.modules`` first; the modules stay alive through the returned
     references."""
@@ -96,7 +103,8 @@ def load_checkout(root: Path):
                              "ops.pack16", "ops.stream", "profiles.casts",
                              "profiles.dct_gates", "profiles.bitonic_sort",
                              "profiles.rle_decode", "profiles.mcu",
-                             "profiles.bucket_partition")]
+                             "profiles.bucket_partition",
+                             "profiles.megakernel", "profiles.sass_loops")]
     finally:
         sys.path.remove(str(root))
     for mod in mods:
@@ -104,7 +112,7 @@ def load_checkout(root: Path):
             raise RuntimeError(f"{mod.__name__} came from {mod.__file__}, "
                                f"not from {root}")
     (fwd, match, pack16, stream, casts, gates, sort, member, mcu,
-     stages) = mods
+     stages, probes, _) = mods
     fwd.load_kernel()
     match.load_kernel()
     pack16.load_pack_kernels()
@@ -116,6 +124,7 @@ def load_checkout(root: Path):
     member.load_kernel()
     mcu.load_kernel()
     stages.load_kernel()
+    probes.load_kernel()
     return mods
 
 
@@ -180,17 +189,49 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(SEED)
+    from lz4jpeg_tpu_torch.profiles import timing
+
+    # Each checkout's K1 and kt_split_runs builds: warp instructions a tile in
+    # their SASS and spill bytes (ptxas), from the toolkit.
+    roots = {"other": args.other.resolve(), "this": HERE}
+    sass = {side: this[10].band_sass_counts(root)
+            for side, root in roots.items()}
+    spills = {}
+    for side, mods in (("other", other), ("this", this)):
+        k1 = mods[11].spill_stores("fwd_megakernel")
+        probes = mods[11].spill_stores("fwd_probe_kernel")
+        spills[side] = {"k1": max(k1.values()), "probes": sum(probes.values()),
+                        "kt_split_runs": next(v for k, v in probes.items()
+                                              if "Stage)5" in k)}
+        attrs = mods[10].variant_attributes("full", dev)
+        print(f"K1 {side}: {attrs['registers']} registers, "
+              f"{attrs['shared_bytes']} B shared memory, "
+              f"{attrs['ctas_per_sm']} CTAs an SM, {spills[side]['k1']} "
+              f"spill bytes (every probe variant: "
+              f"{spills[side]['probes']}); band loop "
+              f"{sass[side]['k1']['segments']} warp instructions a warp "
+              f"between barriers, producer {sass[side]['k1']['producer']}")
     for batch in (64, 256):
         x = torch.randint(0, 256, (batch, 2048, 2048, 3), dtype=torch.uint8,
                           device=dev, generator=gen)
         tiles = batch * 256 * 256
+        out = this[0].forward_combined(x, LUM, CHR)
+        check(torch.equal(out, other[0].forward_combined(x, LUM, CHR)),
+              f"K1 b{batch}: the checkouts' outputs differ")
+        if batch == 64:
+            comb = out  # phase 12's values for K4-K7
+        del out
         ab(f"K1 2048x2048 b{batch}",
            lambda m, x: m[0].forward_combined(x, LUM, CHR), x,
-           x.numel() + tiles * 128 * 2, tiles * K1_FLOP_PER_TILE,
-           identical=False)
-        if batch == 64:
-            comb = this[0].forward_combined(x, LUM, CHR)
+           x.numel() + tiles * 128 * 2, tiles * K1_FLOP_PER_TILE)
+        for side, count in sass.items():
+            floor = timing.issue_bound_ms(
+                32 * count["k1"]["per_tile"] * tiles, dev)
+            print(f"K1 b{batch} {side}: {count['k1']['per_tile']:.2f} warp "
+                  f"instructions a tile in its SASS, issue floor "
+                  f"{floor:.4f} ms")
         del x
+
 
     # K4-K7 on phase 12's values: luma and Cr chroma of the b64 frames.
     bw = SIDE // 8
@@ -233,8 +274,6 @@ def main() -> int:
        2 * x.numel(), library=lambda a: sink.copy_(a))
     del x, sink
 
-    from lz4jpeg_tpu_torch.profiles import timing
-
     def ab_queued(label, fns, inputs, n_bytes, same, issue_ms=None):
         """Each of ``fns`` (other, this, then the library calls and other
         references) on ``inputs`` once, the outputs held by ``same(name,
@@ -262,6 +301,41 @@ def main() -> int:
               + f"; bound {b:.4f} ms ({by}), this {b / mean['this']:.1%} "
               f"of it")
         return mean
+
+    # P-abl's full row (K1's instantiation in the probe library) and P-kt's
+    # kt_split_runs on 32 frames of 2048² and their KT layout, in turns; the
+    # floor at each checkout's own SASS count.
+    x = torch.randint(0, 256, (32, 2048, 2048, 3), dtype=torch.uint8,
+                      device=dev, generator=gen)
+    probe_inputs = {"full": x, "kt_split_runs": this[0].rgb_to_kt(x)}
+    tiles = 32 * 256 * 256
+    for label, name, per_tile in (("P-abl full", "full", 192 + 256),
+                                  ("P-kt kt_split_runs", "kt_split_runs",
+                                   192 + 256 + 12)):
+        key = "k1" if name == "full" else name
+
+        def probe_same(_, a, b):
+            a, b = (a, b) if isinstance(a, tuple) else ((a,), (b,))
+            return all(torch.equal(p, q) for p, q in zip(a, b))
+
+        mean = ab_queued(
+            f"{label} 32x2048x2048",
+            {"other": lambda a: other[10].megakernel_variant(a, name, LUM, CHR),
+             "this": lambda a: this[10].megakernel_variant(a, name, LUM, CHR)},
+            probe_inputs[name], tiles * per_tile, probe_same)
+        for side, mods in (("other", other), ("this", this)):
+            floor = timing.issue_bound_ms(
+                32 * sass[side][key]["per_tile"] * tiles, dev)
+            attrs = mods[10].variant_attributes(name, dev)
+            print(f"{label} {side}: {attrs['registers']} registers, "
+                  f"{attrs['shared_bytes']} B shared memory, "
+                  f"{attrs['ctas_per_sm']} CTAs an SM, "
+                  f"{spills[side][key]} spill bytes; "
+                  f"{sass[side][key]['per_tile']:.2f} warp instructions a "
+                  f"tile (band loop {sass[side][key]['segments']} a warp, "
+                  f"producer {sass[side][key]['producer']}), issue floor "
+                  f"{floor:.4f} ms, {floor / mean[side]:.1%} of it")
+    del x, probe_inputs
 
     casts = this[4]
     for pair, (src, dst) in enumerate(casts.PAIRS):

@@ -4353,6 +4353,21 @@ def main() -> int:
           f"({mpix / plain_ms * 1e3:.1f} MPix/s); bound {k1_bound[0]:.4f} ms "
           f"({k1_bound[1]}), "
           f"{k1_bound[0] / kernel_ms:.1%} of it")
+    # K1's build and its issue floor: the warp instructions a tile of its
+    # band loop in its SASS (the toolkit) over every scheduler's issue.
+    from lz4jpeg_tpu_torch.profiles import megakernel as mk
+    from lz4jpeg_tpu_torch.profiles.timing import issue_bound_ms
+
+    attrs = mk.k1_attributes(dev)
+    count = mk.band_sass_counts(keys=("k1",))["k1"]
+    issue = issue_bound_ms(32 * count["per_tile"] * n_tiles, dev)
+    print(f"phase 4: K1 {attrs['registers']} registers, "
+          f"{attrs['shared_bytes']} B shared memory, {attrs['ctas_per_sm']} "
+          f"CTAs an SM; {count['per_tile']:.2f} warp instructions a tile "
+          f"(band loop {count['segments']} a warp between barriers, "
+          f"producer {count['producer']} a band): issue floor {issue:.4f} ms "
+          f"at b64, {issue / kernel_ms:.1%} of the kernel's time, beside "
+          f"the bytes bound {k1_bound[0]:.4f} ms")
     del big
     big = torch.randint(0, 256, (256, 2048, 2048, 3), dtype=torch.uint8,
                         device=dev, generator=gen)
@@ -4364,7 +4379,8 @@ def main() -> int:
     print(f"phase 4: forward 2048x2048 b256: kernel {t['kernel']:.4f} ms "
           f"({4 * mpix / t['kernel'] * 1e3:.1f} MPix/s); bound "
           f"{b256_bound[0]:.4f} ms ({b256_bound[1]}), "
-          f"{b256_bound[0] / t['kernel']:.1%} of it")
+          f"{b256_bound[0] / t['kernel']:.1%} of it; issue floor "
+          f"{4 * issue:.4f} ms, {4 * issue / t['kernel']:.1%} of it")
     del big
 
     frame = frames[0]

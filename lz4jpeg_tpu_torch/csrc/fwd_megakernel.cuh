@@ -26,7 +26,9 @@
 //   - kBlockMajor: block-major (N, lanes) output (K1) or coefficient-major
 //     (lanes, N), staged transposed in shared memory so that each lane's T
 //     values go out as one contiguous run;
-//   - kMinCtas: the minimum CTAs per SM of __launch_bounds__;
+//   - kGroups: the consumer groups of a CTA: 3 (K1: 25 warps an SM hold
+//     72 registers a thread), 2 where a variant needs more registers than
+//     72 without spilling, 1 at T = 128 (a group alone takes 106 KB);
 //   - kInput: (B, H, W, 3) RGB image bands (K1) or slabs of T blocks of the
 //     (3, 64, N) KT layout (ops/fwd_megakernel.py::rgb_to_kt): 192 row
 //     pieces of T bytes at stride N, the same 192·T bytes as an image band
@@ -37,6 +39,13 @@
 //     transpose out").
 // Every value a variant computes feeds a stored output, so the compiler
 // removes nothing that a variant's time claims to include.
+//
+// The CTA (band_loop below): one producer warp fills a ring of band slots,
+// each with a "full" and an "empty" mbarrier and the band's geometry
+// beside it; kGroups consumer groups of 8 warps take the CTA's bands in
+// turn (band i of the CTA: slot i % slots, group i % kGroups) and wait only
+// on their own named barrier, so one group's epilogue and store overlap
+// the others' colour and product, and the ring's loads overlap them all.
 
 #pragma once
 
@@ -45,23 +54,26 @@
 
 #include <cuda_runtime.h>
 
+#include "bulk_ring.cuh"
+
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kStages = 3;                 // band buffers in the ring
+constexpr int kThreads = 256;              // threads of a consumer group
+constexpr int kGroupWarps = kThreads / 32;
 constexpr int kLumStride = 64 + 8;         // bf16 per operand row (+16 B:
 constexpr int kChrStride = 32 + 8;         //  conflict-free ldmatrix)
 constexpr int kQStride = 128 + 8;          // int16 per staged output row
 constexpr int kBias = 1024;                // SPARSE16_DELTA_BIAS
 constexpr int kLumPart = 64 * 64;          // bf16 values of one luma part
 constexpr int kChrPart = 32 * 32;
+constexpr int kSmemLimit = 232448;         // dynamic shared memory a CTA
 
 enum class Colour { kYCbCr, kR, kRGB };
 enum class Stage { kSparse, kTrunc, kCopyU8, kCastI16, kSumF32, kSplit };
 enum class Input { kRgb, kKt };
 
 template <int Tiles, int Parts, Colour C, int Channels, Stage S, bool Centred,
-          bool BlockMajor, int MinCtas, Input In = Input::kRgb,
+          bool BlockMajor, int Groups = 3, Input In = Input::kRgb,
           bool BasisA = false>
 struct Variant {
   static constexpr int kTiles = Tiles;
@@ -71,21 +83,25 @@ struct Variant {
   static constexpr Stage kStage = S;
   static constexpr bool kCentred = Centred;
   static constexpr bool kBlockMajor = BlockMajor;
-  static constexpr int kMinCtas = MinCtas;
+  static constexpr int kGroups = Groups;
   static constexpr Input kInput = In;
   static constexpr bool kBasisA = BasisA;
   static constexpr bool kDeltas = S == Stage::kSparse || S == Stage::kSplit;
   static constexpr bool kProduct = kDeltas || S == Stage::kTrunc;
   static constexpr int kLanes = Channels == 3 ? 128 : 64;
   static constexpr int kRowBytes = Tiles * 24;  // one image row of a band
-  static constexpr int kRowChunks = kRowBytes / 16;
   static constexpr int kBandBytes = 8 * kRowBytes;
+  // Block-major rows leave by one bulk store a band (the split stage's
+  // three outputs and coefficient-major runs by thread stores).
+  static constexpr bool kBulkOut = BlockMajor && S != Stage::kSplit;
   using Out = std::conditional_t<S == Stage::kCopyU8, uint8_t, int16_t>;
   // Coefficient-major staging: one row of T outputs (+16 B) per lane.
   static constexpr int kLaneStride = Tiles + 16 / static_cast<int>(sizeof(Out));
   static constexpr int kQElems =
       BlockMajor ? Tiles * kQStride
                  : (kLanes * kLaneStride * static_cast<int>(sizeof(Out)) + 1) / 2;
+  static constexpr int kOutElems = kBulkOut ? Tiles * kLanes : 8;
+  static constexpr int kCtaThreads = Groups * kThreads + 32;  // + producer
 
   static_assert(Tiles >= 16 && Tiles <= 128 && (Tiles & (Tiles - 1)) == 0,
                 "T is a power of two in [16, 128]: 2T groups fill whole rows");
@@ -107,27 +123,56 @@ struct Variant {
                 "the basis as A operand is a block-major product");
   static_assert(S != Stage::kSplit || (BlockMajor && Channels == 3),
                 "the split stage cuts the three segments of block-major rows");
+  static_assert(Groups >= 1 && Groups <= 4, "named barriers 1..Groups");
 };
 
 // K1: bands of 64 tiles, three parts, colour, three channels, the sparse
-// epilogue, centred samples, block-major output, three CTAs per SM.
-using K1Variant =
-    Variant<64, 3, Colour::kYCbCr, 3, Stage::kSparse, true, true, 3>;
+// epilogue, centred samples, block-major output, three consumer groups.
+using K1Variant = Variant<64, 3, Colour::kYCbCr, 3, Stage::kSparse, true, true>;
 
+// Where a band lies: written by the producer beside the band's ring slot.
+struct Band {
+  const uint8_t* src;   // first byte of the band's first image row (or slab)
+  int64_t out_row;      // output row of its first tile
+  int rows;             // image rows inside the frame (1..8)
+  int cols;             // pixel columns inside the frame (may be ≤ 0 past W)
+  int tiles;            // tiles inside the block row (1..T)
+  uint32_t index;       // the band's number
+};
+
+// One consumer group's operands and staging: the bf16 operands (luma T × 64,
+// Cr and Cb T × 32, rows padded 16 B), the staged int16 outputs (rows
+// padded 16 B: the mma epilogue's stores are free of bank conflicts), and
+// the band's unpadded output rows that the bulk store reads.
 template <class V>
-struct Smem {
-  uint8_t raw[kStages][V::kBandBytes];
+struct alignas(16) Group {
+  int16_t out[V::kOutElems];
+  Band band;  // the band being stored, for the thread that stores it
   uint16_t lum[V::kTiles * kLumStride];
   uint16_t chr[2][V::kTiles * kChrStride];
   int16_t q[V::kQElems];
 };
 
-struct Band {
-  const uint8_t* src;   // first byte of the band's first image row
-  int64_t out_row;      // output row of its first tile
-  int rows;             // image rows inside the frame (1..8)
-  int cols;             // pixel columns inside the frame (may be ≤ 0 past W)
-  int tiles;            // tiles inside the block row (1..T)
+// The ring's slot count: as many band slots as fit beside the groups, at
+// most 5 (K1's 3 groups leave room for 5; a fifth slot gained over a
+// fourth, a sixth does not fit).
+template <class V>
+constexpr int ring_slots() {
+  constexpr int kFixed = V::kGroups * static_cast<int>(sizeof(Group<V>));
+  constexpr int kPerSlot = V::kBandBytes + static_cast<int>(sizeof(Band)) + 16;
+  constexpr int kFit = (kSmemLimit - kFixed - 64) / kPerSlot;
+  return kFit < 5 ? kFit : 5;
+}
+
+template <class V>
+struct Smem {
+  static constexpr int kSlots = ring_slots<V>();
+  static_assert(kSlots >= 2, "a ring of two slots at least");
+  uint8_t raw[kSlots][V::kBandBytes];
+  Group<V> group[V::kGroups];
+  Band band[kSlots];
+  uint64_t full[kSlots];   // the slot's bytes (and geometry) landed
+  uint64_t empty[kSlots];  // its group's 8 warps have read it
 };
 
 // Band geometry in 32-bit arithmetic (the launcher checks that every band,
@@ -142,6 +187,7 @@ __device__ __forceinline__ Band band_at(const uint8_t* rgb, uint32_t band,
   const uint32_t f = row_id / bpc;
   const int by = static_cast<int>(row_id - f * bpc);
   Band b;
+  b.index = band;
   b.src = rgb + static_cast<int64_t>(f * height + by * 8) * (width * 3) +
           bx0 * 3 * 8;
   b.out_row = static_cast<int64_t>(row_id) * bpr + bx0;
@@ -157,13 +203,18 @@ __device__ __forceinline__ void cp_async16(void* dst, const void* src) {
                "l"(src));
 }
 
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
+// Arrive on `bar` once every cp.async this thread issued before has landed;
+// the arrival counts toward the barrier's expected count (.noinc).
+__device__ __forceinline__ void cp_async_arrive(uint64_t* bar) {
+  asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];" ::"r"(
+                   smem_u32(bar))
+               : "memory");
 }
 
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+// The group's own barrier: named barrier g + 1 over its kThreads threads
+// (barrier 0 is __syncthreads').
+__device__ __forceinline__ void group_sync(int g) {
+  asm volatile("bar.sync %0, %1;" ::"r"(g + 1), "n"(kThreads) : "memory");
 }
 
 __device__ __forceinline__ void ldmatrix_x4(uint32_t (&a)[4], const void* p) {
@@ -183,21 +234,23 @@ __device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
-// snap-trunc (eps 1e-5) of a product sum, as an int, with full-rate float
-// adds only (rintf, truncf and float → int conversions run at a quarter of
-// the FP32 rate).  |x| + 2^23 rounded toward zero is 2^23 + floor(|x|) for
-// |x| < 2^23; frac = |x| - floor(|x|) is exact.  The reference snaps x to
-// its nearest integer where they lie within eps: that is floor(|x|) when
-// frac ≤ eps (truncation gives the same) and floor(|x|) + 1 when 1 - frac
-// ≤ eps (1 - frac is exact there); otherwise it truncates.
+// snap-trunc (eps 1e-5) of a product sum, as an int: the reference snaps x
+// to its nearest integer where they lie within eps and truncates
+// otherwise.  For |x| < 2^23 that is sign(x)·floor(|x| + eps) in exact
+// arithmetic: floor(|x|) + 1 where 1 - frac(|x|) ≤ eps (1 - frac is exact
+// there, frac ≥ 1/2), floor(|x|) elsewhere.  Rounding |x| + eps toward
+// zero keeps every integer it passes (integers up to 2^24 are floats), so
+// truncating x + copysign(eps, x) rounded toward zero gives it: one LOP3,
+// one FADD.RZ and one F2I.TRUNC (a quarter-rate conversion, but three
+// issue slots where testing 1 - frac takes nine;
+// profiles/megakernel.py::snap_trunc_fast mirrors it and
+// tests/test_torch_megakernel_plan.py holds it to the test of 1 - frac).
 __device__ __forceinline__ int snap_trunc_int(float x) {
-  constexpr float k23 = 8388608.f;
-  const float ax = fabsf(x);
-  const float shifted = __fadd_rz(ax, k23);
-  const float frac = __fadd_rn(ax, -__fadd_rn(shifted, -k23));
-  const int mag = __float_as_int(shifted) - __float_as_int(k23) +
-                  (__fadd_rn(1.f, -frac) <= 1e-5f ? 1 : 0);
-  return x < 0.f ? -mag : mag;
+  uint32_t eps;
+  asm("lop3.b32 %0, %1, %2, %3, 0xEA;"  // (x & sign) | 1e-5f
+      : "=r"(eps)
+      : "r"(__float_as_uint(x)), "r"(0x80000000u), "r"(__float_as_uint(1e-5f)));
+  return __float2int_rz(__fadd_rz(x, __uint_as_float(eps)));
 }
 
 // A product sum as an int: snap-trunc for centred samples (K1), truncation
@@ -214,175 +267,220 @@ __device__ __forceinline__ int to_int(float x) {
 // on the 1/1000 grid from an integer (ops/color.py::_snap_trunc; checked on
 // all 2^24 colours by tests/test_torch_forward.py).  Cr and Cb (+128) lie
 // in [16, 239], so the reference's clamp to [0, 255] never binds.
-// Each sum is two byte dot products (dp4a) of the pixel's R, G, B bytes with
-// signed 8-bit coefficients, 1000·v = 256·dot(hi) + dot(lo) (+ 128000):
-//   Y: 299 = 256 + 43, 587 = 512 + 75, 114 = 0 + 114;
-//   Cr: 439 = 512 - 73, -368 = -256 - 112, -71 = 0 - 71;
-//   Cb: -148 = -256 + 108, -291 = -256 - 35, 439 = 512 - 73.
-// A pixel whose bytes start at byte 1 of its word takes the coefficients
-// shifted up one byte (kShift).
-constexpr int32_t kYHi = 0x00000201, kYLo = 0x00724B2B;
-constexpr int32_t kCrHi = 0x0000FF02, kCrLo = 0x00B990B7;
-constexpr int32_t kCbHi = 0x0002FFFF, kCbLo = 0x00B7DD6C;
+// Each sum is two 2-way dot products (dp2a) of 16-bit coefficients with
+// the pixel's bytes, wherever its R, G and B sit in the two words (lo, hi)
+// that hold them: at byte k = 0 of lo, R and G are lo's bytes 0-1 and B its
+// byte 2; k = 1: R is lo's byte 1, G and B its bytes 2-3; k = 2: R and G
+// lo's bytes 2-3, B hi's byte 0; k = 3: R lo's byte 3, G and B hi's bytes
+// 0-1.
+enum class Chan { kY, kCr, kCb };
+template <Chan C>
+struct CoefOf;  // 1000·v = r·R + g·G + b·B + add
+template <>
+struct CoefOf<Chan::kY> {
+  static constexpr int r = 299, g = 587, b = 114, add = 0;
+};
+template <>
+struct CoefOf<Chan::kCr> {
+  static constexpr int r = 439, g = -368, b = -71, add = 128000;
+};
+template <>
+struct CoefOf<Chan::kCb> {
+  static constexpr int r = -148, g = -291, b = 439, add = 128000;
+};
 
-__device__ __forceinline__ int32_t dp4a(uint32_t bytes, int32_t coef,
+__host__ __device__ constexpr uint32_t pair16(int lo, int hi) {
+  return (static_cast<uint32_t>(lo) & 0xffffu) | (static_cast<uint32_t>(hi) << 16);
+}
+
+template <bool kHi>
+__device__ __forceinline__ int32_t dp2a(uint32_t coef, uint32_t bytes,
                                         int32_t acc) {
   int32_t d;
-  asm("dp4a.u32.s32 %0, %1, %2, %3;" : "=r"(d) : "r"(bytes), "r"(coef), "r"(acc));
+  if constexpr (kHi) {
+    asm("dp2a.hi.s32.u32 %0, %1, %2, %3;" : "=r"(d) : "r"(coef), "r"(bytes), "r"(acc));
+  } else {
+    asm("dp2a.lo.s32.u32 %0, %1, %2, %3;" : "=r"(d) : "r"(coef), "r"(bytes), "r"(acc));
+  }
   return d;
 }
 
-template <int kShift>
-__device__ __forceinline__ uint32_t colour(uint32_t px, int32_t hi, int32_t lo,
-                                           int32_t add) {
-  const auto shifted = [](int32_t coef) {
-    return static_cast<int32_t>(static_cast<uint32_t>(coef) << kShift);
-  };
-  const int32_t h = dp4a(px, shifted(hi), 0);
-  return static_cast<uint32_t>(dp4a(px, shifted(lo), add + 256 * h)) / 1000u;
+// The float 2^23 + floor(S / 1000) as its bits, for 0 ≤ S < 6·10^6: the
+// high word of S · ceil(2^32 / 1000) is floor(S / 1000) there (the
+// multiplier's excess, S · 0.704 / 2^32, stays below the 1/1000 that
+// separates S / 1000 from the next integer), plus 0x4B000000 as the high
+// word of the same IMAD.HI's 64-bit addend.  S ≤ 128000 + 439 · 255 for
+// every channel.
+__device__ __forceinline__ uint32_t per_mille(int32_t s) {
+  return static_cast<uint32_t>(
+      (static_cast<uint64_t>(static_cast<uint32_t>(s)) * 4294968u +
+       (0x4B000000ull << 32)) >> 32);
 }
 
-// The float v - 128 (centred) or v (raw) for v in [0, 255], exact, without
-// an int → float conversion: 2^23 + v is the float whose bits are
-// 0x4B000000 | v.  Its top 16 bits are its bf16 value (exact: at most 8
-// significant bits).
+// 1000·v + add at placement K (above) from the coefficient words `first`
+// ((r, g) at K = 0, 2; (0, r) at K = 1, 3) and `second` ((b, 0); (g, b)).
+template <int K>
+__device__ __forceinline__ uint32_t colour_at(uint32_t lo, uint32_t hi,
+                                              uint32_t first, uint32_t second,
+                                              int32_t add) {
+  int32_t s;
+  if constexpr (K == 0 || K == 1) {
+    s = dp2a<false>(first, lo, dp2a<true>(second, lo, add));
+  } else {
+    s = dp2a<true>(first, lo, dp2a<false>(second, hi, add));
+  }
+  return per_mille(s);
+}
+
+template <int K, Chan kC>
+__device__ __forceinline__ uint32_t colour(uint32_t lo, uint32_t hi) {
+  using c = CoefOf<kC>;
+  constexpr bool kRG = K == 0 || K == 2;
+  return colour_at<K>(lo, hi, kRG ? pair16(c::r, c::g) : pair16(0, c::r),
+                      kRG ? pair16(c::b, 0) : pair16(c::g, c::b), c::add);
+}
+
+// The float v - 128 (centred) or v (raw) for v in [0, 255], exact, from
+// the bits of 2^23 + v (0x4B000000 | v, or per_mille's word).  Its top 16
+// bits are its bf16 value (exact: at most 8 significant bits).
 template <bool kCentred>
-__device__ __forceinline__ uint32_t sample(uint32_t v) {
-  return __float_as_uint(__fadd_rn(__uint_as_float(0x4B000000u | v),
+__device__ __forceinline__ uint32_t sample_of(uint32_t word) {
+  return __float_as_uint(__fadd_rn(__uint_as_float(word),
                                    kCentred ? -8388736.f : -8388608.f));
 }
 
-// Two samples as a bf16 pair (first in the low half).
+template <bool kCentred>
+__device__ __forceinline__ uint32_t sample(uint32_t v) {
+  return sample_of<kCentred>(0x4B000000u | v);
+}
+
+// Two samples v as a bf16 pair (first in the low half; the MCU transforms'
+// operands, csrc/mcu_transform_kernel.cu).
 template <bool kCentred>
 __device__ __forceinline__ uint32_t bf16_pair(uint32_t first, uint32_t second) {
   return __byte_perm(sample<kCentred>(first), sample<kCentred>(second), 0x7632);
 }
 
-// Issue the 16-byte copies of one band into a ring buffer (aligned route).
-// Thread i copies chunks i, i + kThreads, ...: the same (row, chunk) cells
-// in every band.  A chunk index past the band's 8 rows has r ≥ 8 and copies
-// nothing, so the loop may round its count up (T = 16 and 32).
-template <class V>
-__device__ __forceinline__ void load_band(uint8_t* buf, const Band& b,
-                                          int row_bytes) {
-  const int chunks = min(V::kTiles * 8, b.cols) * 3 / 16;
-#pragma unroll
-  for (int j = 0; j < (8 * V::kRowChunks + kThreads - 1) / kThreads; ++j) {
-    const int i = threadIdx.x + j * kThreads;
-    const int r = i / V::kRowChunks;
-    const int c = i - r * V::kRowChunks;
-    if (r < b.rows && c < chunks) {
-      cp_async16(buf + r * V::kRowBytes + c * 16, b.src + r * row_bytes + c * 16);
-    }
-  }
+// Two sample words as a bf16 pair (first in the low half).
+template <bool kCentred>
+__device__ __forceinline__ uint32_t bf16_pair_of(uint32_t first,
+                                                 uint32_t second) {
+  return __byte_perm(sample_of<kCentred>(first), sample_of<kCentred>(second),
+                     0x7632);
 }
 
-// A group is (row r, tile t, half h): pixels 8t + 4h .. + 3 of image row r,
-// 12 bytes R0 G0 B0 R1 | G1 B1 R2 G2 | B2 R3 G3 B3.  Thread i takes groups
-// (t, h) = (i/2 % T, i % 2) of rows i / (2T) + (kThreads / 2T)·j, the same
-// cells in every band: T/16 groups per thread.
+// A quad is (row r, tile t, half h): pixels 8t + 4h .. + 3 of image row r,
+// 12 bytes R0 G0 B0 R1 | G1 B1 R2 G2 | B2 R3 G3 B3.  Group thread i takes
+// quads (t, h) = (i/2 % T, i % 2) of rows i / (2T) + (kThreads / 2T)·j,
+// the same cells in every band: T/16 quads per thread.
 template <class V>
-struct Groups {
+struct Quads {
   static constexpr int kPerThread = V::kTiles / 16;
   static constexpr int kRowStep = kThreads / (2 * V::kTiles);
-  static_assert(8 * 2 * V::kTiles == kPerThread * kThreads, "whole groups");
+  static_assert(8 * 2 * V::kTiles == kPerThread * kThreads, "whole quads");
 };
 
 // Colour of four pixels per thread → bf16 operands in shared memory: luma
 // (T × 64), Cr and Cb (T × 32) each.  Chroma is computed for the odd
-// columns only (the 4:2:2 pick).
+// columns only (the 4:2:2 pick).  A band on the aligned route whose rows
+// and columns all lie inside the frame (every band but a frame's last
+// block row or column of bands) is read from its ring slot `buf` with no
+// test a quad; any other band is read from device memory, where padding
+// pixels are Y = Cr = Cb = 0 (the direct route, and a staged band at an
+// edge).
 template <class V>
-__device__ __forceinline__ void convert_band(Smem<V>& sm, const uint8_t* buf,
+__device__ __forceinline__ void convert_band(Group<V>& gr, const uint8_t* buf,
                                              const Band& b, int row_bytes,
-                                             bool staged) {
+                                             bool staged, int tid) {
   constexpr bool kChroma = V::kChannels == 3;
-  const int gi = threadIdx.x & (2 * V::kTiles - 1);
+  constexpr uint32_t kZero = 0x4B000000u;  // the sample word of v = 0
+  const int gi = tid & (2 * V::kTiles - 1);
   const int t = gi >> 1;
   const int h = gi & 1;
   const int pc = 8 * t + 4 * h;  // band-relative pixel column
-  const int in_cols = max(0, min(4, b.cols - pc));
+  const int r0 = tid / (2 * V::kTiles);
+  // Four pixels' sample words (y0..y3 and the odd columns' chroma) → the
+  // quad's bf16 operands of row r.
+  const auto put = [&](int r, uint32_t y0, uint32_t y1, uint32_t y2,
+                       uint32_t y3, uint32_t cr1, uint32_t cr3, uint32_t cb1,
+                       uint32_t cb3) {
+    *reinterpret_cast<uint2*>(&gr.lum[t * kLumStride + r * 8 + 4 * h]) =
+        make_uint2(bf16_pair_of<V::kCentred>(y0, y1),
+                   bf16_pair_of<V::kCentred>(y2, y3));
+    if constexpr (kChroma) {
+      // Odd columns 1 and 3 of the quad are chroma samples 2h and 2h + 1.
+      *reinterpret_cast<uint32_t*>(&gr.chr[0][t * kChrStride + r * 4 + 2 * h]) =
+          bf16_pair_of<V::kCentred>(cr1, cr3);
+      *reinterpret_cast<uint32_t*>(&gr.chr[1][t * kChrStride + r * 4 + 2 * h]) =
+          bf16_pair_of<V::kCentred>(cb1, cb3);
+    }
+  };
+  if (staged && b.rows == 8 && b.cols >= V::kTiles * 8) {
 #pragma unroll
-  for (int j = 0; j < Groups<V>::kPerThread; ++j) {
-    const int r = threadIdx.x / (2 * V::kTiles) + Groups<V>::kRowStep * j;
-    const int valid = r < b.rows ? in_cols : 0;
-    uint32_t w0, w1, w2, y0, y1, y2, y3, cr1 = 0, cr3 = 0, cb1 = 0, cb3 = 0;
-    if (staged && valid == 4) {  // the aligned route: all four pixels inside
+    for (int j = 0; j < Quads<V>::kPerThread; ++j) {
+      const int r = r0 + Quads<V>::kRowStep * j;
       const uint32_t* src =
           reinterpret_cast<const uint32_t*>(buf + r * V::kRowBytes + 12 * gi);
-      w0 = src[0];
-      w1 = src[1];
-      w2 = src[2];
+      const uint32_t w0 = src[0], w1 = src[1], w2 = src[2];
       if constexpr (V::kColour == Colour::kYCbCr) {
-        // Pixels 0-3 as words whose bytes 0-2 (pixel 3: 1-3) are R, G, B.
-        const uint32_t p1 = __byte_perm(w0, w1, 0x0543);
-        const uint32_t p2 = __byte_perm(w1, w2, 0x0432);
-        y0 = colour<0>(w0, kYHi, kYLo, 0);
-        y1 = colour<0>(p1, kYHi, kYLo, 0);
-        y2 = colour<0>(p2, kYHi, kYLo, 0);
-        y3 = colour<8>(w2, kYHi, kYLo, 0);
+        uint32_t cr1 = kZero, cr3 = kZero, cb1 = kZero, cb3 = kZero;
         if constexpr (kChroma) {
-          cr1 = colour<0>(p1, kCrHi, kCrLo, 128000);
-          cr3 = colour<8>(w2, kCrHi, kCrLo, 128000);
-          cb1 = colour<0>(p1, kCbHi, kCbLo, 128000);
-          cb3 = colour<8>(w2, kCbHi, kCbLo, 128000);
+          cr1 = colour<3, Chan::kCr>(w0, w1);
+          cr3 = colour<1, Chan::kCr>(w2, 0u);
+          cb1 = colour<3, Chan::kCb>(w0, w1);
+          cb3 = colour<1, Chan::kCb>(w2, 0u);
         }
+        put(r, colour<0, Chan::kY>(w0, w1), colour<3, Chan::kY>(w0, w1),
+            colour<2, Chan::kY>(w1, w2), colour<1, Chan::kY>(w2, 0u), cr1,
+            cr3, cb1, cb3);
       } else {  // R0 = byte 0, R1 = byte 3, R2 = byte 6, R3 = byte 9
-        y0 = w0 & 0xffu;
-        y1 = w0 >> 24;
-        y2 = (w1 >> 16) & 0xffu;
-        y3 = (w2 >> 8) & 0xffu;
+        const uint32_t y1 = kZero | (w0 >> 24), y3 = kZero | ((w2 >> 8) & 0xffu);
         if constexpr (V::kColour == Colour::kR) {
-          cr1 = cb1 = y1;
-          cr3 = cb3 = y3;
+          put(r, kZero | (w0 & 0xffu), y1, kZero | ((w1 >> 16) & 0xffu), y3,
+              y1, y3, y1, y3);
         } else {  // G1 = byte 4, G3 = byte 10; B1 = byte 5, B3 = byte 11
-          cr1 = w1 & 0xffu;
-          cr3 = (w2 >> 16) & 0xffu;
-          cb1 = (w1 >> 8) & 0xffu;
-          cb3 = w2 >> 24;
+          put(r, kZero | (w0 & 0xffu), y1, kZero | ((w1 >> 16) & 0xffu), y3,
+              kZero | (w1 & 0xffu), kZero | ((w2 >> 16) & 0xffu),
+              kZero | ((w1 >> 8) & 0xffu), kZero | (w2 >> 24));
         }
-      }
-    } else {  // bytes from device memory; padding pixels are Y = Cr = Cb = 0
-      const uint8_t* src = b.src + r * row_bytes + pc * 3;
-      uint32_t px[4] = {0u, 0u, 0u, 0u};
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        if (i < valid) {
-          px[i] = src[3 * i] | (static_cast<uint32_t>(src[3 * i + 1]) << 8) |
-                  (static_cast<uint32_t>(src[3 * i + 2]) << 16);
-        }
-      }
-      if constexpr (V::kColour == Colour::kYCbCr) {
-        y0 = valid > 0 ? colour<0>(px[0], kYHi, kYLo, 0) : 0u;
-        y1 = valid > 1 ? colour<0>(px[1], kYHi, kYLo, 0) : 0u;
-        y2 = valid > 2 ? colour<0>(px[2], kYHi, kYLo, 0) : 0u;
-        y3 = valid > 3 ? colour<0>(px[3], kYHi, kYLo, 0) : 0u;
-        if constexpr (kChroma) {
-          cr1 = valid > 1 ? colour<0>(px[1], kCrHi, kCrLo, 128000) : 0u;
-          cr3 = valid > 3 ? colour<0>(px[3], kCrHi, kCrLo, 128000) : 0u;
-          cb1 = valid > 1 ? colour<0>(px[1], kCbHi, kCbLo, 128000) : 0u;
-          cb3 = valid > 3 ? colour<0>(px[3], kCbHi, kCbLo, 128000) : 0u;
-        }
-      } else {
-        y0 = px[0] & 0xffu;
-        y1 = px[1] & 0xffu;
-        y2 = px[2] & 0xffu;
-        y3 = px[3] & 0xffu;
-        const int shift = V::kColour == Colour::kR ? 0 : 8;
-        cr1 = (px[1] >> shift) & 0xffu;
-        cr3 = (px[3] >> shift) & 0xffu;
-        cb1 = (px[1] >> 2 * shift) & 0xffu;
-        cb3 = (px[3] >> 2 * shift) & 0xffu;
       }
     }
-    *reinterpret_cast<uint2*>(&sm.lum[t * kLumStride + r * 8 + 4 * h]) =
-        make_uint2(bf16_pair<V::kCentred>(y0, y1),
-                   bf16_pair<V::kCentred>(y2, y3));
-    if constexpr (kChroma) {
-      // Odd columns 1 and 3 of the group are chroma samples 2h and 2h + 1.
-      *reinterpret_cast<uint32_t*>(&sm.chr[0][t * kChrStride + r * 4 + 2 * h]) =
-          bf16_pair<V::kCentred>(cr1, cr3);
-      *reinterpret_cast<uint32_t*>(&sm.chr[1][t * kChrStride + r * 4 + 2 * h]) =
-          bf16_pair<V::kCentred>(cb1, cb3);
+    return;
+  }
+  const int in_cols = max(0, min(4, b.cols - pc));
+#pragma unroll
+  for (int j = 0; j < Quads<V>::kPerThread; ++j) {
+    const int r = r0 + Quads<V>::kRowStep * j;
+    const int valid = r < b.rows ? in_cols : 0;
+    const uint8_t* src = b.src + r * row_bytes + pc * 3;
+    uint32_t px[4] = {0u, 0u, 0u, 0u};
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      if (i < valid) {
+        px[i] = src[3 * i] | (static_cast<uint32_t>(src[3 * i + 1]) << 8) |
+                (static_cast<uint32_t>(src[3 * i + 2]) << 16);
+      }
+    }
+    if constexpr (V::kColour == Colour::kYCbCr) {
+      uint32_t cr1 = kZero, cr3 = kZero, cb1 = kZero, cb3 = kZero;
+      if constexpr (kChroma) {
+        cr1 = valid > 1 ? colour<0, Chan::kCr>(px[1], 0u) : kZero;
+        cr3 = valid > 3 ? colour<0, Chan::kCr>(px[3], 0u) : kZero;
+        cb1 = valid > 1 ? colour<0, Chan::kCb>(px[1], 0u) : kZero;
+        cb3 = valid > 3 ? colour<0, Chan::kCb>(px[3], 0u) : kZero;
+      }
+      put(r, valid > 0 ? colour<0, Chan::kY>(px[0], 0u) : kZero,
+          valid > 1 ? colour<0, Chan::kY>(px[1], 0u) : kZero,
+          valid > 2 ? colour<0, Chan::kY>(px[2], 0u) : kZero,
+          valid > 3 ? colour<0, Chan::kY>(px[3], 0u) : kZero, cr1, cr3, cb1,
+          cb3);
+    } else {
+      const int shift = V::kColour == Colour::kR ? 0 : 8;
+      put(r, kZero | (px[0] & 0xffu), kZero | (px[1] & 0xffu),
+          kZero | (px[2] & 0xffu), kZero | (px[3] & 0xffu),
+          kZero | ((px[1] >> shift) & 0xffu), kZero | ((px[3] >> shift) & 0xffu),
+          kZero | ((px[1] >> 2 * shift) & 0xffu),
+          kZero | ((px[3] >> 2 * shift) & 0xffu));
     }
   }
 }
@@ -392,10 +490,11 @@ __device__ __forceinline__ void convert_band(Smem<V>& sm, const uint8_t* buf,
 // to the coefficient-major staging, lanes 0-63, 64-95 and 96-127: as u8, as
 // i16, or through f32 with lanes 64-95 holding G + B.
 template <class V>
-__device__ __forceinline__ void convert_bare(Smem<V>& sm, const uint8_t* buf) {
+__device__ __forceinline__ void convert_bare(Group<V>& gr, const uint8_t* buf,
+                                             int tid) {
   using Out = typename V::Out;
-  Out* q = reinterpret_cast<Out*>(sm.q);
-  const int gi = threadIdx.x & (2 * V::kTiles - 1);
+  Out* q = reinterpret_cast<Out*>(gr.q);
+  const int gi = tid & (2 * V::kTiles - 1);
   const int t = gi >> 1;
   const int h = gi & 1;
   const auto put = [&](int lane, uint32_t v) {
@@ -405,8 +504,8 @@ __device__ __forceinline__ void convert_bare(Smem<V>& sm, const uint8_t* buf) {
     return static_cast<uint32_t>(__float2int_rz(__uint2float_rn(v)));
   };
 #pragma unroll
-  for (int j = 0; j < Groups<V>::kPerThread; ++j) {
-    const int r = threadIdx.x / (2 * V::kTiles) + Groups<V>::kRowStep * j;
+  for (int j = 0; j < Quads<V>::kPerThread; ++j) {
+    const int r = tid / (2 * V::kTiles) + Quads<V>::kRowStep * j;
     const uint32_t* src =
         reinterpret_cast<const uint32_t*>(buf + r * V::kRowBytes + 12 * gi);
     const uint32_t w0 = src[0], w1 = src[1], w2 = src[2];
@@ -438,44 +537,22 @@ __device__ __forceinline__ void convert_bare(Smem<V>& sm, const uint8_t* buf) {
   }
 }
 
-// One (16 tiles × 8 lanes) output block: ksteps k16-steps over the operand
-// rows of m-tile mt, one pass (hi) or three (lo, mid, hi), into q: row-major
+// The epilogue of one mma accumulator: d[0], d[1] are (row, c), (row, c +
+// 1) and d[2], d[3] the same columns of row + 8, each the sum of the two
+// chains (lo + mid and hi, added once) or hi's alone; into q: row-major
 // (tile, lane) for block-major output, (lane, tile) otherwise.
-template <class V, int KSteps, int Stride>
-__device__ __forceinline__ void product(const uint16_t* op, int mt,
-                                        const uint32_t (&bf)[V::kParts][KSteps][2],
-                                        int16_t* q, int col) {
-  const int lane = threadIdx.x & 31;
-  uint32_t a[KSteps][4];
-#pragma unroll
-  for (int ks = 0; ks < KSteps; ++ks) {
-    ldmatrix_x4(a[ks], op + (16 * mt + (lane & 15)) * Stride + 16 * ks +
-                           (lane >> 4) * 8);
-  }
-  // Two mma chains: lo then mid into one accumulator, hi into the other.
-  float small[4] = {}, large[4] = {};
-#pragma unroll
-  for (int ks = 0; ks < KSteps; ++ks) {
-    if constexpr (V::kParts == 3) {
-      mma_bf16(small, a[ks], bf[2][ks][0], bf[2][ks][1]);
-    }
-    mma_bf16(large, a[ks], bf[0][ks][0], bf[0][ks][1]);
-  }
-  if constexpr (V::kParts == 3) {
-#pragma unroll
-    for (int ks = 0; ks < KSteps; ++ks) {
-      mma_bf16(small, a[ks], bf[1][ks][0], bf[1][ks][1]);
-    }
-  }
-  const int row = 16 * mt + (lane >> 2);
-  const int c = col + 2 * (lane & 3);
+template <class V>
+__device__ __forceinline__ void put_block(const float (&small)[4],
+                                          const float (&large)[4], int16_t* q,
+                                          int row, int c) {
   const auto sum = [&](int i) {
     return V::kParts == 3 ? __fadd_rn(small[i], large[i]) : large[i];
   };
   if constexpr (V::kBlockMajor) {
     const auto pack = [](float first, float second) {
-      return (static_cast<uint32_t>(to_int<V::kCentred>(first)) & 0xffffu) |
-             (static_cast<uint32_t>(to_int<V::kCentred>(second)) << 16);
+      return __byte_perm(static_cast<uint32_t>(to_int<V::kCentred>(first)),
+                         static_cast<uint32_t>(to_int<V::kCentred>(second)),
+                         0x5410);
     };
     *reinterpret_cast<uint32_t*>(&q[row * kQStride + c]) = pack(sum(0), sum(1));
     *reinterpret_cast<uint32_t*>(&q[(row + 8) * kQStride + c]) =
@@ -489,10 +566,64 @@ __device__ __forceinline__ void product(const uint16_t* op, int mt,
   }
 }
 
+// One m-tile (16 tiles) of the product for this warp's columns: 8 luma
+// lanes at lum_col (depth 64) and, with chroma, 8 lanes of its chroma
+// channel at chr_col (depth 32), one pass (hi) or three (lo, mid, hi).  The
+// luma and chroma chains are written interleaved, four independent
+// accumulators, so that ptxas may overlap them where registers allow (one
+// product's two chains alone leave the tensor pipe's latency between
+// dependent mma).  Each chain sums lo then mid into one accumulator, hi
+// into the other.
+template <class V>
+__device__ __forceinline__ void product(const Group<V>& gr, int mt, int ch,
+                                        const uint32_t (&bl)[V::kParts][4][2],
+                                        const uint32_t (&bc)[V::kParts][2][2],
+                                        int16_t* q, int lum_col, int chr_col) {
+  constexpr bool kChroma = V::kChannels == 3;
+  const int lane = threadIdx.x & 31;
+  uint32_t al[4][4], ac[2][4];
+#pragma unroll
+  for (int ks = 0; ks < 4; ++ks) {
+    ldmatrix_x4(al[ks], gr.lum + (16 * mt + (lane & 15)) * kLumStride +
+                            16 * ks + (lane >> 4) * 8);
+  }
+  if constexpr (kChroma) {
+#pragma unroll
+    for (int ks = 0; ks < 2; ++ks) {
+      ldmatrix_x4(ac[ks], gr.chr[ch] + (16 * mt + (lane & 15)) * kChrStride +
+                              16 * ks + (lane >> 4) * 8);
+    }
+  }
+  float ls[4] = {}, ll[4] = {}, cs[4] = {}, cl[4] = {};
+#pragma unroll
+  for (int ks = 0; ks < 4; ++ks) {
+    if constexpr (V::kParts == 3) mma_bf16(ls, al[ks], bl[2][ks][0], bl[2][ks][1]);
+    mma_bf16(ll, al[ks], bl[0][ks][0], bl[0][ks][1]);
+    if (kChroma && ks < 2) {
+      if constexpr (V::kParts == 3) mma_bf16(cs, ac[ks], bc[2][ks][0], bc[2][ks][1]);
+      mma_bf16(cl, ac[ks], bc[0][ks][0], bc[0][ks][1]);
+    }
+  }
+  if constexpr (V::kParts == 3) {
+#pragma unroll
+    for (int ks = 0; ks < 4; ++ks) {
+      mma_bf16(ls, al[ks], bl[1][ks][0], bl[1][ks][1]);
+      if (kChroma && ks < 2) mma_bf16(cs, ac[ks], bc[1][ks][0], bc[1][ks][1]);
+    }
+  }
+  const int row = 16 * mt + (lane >> 2);
+  put_block<V>(ls, ll, q, row, lum_col + 2 * (lane & 3));
+  if constexpr (kChroma) put_block<V>(cs, cl, q, row, chr_col + 2 * (lane & 3));
+}
+
 // The sparse deltas of the 8 staged lanes at qr, segment-local (the lane
 // before the first is one 2-byte shared read, none at a segment's start),
 // plus kBias where a run starts and 0 elsewhere; they wrap modulo 2^16 like
-// the reference's int16 cast.
+// the reference's int16 cast.  Only each difference's low 16 bits are
+// kept, so the low half x0 of a word w = x1:x0 needs no extracting: x0 -
+// prev and x1 - x0 are w - prev and x1 - w there, and x0 == prev is a zero
+// low half of w ^ prev (profiles/megakernel.py::sparse_deltas_fast mirrors
+// it).
 __device__ __forceinline__ uint4 sparse_deltas(const int16_t* qr,
                                                bool seg_first) {
   const uint4 v = *reinterpret_cast<const uint4*>(qr);
@@ -501,42 +632,49 @@ __device__ __forceinline__ uint4 sparse_deltas(const int16_t* qr,
   uint32_t d[4];
 #pragma unroll
   for (int e = 0; e < 4; ++e) {
-    const uint32_t x0 = word[e] & 0xffffu, x1 = word[e] >> 16;
-    const uint32_t d0 = (e == 0 && seg_first) || x0 != prev ? x0 - prev + kBias : 0u;
-    const uint32_t d1 = x1 != x0 ? x1 - x0 + kBias : 0u;
-    d[e] = __byte_perm(d0, d1, 0x5410);
+    const uint32_t w = word[e], x1 = w >> 16;
+    const bool run0 = (e == 0 && seg_first) || ((w ^ prev) & 0xffffu) != 0;
+    const bool run1 = ((x1 ^ w) & 0xffffu) != 0;
+    d[e] = __byte_perm(run0 ? w - prev + kBias : 0u,
+                       run1 ? x1 - w + kBias : 0u, 0x5410);
     prev = x1;
   }
   return make_uint4(d[0], d[1], d[2], d[3]);
 }
 
-// Block-major store: thread i takes lanes 8c..8c+7 (c = i % (lanes/8)) of
-// staged rows i/(lanes/8), + kThreads/(lanes/8), ... and writes each as one
-// 16-byte store: each output row goes out coalesced.  The sparse stage
-// forms the segment-local deltas first (segments start at lanes 0, 64 and
-// 96).
+// Block-major rows into the group's unpadded `out`: thread i takes lanes
+// 8c..8c+7 (c = i % (lanes/8)) of staged rows i/(lanes/8), + kThreads /
+// (lanes/8), ... as one 16-byte read and one 16-byte write; the sparse
+// stage forms the segment-local deltas on the way (segments start at lanes
+// 0, 64 and 96).  Rows past the band's tiles are formed too and never
+// stored.  Then the band's b.tiles rows leave by one bulk store, issued by
+// the group's thread 0 once every thread has written its rows.
 template <class V>
-__device__ __forceinline__ void store_rows(const Smem<V>& sm, const Band& b,
-                                           int16_t* __restrict__ out) {
+__device__ __forceinline__ void store_rows(Group<V>& gr,
+                                           int16_t* __restrict__ out, int g,
+                                           int tid) {
   constexpr int kPerRow = V::kLanes / 8;  // threads per output row
   constexpr int kRowsPerPass = kThreads / kPerRow;
-  const int c = threadIdx.x & (kPerRow - 1);
+  const int c = tid & (kPerRow - 1);
   const bool seg_first =
       V::kChannels == 3 ? c == 0 || c == 8 || c == 12 : c == 0;
-  uint4* dst = reinterpret_cast<uint4*>(out + b.out_row * V::kLanes) +
-               (threadIdx.x / kPerRow) * kPerRow + c;
-  const int16_t* src = sm.q + (threadIdx.x / kPerRow) * kQStride + 8 * c;
-  const int rows = b.tiles - (threadIdx.x / kPerRow);
+  const int r0 = tid / kPerRow;
+  const int16_t* src = gr.q + r0 * kQStride + 8 * c;
+  uint4* dst = reinterpret_cast<uint4*>(gr.out) + r0 * kPerRow + c;
 #pragma unroll
   for (int j = 0; j < V::kTiles * kPerRow / kThreads; ++j) {
-    if (j * kRowsPerPass >= rows) break;
     const int16_t* qr = src + j * kRowsPerPass * kQStride;
     if constexpr (V::kStage == Stage::kSparse) {
-      __stcs(dst + j * kRowsPerPass * kPerRow, sparse_deltas(qr, seg_first));
+      dst[j * kRowsPerPass * kPerRow] = sparse_deltas(qr, seg_first);
     } else {
-      __stcs(dst + j * kRowsPerPass * kPerRow,
-             *reinterpret_cast<const uint4*>(qr));
+      dst[j * kRowsPerPass * kPerRow] = *reinterpret_cast<const uint4*>(qr);
     }
+  }
+  fence_proxy_async();  // these writes before the bulk store's reads
+  group_sync(g);
+  if (tid == 0) {
+    bulk_store(out + gr.band.out_row * V::kLanes, gr.out,
+               static_cast<uint32_t>(gr.band.tiles) * V::kLanes * 2);
   }
 }
 
@@ -547,19 +685,19 @@ __device__ __forceinline__ void store_rows(const Smem<V>& sm, const Band& b,
 // that is short or a run that is not 16-byte aligned goes out element by
 // element.
 template <class V>
-__device__ __forceinline__ void store_lanes(const Smem<V>& sm, const Band& b,
+__device__ __forceinline__ void store_lanes(const Group<V>& gr, const Band& b,
                                             typename V::Out* __restrict__ out,
-                                            int64_t n_blocks) {
+                                            int64_t n_blocks, int tid) {
   using Out = typename V::Out;
   constexpr int kPer = 16 / static_cast<int>(sizeof(Out));  // per chunk
   constexpr int kChunks = V::kTiles / kPer;                  // per lane row
   constexpr int kTotal = V::kLanes * kChunks;
-  const Out* q = reinterpret_cast<const Out*>(sm.q);
+  const Out* q = reinterpret_cast<const Out*>(gr.q);
   const bool whole = b.tiles == V::kTiles && n_blocks % kPer == 0 &&
                      b.out_row % kPer == 0;
 #pragma unroll
   for (int j = 0; j < (kTotal + kThreads - 1) / kThreads; ++j) {
-    const int i = threadIdx.x + j * kThreads;
+    const int i = tid + j * kThreads;
     if (kTotal % kThreads != 0 && i >= kTotal) break;
     const int lane = i / kChunks;
     const int k = i - lane * kChunks;
@@ -604,7 +742,7 @@ __device__ __forceinline__ void store_lanes(const Smem<V>& sm, const Band& b,
 // A KT band is T consecutive blocks n0..n0+T-1 of the (3, 64, N) u8 array:
 // 192 row pieces (channel c, position p = 8r + col) of T bytes each, at
 // stride N.  Piece ρ = 64c + p is T/16 chunks of 16 bytes; chunk j of piece
-// ρ lands in the ring buffer at chunk index g ^ (ρ & 7), g = ρ·(T/16) + j.
+// ρ lands in the ring slot at chunk index g ^ (ρ & 7), g = ρ·(T/16) + j.
 // The XOR keeps each aligned group of 8 chunks (one 128-byte row of the 32
 // banks) and is a bijection; it lets 8 lanes that read the same chunk j of
 // 8 pieces whose positions differ mod 8 hit 8 different 16-byte bank
@@ -623,25 +761,25 @@ __device__ __forceinline__ uint32_t kt_word(const uint8_t* buf, int piece,
                                             4 * w);
 }
 
-// Start the 16-byte copies of one KT band: T/16 chunks of each piece the
-// variant reads, thread i copying chunks i, i + kThreads, ...  A product
+// The producer warp's 16-byte copies of one KT band: T/16 chunks of each
+// piece the variant reads, lane i copying chunks i, i + 32, ...  A product
 // reads all 192 pieces; the i16 cast only R[0:64], G[0:32] and B[0:32]
 // (pieces 0-95 and 128-159: its 128·T bytes).  A short last band (tiles <
 // T, a multiple of 16 since N % 16 == 0) copies its whole chunks only; the
-// rest of the buffer keeps stale bytes, whose outputs are never stored.
+// rest of the slot keeps stale bytes, whose outputs are never stored.
 template <class V>
 __device__ __forceinline__ void load_kt(uint8_t* buf, const uint8_t* src,
-                                        int64_t n_blocks, int tiles) {
+                                        int64_t n_blocks, int tiles, int lane) {
   constexpr int kPer = V::kTiles / 16;
   constexpr int kTotal = (V::kProduct ? 192 : 128) * kPer;
   const int chunks = tiles / 16;
-#pragma unroll
-  for (int j = 0; j < (kTotal + kThreads - 1) / kThreads; ++j) {
-    const int i = threadIdx.x + j * kThreads;
+#pragma unroll 4
+  for (int j = 0; j < kTotal / 32; ++j) {
+    const int i = lane + j * 32;
     const int k = i / kPer;
     const int c = i - k * kPer;
     const int piece = V::kProduct || k < 96 ? k : k + 32;
-    if ((kTotal % kThreads == 0 || i < kTotal) && c < chunks) {
+    if (c < chunks) {
       cp_async16(buf + kt_chunk_offset<V>(piece, c),
                  src + piece * n_blocks + c * 16);
     }
@@ -649,7 +787,7 @@ __device__ __forceinline__ void load_kt(uint8_t* buf, const uint8_t* src,
 }
 
 // A thread's share of a KT band: units of (8 position pairs × 4 tile quads
-// of one chunk j), lane = 8·w + qq holding pair q = 8·(group) + qq (the
+// of one chunk j), lane = 8·w + qq holding pair q = 8·(unit) + qq (the
 // positions 2q and 2q + 1) and tiles 16j + 4w .. + 3.  Lanes 4-7 of each 8
 // read the odd position first, so each read instruction's 8 pieces differ
 // mod 8 (conflict-free under the swizzle).  Lanes w = 2, 3 walk their four
@@ -676,8 +814,7 @@ struct KtLane {
 };
 
 // Byte s of the R, G and B words as one pixel word whose bytes 0-2 are R, G,
-// B (byte 3 is R again: every colour coefficient word is 0 there), the
-// input of colour<0>.
+// B (byte 3 is R again: colour<0> reads bytes 0-2 only).
 __device__ __forceinline__ uint32_t kt_pixel(uint32_t r, uint32_t g, uint32_t b,
                                              int s) {
   const uint32_t rg = __byte_perm(r, g, s | ((s + 4) << 4));
@@ -689,11 +826,12 @@ __device__ __forceinline__ uint32_t kt_pixel(uint32_t r, uint32_t g, uint32_t b,
 // for the same blocks: chroma is computed for the odd columns, position
 // 8r + 2c' + 1 → chroma sample 4r + c' = q.
 template <class V>
-__device__ __forceinline__ void convert_kt(Smem<V>& sm, const uint8_t* buf) {
+__device__ __forceinline__ void convert_kt(Group<V>& gr, const uint8_t* buf,
+                                           int tid) {
   const KtLane ln;
 #pragma unroll
   for (int m = 0; m < V::kTiles / 32; ++m) {
-    const int u = (threadIdx.x >> 5) + 8 * m;
+    const int u = (tid >> 5) + 8 * m;
     const int q = 8 * (u & 3) + ln.qq;
     const int j = u >> 2;
     uint32_t e[3], o[3];
@@ -705,13 +843,12 @@ __device__ __forceinline__ void convert_kt(Smem<V>& sm, const uint8_t* buf) {
       const int t = 16 * j + 4 * ln.w + s;
       const uint32_t pe = kt_pixel(e[0], e[1], e[2], s);
       const uint32_t po = kt_pixel(o[0], o[1], o[2], s);
-      *reinterpret_cast<uint32_t*>(&sm.lum[t * kLumStride + 2 * q]) =
-          bf16_pair<true>(colour<0>(pe, kYHi, kYLo, 0),
-                          colour<0>(po, kYHi, kYLo, 0));
-      sm.chr[0][t * kChrStride + q] = static_cast<uint16_t>(
-          sample<true>(colour<0>(po, kCrHi, kCrLo, 128000)) >> 16);
-      sm.chr[1][t * kChrStride + q] = static_cast<uint16_t>(
-          sample<true>(colour<0>(po, kCbHi, kCbLo, 128000)) >> 16);
+      *reinterpret_cast<uint32_t*>(&gr.lum[t * kLumStride + 2 * q]) =
+          bf16_pair_of<true>(colour<0, Chan::kY>(pe, 0u), colour<0, Chan::kY>(po, 0u));
+      gr.chr[0][t * kChrStride + q] = static_cast<uint16_t>(
+          sample_of<true>(colour<0, Chan::kCr>(po, 0u)) >> 16);
+      gr.chr[1][t * kChrStride + q] = static_cast<uint16_t>(
+          sample_of<true>(colour<0, Chan::kCb>(po, 0u)) >> 16);
     }
   }
 }
@@ -719,14 +856,14 @@ __device__ __forceinline__ void convert_kt(Smem<V>& sm, const uint8_t* buf) {
 // The i16 cast of a KT band, block-major: lanes 0-63, 64-95 and 96-127 of
 // tile t's staged row are R[0:64], G[0:32] and B[0:32] of block t (v2's
 // "copy" mode).  Pairs q = 0..63 of output lanes; 8 pairs of one channel per
-// lane group.
+// lane octet.
 template <class V>
-__device__ __forceinline__ void convert_kt_bare(Smem<V>& sm,
-                                                const uint8_t* buf) {
+__device__ __forceinline__ void convert_kt_bare(Group<V>& gr,
+                                                const uint8_t* buf, int tid) {
   const KtLane ln;
 #pragma unroll
   for (int m = 0; m < V::kTiles / 16; ++m) {
-    const int u = (threadIdx.x >> 5) + 8 * m;
+    const int u = (tid >> 5) + 8 * m;
     const int q = 8 * (u & 7) + ln.qq;
     const int j = u >> 3;
     const int c = q < 32 ? 0 : (q < 48 ? 1 : 2);
@@ -736,7 +873,7 @@ __device__ __forceinline__ void convert_kt_bare(Smem<V>& sm,
     for (int i = 0; i < 4; ++i) {
       const int s = i ^ ln.rot;
       const int t = 16 * j + 4 * ln.w + s;
-      *reinterpret_cast<uint32_t*>(&sm.q[t * kQStride + 2 * q]) =
+      *reinterpret_cast<uint32_t*>(&gr.q[t * kQStride + 2 * q]) =
           __byte_perm(e, o, s | ((s + 4) << 8)) & 0x00ff00ffu;
     }
   }
@@ -822,28 +959,28 @@ struct KtOut {
   void* p[6];
 };
 
-// The split store: the block-major store's threads and sparse deltas, each
+// The split store: the block-major rows' threads and sparse deltas, each
 // 16-byte piece going to the segment's own output; then the number of
 // nonzero words of each segment (every run's first word is nonzero: slot 0
 // carries kBias, a later start a nonzero delta), summed over the segment's
 // 8 or 4 threads by shuffles, written by its first thread.
 template <class V>
-__device__ __forceinline__ void store_split(const Smem<V>& sm, const Band& b,
-                                            const KtOut& out) {
+__device__ __forceinline__ void store_split(const Group<V>& gr, const Band& b,
+                                            const KtOut& out, int tid) {
   constexpr int kPerRow = 16;
   constexpr int kRowsPerPass = kThreads / kPerRow;
-  const int c = threadIdx.x & (kPerRow - 1);
+  const int c = tid & (kPerRow - 1);
   const int seg = c < 8 ? 0 : (c < 12 ? 1 : 2);
   const int first = seg == 0 ? 0 : 4 + 4 * seg;
   const int width = seg == 0 ? 64 : 32;
-  const int r0 = threadIdx.x / kPerRow;
+  const int r0 = tid / kPerRow;
   // Pointers by selects: an index into out.p would put it in local memory.
   void* const seg_out = seg == 0 ? out.p[0] : (seg == 1 ? out.p[1] : out.p[2]);
   void* const seg_runs = seg == 0 ? out.p[3] : (seg == 1 ? out.p[4] : out.p[5]);
   int16_t* dst = static_cast<int16_t*>(seg_out) + (b.out_row + r0) * width +
                  8 * (c - first);
   int32_t* runs = static_cast<int32_t*>(seg_runs) + b.out_row + r0;
-  const int16_t* src = sm.q + r0 * kQStride + 8 * c;
+  const int16_t* src = gr.q + r0 * kQStride + 8 * c;
 #pragma unroll
   for (int j = 0; j < V::kTiles / kRowsPerPass; ++j) {
     const uint4 d = sparse_deltas(src + j * kRowsPerPass * kQStride, c == first);
@@ -863,7 +1000,7 @@ __device__ __forceinline__ void store_split(const Smem<V>& sm, const Band& b,
 // Basis fragments as B operands ("col" layout: lane holds rows n = lane/4,
 // depth pairs 2·(lane%4) and +8), loaded once per CTA.  Luma columns
 // 8w..8w+7; chroma columns 8(w%4).. of channel w/4 (Cr and Cb share the
-// basis).
+// basis).  w is the warp within its group.
 template <class V>
 __device__ __forceinline__ void load_basis_b(const uint16_t* parts, int warp,
                                              int lane,
@@ -894,6 +1031,7 @@ template <class V>
 __device__ __forceinline__ Band kt_band_at(const uint8_t* kt, uint32_t band,
                                            int64_t n_blocks) {
   Band b;
+  b.index = band;
   b.out_row = static_cast<int64_t>(band) * V::kTiles;
   b.src = kt + b.out_row;
   b.rows = 8;
@@ -904,143 +1042,198 @@ __device__ __forceinline__ Band kt_band_at(const uint8_t* kt, uint32_t band,
 }
 
 // Where a variant's bands come from, as the band loop asks for them: a
-// band's geometry, its cp.async copies into a ring buffer, and its convert
-// steps (colour into the bf16 operands, or the bare copy into the staging).
-// Image bands of (B, H, W, 3) RGB (K1):
+// band's geometry, the producer's copies of it into a ring slot, and its
+// convert steps (colour into the bf16 operands, or the bare copy into the
+// staging).  Image bands of (B, H, W, 3) RGB (K1): on the staged route the
+// producer's lane 0 copies the band's rows inside the frame, each
+// min(T·8, cols)·3 bytes (a multiple of 48 where W % 16 == 0) at stride
+// W·3, by one 1-D bulk copy a row with the band's bytes as the full
+// barrier's transaction count; on the direct route it copies nothing, and
+// the consumers read device memory.
 template <class V>
 struct RgbBands {
+  static constexpr int kFullCount = 1;  // lane 0's arrival (with its bytes)
   const uint8_t* rgb;
   int height, width, bpc, bpr, bands_per_row, row_bytes;
+  bool staged;
   __device__ __forceinline__ Band at(uint32_t band) const {
     return band_at<V>(rgb, band, height, width, bpc, bpr, bands_per_row);
   }
-  __device__ __forceinline__ void load(uint8_t* buf, const Band& b) const {
-    load_band<V>(buf, b, row_bytes);
+  __device__ __forceinline__ void produce(uint8_t* buf, const Band& b,
+                                          uint64_t* full, int lane) const {
+    if (lane != 0) return;
+    if (!staged) {
+      mbar_arrive(full);
+      return;
+    }
+    const uint32_t len = static_cast<uint32_t>(min(V::kTiles * 8, b.cols) * 3);
+    mbar_expect_tx(full, static_cast<uint32_t>(b.rows) * len);
+#pragma unroll
+    for (int r = 0; r < 8; ++r) {
+      if (r < b.rows) {
+        bulk_load(buf + r * V::kRowBytes, b.src + r * row_bytes, len, full);
+      }
+    }
   }
-  __device__ __forceinline__ void convert(Smem<V>& sm, const uint8_t* buf,
-                                          const Band& b, bool staged) const {
-    convert_band<V>(sm, buf, b, row_bytes, staged);
+  __device__ __forceinline__ void convert(Group<V>& gr, const uint8_t* buf,
+                                          const Band& b, int tid) const {
+    convert_band<V>(gr, buf, b, row_bytes, staged, tid);
   }
-  __device__ __forceinline__ void bare(Smem<V>& sm, const uint8_t* buf) const {
-    convert_bare<V>(sm, buf);
+  __device__ __forceinline__ void bare(Group<V>& gr, const uint8_t* buf,
+                                       int tid) const {
+    convert_bare<V>(gr, buf, tid);
   }
 };
 
-// KT slabs of T blocks of the (3, 64, N) layout (always staged).
+// KT slabs of T blocks of the (3, 64, N) layout (always staged): every
+// producer lane issues its 16-byte cp.async copies (the swizzle above) and
+// arrives once they land; lane 0 arrives once more after writing the
+// band's geometry.
 template <class V>
 struct KtBands {
+  static constexpr int kFullCount = 33;
   const uint8_t* kt;
   int64_t n_blocks;
   __device__ __forceinline__ Band at(uint32_t band) const {
     return kt_band_at<V>(kt, band, n_blocks);
   }
-  __device__ __forceinline__ void load(uint8_t* buf, const Band& b) const {
-    load_kt<V>(buf, b.src, n_blocks, b.tiles);
+  __device__ __forceinline__ void produce(uint8_t* buf, const Band& b,
+                                          uint64_t* full, int lane) const {
+    load_kt<V>(buf, b.src, n_blocks, b.tiles, lane);
+    cp_async_arrive(full);
+    if (lane == 0) mbar_arrive(full);
   }
-  __device__ __forceinline__ void convert(Smem<V>& sm, const uint8_t* buf,
-                                          const Band&, bool) const {
-    convert_kt<V>(sm, buf);
+  __device__ __forceinline__ void convert(Group<V>& gr, const uint8_t* buf,
+                                          const Band&, int tid) const {
+    convert_kt<V>(gr, buf, tid);
   }
-  __device__ __forceinline__ void bare(Smem<V>& sm, const uint8_t* buf) const {
-    convert_kt_bare<V>(sm, buf);
+  __device__ __forceinline__ void bare(Group<V>& gr, const uint8_t* buf,
+                                       int tid) const {
+    convert_kt_bare<V>(gr, buf, tid);
   }
 };
 
-// The body of every variant.  Persistent CTAs walk over bands of T tiles
-// (src.at); bands are loaded two ahead into a ring of kStages buffers by
-// cp.async (staged) or read straight from device memory (RGB bands only).
-// Each band: convert → product, or the bare copy → store.  `out` is the
+// The body of every variant.  Persistent CTAs walk over bands of T tiles:
+// CTA c takes bands c, c + grid, ...; its i-th band goes to ring slot i %
+// S and to consumer group i % G.  The producer warp (the CTA's last) waits
+// for a slot to be empty (parity ((i / S) & 1) ^ 1), writes the band's
+// geometry beside it and fills it (src.produce); the group waits for it to
+// be full (parity (i / S) & 1), converts it, and its 8 warps release it.
+// Then, on the group's named barrier only: product, the store pass into
+// the group's unpadded rows and one bulk store of the band (block-major),
+// or thread stores (the split stage, coefficient-major).  `out` is the
 // variant's output pointer, or KtOut for a KT variant; n_blocks is the lane
 // stride of coefficient-major output.
 template <class V, class Bands, class Out>
 __device__ __forceinline__ void band_loop(const Bands& src, Out out,
                                           const uint16_t* __restrict__ parts,
-                                          uint32_t n_bands, bool staged,
-                                          int64_t n_blocks) {
-  extern __shared__ __align__(16) unsigned char smem_bytes[];
-  Smem<V>& sm = *reinterpret_cast<Smem<V>*>(smem_bytes);
+                                          uint32_t n_bands, int64_t n_blocks) {
+  using S = Smem<V>;
+  extern __shared__ __align__(128) unsigned char smem_bytes[];
+  S& sm = *reinterpret_cast<S*>(smem_bytes);
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
+  const uint32_t step = gridDim.x;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < S::kSlots; ++s) {
+      mbar_init(&sm.full[s], Bands::kFullCount);
+      mbar_init(&sm.empty[s], kGroupWarps);
+      sm.band[s].index = ~0u;  // no band (n_bands < 2^30)
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
 
+  if (warp == V::kGroups * kGroupWarps) {  // the producer warp
+    uint32_t i = 0;
+    for (uint32_t band = blockIdx.x; band < n_bands; band += step, ++i) {
+      const int s = static_cast<int>(i % S::kSlots);
+      mbar_wait(&sm.empty[s], ((i / S::kSlots) & 1) ^ 1);
+      const Band b = src.at(band);
+      if (lane == 0) sm.band[s] = b;
+      src.produce(sm.raw[s], b, &sm.full[s], lane);
+    }
+    return;
+  }
+
+  const int g = warp / kGroupWarps;
+  const int tid = threadIdx.x - g * kThreads;
+  const int gw = warp - g * kGroupWarps;  // warp within the group
+  Group<V>& gr = sm.group[g];
   constexpr int kBParts = V::kBasisA ? 1 : V::kParts;
   uint32_t bl[kBParts][4][2], bc[kBParts][2][2], af[V::kBasisA ? 3 : 1][4][4];
   if constexpr (V::kProduct && V::kBasisA) {
-    load_basis_a<V>(parts, warp, lane, af);
+    load_basis_a<V>(parts, gw, lane, af);
   } else if constexpr (V::kProduct) {
-    load_basis_b<V>(parts, warp, lane, bl, bc);
+    load_basis_b<V>(parts, gw, lane, bl, bc);
   }
-  const int ch = warp >> 2;
-  const int lum_col = 8 * warp;
-  const int chr_col = 64 + 32 * ch + 8 * (warp & 3);
+  const int ch = gw >> 2;
+  const int lum_col = 8 * gw;
+  const int chr_col = 64 + 32 * ch + 8 * (gw & 3);
 
-  const uint32_t step = gridDim.x;
-  if (staged) {
-#pragma unroll
-    for (int s = 0; s < kStages - 1; ++s) {
-      const uint32_t nb = blockIdx.x + s * step;
-      if (nb < n_bands) src.load(sm.raw[s], src.at(nb));
-      cp_async_commit();
+  for (uint32_t i = g; blockIdx.x + i * step < n_bands; i += V::kGroups) {
+    const int s = static_cast<int>(i % S::kSlots);
+    // The parity wait alone would also pass while the slot's previous fill
+    // (band i - S, another group's when S % G != 0) has not landed.  Once
+    // the band's number stands beside the slot, the producer has passed
+    // that fill's release, so the wait passes on this fill only.
+    while (*static_cast<volatile uint32_t*>(&sm.band[s].index) !=
+           blockIdx.x + i * step) {
     }
-  }
-  int slot = 0;
-  for (uint32_t band = blockIdx.x; band < n_bands; band += step) {
-    const Band b = src.at(band);
-    if (staged) {
-      const uint32_t nb = band + (kStages - 1) * step;
-      if (nb < n_bands) {
-        src.load(sm.raw[(slot + kStages - 1) % kStages], src.at(nb));
-      }
-      cp_async_commit();
-      cp_async_wait<kStages - 1>();
+    mbar_wait(&sm.full[s], (i / S::kSlots) & 1);
+    const Band b = sm.band[s];
+    if (V::kBulkOut && tid == 0) {
+      bulk_wait_read();     // the last band's store has read `out`
+      gr.band = sm.band[s];  // only this thread stores the band
     }
-    __syncthreads();  // this band's bytes landed; the last store pass is done
     if constexpr (V::kProduct) {
-      src.convert(sm, sm.raw[slot], b, staged);
-      __syncthreads();
+      src.convert(gr, sm.raw[s], b, tid);
+    } else {
+      group_sync(g);  // the last band's store pass has read q
+      src.bare(gr, sm.raw[s], tid);
+    }
+    __syncwarp();
+    if (lane == 0) mbar_arrive(&sm.empty[s]);  // the slot's reads are done
+    group_sync(g);
+    if constexpr (V::kProduct) {
       if constexpr (V::kBasisA) {
-        if (warp < 4) {
+        if (gw < 4) {
 #pragma unroll 1
           for (int nt = 0; nt < V::kTiles / 8; ++nt) {
-            product_basis_a<4, kLumStride>(sm.lum, nt, af, sm.q, 16 * warp);
+            product_basis_a<4, kLumStride>(gr.lum, nt, af, gr.q, 16 * gw);
           }
         } else {
 #pragma unroll 1
           for (int nt = 0; nt < V::kTiles / 8; ++nt) {
-            product_basis_a<2, kChrStride>(sm.chr[(warp >> 1) & 1], nt, af,
-                                           sm.q, 64 + 16 * (warp & 3));
+            product_basis_a<2, kChrStride>(gr.chr[(gw >> 1) & 1], nt, af,
+                                           gr.q, 64 + 16 * (gw & 3));
           }
         }
       } else {
 #pragma unroll 1
         for (int mt = 0; mt < V::kTiles / 16; ++mt) {
-          product<V, 4, kLumStride>(sm.lum, mt, bl, sm.q, lum_col);
-          if constexpr (V::kChannels == 3) {
-            product<V, 2, kChrStride>(sm.chr[ch], mt, bc, sm.q, chr_col);
-          }
+          product<V>(gr, mt, ch, bl, bc, gr.q, lum_col, chr_col);
         }
       }
-    } else {
-      src.bare(sm, sm.raw[slot]);
+      group_sync(g);
     }
-    __syncthreads();
     if constexpr (V::kStage == Stage::kSplit) {
-      store_split<V>(sm, b, out);
+      store_split<V>(gr, b, out, tid);
     } else if constexpr (V::kInput == Input::kKt) {
-      store_rows<V>(sm, b, static_cast<int16_t*>(out.p[0]));
+      store_rows<V>(gr, static_cast<int16_t*>(out.p[0]), g, tid);
     } else if constexpr (V::kBlockMajor) {
-      store_rows<V>(sm, b, out);
+      store_rows<V>(gr, out, g, tid);
     } else {
-      store_lanes<V>(sm, b, out, n_blocks);
+      store_lanes<V>(gr, b, out, n_blocks, tid);
     }
-    slot = (slot + 1) % kStages;
   }
-  if (staged) cp_async_wait<0>();
+  if (V::kBulkOut && tid == 0) bulk_wait_read();  // out stays until read
 }
 
 // The kernel of the RGB variants (K1 among them): band_loop over image
 // bands.
 template <class V>
-__global__ void __launch_bounds__(kThreads, V::kMinCtas)
+__global__ void __launch_bounds__(V::kCtaThreads, 1)
     fwd_megakernel(const uint8_t* __restrict__ rgb,
                    typename V::Out* __restrict__ out,
                    const uint16_t* __restrict__ parts, uint32_t n_bands,
@@ -1050,26 +1243,36 @@ __global__ void __launch_bounds__(kThreads, V::kMinCtas)
   if constexpr (!V::kBlockMajor) {
     n_blocks = static_cast<int64_t>(n_bands / bands_per_row) * bpr;
   }
-  const RgbBands<V> src{rgb, height, width, bpc, bpr, bands_per_row, width * 3};
-  band_loop<V>(src, out, parts, n_bands, staged, n_blocks);
+  const RgbBands<V> src{rgb, height, width, bpc, bpr, bands_per_row,
+                        width * 3, staged};
+  band_loop<V>(src, out, parts, n_bands, n_blocks);
 }
 
 // The kernel of the KT variants: band_loop over KT slabs, always staged
 // (the launcher checks the cp.async route's alignment).
 template <class V>
-__global__ void __launch_bounds__(kThreads, V::kMinCtas)
+__global__ void __launch_bounds__(V::kCtaThreads, 1)
     fwd_megakernel_kt(const uint8_t* __restrict__ kt, KtOut out,
                       const uint16_t* __restrict__ parts, uint32_t n_bands,
                       int64_t n_blocks) {
-  band_loop<V>(KtBands<V>{kt, n_blocks}, out, parts, n_bands, true, n_blocks);
+  band_loop<V>(KtBands<V>{kt, n_blocks}, out, parts, n_bands, n_blocks);
 }
 
-// The persistent grid of `kernel` with `smem` bytes of dynamic shared
-// memory: the resident CTAs of every SM, at most n_bands.  Returns the
-// first failed attribute call or query.
-template <class K>
-cudaError_t persistent_grid(K kernel, int smem, int64_t n_bands,
-                            unsigned* grid) {
+// The launch of variant V over n_bands bands: the resident CTAs (SMs ×
+// the occupancy query), the CTAs launched, the consumer groups a CTA, the
+// ring slots, the threads a CTA, the dynamic shared memory, the bytes a
+// ring slot and the tiles a band (T).
+struct Launch {
+  long long n_bands, resident, ctas;
+  int groups, slots, threads, smem, slot_bytes, tiles;
+};
+
+// The persistent grid of `kernel` (variant V) for n_bands: the resident
+// CTAs of every SM, at most n_bands.  Returns the first failed attribute
+// call or query.
+template <class V, class K>
+cudaError_t persistent_grid(K kernel, int64_t n_bands, Launch* p) {
+  const int smem = static_cast<int>(sizeof(Smem<V>));
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
@@ -1079,41 +1282,59 @@ cudaError_t persistent_grid(K kernel, int smem, int64_t n_bands,
   err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
   if (err != cudaSuccess) return err;
   err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
-                                                      kThreads, smem);
+                                                      V::kCtaThreads, smem);
   if (err != cudaSuccess) return err;
-  int64_t g = static_cast<int64_t>(sms) * (per_sm > 0 ? per_sm : 1);
-  *grid = static_cast<unsigned>(g < n_bands ? g : n_bands);
+  p->n_bands = n_bands;
+  p->resident = static_cast<long long>(sms) * (per_sm > 0 ? per_sm : 1);
+  p->ctas = p->resident < n_bands ? p->resident : n_bands;
+  p->groups = V::kGroups;
+  p->slots = Smem<V>::kSlots;
+  p->threads = V::kCtaThreads;
+  p->smem = smem;
+  p->slot_bytes = V::kBandBytes;
+  p->tiles = V::kTiles;
   return cudaSuccess;
+}
+
+// The bands of a (batch, H, W) RGB launch of V, or -1 where the 32-bit band
+// geometry would not hold (band + grid, image rows and W·24 below 2^31).
+template <class V>
+int64_t rgb_bands(int batch, int height, int width, int bpc, int bpr) {
+  const int64_t n_bands = static_cast<int64_t>(batch) * bpc *
+                          ((bpr + V::kTiles - 1) / V::kTiles);
+  if (n_bands > (1ll << 30) || static_cast<int64_t>(batch) * height >= (1ll << 31) ||
+      static_cast<int64_t>(width) * 24 >= (1ll << 31)) {
+    return -1;
+  }
+  return n_bands;
 }
 
 // Launch variant V on `stream` (the contract of fwd_megakernel_launch in
 // csrc/fwd_megakernel.cu): returns cudaGetLastError() or the first failed
-// query, never synchronises.
+// query, never synchronises.  A block-major output leaves by bulk stores:
+// it must be 16-byte aligned.
 template <class V>
 int launch_variant(const void* rgb, void* out, const void* parts, int batch,
                    int height, int width, int bpc, int bpr, int staged,
                    void* stream) {
-  const int64_t n_bands = static_cast<int64_t>(batch) * bpc *
-                          ((bpr + V::kTiles - 1) / V::kTiles);
-  if (n_bands <= 0) return cudaSuccess;
-  // 32-bit band geometry: band + grid, image rows and W·3 below 2^31.
-  if (n_bands > (1ll << 30) || static_cast<int64_t>(batch) * height >= (1ll << 31) ||
-      static_cast<int64_t>(width) * 24 >= (1ll << 31)) {
-    return cudaErrorInvalidValue;
-  }
+  const int64_t n_bands = rgb_bands<V>(batch, height, width, bpc, bpr);
+  if (n_bands < 0) return cudaErrorInvalidValue;
+  if (n_bands == 0) return cudaSuccess;
   if (staged && (reinterpret_cast<uintptr_t>(rgb) % 16 != 0 ||
                  (static_cast<int64_t>(width) * 3) % 16 != 0)) {
     return cudaErrorInvalidValue;
   }
-  const int smem = static_cast<int>(sizeof(Smem<V>));
-  unsigned grid = 0;
-  const cudaError_t err = persistent_grid(fwd_megakernel<V>, smem, n_bands, &grid);
+  if (V::kBulkOut && reinterpret_cast<uintptr_t>(out) % 16 != 0) {
+    return cudaErrorMisalignedAddress;
+  }
+  Launch p;
+  const cudaError_t err = persistent_grid<V>(fwd_megakernel<V>, n_bands, &p);
   if (err != cudaSuccess) return err;
-  fwd_megakernel<V><<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+  fwd_megakernel<V><<<static_cast<unsigned>(p.ctas), V::kCtaThreads, p.smem,
+                      static_cast<cudaStream_t>(stream)>>>(
       static_cast<const uint8_t*>(rgb), static_cast<typename V::Out*>(out),
       static_cast<const uint16_t*>(parts), static_cast<uint32_t>(n_bands),
-      height, width, bpc, bpr,
-      staged != 0);
+      height, width, bpc, bpr, staged != 0);
   return cudaGetLastError();
 }
 
@@ -1128,17 +1349,40 @@ int launch_kt(const void* kt, const KtOut& out, const void* parts,
   if (n_blocks % 16 != 0 || reinterpret_cast<uintptr_t>(kt) % 16 != 0) {
     return cudaErrorInvalidValue;
   }
+  if (V::kBulkOut && reinterpret_cast<uintptr_t>(out.p[0]) % 16 != 0) {
+    return cudaErrorMisalignedAddress;
+  }
   const int64_t n_bands = (n_blocks + V::kTiles - 1) / V::kTiles;
   if (n_bands > (1ll << 30)) return cudaErrorInvalidValue;
-  const int smem = static_cast<int>(sizeof(Smem<V>));
-  unsigned grid = 0;
-  const cudaError_t err = persistent_grid(fwd_megakernel_kt<V>, smem, n_bands, &grid);
+  Launch p;
+  const cudaError_t err = persistent_grid<V>(fwd_megakernel_kt<V>, n_bands, &p);
   if (err != cudaSuccess) return err;
-  fwd_megakernel_kt<V><<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+  fwd_megakernel_kt<V><<<static_cast<unsigned>(p.ctas), V::kCtaThreads, p.smem,
+                         static_cast<cudaStream_t>(stream)>>>(
       static_cast<const uint8_t*>(kt), out,
       static_cast<const uint16_t*>(parts), static_cast<uint32_t>(n_bands),
       n_blocks);
   return cudaGetLastError();
+}
+
+// Registers a thread, shared memory a CTA (static + dynamic) and resident
+// CTAs an SM of `kernel`, variant V (cudaFuncGetAttributes and the
+// occupancy query at its threads and shared memory).
+template <class V, class K>
+int kernel_attributes(K kernel, int* regs, int* smem, int* ctas_per_sm) {
+  const int bytes = static_cast<int>(sizeof(Smem<V>));
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  cudaFuncAttributes attr;
+  err = cudaFuncGetAttributes(&attr, kernel);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(ctas_per_sm, kernel,
+                                                      V::kCtaThreads, bytes);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  *regs = attr.numRegs;
+  *smem = bytes + static_cast<int>(attr.sharedSizeBytes);
+  return static_cast<int>(cudaSuccess);
 }
 
 }  // namespace

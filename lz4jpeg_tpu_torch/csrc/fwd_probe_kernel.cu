@@ -35,10 +35,14 @@
 // counts): 0.2805 ms at 32 frames of 2048² and 3.35 TB/s for K1's row,
 // 0.2880 for the split stage, 0.2404 for the KT cast, 0.2003 ms for the u8
 // copy; the product, where there is one, is at most 0.078 ms of bf16 tensor
-// work at 989 TFLOP/s.  Each variant keeps K1's shared-memory layout (66-72
-// KB at T = 64) and its three CTAs per SM, so a difference of two rows is
-// the work of the part that differs, not a change of occupancy (T = 128
-// needs 144 KB: one CTA per SM).
+// work at 989 TFLOP/s.  Each variant keeps K1's frame (a producer warp
+// filling a ring of band slots, consumer groups of 8 warps on their own
+// named barriers, one CTA an SM), so a difference of two rows is the work
+// of the part that differs.  K1's three groups leave 72 registers a
+// thread; the variants that need more without spilling take two groups
+// (the coefficient-major products and the KT products), and T = 128 takes
+// one (a group needs 106 KB there): their rows differ from K1's in
+// occupancy too.
 
 #include "fwd_megakernel.cuh"
 
@@ -50,36 +54,36 @@ constexpr auto kRGB = Colour::kRGB;
 
 // The ablation (probe_megakernel_ablate.py:148-167).
 using Full = K1Variant;
-using OnePart = Variant<64, 1, kYCbCr, 3, Stage::kSparse, true, true, 3>;
-using CoefficientMajor = Variant<64, 3, kYCbCr, 3, Stage::kSparse, true, false, 3>;
-using NoSparse = Variant<64, 3, kYCbCr, 3, Stage::kTrunc, true, true, 3>;
-using NoColour = Variant<64, 3, kR, 3, Stage::kSparse, true, true, 3>;
-using LumaOnly = Variant<64, 3, kYCbCr, 1, Stage::kSparse, true, true, 3>;
+using OnePart = Variant<64, 1, kYCbCr, 3, Stage::kSparse, true, true>;
+using CoefficientMajor = Variant<64, 3, kYCbCr, 3, Stage::kSparse, true, false, 2>;
+using NoSparse = Variant<64, 3, kYCbCr, 3, Stage::kTrunc, true, true>;
+using NoColour = Variant<64, 3, kR, 3, Stage::kSparse, true, true>;
+using LumaOnly = Variant<64, 3, kYCbCr, 1, Stage::kSparse, true, true>;
 using Band128 = Variant<128, 3, kYCbCr, 3, Stage::kSparse, true, true, 1>;
-using Band16 = Variant<16, 3, kYCbCr, 3, Stage::kSparse, true, true, 3>;
-using Band32 = Variant<32, 3, kYCbCr, 3, Stage::kSparse, true, true, 3>;
-using Bare = Variant<64, 1, kR, 3, Stage::kTrunc, true, false, 3>;
+using Band16 = Variant<16, 3, kYCbCr, 3, Stage::kSparse, true, true>;
+using Band32 = Variant<32, 3, kYCbCr, 3, Stage::kSparse, true, true>;
+using Bare = Variant<64, 1, kR, 3, Stage::kTrunc, true, false>;
 // The ladder (probe_megakernel_dma.py:167-174): raw samples, no offset.
-using CopyU8 = Variant<64, 1, kRGB, 3, Stage::kCopyU8, false, false, 3>;
-using CastI16 = Variant<64, 1, kRGB, 3, Stage::kCastI16, false, false, 3>;
-using SumF32 = Variant<64, 1, kRGB, 3, Stage::kSumF32, false, false, 3>;
-using DotsOnePart = Variant<64, 1, kRGB, 3, Stage::kTrunc, false, false, 3>;
-using DotsThreeParts = Variant<64, 3, kRGB, 3, Stage::kTrunc, false, false, 3>;
-using DotsThreePartsBlock = Variant<64, 3, kRGB, 3, Stage::kTrunc, false, true, 3>;
-using DotsOnePartBlock = Variant<64, 1, kRGB, 3, Stage::kTrunc, false, true, 3>;
+using CopyU8 = Variant<64, 1, kRGB, 3, Stage::kCopyU8, false, false>;
+using CastI16 = Variant<64, 1, kRGB, 3, Stage::kCastI16, false, false>;
+using SumF32 = Variant<64, 1, kRGB, 3, Stage::kSumF32, false, false>;
+using DotsOnePart = Variant<64, 1, kRGB, 3, Stage::kTrunc, false, false>;
+using DotsThreeParts = Variant<64, 3, kRGB, 3, Stage::kTrunc, false, false, 2>;
+using DotsThreePartsBlock = Variant<64, 3, kRGB, 3, Stage::kTrunc, false, true>;
+using DotsOnePartBlock = Variant<64, 1, kRGB, 3, Stage::kTrunc, false, true>;
 // The layout variants (probe_megakernel.py, probe_megakernel_t.py,
 // probe_megakernel_v2.py): K1's arithmetic, or the i16 cast, read from KT
 // slabs.
 constexpr auto kKt = Input::kKt;
-template <int T, Stage S, int MinCtas = 3, bool BasisA = false>
-using KtProduct = Variant<T, 3, kYCbCr, 3, S, true, true, MinCtas, kKt, BasisA>;
-template <int T, int MinCtas = 3>
-using KtCopy = Variant<T, 1, kRGB, 3, Stage::kCastI16, false, true, MinCtas, kKt>;
+template <int T, Stage S, int Groups = 2, bool BasisA = false>
+using KtProduct = Variant<T, 3, kYCbCr, 3, S, true, true, Groups, kKt, BasisA>;
+template <int T, int Groups = 3>
+using KtCopy = Variant<T, 1, kRGB, 3, Stage::kCastI16, false, true, Groups, kKt>;
 using KtSplitRuns = KtProduct<64, Stage::kSplit>;
 using KtFull = KtProduct<64, Stage::kSparse>;
 using KtFull32 = KtProduct<32, Stage::kSparse>;
 using KtFull128 = KtProduct<128, Stage::kSparse, 1>;
-using KtBasisA = KtProduct<64, Stage::kSparse, 3, true>;
+using KtBasisA = KtProduct<64, Stage::kSparse, 2, true>;
 using KtDct = KtProduct<64, Stage::kTrunc>;
 using KtCopy32 = KtCopy<32>;
 using KtCopy64 = KtCopy<64>;
@@ -198,25 +202,12 @@ auto kernel_of() {
 
 // The variant's registers per thread, dynamic + static shared memory per CTA
 // and resident CTAs per SM (cudaFuncGetAttributes and the occupancy query
-// at 256 threads): what explains a row without a profiler.
+// at its threads): what explains a row without a profiler.
 extern "C" int fwd_probe_attributes(int variant, int* regs, int* smem,
                                     int* ctas_per_sm) {
   return with_variant(variant, [&](auto v) {
     using V = decltype(v);
-    const int bytes = static_cast<int>(sizeof(Smem<V>));
-    const auto kernel = kernel_of<V>();
-    cudaError_t err = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
-    if (err != cudaSuccess) return static_cast<int>(err);
-    cudaFuncAttributes attr;
-    err = cudaFuncGetAttributes(&attr, kernel);
-    if (err != cudaSuccess) return static_cast<int>(err);
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        ctas_per_sm, kernel, kThreads, bytes);
-    if (err != cudaSuccess) return static_cast<int>(err);
-    *regs = attr.numRegs;
-    *smem = bytes + static_cast<int>(attr.sharedSizeBytes);
-    return static_cast<int>(cudaSuccess);
+    return kernel_attributes<V>(kernel_of<V>(), regs, smem, ctas_per_sm);
   });
 }
 

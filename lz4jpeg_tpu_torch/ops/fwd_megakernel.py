@@ -131,6 +131,11 @@ def load_kernel() -> ctypes.CDLL:
         ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
         ctypes.c_void_p,
     ]
+    lib.fwd_megakernel_plan.restype = ctypes.c_int
+    lib.fwd_megakernel_plan.argtypes = [ctypes.c_int] * 5 + [
+        ctypes.POINTER(ctypes.c_int64)]
+    lib.fwd_megakernel_attributes.restype = ctypes.c_int
+    lib.fwd_megakernel_attributes.argtypes = [ctypes.POINTER(ctypes.c_int)] * 3
     lib.fwd_megakernel_error_string.restype = ctypes.c_char_p
     lib.fwd_megakernel_error_string.argtypes = [ctypes.c_int]
     return lib
@@ -177,7 +182,9 @@ def forward_combined(
     ``forward_combined.launches``; a refused launch raises.  The kernel
     stages bands with 16-byte asynchronous copies when the batch's address
     and row stride ``W·3`` are 16-byte aligned, and reads the bytes directly
-    otherwise (both routes are the same kernel)."""
+    otherwise (both routes are the same kernel).  The output leaves the
+    kernel by bulk stores from shared memory, so it is allocated here (a
+    16-byte aligned base)."""
     b, bpc, bpr = _blocks(rgb)
     if rgb.device.type == "cpu":
         return forward_combined_ref(rgb, lum_table, chr_table)

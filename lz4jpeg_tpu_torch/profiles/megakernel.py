@@ -76,6 +76,8 @@ import ctypes
 import dataclasses
 import functools
 import json
+import tempfile
+from pathlib import Path
 from typing import Dict, Optional, Sequence, Tuple
 
 import numpy as np
@@ -100,6 +102,7 @@ from lz4jpeg_tpu_torch.ops.fwd_megakernel import (
     forward_combined,
     forward_combined_ref,
     kt_tiles,
+    load_kernel as load_k1,
     rgb_to_kt,
     split_basis,
 )
@@ -109,6 +112,7 @@ from lz4jpeg_tpu_torch.ops.quantize import (
     LUMINANCE_QUANTIZATION_TABLE as LUM,
 )
 from lz4jpeg_tpu_torch.ops.rle import rle_decode_sparse16, rle_encode_sparse16
+from lz4jpeg_tpu_torch.profiles import sass_loops
 from lz4jpeg_tpu_torch.profiles.candidates_ab import _body
 from lz4jpeg_tpu_torch.profiles.timing import time_ms
 from lz4jpeg_tpu_torch.utils.parity import transform_flips
@@ -537,6 +541,366 @@ def variant_attributes(name: str, device="cuda") -> Dict[str, int]:
         raise RuntimeError(f"fwd_probe_attributes failed: {msg} ({rc})")
     return {"registers": regs.value, "shared_bytes": smem.value,
             "ctas_per_sm": ctas.value}
+
+
+# ---------------------------------------------------------------------------
+# K1's launch plan and arithmetic, mirrored in numpy
+# ---------------------------------------------------------------------------
+#
+# ``csrc/fwd_megakernel.cuh``'s band loop: persistent CTAs of one producer
+# warp and ``K1_GROUPS`` consumer groups of 8 warps; CTA c takes bands c,
+# c + grid, ...; its i-th band goes to ring slot i % ``K1_SLOTS`` and group
+# i % ``K1_GROUPS``.  The producer waits on the slot's "empty" mbarrier with
+# parity ((i // slots) & 1) ^ 1, the group on its "full" one with (i //
+# slots) & 1 once the band number beside the slot is its band's (slots are
+# no multiple of groups, so a group can reach a slot whose previous fill,
+# another group's band, has not landed: the parity alone would pass).  On
+# the staged route each band row inside the frame comes in by one 1-D bulk
+# copy; each band leaves by one bulk store of its rows.
+
+K1_TILES = 64  # T, tiles a band
+K1_GROUPS = 3
+K1_SLOTS = 5
+K1_THREADS = K1_GROUPS * 256 + 32  # the consumer groups and the producer warp
+K1_SLOT_BYTES = 8 * K1_TILES * 24  # 8 image rows of T·8 pixels
+# A group: its unpadded output rows, the geometry of the band it stores
+# (32 B), the bf16 operands (rows + 16 B) and the staged int16 rows (+ 16 B).
+K1_GROUP_BYTES = (K1_TILES * 128 * 2 + 32 + K1_TILES * 72 * 2
+                  + 2 * K1_TILES * 40 * 2 + K1_TILES * 136 * 2)
+# The ring, the groups, each slot's band geometry (32 B) and two mbarriers.
+K1_SMEM = K1_SLOTS * K1_SLOT_BYTES + K1_GROUPS * K1_GROUP_BYTES + K1_SLOTS * 48
+K1_ROW_BYTES = 128 * 2  # one output row, 128 int16 lanes
+
+
+@dataclasses.dataclass(frozen=True)
+class K1Plan:
+    n_bands: int
+    resident: int
+    ctas: int
+    groups: int
+    slots: int
+    threads: int
+    smem: int
+    slot_bytes: int
+    tiles: int
+
+
+def _blocks_of(batch: int, h: int, w: int) -> Tuple[int, int, int]:
+    """(bpc, bpr, bands a block row) of a (batch, h, w) image batch."""
+    bpc, bpr = -(-h // 8), -(-w // 8)
+    return bpc, bpr, -(-bpr // K1_TILES)
+
+
+def k1_plan(batch: int, h: int, w: int, resident: int) -> K1Plan:
+    """``fwd_megakernel_plan`` for a (batch, h, w) batch on a card where
+    ``resident`` CTAs fit: every band, at most one CTA a band."""
+    bpc, _, per_row = _blocks_of(batch, h, w)
+    n_bands = batch * bpc * per_row
+    return K1Plan(n_bands, resident, min(n_bands, resident), K1_GROUPS,
+                  K1_SLOTS, K1_THREADS, K1_SMEM, K1_SLOT_BYTES, K1_TILES)
+
+
+def band_schedule(plan: K1Plan) -> np.ndarray:
+    """(n_bands, 6) int64 rows (band, cta, i, group, slot, full parity): the
+    i-th band of CTA ``cta`` in the kernel's loops; the producer's "empty"
+    parity is full parity ^ 1."""
+    rows = []
+    for cta in range(plan.ctas):
+        band = np.arange(cta, plan.n_bands, plan.ctas, dtype=np.int64)
+        i = np.arange(band.size, dtype=np.int64)
+        rows.append(np.stack([band, np.full_like(band, cta), i, i % plan.groups,
+                              i % plan.slots, (i // plan.slots) & 1], 1))
+    return np.concatenate(rows) if rows else np.zeros((0, 6), np.int64)
+
+
+def band_geometry(batch: int, h: int, w: int) -> np.ndarray:
+    """(n_bands, 5) int64 rows (source byte offset, out_row, rows, cols,
+    tiles) of ``band_at``: the band's first pixel in the batch, the output
+    row of its first tile, its image rows and pixel columns inside the
+    frame, its tiles."""
+    bpc, bpr, per_row = _blocks_of(batch, h, w)
+    band = np.arange(batch * bpc * per_row, dtype=np.int64)
+    row_id, bx0 = band // per_row, (band % per_row) * K1_TILES
+    f, by = row_id // bpc, row_id % bpc
+    src = (f * h + by * 8) * (w * 3) + bx0 * 24
+    return np.stack([src, row_id * bpr + bx0, np.minimum(8, h - by * 8),
+                     w - bx0 * 8, np.minimum(K1_TILES, bpr - bx0)], 1)
+
+
+def bulk_copies(batch: int, h: int, w: int) -> np.ndarray:
+    """(copies, 4) int64 rows (band, slot byte offset, source byte offset,
+    bytes) of the staged route: one copy a band row inside the frame, of
+    min(T·8, cols)·3 bytes at stride W·3, into row r of the slot."""
+    geo = band_geometry(batch, h, w)
+    out = []
+    for r in range(8):
+        sel = np.nonzero(geo[:, 2] > r)[0]
+        g = geo[sel]
+        out.append(np.stack([sel, np.full_like(sel, r * K1_TILES * 24),
+                             g[:, 0] + r * w * 3,
+                             np.minimum(K1_TILES * 8, g[:, 3]) * 3], 1))
+    rows = np.concatenate(out)
+    return rows[np.lexsort((rows[:, 1], rows[:, 0]))]
+
+
+def bulk_stores(batch: int, h: int, w: int) -> np.ndarray:
+    """(n_bands, 2) int64 rows (output byte offset, bytes): each band's
+    b.tiles rows of 256 bytes at out_row · 256."""
+    geo = band_geometry(batch, h, w)
+    return np.stack([geo[:, 1] * K1_ROW_BYTES, geo[:, 4] * K1_ROW_BYTES], 1)
+
+
+def ring_events(plan: K1Plan, seed: int = 0) -> Dict[str, list]:
+    """Run the CTAs' producers and groups in a random interleaving on a model
+    of the ring's mbarriers, each wait passing only when the barrier's
+    completed phases have the other parity (``mbarrier.try_wait.parity``).
+    A fill writes the band's number beside the slot when it starts (the
+    producer's header) and completes the slot's "full" phase when it lands;
+    a group waits for the number to be its band's, then for the parity.
+    Returns per CTA the order of fills and reads ((cta, band,
+    slot), (cta, group, band, slot)) and the count of parity waits that
+    passed on a slot whose last fill had not landed (``stale``); raises
+    AssertionError where a group reads a slot that holds another band or
+    the producer refills a slot its group has not released."""
+    rng = np.random.default_rng(seed)
+    sched = band_schedule(plan)
+    log = {"fills": [], "reads": [], "stale": 0}
+    for cta in range(plan.ctas):
+        mine = sched[sched[:, 1] == cta]
+        full = [0] * plan.slots    # completed phases of each "full" barrier
+        empty = [0] * plan.slots   # of each "empty" barrier
+        tag = [None] * plan.slots  # the band number beside each slot
+        holds = [None] * plan.slots  # the band whose bytes a slot holds
+        landing = {}               # slot: band started, not landed
+        nxt = {"p": 0, **{g: g for g in range(plan.groups)}}
+        while True:
+            ready = []
+            ip = nxt["p"]
+            if ip < len(mine):
+                s, par = int(mine[ip, 4]), int(mine[ip, 5]) ^ 1
+                if empty[s] & 1 != par and s not in landing:
+                    ready.append("p")
+            ready += [("land", s) for s in landing]
+            for g in range(plan.groups):
+                i = nxt[g]
+                if i < len(mine):
+                    band, s, par = int(mine[i, 0]), int(mine[i, 4]), int(mine[i, 5])
+                    passes = full[s] & 1 != par
+                    if tag[s] == band:  # then the parity wait is exact
+                        assert not (passes and s in landing), (
+                            f"CTA {cta}: band {band} read before it landed")
+                        if passes:
+                            ready.append(g)
+                    elif passes:  # the parity alone would take a stale fill
+                        log["stale"] += 1
+            if not ready:
+                left = [k for k, v in nxt.items() if v < len(mine)]
+                assert not left, f"CTA {cta}: deadlock, {left} waiting"
+                break
+            who = ready[rng.integers(len(ready))]
+            if isinstance(who, tuple):  # a fill lands
+                s = who[1]
+                holds[s] = landing.pop(s)
+                full[s] += 1
+                continue
+            i = nxt[who]
+            band, s = int(mine[i, 0]), int(mine[i, 4])
+            if who == "p":
+                assert holds[s] is None, (
+                    f"CTA {cta}: slot {s} refilled with band {band} while "
+                    f"band {holds[s]} is unread")
+                tag[s] = band
+                landing[s] = band
+                log["fills"].append((cta, band, s))
+                nxt["p"] += 1
+            else:
+                assert holds[s] == band, (
+                    f"CTA {cta}: group {who} read band {holds[s]} for {band}")
+                holds[s] = None
+                empty[s] += 1
+                log["reads"].append((cta, who, band, s))
+                nxt[who] += plan.groups
+    return log
+
+
+def launch_plan(batch: int, h: int, w: int, device="cuda") -> K1Plan:
+    """The plan K1's C entry ``fwd_megakernel_plan`` reports for a (batch,
+    h, w) batch on ``device`` (the card's resident CTAs from the occupancy
+    query)."""
+    dev = torch.device(device)
+    if dev.type != "cuda":
+        raise ValueError(f"the launch plan needs a CUDA device, not {dev}")
+    out = (ctypes.c_int64 * 9)()
+    lib = load_k1()
+    with torch.cuda.device(dev):
+        rc = lib.fwd_megakernel_plan(batch, h, w, -(-h // 8), -(-w // 8), out)
+    if rc != 0:
+        msg = lib.fwd_megakernel_error_string(rc).decode()
+        raise RuntimeError(f"fwd_megakernel_plan failed: {msg} ({rc})")
+    return K1Plan(*out)
+
+
+def k1_attributes(device="cuda") -> Dict[str, int]:
+    """K1's registers per thread, shared memory per CTA and resident CTAs
+    per SM (``fwd_megakernel_attributes``)."""
+    dev = torch.device(device)
+    if dev.type != "cuda":
+        raise ValueError(f"attributes need a CUDA device, not {dev}")
+    regs, smem, ctas = ctypes.c_int(), ctypes.c_int(), ctypes.c_int()
+    lib = load_k1()
+    with torch.cuda.device(dev):
+        rc = lib.fwd_megakernel_attributes(ctypes.byref(regs),
+                                           ctypes.byref(smem),
+                                           ctypes.byref(ctas))
+    if rc != 0:
+        msg = lib.fwd_megakernel_error_string(rc).decode()
+        raise RuntimeError(f"fwd_megakernel_attributes failed: {msg} ({rc})")
+    return {"registers": regs.value, "shared_bytes": smem.value,
+            "ctas_per_sm": ctas.value}
+
+
+def band_sass_counts(root=None,
+                     keys: Sequence[str] = ("k1", "kt_split_runs")
+                     ) -> Dict[str, Dict]:
+    """Warp instructions a tile of K1 (``csrc/fwd_megakernel.cu``) and of
+    ``kt_split_runs`` (``csrc/fwd_probe_kernel.cu``) in the checkout at
+    ``root`` (this one by default), from their SASS by
+    ``sass_loops.band_path``: the band loop's path on the aligned route
+    for each of the warps that take a band (8) and the producer's pass, over
+    the band's T = 64 tiles; with the per-warp counts and the stretches
+    between barriers; ``keys`` picks which.  Needs the CUDA toolkit, not a
+    card."""
+    sd = sass_loops._sass_diff()
+    root = Path(root) if root else sass_loops.REPO
+    counts = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for key, source, marks in (("k1", "fwd_megakernel", ()),
+                                   ("kt_split_runs", "fwd_probe_kernel",
+                                    ("Stage)5", "Input)1"))):
+            if key not in keys:
+                continue
+            functions = sd.sass(root, source, Path(tmp))
+            for name, ins in zip(sd.demangle(list(functions)),
+                                 functions.values()):
+                if all(m in name for m in marks):
+                    path = sass_loops.band_path(ins, 64 // 16)
+                    path["per_tile"] = (8 * path["consumer"]
+                                        + path["producer"]) / 64
+                    counts[key] = path
+                    break
+    return counts
+
+
+F32_EPS = np.float32(1e-5)
+
+
+def _rz32(exact: np.ndarray) -> np.ndarray:
+    """float64 values (exact sums) rounded toward zero to float32."""
+    f = exact.astype(np.float32)
+    over = np.abs(f.astype(np.float64)) > np.abs(exact)
+    f[over] = np.nextafter(f[over], np.float32(0))
+    return f
+
+
+def snap_trunc_int_ref(x: np.ndarray) -> np.ndarray:
+    """The earlier ``snap_trunc_int`` (float32 x, |x| < 2^13, where each
+    float64 sum below is exact): floor(|x|) by |x| + 2^23 rounded toward
+    zero, frac = |x| - floor(|x|), plus one where 1 - frac (rounded to
+    nearest) ≤ 1e-5f; negated for x < 0.  int32."""
+    x = np.asarray(x, dtype=np.float32)
+    ax = np.abs(x)
+    k23 = np.float32(8388608.0)
+    shifted = _rz32(ax.astype(np.float64) + 8388608.0)
+    frac = ax - (shifted - k23)
+    up = (np.float32(1.0) - frac) <= F32_EPS
+    mag = (shifted.view(np.int32) - k23.view(np.int32)) + up.astype(np.int32)
+    return np.where(x < 0, -mag, mag).astype(np.int32)
+
+
+def snap_trunc_fast(x: np.ndarray) -> np.ndarray:
+    """``snap_trunc_int`` as the kernel computes it now: x + copysign(1e-5f,
+    x) rounded toward zero, truncated toward zero.  int32."""
+    x = np.asarray(x, dtype=np.float32)
+    eps = np.where(np.signbit(x), -F32_EPS, F32_EPS).astype(np.float64)
+    return np.trunc(_rz32(x.astype(np.float64) + eps)).astype(np.int32)
+
+
+def sparse_deltas_ref(words: np.ndarray, prev: np.ndarray,
+                      seg_first: np.ndarray) -> np.ndarray:
+    """The earlier ``sparse_deltas`` on (n, 4) uint32 words (8 int16 lanes,
+    low half first) with each row's lane before the first (``prev``, the
+    low 16 bits of it) and whether the row starts a segment: each lane x
+    minus the one before, + 1024, where it differs from it (always at a
+    segment's first lane, against 0), else 0, modulo 2^16."""
+    w = words.astype(np.int64)
+    lanes = np.stack([w & 0xFFFF, w >> 16], 2).reshape(len(w), 8)
+    before = np.concatenate([np.where(seg_first, 0, prev & 0xFFFF)[:, None],
+                             lanes[:, :-1]], 1)
+    run = lanes != before
+    run[:, 0] |= seg_first
+    d = np.where(run, (lanes - before + 1024) & 0xFFFF, 0)
+    return (d[:, 0::2] | (d[:, 1::2] << 16)).astype(np.uint32)
+
+
+def sparse_deltas_fast(words: np.ndarray, prev: np.ndarray,
+                       seg_first: np.ndarray) -> np.ndarray:
+    """``sparse_deltas`` as the kernel computes it: per word w = x1:x0, the
+    low 16 bits of w - prev + 1024 and x1 - w + 1024, kept where the low
+    half of w ^ prev (x1 ^ w) is not zero; prev is then x1."""
+    w = words.astype(np.uint32)
+    p = np.where(seg_first, 0, prev & 0xFFFF).astype(np.uint32)
+    out = np.zeros_like(w)
+    for e in range(4):
+        x1 = w[:, e] >> np.uint32(16)
+        run0 = ((w[:, e] ^ p) & np.uint32(0xFFFF)) != 0
+        if e == 0:
+            run0 |= seg_first
+        run1 = ((x1 ^ w[:, e]) & np.uint32(0xFFFF)) != 0
+        d0 = np.where(run0, (w[:, e] - p + np.uint32(1024)) & np.uint32(0xFFFF), 0)
+        d1 = np.where(run1, (x1 - w[:, e] + np.uint32(1024)) & np.uint32(0xFFFF), 0)
+        out[:, e] = d0.astype(np.uint32) | (d1.astype(np.uint32) << np.uint32(16))
+        p = x1
+    return out
+
+
+COLOUR_COEFS = {  # 1000·v = r·R + g·G + b·B + add (csrc CoefOf)
+    "y": (299, 587, 114, 0),
+    "cr": (439, -368, -71, 128000),
+    "cb": (-148, -291, 439, 128000),
+}
+
+
+def _dp2a(coef: Tuple[int, int], word: np.ndarray, hi: bool,
+          acc: np.ndarray) -> np.ndarray:
+    """PTX dp2a.{lo,hi}.s32.u32: acc + coef[0]·byte(2h) + coef[1]·byte(2h + 1)
+    of ``word`` (h = 1 for .hi)."""
+    sh = 16 if hi else 0
+    b0 = (word >> sh) & 0xFF
+    b1 = (word >> (sh + 8)) & 0xFF
+    return acc + coef[0] * b0 + coef[1] * b1
+
+
+def quad_sums(words: np.ndarray, channel: str) -> np.ndarray:
+    """(n, 4) int64 sums S = 1000·v of the four pixels of each quad of
+    ``words`` ((n, 3) uint32: 12 bytes R0 G0 B0 R1 | G1 B1 R2 G2 | B2 R3 G3
+    B3) by the kernel's dp2a placements (``colour<K>``: pixel 0 at byte 0
+    of w0, pixel 1 at byte 3 of w0, pixel 2 at byte 2 of w1, pixel 3 at
+    byte 1 of w2)."""
+    r, g, b, add = COLOUR_COEFS[channel]
+    w = words.astype(np.int64)
+    acc = np.full(len(w), add, dtype=np.int64)
+    w0, w1, w2 = w[:, 0], w[:, 1], w[:, 2]
+    s0 = _dp2a((r, g), w0, False, _dp2a((b, 0), w0, True, acc))
+    s1 = _dp2a((0, r), w0, True, _dp2a((g, b), w1, False, acc))
+    s2 = _dp2a((r, g), w1, True, _dp2a((b, 0), w2, False, acc))
+    s3 = _dp2a((0, r), w2, False, _dp2a((g, b), w2, True, acc))
+    return np.stack([s0, s1, s2, s3], 1)
+
+
+def per_mille(s: np.ndarray) -> np.ndarray:
+    """The kernel's floor(S / 1000): the high word of S · ceil(2^32 / 1000)
+    (``per_mille`` without its 2^23 bits)."""
+    return (np.asarray(s, dtype=np.int64) * 4294968) >> 32
 
 
 # ---------------------------------------------------------------------------

@@ -13,7 +13,8 @@ each innermost loop's length and its tensor-core instructions (``HMMA``,
 ``IMMA``), shared-memory fragment loads (``LDSM``), shared stores and loads
 (``STS``, ``LDS``), generic loads (``LD``: what ``nvcuda::wmma`` fragment
 loads became), global loads (``LDG``) and shuffles (``SHFL``), and with
-``--output`` every opcode's count (``mix``).  The one-hot
+``--output`` every opcode's count (``mix``).  ``band_path`` counts the
+forward megakernel's band loop along its aligned route's path.  The one-hot
 gathers' k-loop is the innermost loop with ``HMMA`` or ``IMMA``: two
 k-slices an iteration.  ``spill_stores(source)`` gives each kernel's
 spill-store bytes from ptxas.  Needs the CUDA toolkit (``nvcc``, ``cuobjdump``,
@@ -53,11 +54,7 @@ def loops(instructions: List[str]) -> List[Dict]:
     and of every opcode (``mix``), all over the instructions that can
     execute (ptxas pads each ``LDGSTS`` with ``@!PT LDS``, never
     executed)."""
-    spans = []
-    for i, ins in enumerate(instructions):
-        m = _TARGET.search(ins)
-        if opcode(ins) == "BRA" and m and int(m.group(1), 16) // 16 < i:
-            spans.append((int(m.group(1), 16) // 16, i))
+    spans = _spans(instructions)
     inner = [s for s in spans
              if not any(o != s and s[0] <= o[0] and o[1] <= s[1]
                         for o in spans)]
@@ -69,6 +66,133 @@ def loops(instructions: List[str]) -> List[Dict]:
                        **{c: ops.count(c) for c in COUNTED},
                        "mix": dict(Counter(ops).most_common())})
     return result
+
+
+def _blocks(instructions: List[str], first: int, last: int):
+    """The basic blocks of instructions[first..last]: leaders at ``first``,
+    at every branch target inside and after every branch; returns [(start,
+    end)] (end inclusive) and each block's successor indices."""
+    leaders = {first}
+    for i in range(first, last + 1):
+        ins = instructions[i]
+        m = _TARGET.search(ins)
+        if opcode(ins) in ("BRA", "EXIT", "RET") and i < last:
+            leaders.add(i + 1)
+        if opcode(ins) == "BRA" and m:
+            t = int(m.group(1), 16) // 16
+            if first <= t <= last:
+                leaders.add(t)
+    starts = sorted(leaders)
+    blocks = [(a, (starts[k + 1] - 1) if k + 1 < len(starts) else last)
+              for k, a in enumerate(starts)]
+    index = {a: k for k, (a, _) in enumerate(blocks)}
+    succ = []
+    for a, b in blocks:
+        ins = instructions[b]
+        nxt = []
+        unconditional = ins.split()[0] in ("BRA", "EXIT", "RET")
+        m = _TARGET.search(ins)
+        if opcode(ins) == "BRA" and m:
+            t = int(m.group(1), 16) // 16
+            if t in index and t > a:
+                nxt.append(index[t])
+        if not unconditional and opcode(ins) != "EXIT" and b + 1 <= last:
+            nxt.append(index[b + 1])
+        succ.append(nxt)
+    return blocks, succ
+
+
+def _spans(instructions: List[str]):
+    """(first, last) of every loop: a branch back to an earlier
+    instruction."""
+    spans = []
+    for i, ins in enumerate(instructions):
+        m = _TARGET.search(ins)
+        if opcode(ins) == "BRA" and m and int(m.group(1), 16) // 16 < i:
+            spans.append((int(m.group(1), 16) // 16, i))
+    return spans
+
+
+def loop_path(instructions: List[str], outer, inner=None,
+              trips: int = 1) -> Dict:
+    """The instructions a warp issues in one pass of the loop ``outer``
+    (first, last): the longest path from its head to its back branch over
+    basic blocks that read no device memory (``LDG``, ``LD``: the direct
+    route's bytes), each loop inside counted once a pass but ``inner``,
+    counted ``trips`` times.  Returns the count and the count of each
+    stretch between barriers (``BAR``) on that path."""
+    blocks, succ = _blocks(instructions, *outer)
+
+    def cost(i):
+        if instructions[i].startswith("@!PT "):
+            return 0  # never executed
+        return trips if inner and inner[0] <= i <= inner[1] else 1
+
+    banned = {k for k, (a, b) in enumerate(blocks)
+              if any(opcode(x) in ("LD", "LDG")
+                     for x in instructions[a:b + 1])}
+    best, via = {0: sum(cost(i) for i in range(*blocks[0]))
+                 + cost(blocks[0][1])}, {0: None}
+    for k in range(len(blocks)):  # blocks are in address order: a DAG
+        if k not in best:
+            continue
+        for n in succ[k]:
+            if n in banned or n <= k:
+                continue
+            a, b = blocks[n]
+            cand = best[k] + sum(cost(i) for i in range(a, b + 1))
+            if cand > best.get(n, -1):
+                best[n], via[n] = cand, k
+    end = len(blocks) - 1
+    path, k = [], end
+    while k is not None:
+        path.append(k)
+        k = via[k]
+    segments, count = [], 0
+    for k in reversed(path):
+        a, b = blocks[k]
+        for i in range(a, b + 1):
+            count += cost(i)
+            if opcode(instructions[i]) == "BAR" and cost(i):
+                segments.append(count)
+                count = 0
+    segments.append(count)
+    return {"count": best[end], "segments": segments}
+
+
+def band_path(instructions: List[str], trips: int) -> Dict:
+    """The instructions of one band in the forward megakernel's SASS
+    (``csrc/fwd_megakernel.cuh``): ``consumer``, a consumer warp's pass of
+    the band loop, the innermost loop that holds the HMMA loop (the
+    product's m-tiles, ``trips`` a band), by ``loop_path`` (so on the
+    aligned route), with its stretches between barriers (``segments``) and
+    the HMMA loop's length; ``producer``, the producer warp's pass of its
+    loop (the one that issues the bulk copies, ``UBLKCP``, or the
+    ``cp.async`` copies, ``LDGSTS``, outside the band loop), 0 where the
+    consumers copy.  None where there is no HMMA loop."""
+    spans = _spans(instructions)
+
+    def innermost(sp):
+        return not any(o != sp and sp[0] <= o[0] and o[1] <= sp[1]
+                       for o in spans)
+
+    hmma = [sp for sp in spans if innermost(sp) and any(
+        opcode(x) == "HMMA" for x in instructions[sp[0]:sp[1] + 1])]
+    if not hmma:
+        return None
+    inner = hmma[0]
+    outer = min((sp for sp in spans if sp != inner and sp[0] <= inner[0]
+                 and inner[1] <= sp[1]), key=lambda sp: sp[1] - sp[0])
+    consumer = loop_path(instructions, outer, inner, trips)
+    copies = [sp for sp in spans if not (outer[0] <= sp[0] <= outer[1])
+              and any(opcode(x) in ("UBLKCP", "LDGSTS")
+                      for x in instructions[sp[0]:sp[1] + 1])]
+    producer = 0
+    if copies:
+        loop = max(copies, key=lambda sp: sp[1] - sp[0])
+        producer = loop_path(instructions, loop)["count"]
+    return {"consumer": consumer["count"], "segments": consumer["segments"],
+            "hmma_loop": inner[1] - inner[0] + 1, "producer": producer}
 
 
 def _sass_diff():

@@ -855,11 +855,83 @@ def test_megakernel_variant_attributes(cuda):
     from lz4jpeg_tpu_torch.profiles import megakernel as mk
 
     attrs = {v.name: mk.variant_attributes(v.name, cuda) for v in mk.VARIANTS}
-    assert attrs["full"]["ctas_per_sm"] == 3
-    assert attrs["full"]["shared_bytes"] == 73_728
+    assert attrs["full"]["ctas_per_sm"] == 1
+    assert attrs["full"]["shared_bytes"] == mk.K1_SMEM
+    assert attrs["full"] == mk.k1_attributes(cuda)
     assert attrs["band_128"]["ctas_per_sm"] == 1
     for name, a in attrs.items():
         assert 0 < a["registers"] <= 255 and a["ctas_per_sm"] >= 1, name
+
+
+def _wave_shape(cuda):
+    """(1, H, 512): one band a block row, one band more than the CTAs of a
+    whole wave."""
+    from lz4jpeg_tpu_torch.profiles import megakernel as mk
+
+    resident = mk.launch_plan(1, 8, 512, cuda).resident
+    return (1, 8 * (resident + 1), 512)
+
+
+@pytest.mark.parametrize("route", ["bulk", "direct"])
+@pytest.mark.parametrize("case", ["b256, many bands a CTA",
+                                  "a band past a whole wave",
+                                  "last band a row and 16 columns short"])
+def test_k1_band_loop_edges(cuda, case, route):
+    """K1 against its plain version where the band loop's plan is tested
+    hardest: 8,192 bands on 132 CTAs (62 a CTA, both groups, every ring
+    slot many times), a band count one past a whole wave (one CTA takes a
+    second band), and a last block row of 7 image rows whose last band is
+    62 tiles of 496 columns; by bulk copies (aligned) and by direct reads
+    (a view one byte in).  The kernel's launch plan is the mirror's."""
+    from lz4jpeg_tpu_torch.profiles import megakernel as mk
+
+    shape = {"b256, many bands a CTA": (256, 256, 256),
+             "a band past a whole wave": _wave_shape(cuda),
+             "last band a row and 16 columns short": (2, 255, 1008)}[case]
+    rgb = np.random.default_rng(sum(shape)).integers(
+        0, 256, size=(*shape, 3), dtype=np.uint8)
+    x = torch.from_numpy(rgb).to(cuda)
+    if route == "direct":
+        buf = torch.empty(x.numel() + 1, dtype=torch.uint8, device=cuda)[1:]
+        x = buf.copy_(x.reshape(-1)).view(x.shape)
+        assert x.data_ptr() % 16 != 0
+    plan = mk.launch_plan(*shape, cuda)
+    assert plan == mk.k1_plan(*shape, plan.resident)
+    if case == "a band past a whole wave":
+        assert plan.n_bands == plan.resident + 1 == plan.ctas + 1
+    before = forward_combined.launches
+    got = forward_combined(x, LUM, CHR)
+    torch.cuda.synchronize()
+    assert forward_combined.launches == before + 1
+    want = forward_combined_ref(x, LUM, CHR)
+    flips = sum_order_flips(rgb, got.cpu().numpy(), want.cpu().numpy(), LUM,
+                            CHR)
+    assert flips <= MAX_FLIP_SHARE * got.numel()
+
+
+def test_k1_plan_entry_matches_the_mirror(cuda):
+    """``fwd_megakernel_plan`` against ``profiles/megakernel.py::k1_plan``
+    at the plan tests' shapes and phase 2's."""
+    from lz4jpeg_tpu_torch.profiles import megakernel as mk
+
+    for shape in [(1, 64, 128), (2, 1023, 512), (1, 61, 1040),
+                  (3, 2048, 2048), (5, 2048, 2048), (1, 37, 53), (1, 8, 8),
+                  (8, 2048, 2048)]:
+        plan = mk.launch_plan(*shape, cuda)
+        assert plan.resident == torch.cuda.get_device_properties(
+            cuda).multi_processor_count * mk.k1_attributes(cuda)["ctas_per_sm"]
+        assert plan == mk.k1_plan(*shape, plan.resident), shape
+
+
+def test_k1_and_its_probe_variants_spill_nothing(cuda):
+    """ptxas's spill stores of K1 and of every probe variant (the toolkit,
+    beside the card)."""
+    from lz4jpeg_tpu_torch.profiles.sass_loops import spill_stores
+
+    k1 = spill_stores("fwd_megakernel")
+    assert len(k1) == 1 and set(k1.values()) == {0}, k1
+    probes = spill_stores("fwd_probe_kernel")
+    assert len(probes) == 26 and set(probes.values()) == {0}, probes
 
 
 def test_megakernel_variant_refuses_what_the_probes_do_not_run(cuda):
@@ -960,10 +1032,13 @@ def test_megakernel_kt_variant_attributes(cuda):
 
     attrs = {v.name: mk.variant_attributes(v.name, cuda)
              for v in mk.KT_VARIANTS}
-    for name in ("kt_split_runs", "kt_full", "kt_basis_a", "kt_dct",
-                 "kt_copy"):
-        assert attrs[name]["shared_bytes"] == 73_728, name
-        assert attrs[name]["ctas_per_sm"] == 3, name
+    assert attrs["kt_copy"]["shared_bytes"] == mk.K1_SMEM
+    for name in ("kt_full", "kt_basis_a", "kt_dct"):  # two groups
+        assert attrs[name]["shared_bytes"] == mk.K1_SMEM - mk.K1_GROUP_BYTES, name
+    # the split stage stores from the staging: no output rows in its groups
+    assert attrs["kt_split_runs"]["shared_bytes"] < mk.K1_SMEM - mk.K1_GROUP_BYTES
+    for name in ("kt_split_runs", "kt_full", "kt_basis_a", "kt_dct", "kt_copy"):
+        assert attrs[name]["ctas_per_sm"] == 1, name
     assert attrs["kt_full_128"]["ctas_per_sm"] == 1
     assert attrs["kt_copy_128"]["ctas_per_sm"] == 1
     for name, a in attrs.items():
