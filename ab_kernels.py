@@ -2,7 +2,7 @@
 """Time this checkout's kernels in turns with another checkout's, on one
 CUDA card.
 
-    python3 ab_kernels.py --other DIR
+    python3 ab_kernels.py --other DIR [--only megakernel]
 
 DIR is the root of another checkout of this repository, for example an
 earlier commit unpacked into a git-ignored directory with
@@ -21,15 +21,18 @@ K4-K7 on the zigzag values of the luma (K = 64) and Cr chroma (K = 32)
 channels of 64 such frames, K4 in int16 and int32; the copy kernel on
 512 MiB of u8 as (rows, 2048), with ``Tensor.copy_`` of the same bytes,
 the library call, timed in the same turns.  K1's, K2's, K4-K7's and the
-copy's outputs must be identical.  Before K1: each checkout's K1 and
-kt_split_runs builds (registers, shared memory, CTAs an SM, ptxas's spill
-bytes, and their band loop's warp instructions a tile in the SASS by
-``profiles/megakernel.py::band_sass_counts``, the toolkit's); after it, in
-``time_ms``'s protocol below, P-abl's full row (K1's instantiation in the
-probe library) and P-kt's kt_split_runs through each checkout's
-``profiles/megakernel.py::megakernel_variant`` on 32 frames of 2048² noise
-and its ``rgb_to_kt``, outputs identical, each with the issue floor of
-each checkout's SASS count.  Then the probe kernels
+copy's outputs must be identical.  Before K1: each checkout's K1 and KT
+product builds (registers, ptxas's spill bytes, shared memory, CTAs an SM,
+consumer groups, and their band loop's warp instructions a tile in the
+SASS by warp role, by ``profiles/megakernel.py::band_sass_counts``, the
+toolkit's); after it, in ``time_ms``'s protocol below, the megakernel's
+probe rows (``PROBE_ROWS``: P-abl's full row, K1's instantiation in the
+probe library, on 32 frames of 2048² noise; P-kt's kt_split_runs, P-t's
+kt_basis_a and P-v2's product and copy rows on its ``rgb_to_kt``) through
+each checkout's ``profiles/megakernel.py::megakernel_variant``, outputs
+identical, each product row with the issue floor of
+each checkout's SASS count; ``--only megakernel`` stops there.  Then the
+probe kernels
 of ``profiles/casts.py::cast`` (P-cast, the seven pairs at 134,217,728
 random source words, ``casts.run_casts``' size) and
 ``profiles/dct_gates.py::basis_dot`` (P-dot, 2,097,152 × 64 pixels and the
@@ -73,6 +76,7 @@ import argparse
 import importlib
 import subprocess
 import sys
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 import numpy as np
@@ -84,6 +88,18 @@ DOT_ROWS = 2_097_152  # profiles/dct_gates.py::run_dct_gates' rows
 SORT_BLOCKS = 2048  # profiles/bitonic_sort.py::run_bitonic_sort's blocks
 MCU_TILES = 2 * 1024 * 1024  # profiles/candidates_ab.py's luma tiles
 STAGE_BLOCKS = 2048  # profiles/bucket_partition.py's larger size
+PROBE_ROWS = (  # (the row of PERF.md's table, variant)
+    ("P-abl full", "full"),
+    ("P-kt kt_split_runs", "kt_split_runs"),
+    ("P-v2 kt_full_32", "kt_full_32"),
+    ("P-v2/P-t kt_full", "kt_full"),
+    ("P-v2 kt_full_128", "kt_full_128"),
+    ("P-v2 kt_dct", "kt_dct"),
+    ("P-t kt_basis_a", "kt_basis_a"),
+    ("P-v2 kt_copy_32", "kt_copy_32"),
+    ("P-v2 kt_copy", "kt_copy"),
+    ("P-v2 kt_copy_128", "kt_copy_128"),
+)
 
 
 def load_checkout(root: Path):
@@ -132,6 +148,8 @@ def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--other", required=True, type=Path,
                         help="root of the checkout to time against this one")
+    parser.add_argument("--only", choices=("megakernel",),
+                        help="time K1 and the megakernel's probe rows only")
     args = parser.parse_args()
 
     import torch
@@ -186,31 +204,77 @@ def main() -> int:
               f"({t['other'] / t['this']:.2f}x this){lib}; bound {b[0]:.4f} "
               f"ms ({b[1]}), this {b[0] / t['this']:.1%} of it")
 
+    def ab_queued(label, fns, inputs, n_bytes, same, issue_ms=None):
+        """Each of ``fns`` (other, this, then the library calls and other
+        references) on ``inputs`` once, the outputs held by ``same(name,
+        out, this_out)``, then each timed by ``timing.time_ms`` in turns:
+        other, this, the rest, the rest reversed, this, other; prints both
+        times of each and its ratio to this, and the share of the bytes
+        bound or, if larger, of ``issue_ms``; returns each one's mean."""
+        outs = {name: fn(inputs) for name, fn in fns.items()}
+        torch.cuda.synchronize()
+        for name, out in outs.items():
+            check(same(name, out, outs["this"]), f"{label}: {name} differs")
+        del outs
+        t = {}
+        for name in [*fns, *reversed(list(fns))]:
+            t.setdefault(name, []).append(timing.time_ms(fns[name], inputs, dev))
+            print(f"{label} {name}: {t[name][-1]:.4f} ms", flush=True)
+        b, by = bound(n_bytes)[0], "bytes"
+        if issue_ms is not None and issue_ms > b:
+            b, by = issue_ms, "issue"
+        mean = {k: sum(v) / 2 for k, v in t.items()}
+        print(f"{label}: this {t['this'][0]:.4f}, {t['this'][1]:.4f} ms; "
+              + "; ".join(f"{k} {v[0]:.4f}, {v[1]:.4f} "
+                          f"({mean[k] / mean['this']:.3f}x this)"
+                          for k, v in t.items() if k != "this")
+              + f"; bound {b:.4f} ms ({by}), this {b / mean['this']:.1%} "
+              f"of it")
+        return mean
+
     torch.backends.cuda.matmul.allow_tf32 = False
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(SEED)
     from lz4jpeg_tpu_torch.profiles import timing
 
-    # Each checkout's K1 and kt_split_runs builds: warp instructions a tile in
-    # their SASS and spill bytes (ptxas), from the toolkit.
+    # Each checkout's K1 and KT product builds: warp instructions a tile in
+    # their SASS (by warp role), registers and spill bytes (ptxas), from the
+    # toolkit; shared memory and CTAs an SM from the card.
     roots = {"other": args.other.resolve(), "this": HERE}
-    sass = {side: this[10].band_sass_counts(root)
-            for side, root in roots.items()}
-    spills = {}
+    mk, loops = this[10], this[11]
+    with ThreadPoolExecutor(6) as pool:  # nvcc runs beside nvcc
+        jobs = {(side, what): pool.submit(fn, root)
+                for side, root in roots.items()
+                for what, fn in (
+                    ("sass", mk.band_sass_counts),
+                    ("k1", lambda r: loops.ptxas_usage("fwd_megakernel", r)),
+                    ("probes",
+                     lambda r: loops.ptxas_usage("fwd_probe_kernel", r)))}
+        built = {key: job.result() for key, job in jobs.items()}
+    sass = {side: built[side, "sass"] for side in roots}
+    usage = {side: mk.kt_ptxas(root, built[side, "probes"])
+             for side, root in roots.items()}
     for side, mods in (("other", other), ("this", this)):
-        k1 = mods[11].spill_stores("fwd_megakernel")
-        probes = mods[11].spill_stores("fwd_probe_kernel")
-        spills[side] = {"k1": max(k1.values()), "probes": sum(probes.values()),
-                        "kt_split_runs": next(v for k, v in probes.items()
-                                              if "Stage)5" in k)}
+        k1, probes = built[side, "k1"], built[side, "probes"]
         attrs = mods[10].variant_attributes("full", dev)
         print(f"K1 {side}: {attrs['registers']} registers, "
               f"{attrs['shared_bytes']} B shared memory, "
-              f"{attrs['ctas_per_sm']} CTAs an SM, {spills[side]['k1']} "
-              f"spill bytes (every probe variant: "
-              f"{spills[side]['probes']}); band loop "
+              f"{attrs['ctas_per_sm']} CTAs an SM, "
+              f"{max(u['spill_stores'] for u in k1.values())} spill bytes "
+              f"(every probe variant: "
+              f"{sum(u['spill_stores'] for u in probes.values())}); band loop "
               f"{sass[side]['k1']['segments']} warp instructions a warp "
               f"between barriers, producer {sass[side]['k1']['producer']}")
+        for name in mk.KT_PRODUCTS:
+            u, c = usage[side][name], sass[side][name]
+            attrs = mods[10].variant_attributes(name, dev)
+            roles = ", ".join(f"{role} {r['count']} x {r['warps']}"
+                              for role, r in c.items() if isinstance(r, dict))
+            print(f"{name} {side}: {c['groups']} groups, {u['registers']} "
+                  f"registers, {u['spill_stores']} B spill stores, "
+                  f"{attrs['shared_bytes']} B shared memory, "
+                  f"{attrs['ctas_per_sm']} CTAs an SM; {c['per_tile']:.2f} "
+                  f"warp instructions a tile (a band: {roles})")
     for batch in (64, 256):
         x = torch.randint(0, 256, (batch, 2048, 2048, 3), dtype=torch.uint8,
                           device=dev, generator=gen)
@@ -232,6 +296,43 @@ def main() -> int:
                   f"{floor:.4f} ms")
         del x
 
+    # The megakernel's probe rows on 32 frames of 2048² (P-abl's full row,
+    # K1's instantiation in the probe library) and on their KT layout
+    # (P-kt, P-t's basis-A row, P-v2's product and copy rows), in turns,
+    # outputs identical between the checkouts; the floor at each
+    # checkout's own SASS count.
+    x = torch.randint(0, 256, (32, 2048, 2048, 3), dtype=torch.uint8,
+                      device=dev, generator=gen)
+    probe_inputs = {"rgb": x, "kt": this[0].rgb_to_kt(x)}
+    tiles = 32 * 256 * 256
+
+    def probe_same(_, a, b):
+        a, b = (a, b) if isinstance(a, tuple) else ((a,), (b,))
+        return all(torch.equal(p, q) for p, q in zip(a, b))
+
+    for label, name in PROBE_ROWS:
+        key = "k1" if name == "full" else name
+        mean = ab_queued(
+            f"{label} 32x2048x2048",
+            {"other": lambda a: other[10].megakernel_variant(a, name, LUM, CHR),
+             "this": lambda a: this[10].megakernel_variant(a, name, LUM, CHR)},
+            probe_inputs[mk.BY_NAME[name].input],
+            mk.variant_bytes(name, tiles), probe_same)
+        if key not in sass["this"]:
+            continue
+        for side, mods in (("other", other), ("this", this)):
+            floor = timing.issue_bound_ms(
+                32 * sass[side][key]["per_tile"] * tiles, dev)
+            attrs = mods[10].variant_attributes(name, dev)
+            print(f"{label} {side}: {attrs['registers']} registers, "
+                  f"{attrs['shared_bytes']} B shared memory, "
+                  f"{attrs['ctas_per_sm']} CTAs an SM; "
+                  f"{sass[side][key]['per_tile']:.2f} warp instructions a "
+                  f"tile, issue floor {floor:.4f} ms, "
+                  f"{floor / mean[side]:.1%} of it")
+    del x, probe_inputs
+    if args.only == "megakernel":
+        return 0
 
     # K4-K7 on phase 12's values: luma and Cr chroma of the b64 frames.
     bw = SIDE // 8
@@ -273,69 +374,6 @@ def main() -> int:
     ab(f"copy {COPY_BYTES >> 20} MiB u8", lambda m, a: m[3].stream_copy(a), x,
        2 * x.numel(), library=lambda a: sink.copy_(a))
     del x, sink
-
-    def ab_queued(label, fns, inputs, n_bytes, same, issue_ms=None):
-        """Each of ``fns`` (other, this, then the library calls and other
-        references) on ``inputs`` once, the outputs held by ``same(name,
-        out, this_out)``, then each timed by ``timing.time_ms`` in turns:
-        other, this, the rest, the rest reversed, this, other; prints both
-        times of each and its ratio to this, and the share of the bytes
-        bound or, if larger, of ``issue_ms``; returns each one's mean."""
-        outs = {name: fn(inputs) for name, fn in fns.items()}
-        torch.cuda.synchronize()
-        for name, out in outs.items():
-            check(same(name, out, outs["this"]), f"{label}: {name} differs")
-        del outs
-        t = {}
-        for name in [*fns, *reversed(list(fns))]:
-            t.setdefault(name, []).append(timing.time_ms(fns[name], inputs, dev))
-            print(f"{label} {name}: {t[name][-1]:.4f} ms", flush=True)
-        b, by = bound(n_bytes)[0], "bytes"
-        if issue_ms is not None and issue_ms > b:
-            b, by = issue_ms, "issue"
-        mean = {k: sum(v) / 2 for k, v in t.items()}
-        print(f"{label}: this {t['this'][0]:.4f}, {t['this'][1]:.4f} ms; "
-              + "; ".join(f"{k} {v[0]:.4f}, {v[1]:.4f} "
-                          f"({mean[k] / mean['this']:.3f}x this)"
-                          for k, v in t.items() if k != "this")
-              + f"; bound {b:.4f} ms ({by}), this {b / mean['this']:.1%} "
-              f"of it")
-        return mean
-
-    # P-abl's full row (K1's instantiation in the probe library) and P-kt's
-    # kt_split_runs on 32 frames of 2048² and their KT layout, in turns; the
-    # floor at each checkout's own SASS count.
-    x = torch.randint(0, 256, (32, 2048, 2048, 3), dtype=torch.uint8,
-                      device=dev, generator=gen)
-    probe_inputs = {"full": x, "kt_split_runs": this[0].rgb_to_kt(x)}
-    tiles = 32 * 256 * 256
-    for label, name, per_tile in (("P-abl full", "full", 192 + 256),
-                                  ("P-kt kt_split_runs", "kt_split_runs",
-                                   192 + 256 + 12)):
-        key = "k1" if name == "full" else name
-
-        def probe_same(_, a, b):
-            a, b = (a, b) if isinstance(a, tuple) else ((a,), (b,))
-            return all(torch.equal(p, q) for p, q in zip(a, b))
-
-        mean = ab_queued(
-            f"{label} 32x2048x2048",
-            {"other": lambda a: other[10].megakernel_variant(a, name, LUM, CHR),
-             "this": lambda a: this[10].megakernel_variant(a, name, LUM, CHR)},
-            probe_inputs[name], tiles * per_tile, probe_same)
-        for side, mods in (("other", other), ("this", this)):
-            floor = timing.issue_bound_ms(
-                32 * sass[side][key]["per_tile"] * tiles, dev)
-            attrs = mods[10].variant_attributes(name, dev)
-            print(f"{label} {side}: {attrs['registers']} registers, "
-                  f"{attrs['shared_bytes']} B shared memory, "
-                  f"{attrs['ctas_per_sm']} CTAs an SM, "
-                  f"{spills[side][key]} spill bytes; "
-                  f"{sass[side][key]['per_tile']:.2f} warp instructions a "
-                  f"tile (band loop {sass[side][key]['segments']} a warp, "
-                  f"producer {sass[side][key]['producer']}), issue floor "
-                  f"{floor:.4f} ms, {floor / mean[side]:.1%} of it")
-    del x, probe_inputs
 
     casts = this[4]
     for pair, (src, dst) in enumerate(casts.PAIRS):

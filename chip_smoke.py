@@ -226,14 +226,20 @@ another checkout's.
     CTAs per SM and its bound; the phase's wall time;
 23. the megakernel's layout variants (nine more instantiations of the same
     template, reading the (3, 64, N) KT layout of ``rgb_to_kt``), about
-    15 s: every KT variant against its plain version on ``rgb_to_kt`` of
+    20 s: every KT variant against its plain version on ``rgb_to_kt`` of
     the frames of ``PROBE_CHECKS`` (even columns repeating odd ones), the
     K1-arithmetic rows (``KT_SAME_AS_K1``: the split stage's three outputs
     side by side) identical to ``forward_combined`` on the same frames,
     ``kt_basis_a`` held to the one-step rule and reported identical or not;
     every KT variant on a ragged N (``LAYOUT_RAGGED_N``: N % 16 == 0, N % T
-    ≠ 0 for every T) against its plain version, and an N % 16 ≠ 0 refused
-    by the wrapper and by the C entry point; then the three layout runners
+    ≠ 0 for every T: a last band of 16 of 32 tiles, 48 of 64 and of 128)
+    against its plain version, and an N % 16 ≠ 0 refused by the wrapper
+    and by the C entry point; ``LAYOUT_REPEATS`` launches of each at 32 ×
+    2048², each identical to the first; each build's consumer groups,
+    registers, ptxas's spill bytes (none allowed), shared memory and
+    warp instructions a tile in its SASS by warp role
+    (``megakernel.band_sass_counts``, the toolkit's, counted beside the
+    checks); then the three layout runners
     (``run_megakernel_kt``, ``run_megakernel_t``, ``run_megakernel_v2``:
     the rows of ``profiles/probe_megakernel.py``, ``probe_megakernel_t.py``
     and ``probe_megakernel_v2.py``) at their defaults, 32 frames of 2048²,
@@ -502,6 +508,7 @@ LAYOUT_REPLACES = {"megakernel_kt": "profiles/probe_megakernel.py:108",
                    "megakernel_t": "profiles/probe_megakernel_t.py:50",
                    "megakernel_v2": "profiles/probe_megakernel_v2.py:85"}
 LAYOUT_RAGGED_N = 64 * 64 + 48  # phase 23: N % 16 == 0, N % 32, 64, 128 ≠ 0
+LAYOUT_REPEATS = 20  # phase 23: launches of each KT variant at 32 × 2048²
 LAYOUT_REFUSED_N = 4100  # phase 23: N % 16 ≠ 0
 LAYOUT_RUN = {}  # the three layout runs' defaults: 32 frames of 2048²
 SORT_SOURCE = "lz4jpeg_tpu_torch/csrc/bitonic_sort_kernel.cu"
@@ -3099,10 +3106,12 @@ def probe_records(results, launches, flips, replaces):
 def layouts_phase(dev):
     """Phase 23: the megakernel's KT layout variants (``profiles/
     megakernel.py``) against their plain versions and K1 on the card, a
-    ragged and a refused N, then the three layout runners at their
-    defaults; returns the three kernel records."""
+    ragged and a refused N, repeated launches, each build's counts (the
+    toolkit's, beside the card's work), then the three layout runners at
+    their defaults; returns the three kernel records."""
     import ctypes
     import gc
+    from concurrent.futures import ThreadPoolExecutor
 
     import torch
 
@@ -3119,6 +3128,15 @@ def layouts_phase(dev):
     gc.collect()
     torch.cuda.empty_cache()
     t_phase = time.perf_counter()
+    names = [v.name for v in mk.KT_VARIANTS]
+    pool = ThreadPoolExecutor(2)  # nvcc beside the card's work
+    counted = (pool.submit(mk.band_sass_counts, None, names),
+               pool.submit(mk.kt_ptxas))
+    pool.shutdown(wait=False)
+
+    def identical(a, b):
+        a, b = (a, b) if isinstance(a, tuple) else ((a,), (b,))
+        return all(torch.equal(p, q) for p, q in zip(a, b))
 
     def held(kt, v, label):
         got = mk.megakernel_variant(kt, v.name, LUM, CHR)
@@ -3144,13 +3162,23 @@ def layouts_phase(dev):
                 check(same or v.name not in mk.KT_SAME_AS_K1,
                       f"phase 23: {v.name} differs from forward_combined at "
                       f"{frames}x{h}x{w}")
+            if (frames, h, w) == max(PROBE_CHECKS):  # a race shows sometimes
+                same = 1 + sum(
+                    identical(mk.megakernel_variant(kt, v.name, LUM, CHR), got)
+                    for _ in range(LAYOUT_REPEATS - 1))
+                line += (f"; {same} of {LAYOUT_REPEATS} launches identical "
+                         "to the first")
+                check(same == LAYOUT_REPEATS, f"phase 23: {v.name}: "
+                      f"{LAYOUT_REPEATS - same} launches differ")
             print(f"phase 23: {line}")
             del got
         del x, kt, k1
     # -- a ragged N, and one the route refuses -------------------------------
     kt = mk.noise_kt(LAYOUT_RAGGED_N, SEED + 23).to(dev)
     for v in mk.KT_VARIANTS:
-        print("phase 23: " + held(kt, v, f"{v.name} ragged N {LAYOUT_RAGGED_N}")[1])
+        last = LAYOUT_RAGGED_N % v.tiles
+        print("phase 23: " + held(kt, v, f"{v.name} ragged N {LAYOUT_RAGGED_N} "
+                                  f"(last band {last} of {v.tiles} tiles)")[1])
     for name, (f, total) in flips.items():
         check(f <= mk.flip_limit(name) * total,
               f"phase 23: {name}: {f} flips in {total} outputs")
@@ -3177,12 +3205,34 @@ def layouts_phase(dev):
           f"{LAYOUT_REFUSED_N} refused by the wrapper and the entry point "
           f"({lib.fwd_probe_error_string(rc).decode()})")
 
+    # -- each build: groups, registers, spills, SASS a tile -----------------
+    sass, usage = (job.result() for job in counted)
+    builds = {}
+    for name in names:
+        c, u = sass[name], usage[name]
+        a = mk.variant_attributes(name, dev)
+        roles = ", ".join(f"{role} {r['count']} x {r['warps']}"
+                          for role, r in c.items() if isinstance(r, dict))
+        builds[name] = {"groups": c["groups"], "spill_stores": u["spill_stores"],
+                        "sass_per_tile": c["per_tile"]}
+        print(f"phase 23: {name}: {c['groups']} groups, {a['registers']} "
+              f"registers at launch ({u['registers']} by ptxas), "
+              f"{u['spill_stores']} B spill stores, {a['shared_bytes']} B "
+              f"shared memory, {a['ctas_per_sm']} CTAs an SM; "
+              f"{c['per_tile']:.2f} warp instructions a tile in its SASS (a "
+              f"band: {roles})")
+        check(u["spill_stores"] == 0, f"phase 23: {name} spills")
+
     # -- the three runners at their defaults, each count zeroed before -----
     runs = {"megakernel_kt": run_megakernel_kt,
             "megakernel_t": run_megakernel_t,
             "megakernel_v2": run_megakernel_v2}
     results, launches = probe_runs("phase 23", runs, LAYOUT_RUN, dev, t_phase)
-    return probe_records(results, launches, flips, LAYOUT_REPLACES)
+    records = probe_records(results, launches, flips, LAYOUT_REPLACES)
+    for record in records:
+        for row in record["variants"]:
+            row.update(builds.get(row["variant"].split("+")[-1], {}))
+    return records
 
 def matcher_phase(dev, p10_words, k2_ms):
     """Phase 24: the matcher sorts (``profiles/bitonic_sort.py``,

@@ -27,8 +27,11 @@
 //     (lanes, N), staged transposed in shared memory so that each lane's T
 //     values go out as one contiguous run;
 //   - kGroups: the consumer groups of a CTA: 3 (K1: 25 warps an SM hold
-//     72 registers a thread), 2 where a variant needs more registers than
-//     72 without spilling, 1 at T = 128 (a group alone takes 106 KB);
+//     72 registers a thread; the KT products: 28 warps, whose producer
+//     warpgroup hands registers to the consumers, below), 2 where a variant
+//     needs more registers than 72 without spilling or at T = 128 (a KT
+//     product's group takes 74 KB there), 1 for the RGB T = 128 band (106
+//     KB a group);
 //   - kInput: (B, H, W, 3) RGB image bands (K1) or slabs of T blocks of the
 //     (3, 64, N) KT layout (ops/fwd_megakernel.py::rgb_to_kt): 192 row
 //     pieces of T bytes at stride N, the same 192·T bytes as an image band
@@ -46,6 +49,20 @@
 // turn (band i of the CTA: slot i % slots, group i % kGroups) and wait only
 // on their own named barrier, so one group's epilogue and store overlap
 // the others' colour and product, and the ring's loads overlap them all.
+//
+// The KT products' frame.  Their colour from the KT slab and their product
+// need more than 72 registers a thread, what 25 warps an SM leave.  At
+// three groups their producer is a whole warpgroup (warps 24-27, 896
+// threads, launched at 72 registers): it drops to kProducerRegs
+// (setmaxnreg.dec) and the consumer warpgroups rise to kConsumerRegs
+// (setmaxnreg.inc) on the two sides of one branch that never rejoins, and
+// its four warps share the band's 16-byte copies.  A KT product group's
+// unpadded output rows alias its bf16 operands (KtGroup), dead once the
+// product has passed the group's barrier, so that three groups at T = 64
+// (with the basis-A variant's staged basis) and two at T = 128 fit beside
+// the ring: a group's storing thread waits for its last bulk store to have
+// read the rows, then the group's barrier, before the next convert writes
+// them.
 
 #pragma once
 
@@ -67,6 +84,13 @@ constexpr int kBias = 1024;                // SPARSE16_DELTA_BIAS
 constexpr int kLumPart = 64 * 64;          // bf16 values of one luma part
 constexpr int kChrPart = 32 * 32;
 constexpr int kSmemLimit = 232448;         // dynamic shared memory a CTA
+constexpr int kConsumerRegs = 80;          // the KT products' setmaxnreg
+constexpr int kProducerRegs = 24;          //  (consumers .inc, producer .dec)
+// The basis staged once a CTA for the basis-A product's ldmatrix: the
+// three luma parts (64 × 64) and the three chroma parts (32 × 32), rows
+// padded 16 B (conflict-free, as the operands).
+constexpr int kLumBasis = 3 * 64 * kLumStride;  // bf16 values
+constexpr int kStagedBasisBytes = (kLumBasis + 3 * 32 * kChrStride) * 2;
 
 enum class Colour { kYCbCr, kR, kRGB };
 enum class Stage { kSparse, kTrunc, kCopyU8, kCastI16, kSumF32, kSplit };
@@ -101,7 +125,14 @@ struct Variant {
       BlockMajor ? Tiles * kQStride
                  : (kLanes * kLaneStride * static_cast<int>(sizeof(Out)) + 1) / 2;
   static constexpr int kOutElems = kBulkOut ? Tiles * kLanes : 8;
-  static constexpr int kCtaThreads = Groups * kThreads + 32;  // + producer
+  // The KT products' frame (above): a producer warpgroup at three groups,
+  // output rows over the operands, the staged basis of the basis-A product.
+  static constexpr bool kKtProduct = In == Input::kKt && kProduct;
+  static constexpr bool kRegSplit = kKtProduct && Groups == 3;
+  static constexpr int kProducerWarps = kRegSplit ? 4 : 1;
+  static constexpr bool kAliasOut = kKtProduct && kBulkOut;
+  static constexpr int kStagedBytes = kKtProduct && BasisA ? kStagedBasisBytes : 0;
+  static constexpr int kCtaThreads = Groups * kThreads + 32 * kProducerWarps;
 
   static_assert(Tiles >= 16 && Tiles <= 128 && (Tiles & (Tiles - 1)) == 0,
                 "T is a power of two in [16, 128]: 2T groups fill whole rows");
@@ -124,6 +155,16 @@ struct Variant {
   static_assert(S != Stage::kSplit || (BlockMajor && Channels == 3),
                 "the split stage cuts the three segments of block-major rows");
   static_assert(Groups >= 1 && Groups <= 4, "named barriers 1..Groups");
+  // Registers a thread at launch: a scheduler's 16,384 over the warps of
+  // the fullest of the 4 (warp w on scheduler w % 4), in steps of 8.
+  static constexpr int kLaunchRegs =
+      16384 / (32 * ((kCtaThreads / 32 + 3) / 4)) / 8 * 8;
+  static_assert(!kRegSplit ||
+                    Groups * kThreads * kConsumerRegs +
+                            32 * kProducerWarps * kProducerRegs <=
+                        kCtaThreads * kLaunchRegs,
+                "the consumers take no more registers than the producer "
+                "hands them");
 };
 
 // K1: bands of 64 tiles, three parts, colour, three channels, the sparse
@@ -145,7 +186,7 @@ struct Band {
 // padded 16 B: the mma epilogue's stores are free of bank conflicts), and
 // the band's unpadded output rows that the bulk store reads.
 template <class V>
-struct alignas(16) Group {
+struct alignas(16) RowsGroup {
   int16_t out[V::kOutElems];
   Band band;  // the band being stored, for the thread that stores it
   uint16_t lum[V::kTiles * kLumStride];
@@ -153,12 +194,38 @@ struct alignas(16) Group {
   int16_t q[V::kQElems];
 };
 
+// A KT product group: the same, the output rows over the operands (out_rows).
+template <class V>
+struct alignas(16) KtGroup {
+  Band band;
+  uint16_t lum[V::kTiles * kLumStride];
+  uint16_t chr[2][V::kTiles * kChrStride];
+  int16_t q[V::kQElems];
+  static_assert(sizeof(Band) % 16 == 0 &&
+                    sizeof(lum) + sizeof(chr) >= V::kOutElems * sizeof(int16_t),
+                "the output rows fit over the operands, 16-byte aligned");
+};
+
+template <class V>
+using Group = std::conditional_t<V::kAliasOut, KtGroup<V>, RowsGroup<V>>;
+
+// The group's unpadded output rows.
+template <class V>
+__device__ __forceinline__ int16_t* out_rows(Group<V>& gr) {
+  if constexpr (V::kAliasOut) {
+    return reinterpret_cast<int16_t*>(gr.lum);
+  } else {
+    return gr.out;
+  }
+}
+
 // The ring's slot count: as many band slots as fit beside the groups, at
 // most 5 (K1's 3 groups leave room for 5; a fifth slot gained over a
 // fourth, a sixth does not fit).
 template <class V>
 constexpr int ring_slots() {
-  constexpr int kFixed = V::kGroups * static_cast<int>(sizeof(Group<V>));
+  constexpr int kFixed =
+      V::kGroups * static_cast<int>(sizeof(Group<V>)) + V::kStagedBytes;
   constexpr int kPerSlot = V::kBandBytes + static_cast<int>(sizeof(Band)) + 16;
   constexpr int kFit = (kSmemLimit - kFixed - 64) / kPerSlot;
   return kFit < 5 ? kFit : 5;
@@ -174,6 +241,12 @@ struct Smem {
   uint64_t full[kSlots];   // the slot's bytes (and geometry) landed
   uint64_t empty[kSlots];  // its group's 8 warps have read it
 };
+
+// A CTA's dynamic shared memory: Smem, then the staged basis (if any).
+template <class V>
+constexpr int dynamic_smem() {
+  return static_cast<int>(sizeof(Smem<V>)) + V::kStagedBytes;
+}
 
 // Band geometry in 32-bit arithmetic (the launcher checks that every band,
 // block row and image row index fits in 31 bits); 64-bit only for the
@@ -660,7 +733,7 @@ __device__ __forceinline__ void store_rows(Group<V>& gr,
       V::kChannels == 3 ? c == 0 || c == 8 || c == 12 : c == 0;
   const int r0 = tid / kPerRow;
   const int16_t* src = gr.q + r0 * kQStride + 8 * c;
-  uint4* dst = reinterpret_cast<uint4*>(gr.out) + r0 * kPerRow + c;
+  uint4* dst = reinterpret_cast<uint4*>(out_rows<V>(gr)) + r0 * kPerRow + c;
 #pragma unroll
   for (int j = 0; j < V::kTiles * kPerRow / kThreads; ++j) {
     const int16_t* qr = src + j * kRowsPerPass * kQStride;
@@ -673,7 +746,7 @@ __device__ __forceinline__ void store_rows(Group<V>& gr,
   fence_proxy_async();  // these writes before the bulk store's reads
   group_sync(g);
   if (tid == 0) {
-    bulk_store(out + gr.band.out_row * V::kLanes, gr.out,
+    bulk_store(out + gr.band.out_row * V::kLanes, out_rows<V>(gr),
                static_cast<uint32_t>(gr.band.tiles) * V::kLanes * 2);
   }
 }
@@ -761,27 +834,46 @@ __device__ __forceinline__ uint32_t kt_word(const uint8_t* buf, int piece,
                                             4 * w);
 }
 
-// The producer warp's 16-byte copies of one KT band: T/16 chunks of each
-// piece the variant reads, lane i copying chunks i, i + 32, ...  A product
-// reads all 192 pieces; the i16 cast only R[0:64], G[0:32] and B[0:32]
-// (pieces 0-95 and 128-159: its 128·T bytes).  A short last band (tiles <
-// T, a multiple of 16 since N % 16 == 0) copies its whole chunks only; the
-// rest of the slot keeps stale bytes, whose outputs are never stored.
+// The producer's 16-byte copies of one KT band: T/16 chunks of each piece
+// the variant reads, producer lane i (of 32 a producer warp) copying chunks
+// i, i + 32·warps, ...  A product reads all 192 pieces; the i16 cast only
+// R[0:64], G[0:32] and B[0:32] (pieces 0-95 and 128-159: its 128·T bytes).
+// A short last band (tiles < T, a multiple of 16 since N % 16 == 0) copies
+// its whole chunks only; the rest of the slot keeps stale bytes, whose
+// outputs are never stored.  A producer warpgroup's lane copies chunk c =
+// lane % (T/16) of pieces lane / (T/16) + j·128/(T/16), a multiple of 8
+// apart: one swizzle and one stride for all its copies (24 registers).
 template <class V>
 __device__ __forceinline__ void load_kt(uint8_t* buf, const uint8_t* src,
                                         int64_t n_blocks, int tiles, int lane) {
   constexpr int kPer = V::kTiles / 16;
   constexpr int kTotal = (V::kProduct ? 192 : 128) * kPer;
   const int chunks = tiles / 16;
-#pragma unroll 4
-  for (int j = 0; j < kTotal / 32; ++j) {
-    const int i = lane + j * 32;
-    const int k = i / kPer;
-    const int c = i - k * kPer;
-    const int piece = V::kProduct || k < 96 ? k : k + 32;
+  if constexpr (V::kProducerWarps > 1) {
+    constexpr int kLanes = 32 * V::kProducerWarps;
+    static_assert(V::kProduct && (kLanes / kPer) % 8 == 0 &&
+                      kTotal % kLanes == 0,
+                  "each lane's pieces share their swizzle");
+    const int c = lane % kPer, first = lane / kPer;
     if (c < chunks) {
-      cp_async16(buf + kt_chunk_offset<V>(piece, c),
-                 src + piece * n_blocks + c * 16);
+      const uint8_t* from = src + first * n_blocks + c * 16;
+      uint8_t* to = buf + (lane ^ (first & 7)) * 16;
+#pragma unroll
+      for (int j = 0; j < kTotal / kLanes; ++j) {
+        cp_async16(to + j * kLanes * 16, from + j * (kLanes / kPer) * n_blocks);
+      }
+    }
+  } else {
+#pragma unroll 4
+    for (int j = 0; j < kTotal / 32; ++j) {
+      const int i = lane + j * 32;
+      const int k = i / kPer;
+      const int c = i - k * kPer;
+      const int piece = V::kProduct || k < 96 ? k : k + 32;
+      if (c < chunks) {
+        cp_async16(buf + kt_chunk_offset<V>(piece, c),
+                   src + piece * n_blocks + c * 16);
+      }
     }
   }
 }
@@ -821,34 +913,70 @@ __device__ __forceinline__ uint32_t kt_pixel(uint32_t r, uint32_t g, uint32_t b,
   return __byte_perm(rg, b, 0x0010 | ((s + 4) << 8));
 }
 
+// colour<0, kC>(px, 0u) with floor(S / 1000) and 2^23's bits as one mad.hi:
+// per_mille's word (the low half of its 64-bit addend is 0), where ptxas
+// builds per_mille from two instructions at the KT products' registers
+// (K1's colour keeps per_mille as it is).
+template <Chan kC>
+__device__ __forceinline__ uint32_t kt_colour(uint32_t px) {
+  using c = CoefOf<kC>;
+  const int32_t s = dp2a<false>(pair16(c::r, c::g), px,
+                                dp2a<true>(pair16(c::b, 0), px, c::add));
+  return __umulhi(static_cast<uint32_t>(s), 4294968u) + 0x4B000000u;
+}
+
 // Colour of a KT band → the bf16 operands of K1 in shared memory (luma T ×
 // 64, Cr and Cb T × 32, tile-major), the same values convert_band writes
 // for the same blocks: chroma is computed for the odd columns, position
-// 8r + 2c' + 1 → chroma sample 4r + c' = q.
+// 8r + 2c' + 1 → chroma sample 4r + c' = q.  A lane's pair q = 8·(warp &
+// 3) + qq is the same in every unit, its chunk j = (warp >> 2) + 2m; the
+// pieces 64c + p of channel c lie 64c·T/16 chunks past those of p under
+// the swizzle, so a unit's six words are two addresses and constant
+// offsets.  Lanes with rot = 2 swap the halves of each word (byte k → k ^
+// 2): step i takes byte i of every word (constant selects) for tile 16j +
+// 4w + (i ^ rot), whose staging rows are two per-lane pointers (i < 2, i
+// ≥ 2) and constant offsets.
 template <class V>
 __device__ __forceinline__ void convert_kt(Group<V>& gr, const uint8_t* buf,
                                            int tid) {
+  constexpr int kChannel = 64 * (V::kTiles / 16) * 16;  // bytes a channel
   const KtLane ln;
+  const int gw = tid >> 5;
+  const int q = 8 * (gw & 3) + ln.qq;
+  const int first = 2 * q + ln.h, second = 2 * q + 1 - ln.h;
+  const int t0 = 16 * (gw >> 2) + 4 * ln.w;
+  uint16_t* const lum_lo = gr.lum + (t0 + ln.rot) * kLumStride + 2 * q;
+  uint16_t* const lum_hi = gr.lum + (t0 - ln.rot) * kLumStride + 2 * q;
+  uint16_t* const chr_lo = gr.chr[0] + (t0 + ln.rot) * kChrStride + q;
+  uint16_t* const chr_hi = gr.chr[0] + (t0 - ln.rot) * kChrStride + q;
+  const uint32_t turn = ln.rot ? 0x1032u : 0x3210u;
 #pragma unroll
   for (int m = 0; m < V::kTiles / 32; ++m) {
-    const int u = (tid >> 5) + 8 * m;
-    const int q = 8 * (u & 3) + ln.qq;
-    const int j = u >> 2;
+    const int j = (gw >> 2) + 2 * m;
+    const uint8_t* a = buf + kt_chunk_offset<V>(first, j) + 4 * ln.w;
+    const uint8_t* b = buf + kt_chunk_offset<V>(second, j) + 4 * ln.w;
     uint32_t e[3], o[3];
 #pragma unroll
-    for (int c = 0; c < 3; ++c) ln.read<V>(buf, c, q, j, e[c], o[c]);
+    for (int c = 0; c < 3; ++c) {
+      const uint32_t x = __byte_perm(
+          *reinterpret_cast<const uint32_t*>(a + c * kChannel), 0, turn);
+      const uint32_t y = __byte_perm(
+          *reinterpret_cast<const uint32_t*>(b + c * kChannel), 0, turn);
+      e[c] = ln.h ? y : x;
+      o[c] = ln.h ? x : y;
+    }
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
-      const int s = i ^ ln.rot;
-      const int t = 16 * j + 4 * ln.w + s;
-      const uint32_t pe = kt_pixel(e[0], e[1], e[2], s);
-      const uint32_t po = kt_pixel(o[0], o[1], o[2], s);
-      *reinterpret_cast<uint32_t*>(&gr.lum[t * kLumStride + 2 * q]) =
-          bf16_pair_of<true>(colour<0, Chan::kY>(pe, 0u), colour<0, Chan::kY>(po, 0u));
-      gr.chr[0][t * kChrStride + q] = static_cast<uint16_t>(
-          sample_of<true>(colour<0, Chan::kCr>(po, 0u)) >> 16);
-      gr.chr[1][t * kChrStride + q] = static_cast<uint16_t>(
-          sample_of<true>(colour<0, Chan::kCb>(po, 0u)) >> 16);
+      uint16_t* const lum = (i < 2 ? lum_lo : lum_hi) + (32 * m + i) * kLumStride;
+      uint16_t* const chr = (i < 2 ? chr_lo : chr_hi) + (32 * m + i) * kChrStride;
+      const uint32_t pe = kt_pixel(e[0], e[1], e[2], i);
+      const uint32_t po = kt_pixel(o[0], o[1], o[2], i);
+      *reinterpret_cast<uint32_t*>(lum) = bf16_pair_of<true>(
+          kt_colour<Chan::kY>(pe), kt_colour<Chan::kY>(po));
+      chr[0] = static_cast<uint16_t>(
+          sample_of<true>(kt_colour<Chan::kCr>(po)) >> 16);
+      chr[V::kTiles * kChrStride] = static_cast<uint16_t>(
+          sample_of<true>(kt_colour<Chan::kCb>(po)) >> 16);
     }
   }
 }
@@ -879,35 +1007,24 @@ __device__ __forceinline__ void convert_kt_bare(Group<V>& gr,
   }
 }
 
-// The basis as the mma's A operand (m = 16 coefficient lanes, k = positions)
-// in registers, the samples as B (n = 8 tiles) by ldmatrix from the
-// tile-major operands: the product comes out (lane, tile), as the TPU
-// production kernel's basis × samples, and is written transposed into the
-// (tile, lane) staging.  Warp w < 4 holds luma m-tile w (lanes 16w..+15,
-// depth 64), warp w ≥ 4 chroma m-tile w & 1 of channel (w >> 1) & 1 (depth
-// 32, Cr and Cb share the basis): 48 registers of fragments at most, where
-// an even split of the 72 mma per 8 tiles would need 72.  The luma warps
-// carry 12 mma per 8 tiles, the chroma warps 6.
-template <class V>
-__device__ __forceinline__ void load_basis_a(const uint16_t* parts, int warp,
-                                             int lane, uint32_t (&af)[3][4][4]) {
-  const bool luma = warp < 4;
-  const int width = luma ? 64 : 32;
-  const int row = (luma ? 16 * warp : 16 * (warp & 1)) + (lane >> 2);
-  const int k = 2 * (lane & 3);
-  const uint16_t* base = luma ? parts : parts + 3 * kLumPart;
-  const int part = luma ? kLumPart : kChrPart;
+// The basis as the mma's A operand (m = 16 coefficient lanes, k = positions),
+// the samples as B (n = 8 tiles) by ldmatrix from the tile-major operands:
+// the product comes out (lane, tile), as the TPU production kernel's basis
+// × samples, and is written transposed into the (tile, lane) staging.  The
+// A fragments of m-tile mt (rows 16mt..16mt+15 of each part, parts
+// kPartRows rows apart) come by ldmatrix from the basis staged in shared
+// memory, once a band, live only in the product (basis_a_band).
+template <int KSteps, int Stride, int PartRows>
+__device__ __forceinline__ void load_basis_a(const uint16_t* basis, int mt,
+                                             uint32_t (&af)[3][KSteps][4]) {
+  const int lane = threadIdx.x & 31;
 #pragma unroll
   for (int p = 0; p < 3; ++p) {
 #pragma unroll
-    for (int ks = 0; ks < 4; ++ks) {
-      if (ks < 2 || luma) {
-        const uint16_t* a = base + p * part + row * width + 16 * ks + k;
-        af[p][ks][0] = *reinterpret_cast<const uint32_t*>(a);
-        af[p][ks][1] = *reinterpret_cast<const uint32_t*>(a + 8 * width);
-        af[p][ks][2] = *reinterpret_cast<const uint32_t*>(a + 8);
-        af[p][ks][3] = *reinterpret_cast<const uint32_t*>(a + 8 * width + 8);
-      }
+    for (int ks = 0; ks < KSteps; ++ks) {
+      ldmatrix_x4(af[p][ks], basis + (p * PartRows + 16 * mt + (lane & 15)) *
+                                         Stride +
+                                 16 * ks + (lane >> 4) * 8);
     }
   }
 }
@@ -915,9 +1032,9 @@ __device__ __forceinline__ void load_basis_a(const uint16_t* parts, int warp,
 // One (16 lanes × 8 tiles) block of the basis-A product: tiles 8nt..8nt+7,
 // lanes col + 0..15 of the staging, the three parts summed as in product().
 template <int KSteps, int Stride>
-__device__ __forceinline__ void product_basis_a(const uint16_t* op, int nt,
-                                                const uint32_t (&af)[3][4][4],
-                                                int16_t* q, int col) {
+__device__ __forceinline__ void product_basis_a(
+    const uint16_t* op, int nt, const uint32_t (&af)[3][KSteps][4], int16_t* q,
+    int col) {
   const int lane = threadIdx.x & 31;
   uint32_t b[KSteps][2];
 #pragma unroll
@@ -950,6 +1067,51 @@ __device__ __forceinline__ void product_basis_a(const uint16_t* op, int nt,
   put(t + 1, m, 1);
   put(t, m + 8, 2);
   put(t + 1, m + 8, 3);
+}
+
+// The basis-A product of one band by a group's 8 warps, 9 mma per 8 tiles
+// each (72 a band's 8 tiles): warp w < 4 takes luma m-tile w over the
+// first 3T/32 n-tiles; warp w ≥ 4 its chroma m-tile (m-tile w & 1 of
+// channel (w >> 1) & 1) over all T/8, then luma m-tile w - 4 over the last
+// T/32.  Each output is one warp's, summed in product_basis_a's part order
+// (lo then mid into one chain, hi into the other, then one add) whichever
+// warp that is (profiles/megakernel.py::basis_a_plan mirrors the split).
+template <class V>
+__device__ __forceinline__ void basis_a_band(Group<V>& gr,
+                                             const uint16_t* basis, int gw) {
+  constexpr int kSplit = 3 * V::kTiles / 32;
+  if (gw >= 4) {
+    uint32_t af[3][2][4];
+    load_basis_a<2, kChrStride, 32>(basis + kLumBasis, gw & 1, af);
+#pragma unroll 1
+    for (int nt = 0; nt < V::kTiles / 8; ++nt) {
+      product_basis_a<2, kChrStride>(gr.chr[(gw >> 1) & 1], nt, af, gr.q,
+                                     64 + 16 * (gw & 3));
+    }
+  }
+  uint32_t af[3][4][4];
+  load_basis_a<4, kLumStride, 64>(basis, gw & 3, af);
+#pragma unroll 1
+  for (int nt = gw < 4 ? 0 : kSplit; nt < (gw < 4 ? kSplit : V::kTiles / 8);
+       ++nt) {
+    product_basis_a<4, kLumStride>(gr.lum, nt, af, gr.q, 16 * (gw & 3));
+  }
+}
+
+// The basis's three luma then three chroma parts (parts, rows = output
+// lanes) into the staged rows of `basis`, by all the CTA's threads.
+__device__ __forceinline__ void stage_basis(uint16_t* basis,
+                                            const uint16_t* parts) {
+  constexpr int kLumWords = 3 * 64 * 32, kWords = kLumWords + 3 * 32 * 16;
+  const uint32_t* src = reinterpret_cast<const uint32_t*>(parts);
+  for (int i = threadIdx.x; i < kWords; i += blockDim.x) {
+    const bool luma = i < kLumWords;
+    const int j = luma ? i : i - kLumWords;
+    const int words = luma ? 32 : 16;  // a row's words
+    const int row = j / words;         // part · rows + row
+    const int at = luma ? row * kLumStride : kLumBasis + row * kChrStride;
+    *reinterpret_cast<uint32_t*>(basis + at + 2 * (j - row * words)) = src[i];
+  }
 }
 
 // The outputs of a KT variant: p[0] the (N, lanes) rows; for the split
@@ -1091,7 +1253,7 @@ struct RgbBands {
 // band's geometry.
 template <class V>
 struct KtBands {
-  static constexpr int kFullCount = 33;
+  static constexpr int kFullCount = 32 * V::kProducerWarps + 1;
   const uint8_t* kt;
   int64_t n_blocks;
   __device__ __forceinline__ Band at(uint32_t band) const {
@@ -1123,7 +1285,10 @@ struct KtBands {
 // the group's unpadded rows and one bulk store of the band (block-major),
 // or thread stores (the split stage, coefficient-major).  `out` is the
 // variant's output pointer, or KtOut for a KT variant; n_blocks is the lane
-// stride of coefficient-major output.
+// stride of coefficient-major output.  In the KT products' register split
+// the producer is the last warpgroup, its four warps sharing the copies
+// (producer lane pl of 128), and the two setmaxnreg sit on the two sides of
+// the producer branch, which returns.
 template <class V, class Bands, class Out>
 __device__ __forceinline__ void band_loop(const Bands& src, Out out,
                                           const uint16_t* __restrict__ parts,
@@ -1134,6 +1299,9 @@ __device__ __forceinline__ void band_loop(const Bands& src, Out out,
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
   const uint32_t step = gridDim.x;
+  if constexpr (V::kStagedBytes > 0) {  // the basis, after Smem
+    stage_basis(reinterpret_cast<uint16_t*>(smem_bytes + sizeof(S)), parts);
+  }
   if (threadIdx.x == 0) {
     for (int s = 0; s < S::kSlots; ++s) {
       mbar_init(&sm.full[s], Bands::kFullCount);
@@ -1144,16 +1312,26 @@ __device__ __forceinline__ void band_loop(const Bands& src, Out out,
   }
   __syncthreads();
 
-  if (warp == V::kGroups * kGroupWarps) {  // the producer warp
+  if (V::kProducerWarps == 1 ? warp == V::kGroups * kGroupWarps
+                              : warp >= V::kGroups * kGroupWarps) {
+    if constexpr (V::kRegSplit) {
+      asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;" ::"n"(kProducerRegs));
+    }
+    const int pl = V::kProducerWarps == 1
+                       ? lane
+                       : static_cast<int>(threadIdx.x) - V::kGroups * kThreads;
     uint32_t i = 0;
     for (uint32_t band = blockIdx.x; band < n_bands; band += step, ++i) {
       const int s = static_cast<int>(i % S::kSlots);
       mbar_wait(&sm.empty[s], ((i / S::kSlots) & 1) ^ 1);
       const Band b = src.at(band);
-      if (lane == 0) sm.band[s] = b;
-      src.produce(sm.raw[s], b, &sm.full[s], lane);
+      if (pl == 0) sm.band[s] = b;
+      src.produce(sm.raw[s], b, &sm.full[s], pl);
     }
     return;
+  }
+  if constexpr (V::kRegSplit) {
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;" ::"n"(kConsumerRegs));
   }
 
   const int g = warp / kGroupWarps;
@@ -1161,10 +1339,8 @@ __device__ __forceinline__ void band_loop(const Bands& src, Out out,
   const int gw = warp - g * kGroupWarps;  // warp within the group
   Group<V>& gr = sm.group[g];
   constexpr int kBParts = V::kBasisA ? 1 : V::kParts;
-  uint32_t bl[kBParts][4][2], bc[kBParts][2][2], af[V::kBasisA ? 3 : 1][4][4];
-  if constexpr (V::kProduct && V::kBasisA) {
-    load_basis_a<V>(parts, gw, lane, af);
-  } else if constexpr (V::kProduct) {
+  uint32_t bl[kBParts][4][2], bc[kBParts][2][2];
+  if constexpr (V::kProduct && !V::kBasisA) {
     load_basis_b<V>(parts, gw, lane, bl, bc);
   }
   const int ch = gw >> 2;
@@ -1186,6 +1362,7 @@ __device__ __forceinline__ void band_loop(const Bands& src, Out out,
       bulk_wait_read();     // the last band's store has read `out`
       gr.band = sm.band[s];  // only this thread stores the band
     }
+    if constexpr (V::kAliasOut) group_sync(g);  // ... before convert writes it
     if constexpr (V::kProduct) {
       src.convert(gr, sm.raw[s], b, tid);
     } else {
@@ -1197,18 +1374,8 @@ __device__ __forceinline__ void band_loop(const Bands& src, Out out,
     group_sync(g);
     if constexpr (V::kProduct) {
       if constexpr (V::kBasisA) {
-        if (gw < 4) {
-#pragma unroll 1
-          for (int nt = 0; nt < V::kTiles / 8; ++nt) {
-            product_basis_a<4, kLumStride>(gr.lum, nt, af, gr.q, 16 * gw);
-          }
-        } else {
-#pragma unroll 1
-          for (int nt = 0; nt < V::kTiles / 8; ++nt) {
-            product_basis_a<2, kChrStride>(gr.chr[(gw >> 1) & 1], nt, af,
-                                           gr.q, 64 + 16 * (gw & 3));
-          }
-        }
+        basis_a_band<V>(
+            gr, reinterpret_cast<const uint16_t*>(smem_bytes + sizeof(S)), gw);
       } else {
 #pragma unroll 1
         for (int mt = 0; mt < V::kTiles / 16; ++mt) {
@@ -1269,13 +1436,25 @@ struct Launch {
 
 // The persistent grid of `kernel` (variant V) for n_bands: the resident
 // CTAs of every SM, at most n_bands.  Returns the first failed attribute
-// call or query.
+// call or query; for a register split, cudaErrorInvalidConfiguration where
+// the kernel was not built at the registers its consumers' setmaxnreg.inc
+// takes from the producer's .dec (they would wait for them forever).
 template <class V, class K>
 cudaError_t persistent_grid(K kernel, int64_t n_bands, Launch* p) {
-  const int smem = static_cast<int>(sizeof(Smem<V>));
+  const int smem = dynamic_smem<V>();
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
+  if constexpr (V::kRegSplit) {
+    cudaFuncAttributes attr;
+    err = cudaFuncGetAttributes(&attr, kernel);
+    if (err != cudaSuccess) return err;
+    if (attr.numRegs * V::kCtaThreads <
+        V::kGroups * kThreads * kConsumerRegs +
+            32 * V::kProducerWarps * kProducerRegs) {
+      return cudaErrorInvalidConfiguration;
+    }
+  }
   int device = 0, sms = 0, per_sm = 0;
   err = cudaGetDevice(&device);
   if (err != cudaSuccess) return err;
@@ -1370,7 +1549,7 @@ int launch_kt(const void* kt, const KtOut& out, const void* parts,
 // occupancy query at its threads and shared memory).
 template <class V, class K>
 int kernel_attributes(K kernel, int* regs, int* smem, int* ctas_per_sm) {
-  const int bytes = static_cast<int>(sizeof(Smem<V>));
+  const int bytes = dynamic_smem<V>();
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (err != cudaSuccess) return static_cast<int>(err);

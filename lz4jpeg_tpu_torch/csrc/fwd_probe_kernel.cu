@@ -39,10 +39,15 @@
 // filling a ring of band slots, consumer groups of 8 warps on their own
 // named barriers, one CTA an SM), so a difference of two rows is the work
 // of the part that differs.  K1's three groups leave 72 registers a
-// thread; the variants that need more without spilling take two groups
-// (the coefficient-major products and the KT products), and T = 128 takes
-// one (a group needs 106 KB there): their rows differ from K1's in
-// occupancy too.
+// thread; the coefficient-major products need more without spilling and
+// take two groups, and the RGB T = 128 band takes one (a group needs 106
+// KB there): their rows differ from K1's in occupancy too.  The KT
+// products run three groups at 80 registers a thread, handed over by a
+// producer warpgroup (setmaxnreg), with their output rows over their
+// operands; T = 128 fits two groups so (the template's header); the
+// split stage keeps two groups at 96 registers.  The basis-A product
+// splits its 72 mma per 8 tiles evenly over a group's 8 warps, reading the
+// basis from shared memory.
 
 #include "fwd_megakernel.cuh"
 
@@ -75,16 +80,16 @@ using DotsOnePartBlock = Variant<64, 1, kRGB, 3, Stage::kTrunc, false, true>;
 // probe_megakernel_v2.py): K1's arithmetic, or the i16 cast, read from KT
 // slabs.
 constexpr auto kKt = Input::kKt;
-template <int T, Stage S, int Groups = 2, bool BasisA = false>
+template <int T, Stage S, int Groups, bool BasisA = false>
 using KtProduct = Variant<T, 3, kYCbCr, 3, S, true, true, Groups, kKt, BasisA>;
 template <int T, int Groups = 3>
 using KtCopy = Variant<T, 1, kRGB, 3, Stage::kCastI16, false, true, Groups, kKt>;
-using KtSplitRuns = KtProduct<64, Stage::kSplit>;
-using KtFull = KtProduct<64, Stage::kSparse>;
-using KtFull32 = KtProduct<32, Stage::kSparse>;
-using KtFull128 = KtProduct<128, Stage::kSparse, 1>;
-using KtBasisA = KtProduct<64, Stage::kSparse, 2, true>;
-using KtDct = KtProduct<64, Stage::kTrunc>;
+using KtSplitRuns = KtProduct<64, Stage::kSplit, 2>;
+using KtFull = KtProduct<64, Stage::kSparse, 3>;
+using KtFull32 = KtProduct<32, Stage::kSparse, 3>;
+using KtFull128 = KtProduct<128, Stage::kSparse, 2>;
+using KtBasisA = KtProduct<64, Stage::kSparse, 3, true>;
+using KtDct = KtProduct<64, Stage::kTrunc, 3>;
 using KtCopy32 = KtCopy<32>;
 using KtCopy64 = KtCopy<64>;
 using KtCopy128 = KtCopy<128, 1>;

@@ -76,6 +76,7 @@ import ctypes
 import dataclasses
 import functools
 import json
+import re
 import tempfile
 from pathlib import Path
 from typing import Dict, Optional, Sequence, Tuple
@@ -419,25 +420,31 @@ def flip_limit(name: str) -> float:
     return MAX_FLIP_SHARE if _variant(name).centred else RAW_FLIP_SHARE
 
 
-def variant_bound(name: str, n_blocks: int) -> Tuple[float, str]:
-    """(bound_ms, bound_by) of variant ``name`` on ``n_blocks`` tiles: the
-    larger of its bytes (the input bytes of each tile it needs read once,
-    its lanes written once) over 3.35 TB/s and its bf16 tensor work
-    (``parts`` passes of the 64-deep luma and two 32-deep chroma products)
-    over 989 TFLOP/s, as ``chip_smoke.py::bound``.  A tile's input is its
-    192 bytes, but 128 for a KT copy: R[0:64], G[0:32] and B[0:32] lie
-    apart in the KT layout, where RGB interleaves the channels.  The split
-    stage writes three int32 run counts per tile more."""
+def variant_bytes(name: str, n_blocks: int) -> int:
+    """The bytes variant ``name`` must move on ``n_blocks`` tiles: the input
+    bytes of each tile it needs read once, its lanes written once.  A
+    tile's input is its 192 bytes, but 128 for a KT copy: R[0:64], G[0:32]
+    and B[0:32] lie apart in the KT layout, where RGB interleaves the
+    channels.  The split stage writes three int32 run counts per tile
+    more."""
     v = _variant(name)
     itemsize = 1 if v.dtype == torch.uint8 else 2
     read = 128 if v.input == "kt" and not v.product else 192
-    n_bytes = n_blocks * (read + v.lanes * itemsize
-                          + (12 if v.stage == "split" else 0))
+    return n_blocks * (read + v.lanes * itemsize
+                       + (12 if v.stage == "split" else 0))
+
+
+def variant_bound(name: str, n_blocks: int) -> Tuple[float, str]:
+    """(bound_ms, bound_by) of variant ``name`` on ``n_blocks`` tiles: the
+    larger of its bytes (``variant_bytes``) over 3.35 TB/s and its bf16
+    tensor work (``parts`` passes of the 64-deep luma and two 32-deep
+    chroma products) over 989 TFLOP/s, as ``chip_smoke.py::bound``."""
+    v = _variant(name)
     flops = 0.0
     if v.product:
         depth = 64 * 64 + (2 * 32 * 32 if v.channels == 3 else 0)
         flops = float(n_blocks) * v.parts * 2 * depth
-    by_bytes = n_bytes / (HBM_PEAK_GBS * 1e9) * 1e3
+    by_bytes = variant_bytes(name, n_blocks) / (HBM_PEAK_GBS * 1e9) * 1e3
     by_ops = flops / (TENSOR_PEAK_TFLOPS * 1e12) * 1e3
     return (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops, "operations")
 
@@ -759,36 +766,366 @@ def k1_attributes(device="cuda") -> Dict[str, int]:
             "ctas_per_sm": ctas.value}
 
 
+STAGES = ("sparse", "trunc", "copy_u8", "cast_i16", "sum_f32", "split")  # Stage
+KT_PRODUCTS = tuple(v.name for v in VARIANTS if v.input == "kt" and v.product)
+H100_ISSUE_RATE = 132 * 4 * 1.98e9  # SMs × schedulers × the top SM clock
+
+
+def variant_args(demangled: str) -> Optional[Tuple[int, ...]]:
+    """The ten template arguments of the ``Variant`` of a demangled
+    megakernel (T, parts, colour, channels, stage, centred, block-major,
+    groups, input, basis-A) as ints, or None for another kernel."""
+    key = sass_loops._sass_diff().kernel_key(demangled)
+    if len(key[1]) != 1 or not key[1][0].startswith("Variant<"):
+        return None
+    args = sass_loops._sass_diff()._top_level_split(key[1][0][8:-1])
+    vals = []
+    for a in args:
+        a = re.sub(r"^\(\w+\)", "", a.strip())  # (int)64, (Stage)5
+        vals.append(1 if a == "true" else 0 if a == "false" else int(a))
+    return tuple(vals)
+
+
+def _kt_key(v: Variant) -> Tuple[int, int, int]:
+    return v.tiles, STAGES.index(v.stage), int(v.basis_a)
+
+
 def band_sass_counts(root=None,
-                     keys: Sequence[str] = ("k1", "kt_split_runs")
+                     keys: Sequence[str] = ("k1", *KT_PRODUCTS)
                      ) -> Dict[str, Dict]:
     """Warp instructions a tile of K1 (``csrc/fwd_megakernel.cu``) and of
-    ``kt_split_runs`` (``csrc/fwd_probe_kernel.cu``) in the checkout at
-    ``root`` (this one by default), from their SASS by
-    ``sass_loops.band_path``: the band loop's path on the aligned route
-    for each of the warps that take a band (8) and the producer's pass, over
-    the band's T = 64 tiles; with the per-warp counts and the stretches
-    between barriers; ``keys`` picks which.  Needs the CUDA toolkit, not a
-    card."""
+    the KT variants (``csrc/fwd_probe_kernel.cu``) in the checkout at
+    ``root`` (this one by default), from their SASS; ``keys`` picks which
+    ("k1" or KT variant names, the products by default).  K1:
+    ``sass_loops.band_path``, the band loop's path on the aligned route for
+    each of the warps that take a band (8) and the producer's pass, over
+    the band's T = 64 tiles, with the per-warp counts and the stretches
+    between barriers.  A KT variant: ``sass_loops.kt_band_path``, split by
+    warp role (the basis-A variant's luma and chroma warps; the producer
+    warps), with the consumer groups the build has (``groups``).  Needs
+    the CUDA toolkit, not a card."""
     sd = sass_loops._sass_diff()
     root = Path(root) if root else sass_loops.REPO
     counts = {}
+    kt = {_kt_key(BY_NAME[k]): k for k in keys if k in BY_NAME}
     with tempfile.TemporaryDirectory() as tmp:
-        for key, source, marks in (("k1", "fwd_megakernel", ()),
-                                   ("kt_split_runs", "fwd_probe_kernel",
-                                    ("Stage)5", "Input)1"))):
-            if key not in keys:
-                continue
-            functions = sd.sass(root, source, Path(tmp))
+        if "k1" in keys:  # the file's one kernel
+            ins = next(iter(sd.sass(root, "fwd_megakernel", Path(tmp)).values()))
+            path = sass_loops.band_path(ins, 64 // 16)
+            path["per_tile"] = (8 * path["consumer"] + path["producer"]) / 64
+            counts["k1"] = path
+        if kt:
+            functions = sd.sass(root, "fwd_probe_kernel", Path(tmp))
             for name, ins in zip(sd.demangle(list(functions)),
                                  functions.values()):
-                if all(m in name for m in marks):
-                    path = sass_loops.band_path(ins, 64 // 16)
-                    path["per_tile"] = (8 * path["consumer"]
-                                        + path["producer"]) / 64
+                args = variant_args(name)
+                if args is None or args[8] != 1:
+                    continue
+                key = kt.get((args[0], args[4], args[9]))
+                if key is not None:  # chunks: 192 or 128 pieces × T/16
+                    chunks = (12 if BY_NAME[key].product else 8) * args[0]
+                    path = sass_loops.kt_band_path(ins, args[0], chunks)
+                    path["groups"] = args[7]
                     counts[key] = path
-                    break
     return counts
+
+
+def kt_ptxas(root=None, usage=None) -> Dict[str, Dict[str, int]]:
+    """{KT variant: ptxas's registers and spill bytes, the build's groups}
+    of the checkout at ``root`` (``sass_loops.ptxas_usage`` of its probe
+    library, or ``usage``, that call's result); needs the toolkit."""
+    root = Path(root) if root else sass_loops.REPO
+    kt = {_kt_key(v): v.name for v in KT_VARIANTS}
+    if usage is None:
+        usage = sass_loops.ptxas_usage("fwd_probe_kernel", root)
+    out = {}
+    for name, use in usage.items():
+        args = variant_args(name)
+        if args is not None and args[8] == 1:
+            key = kt.get((args[0], args[4], args[9]))
+            if key is not None:
+                out[key] = {**use, "groups": args[7]}
+    return out
+
+
+def issue_floor_ms(per_tile: float, n_blocks: int,
+                   rate: float = H100_ISSUE_RATE) -> float:
+    """``per_tile`` warp instructions a tile over ``n_blocks`` tiles at one
+    warp instruction a clock on every scheduler (``rate`` a second, the
+    H100's 132 SMs × 4 at 1,980 MHz by default; ``timing.issue_bound_ms``
+    asks the card)."""
+    return per_tile * n_blocks / rate * 1e3
+
+
+# ---------------------------------------------------------------------------
+# The KT products' frame, mirrored in numpy
+# ---------------------------------------------------------------------------
+#
+# ``csrc/fwd_megakernel.cuh``'s KT products (``KT_PRODUCTS``): at three
+# groups a producer warpgroup (4 warps, 896 threads, launched at 72
+# registers) drops to ``KT_PRODUCER_REGS`` and the consumers rise to
+# ``KT_CONSUMER_REGS`` (setmaxnreg); a product group's output rows alias its
+# bf16 operands; the basis-A product stages the basis once a CTA and splits
+# its 72 mma per 8 tiles over the 8 warps, 9 each.  ``KT_GROUPS`` holds the
+# groups of each KT variant (``csrc/fwd_probe_kernel.cu``'s
+# instantiations).
+
+KT_GROUPS = {"kt_split_runs": 2, "kt_full": 3, "kt_full_32": 3,
+             "kt_full_128": 2, "kt_basis_a": 3, "kt_dct": 3, "kt_copy_32": 3,
+             "kt_copy": 3, "kt_copy_128": 1}
+KT_CONSUMER_REGS = 80
+KT_PRODUCER_REGS = 24
+SMEM_LIMIT = 232_448
+LUM_STRIDE, CHR_STRIDE, Q_STRIDE = 64 + 8, 32 + 8, 128 + 8  # padded rows
+BAND_BYTES = 32  # sizeof(Band)
+STAGED_BASIS_BYTES = (3 * 64 * LUM_STRIDE + 3 * 32 * CHR_STRIDE) * 2
+
+
+def kt_frame(name: str) -> Dict[str, int]:
+    """The frame of KT variant ``name``: consumer groups, producer warps,
+    threads a CTA, the registers it launches at (what a scheduler's 16,384
+    leave each thread of its warps, in steps of 8), ring slots, bytes a group, the staged basis and
+    the dynamic shared memory a CTA (``Smem<V>`` and the staged basis), as
+    ``ring_slots``, ``Group`` and ``dynamic_smem`` lay them out."""
+    v = _variant(name)
+    if v.input != "kt":
+        raise ValueError(f"{name} is no KT variant")
+    t, groups = v.tiles, KT_GROUPS[name]
+    split_regs = v.product and groups == 3
+    warps = 4 if split_regs else 1
+    threads = groups * 256 + 32 * warps
+    operands = t * LUM_STRIDE * 2 + 2 * t * CHR_STRIDE * 2
+    staging = t * Q_STRIDE * 2
+    if v.product and v.stage != "split":  # KtGroup: rows over the operands
+        group = BAND_BYTES + operands + staging
+    else:  # RowsGroup: its own rows (8 elements for the split stage)
+        rows = 16 if v.stage == "split" else t * 128 * 2
+        group = rows + BAND_BYTES + operands + staging
+    staged = STAGED_BASIS_BYTES if v.basis_a else 0
+    per_slot = 8 * t * 24 + BAND_BYTES + 16  # bytes, geometry, 2 mbarriers
+    slots = min(5, (SMEM_LIMIT - groups * group - staged - 64) // per_slot)
+    per_scheduler = -(-threads // 32 // 4)  # warps on the fullest of 4
+    return {"groups": groups, "producer_warps": warps, "threads": threads,
+            "launch_registers": 16384 // (32 * per_scheduler) // 8 * 8,
+            "slots": slots,
+            "group_bytes": group, "staged_bytes": staged,
+            "smem": slots * per_slot + groups * group + staged}
+
+
+def basis_a_plan(tiles: int) -> np.ndarray:
+    """(units, 4) int64 rows (warp, channel, m-tile, n-tile) of the basis-A
+    product of one band of ``tiles`` tiles (``basis_a_band``): channel 0
+    luma (4 m-tiles of 16 lanes, 12 mma an n-tile of 8 tiles), 1 Cr and 2
+    Cb (2 m-tiles, 6 mma).  Warp w < 4: luma m-tile w over the first 3T/32
+    n-tiles; warp w ≥ 4: m-tile w & 1 of channel 1 + ((w >> 1) & 1) over
+    all T/8 n-tiles, then luma m-tile w - 4 over the last T/32."""
+    split, n_tiles = 3 * tiles // 32, tiles // 8
+    rows = []
+    for w in range(8):
+        if w >= 4:
+            rows += [(w, 1 + ((w >> 1) & 1), w & 1, nt) for nt in range(n_tiles)]
+        first, last = (0, split) if w < 4 else (split, n_tiles)
+        rows += [(w, 0, w & 3, nt) for nt in range(first, last)]
+    return np.array(rows, dtype=np.int64)
+
+
+def plan_mma(plan: np.ndarray) -> np.ndarray:
+    """The mma each of the 8 warps issues in ``plan`` (``basis_a_plan``):
+    3 parts × 4 k-steps a luma unit, 3 × 2 a chroma one."""
+    per_unit = np.where(plan[:, 1] == 0, 12, 6)
+    return np.bincount(plan[:, 0], weights=per_unit, minlength=8).astype(np.int64)
+
+
+def _f32(x: np.ndarray) -> np.ndarray:
+    """float64 values rounded to nearest float32, back as float64."""
+    return x.astype(np.float32).astype(np.float64)
+
+
+def basis_a_coefficients(kt: np.ndarray, lum_table: np.ndarray,
+                         chr_table: np.ndarray) -> np.ndarray:
+    """(N, 128) int32 coefficients of ``kt_basis_a`` on a (3, 64, N) uint8
+    KT array in the kernel's order: the colour of each block (K1's),
+    centred samples v - 128, and for every output the mma chains of
+    ``product_basis_a``: each k-step adds its 16 exact products to a float32
+    chain in one rounding, lo then mid into one chain and hi into the
+    other, in k order; one float32 add of the two; ``snap_trunc_fast``.
+    Each band's (16 lanes × 8 tiles) blocks are placed by the units of
+    ``basis_a_plan``; raises AssertionError unless every output is placed
+    once."""
+    v = BY_NAME["kt_basis_a"]
+    y, cr, cb = _channel_tiles(torch.from_numpy(kt), v)
+    chains = []
+    for tiles, table, width in ((y, lum_table, 8), (cr, chr_table, 4),
+                                (cb, chr_table, 4)):
+        x = tiles.reshape(tiles.shape[0], -1).numpy().astype(np.float64) - 128
+        m, _ = forward_basis(width, 8, _table_key(table))
+        hi, mid, lo = split_basis(m).astype(np.float64)
+        small = np.zeros((x.shape[0], len(m)))
+        large = np.zeros_like(small)
+        steps = range(x.shape[1] // 16)
+
+        def dot(part, ks):
+            return x[:, 16 * ks:16 * ks + 16] @ part[:, 16 * ks:16 * ks + 16].T
+
+        for ks in steps:
+            small = _f32(small + dot(lo, ks))
+            large = _f32(large + dot(hi, ks))
+        for ks in steps:
+            small = _f32(small + dot(mid, ks))
+        chains.append(snap_trunc_fast(_f32(small + large).astype(np.float32)))
+    n, t = kt.shape[2], v.tiles
+    out = np.zeros((n, 128), dtype=np.int32)
+    placed = np.zeros((n, 128), dtype=np.int32)
+    for band in range(-(-n // t)):
+        for _, ch, mt, nt in basis_a_plan(t):
+            rows = slice(band * t + 8 * nt, min(n, band * t + 8 * nt + 8))
+            lanes = slice((0, 64, 96)[ch] + 16 * mt, (0, 64, 96)[ch] + 16 * mt + 16)
+            out[rows, lanes] = chains[ch][rows, 16 * mt:16 * mt + 16]
+            placed[rows, lanes] += 1
+    assert (placed == 1).all(), "the plan places an output twice or never"
+    return out
+
+
+def kt_slot(band: np.ndarray) -> np.ndarray:
+    """The ring slot of one KT band ((3, 64, T) uint8: pieces 64c + p of T
+    bytes), as ``load_kt`` fills it: chunk j of piece ρ at
+    ``kt_chunk_offset``, ((ρ·T/16 + j) ^ (ρ & 7))·16."""
+    t = band.shape[2]
+    per = t // 16
+    slot = np.zeros(192 * t, dtype=np.uint8)
+    pieces = band.reshape(192, t)
+    for rho in range(192):
+        for j in range(per):
+            at = ((rho * per + j) ^ (rho & 7)) * 16
+            slot[at:at + 16] = pieces[rho, 16 * j:16 * j + 16]
+    return slot
+
+
+def emulate_convert_kt(band: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
+    """``convert_kt`` of one KT band, thread by thread: each of a group's 256
+    threads reads its six words a unit from the slot (``kt_slot``) at the
+    source's addresses, turns them by its rot, and writes the centred
+    samples of byte i through its staging pointers.  Returns the (T, 64)
+    luma and (2, T, 32) chroma operands as ints; raises AssertionError
+    unless every operand is written once."""
+    t = band.shape[2]
+    per = t // 16
+    channel = 64 * per * 16
+    slot = kt_slot(band)
+    word = lambda at: int.from_bytes(slot[at:at + 4].tobytes(), "little")
+    lum = np.zeros((t, 64), dtype=np.int64)
+    chr_ = np.zeros((2, t, 32), dtype=np.int64)
+    wrote_l = np.zeros_like(lum)
+    wrote_c = np.zeros_like(chr_)
+
+    def colour(px, ch):
+        r, g, b, add = COLOUR_COEFS[ch]
+        s = r * (px & 0xFF) + g * ((px >> 8) & 0xFF) + b * ((px >> 16) & 0xFF)
+        return int(per_mille(s + add)) - 128
+
+    for tid in range(256):
+        lane, gw = tid & 31, tid >> 5
+        qq, w = lane & 7, lane >> 3
+        h, rot = (qq >> 2) & 1, w & 2
+        q = 8 * (gw & 3) + qq
+        first, second = 2 * q + h, 2 * q + 1 - h
+        t0 = 16 * (gw >> 2) + 4 * w
+        for m in range(t // 32):
+            j = (gw >> 2) + 2 * m
+            a = ((first * per + j) ^ (first & 7)) * 16 + 4 * w
+            b = ((second * per + j) ^ (second & 7)) * 16 + 4 * w
+            turn = (lambda x: ((x >> 16) | (x << 16)) & 0xFFFFFFFF) if rot \
+                else (lambda x: x)
+            x = [turn(word(a + c * channel)) for c in range(3)]
+            y = [turn(word(b + c * channel)) for c in range(3)]
+            e, o = (y, x) if h else (x, y)
+            for i in range(4):
+                tile = (t0 + rot if i < 2 else t0 - rot) + 32 * m + i
+                pe = sum(((e[c] >> (8 * i)) & 0xFF) << (8 * c) for c in range(3))
+                po = sum(((o[c] >> (8 * i)) & 0xFF) << (8 * c) for c in range(3))
+                lum[tile, 2 * q:2 * q + 2] = colour(pe, "y"), colour(po, "y")
+                wrote_l[tile, 2 * q:2 * q + 2] += 1
+                chr_[:, tile, q] = colour(po, "cr"), colour(po, "cb")
+                wrote_c[:, tile, q] += 1
+    assert (wrote_l == 1).all() and (wrote_c == 1).all(), \
+        "an operand written twice or never"
+    return lum, chr_
+
+
+def kt_copy_plan(tiles: int, producer_warps: int) -> np.ndarray:
+    """(chunks, 4) int64 rows (producer lane, slot byte offset, piece,
+    chunk) of a KT product band's 16-byte copies (``load_kt``): one warp's
+    lane i copies chunks i, i + 32, ... at ``kt_chunk_offset``; a producer
+    warpgroup's lane copies chunk lane % (T/16) of pieces lane / (T/16) +
+    j·128/(T/16) at one swizzle, (lane ^ (lane / (T/16) & 7) + 128 j)·16."""
+    per = tiles // 16
+    lanes = 32 * producer_warps
+    rows = []
+    for lane in range(lanes):
+        for j in range(192 * per // lanes):
+            if producer_warps == 1:
+                i = lane + 32 * j
+                piece, c = i // per, i % per
+                offset = ((piece * per + c) ^ (piece & 7)) * 16
+            else:
+                piece, c = lane // per + j * (lanes // per), lane % per
+                offset = ((lane ^ ((lane // per) & 7)) + j * lanes) * 16
+            rows.append((lane, offset, piece, c))
+    return np.array(rows, dtype=np.int64)
+
+
+def alias_events(bands: int, seed: int, threads: int = 3,
+                 barrier: bool = True) -> Dict[str, int]:
+    """A KT product group's ``bands`` bands on a model of its aliased rows
+    (``band_loop``): each thread converts (writes the operand bytes, which
+    are the rows), passes the product's barrier, writes the rows in the
+    store pass and passes the store's barrier; thread 0 then issues the
+    bulk store, whose read of the rows lands at a random later step.  At
+    the next band thread 0 first waits for its reads (``bulk_wait_read``),
+    then with ``barrier`` every thread passes the group's barrier before it
+    converts.  Random interleavings of the threads and the landings;
+    returns the count of writes made while a read was in flight
+    (``violations``) and of bulk stores issued."""
+    rng = np.random.default_rng(seed)
+    head = (["wait", "bar"] if barrier else ["wait"])
+    progs = [[op for _ in range(bands) for op in
+              ((head if k == 0 else (["bar"] if barrier else []))
+               + ["write", "bar", "write", "bar"]
+               + (["store"] if k == 0 else []))] for k in range(threads)]
+    pc = [0] * threads
+    arrived = set()  # threads waiting at the barrier
+    flight = 0       # bulk reads not landed
+    out = {"violations": 0, "stores": 0}
+    while any(pc[k] < len(progs[k]) for k in range(threads)) or flight:
+        ready = [("land",)] if flight else []
+        for k in range(threads):
+            if pc[k] >= len(progs[k]) or k in arrived:
+                continue
+            op = progs[k][pc[k]]
+            if op != "wait" or flight == 0:
+                ready.append(("run", k))
+        if not ready:  # every live thread at the barrier: it opens
+            assert arrived, "deadlock"
+            for k in arrived:
+                pc[k] += 1
+            arrived.clear()
+            continue
+        who = ready[rng.integers(len(ready))]
+        if who[0] == "land":
+            flight -= 1
+            continue
+        k = who[1]
+        op = progs[k][pc[k]]
+        if op == "bar":
+            arrived.add(k)
+            continue
+        if op == "write" and flight:
+            out["violations"] += 1
+        if op == "store":
+            flight += 1
+            out["stores"] += 1
+        pc[k] += 1
+    return out
 
 
 F32_EPS = np.float32(1e-5)
