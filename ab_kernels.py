@@ -27,7 +27,8 @@ consumer groups, and their band loop's warp instructions a tile in the
 SASS by warp role, by ``profiles/megakernel.py::band_sass_counts``, the
 toolkit's); after it, in ``time_ms``'s protocol below, the megakernel's
 probe rows (``PROBE_ROWS``: P-abl's full row, K1's instantiation in the
-probe library, on 32 frames of 2048² noise; P-kt's kt_split_runs, P-t's
+probe library, and its chunk sweep's band rows, T = 128, 16 and 32, on 32
+frames of 2048² noise; P-kt's kt_split_runs, P-t's
 kt_basis_a and P-v2's product and copy rows on its ``rgb_to_kt``) through
 each checkout's ``profiles/megakernel.py::megakernel_variant``, outputs
 identical, each product row with the issue floor of
@@ -90,6 +91,9 @@ MCU_TILES = 2 * 1024 * 1024  # profiles/candidates_ab.py's luma tiles
 STAGE_BLOCKS = 2048  # profiles/bucket_partition.py's larger size
 PROBE_ROWS = (  # (the row of PERF.md's table, variant)
     ("P-abl full", "full"),
+    ("P-abl band_128", "band_128"),
+    ("P-abl band_16", "band_16"),
+    ("P-abl band_32", "band_32"),
     ("P-kt kt_split_runs", "kt_split_runs"),
     ("P-v2 kt_full_32", "kt_full_32"),
     ("P-v2/P-t kt_full", "kt_full"),
@@ -252,7 +256,7 @@ def main() -> int:
                      lambda r: loops.ptxas_usage("fwd_probe_kernel", r)))}
         built = {key: job.result() for key, job in jobs.items()}
     sass = {side: built[side, "sass"] for side in roots}
-    usage = {side: mk.kt_ptxas(root, built[side, "probes"])
+    usage = {side: mk.probe_ptxas(root, built[side, "probes"])
              for side, root in roots.items()}
     for side, mods in (("other", other), ("this", this)):
         k1, probes = built[side, "k1"], built[side, "probes"]
@@ -324,7 +328,12 @@ def main() -> int:
             floor = timing.issue_bound_ms(
                 32 * sass[side][key]["per_tile"] * tiles, dev)
             attrs = mods[10].variant_attributes(name, dev)
-            print(f"{label} {side}: {attrs['registers']} registers, "
+            build = ""
+            if name in usage[side]:
+                build = (f"{sass[side][key]['groups']} groups, "
+                         f"{usage[side][name]['spill_stores']} B spill "
+                         "stores, ")
+            print(f"{label} {side}: {build}{attrs['registers']} registers, "
                   f"{attrs['shared_bytes']} B shared memory, "
                   f"{attrs['ctas_per_sm']} CTAs an SM; "
                   f"{sass[side][key]['per_tile']:.2f} warp instructions a "

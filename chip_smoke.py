@@ -215,7 +215,14 @@ another checkout's.
     product admitted by ``variant_flips``, at most 1e-5 of its outputs, 1e-3
     for the ladder's raw, unsnapped dots (``flip_limit``); the bare rungs
     identical), the full row and the bands of 128, 16 and 32
-    tiles identical to K1 (``forward_combined``); then the ablation
+    tiles identical to K1 (``forward_combined``), on ``PROBE_RAGGED`` too
+    (a partial last band at every T) and ``PROBE_REPEATS`` launches of each
+    band row at 32 × 2048² identical to the first; each band row's build:
+    its groups, warps a group, ring slots (``rgb_frame``, held to the
+    card's shared memory), registers, ptxas's spill bytes (none allowed)
+    and warp instructions a tile in its SASS (``band_sass_counts``,
+    ``probe_ptxas``: the toolkit's, counted beside the checks); then the
+    ablation
     (``run_megakernel_ablation``, the ten rows of
     ``profiles/probe_megakernel_ablate.py``) and the ladder
     (``run_megakernel_ladder``, the eight rows of
@@ -503,6 +510,10 @@ PROBE_SOURCE = "lz4jpeg_tpu_torch/csrc/fwd_probe_kernel.cu"
 PROBE_REPLACES = {"megakernel_ablate": "profiles/probe_megakernel_ablate.py:77",
                   "megakernel_dma": "profiles/probe_megakernel_dma.py:78"}
 PROBE_CHECKS = ((2, 64, 128), (32, 2048, 2048))  # phase 22's (frames, H, W)
+# Phase 22's ragged shape: 130 tiles a block row, a last band of 2 tiles at
+# T = 16, 32 and 128 (and 64).
+PROBE_RAGGED = (2, 64, 1040)
+PROBE_REPEATS = 20  # phase 22: launches of each band row at 32 × 2048²
 PROBE_RUN = {}  # both probe runs' defaults: 32 frames of 2048², chains of 8
 LAYOUT_REPLACES = {"megakernel_kt": "profiles/probe_megakernel.py:108",
                    "megakernel_t": "profiles/probe_megakernel_t.py:50",
@@ -2980,6 +2991,7 @@ def probes_phase(dev):
     card, then the ablation and the ladder at their defaults; returns the
     two kernel records."""
     import gc
+    from concurrent.futures import ThreadPoolExecutor
 
     import torch
 
@@ -2997,10 +3009,14 @@ def probes_phase(dev):
     gc.collect()
     torch.cuda.empty_cache()
     t_phase = time.perf_counter()
+    pool = ThreadPoolExecutor(2)  # nvcc beside the card's work
+    counted = (pool.submit(mk.band_sass_counts, None, mk.BAND_ROWS),
+               pool.submit(mk.probe_ptxas))
+    pool.shutdown(wait=False)
 
     # -- every variant against its plain version; the K1 rows against K1 ----
     flips = {v.name: [0, 0] for v in mk.RGB_VARIANTS}  # flips, outputs
-    for frames, h, w in PROBE_CHECKS:
+    for frames, h, w in (*PROBE_CHECKS, PROBE_RAGGED):
         x = mk.noise_batch(frames, h, w, SEED + 22).to(dev)
         k1 = forward_combined(x, LUM, CHR)
         for v in mk.RGB_VARIANTS:
@@ -3016,6 +3032,14 @@ def probes_phase(dev):
                 line += f"; {'identical' if same else 'DIFFERS'} to K1"
                 check(same, f"phase 22: {v.name} differs from forward_combined "
                             f"at {frames}x{h}x{w}")
+            if (frames, h, w) == max(PROBE_CHECKS) and v.name in mk.BAND_ROWS:
+                same = 1 + sum(  # a race shows sometimes
+                    torch.equal(mk.megakernel_variant(x, v.name, LUM, CHR), got)
+                    for _ in range(PROBE_REPEATS - 1))
+                line += (f"; {same} of {PROBE_REPEATS} launches identical "
+                         "to the first")
+                check(same == PROBE_REPEATS, f"phase 22: {v.name}: "
+                      f"{PROBE_REPEATS - same} launches differ")
             print(f"phase 22: {v.name} {frames}x{h}x{w}: {line}")
             del got, want
         del x, k1
@@ -3028,11 +3052,36 @@ def probes_phase(dev):
           + f"; at most {mk.MAX_FLIP_SHARE} of the outputs, "
           f"{mk.RAW_FLIP_SHARE} for raw samples)")
 
+    # -- each band row's build: groups, slots, registers, spills, SASS -------
+    sass, usage = (job.result() for job in counted)
+    builds = {}
+    for name in mk.BAND_ROWS:
+        f, c, u = mk.rgb_frame(name), sass[name], usage[name]
+        a = mk.variant_attributes(name, dev)
+        builds[name] = {"groups": c["groups"], "slots": f["slots"],
+                        "spill_stores": u["spill_stores"],
+                        "sass_per_tile": c["per_tile"]}
+        print(f"phase 22: {name}: {c['groups']} groups of {f['group_warps']} "
+              f"warps, {f['slots']} ring slots, {a['registers']} registers "
+              f"({u['registers']} by ptxas), {u['spill_stores']} B spill "
+              f"stores, {a['shared_bytes']} B shared memory, "
+              f"{a['ctas_per_sm']} CTAs an SM; {c['per_tile']:.2f} warp "
+              f"instructions a tile in its SASS (a band: {c['consumer']} a "
+              f"consumer warp x {c['warps']}, {c['segments']} between "
+              f"barriers; producer {c['producer']})")
+        check(u["spill_stores"] == 0, f"phase 22: {name} spills")
+        check(c["groups"] == f["groups"] and a["shared_bytes"] == f["smem"],
+              f"phase 22: {name}'s build is not its frame's mirror")
+
     # -- both probes at their defaults, each count zeroed before its run ----
     runs = {"megakernel_ablate": run_megakernel_ablation,
             "megakernel_dma": run_megakernel_ladder}
     results, launches = probe_runs("phase 22", runs, PROBE_RUN, dev, t_phase)
-    return probe_records(results, launches, flips, PROBE_REPLACES)
+    records = probe_records(results, launches, flips, PROBE_REPLACES)
+    for record in records:
+        for row in record["variants"]:
+            row.update(builds.get(row["variant"], {}))
+    return records
 
 
 def probe_runs(phase, runs, params, dev, t_phase):
@@ -3131,7 +3180,7 @@ def layouts_phase(dev):
     names = [v.name for v in mk.KT_VARIANTS]
     pool = ThreadPoolExecutor(2)  # nvcc beside the card's work
     counted = (pool.submit(mk.band_sass_counts, None, names),
-               pool.submit(mk.kt_ptxas))
+               pool.submit(mk.probe_ptxas))
     pool.shutdown(wait=False)
 
     def identical(a, b):

@@ -29,9 +29,10 @@
 //   - kGroups: the consumer groups of a CTA: 3 (K1: 25 warps an SM hold
 //     72 registers a thread; the KT products: 28 warps, whose producer
 //     warpgroup hands registers to the consumers, below), 2 where a variant
-//     needs more registers than 72 without spilling or at T = 128 (a KT
-//     product's group takes 74 KB there), 1 for the RGB T = 128 band (106
-//     KB a group);
+//     needs more registers than 72 without spilling or at T = 128 (a
+//     product group takes 74 KB there, its output rows over its operands),
+//     1 for the KT copy at T = 128, or 12 groups of 2 warps for the
+//     16-tile band (kWide, below);
 //   - kInput: (B, H, W, 3) RGB image bands (K1) or slabs of T blocks of the
 //     (3, 64, N) KT layout (ops/fwd_megakernel.py::rgb_to_kt): 192 row
 //     pieces of T bytes at stride N, the same 192·T bytes as an image band
@@ -45,10 +46,28 @@
 //
 // The CTA (band_loop below): one producer warp fills a ring of band slots,
 // each with a "full" and an "empty" mbarrier and the band's geometry
-// beside it; kGroups consumer groups of 8 warps take the CTA's bands in
-// turn (band i of the CTA: slot i % slots, group i % kGroups) and wait only
-// on their own named barrier, so one group's epilogue and store overlap
-// the others' colour and product, and the ring's loads overlap them all.
+// beside it; kGroups consumer groups of 8 warps (2 in the 16-tile band's
+// frame, below) take the CTA's bands in turn (band i of the CTA: slot i %
+// slots, group i % kGroups) and wait only on their own named barrier, so
+// one group's epilogue and store overlap the others' colour and product,
+// and the ring's loads overlap them all.
+//
+// The 16-tile band's frame (kWide).  One producer warp issues a band's
+// eight bulk copies (their addresses, uniform registers and geometry, ~230
+// instructions, dependent) no faster than one band in ~1,500 clocks (an
+// H100 80GB HBM3 at 700 W), the pace of 16-tile bands on an SM: four
+// producer warps take the CTA's bands in turn (kProducers), each filling
+// its own ring slots.  A band's fixed costs (the slot's wait, the group's
+// barriers, the store pass's addresses and its bulk store: ~220
+// instructions a warp) are paid by fewer warps a band, and more bands are
+// in flight an SM: 12 groups of 2 warps (28 warps with the producers, K1's
+// 72 registers), each warp taking 32 luma and 32 chroma lanes, four times
+// a group of 8's.  Its basis fragments would then take 144 registers, so
+// the basis is staged in shared memory once a CTA (as the basis-A
+// product's) and each band's fragments come by ldmatrix (product_staged).
+// The output rows lie over the operands (AliasGroup), and the ring holds
+// K1's bytes in flight (kRingBytes: 20 slots of 3 KB, against 5 for a
+// count), which shared memory then allows.
 //
 // The KT products' frame.  Their colour from the KT slab and their product
 // need more than 72 registers a thread, what 25 warps an SM leave.  At
@@ -57,12 +76,13 @@
 // (setmaxnreg.dec) and the consumer warpgroups rise to kConsumerRegs
 // (setmaxnreg.inc) on the two sides of one branch that never rejoins, and
 // its four warps share the band's 16-byte copies.  A KT product group's
-// unpadded output rows alias its bf16 operands (KtGroup), dead once the
+// unpadded output rows alias its bf16 operands (AliasGroup), dead once the
 // product has passed the group's barrier, so that three groups at T = 64
 // (with the basis-A variant's staged basis) and two at T = 128 fit beside
 // the ring: a group's storing thread waits for its last bulk store to have
 // read the rows, then the group's barrier, before the next convert writes
-// them.
+// them.  The RGB T = 128 band takes the same layout and fits two groups
+// (74 KB a group, 106 KB with rows of its own).
 
 #pragma once
 
@@ -75,8 +95,7 @@
 
 namespace {
 
-constexpr int kThreads = 256;              // threads of a consumer group
-constexpr int kGroupWarps = kThreads / 32;
+constexpr int kThreads = 256;              // threads of a group of 8 warps
 constexpr int kLumStride = 64 + 8;         // bf16 per operand row (+16 B:
 constexpr int kChrStride = 32 + 8;         //  conflict-free ldmatrix)
 constexpr int kQStride = 128 + 8;          // int16 per staged output row
@@ -84,6 +103,7 @@ constexpr int kBias = 1024;                // SPARSE16_DELTA_BIAS
 constexpr int kLumPart = 64 * 64;          // bf16 values of one luma part
 constexpr int kChrPart = 32 * 32;
 constexpr int kSmemLimit = 232448;         // dynamic shared memory a CTA
+constexpr int kRingBytes = 5 * 8 * 64 * 24;  // K1's ring: 5 slots of T = 64
 constexpr int kConsumerRegs = 80;          // the KT products' setmaxnreg
 constexpr int kProducerRegs = 24;          //  (consumers .inc, producer .dec)
 // The basis staged once a CTA for the basis-A product's ldmatrix: the
@@ -127,12 +147,23 @@ struct Variant {
   static constexpr int kOutElems = kBulkOut ? Tiles * kLanes : 8;
   // The KT products' frame (above): a producer warpgroup at three groups,
   // output rows over the operands, the staged basis of the basis-A product.
+  // The RGB T = 128 product's rows over its operands too; the 16-tile
+  // band's groups of 2 warps on a staged basis (kWide, above).
   static constexpr bool kKtProduct = In == Input::kKt && kProduct;
   static constexpr bool kRegSplit = kKtProduct && Groups == 3;
-  static constexpr int kProducerWarps = kRegSplit ? 4 : 1;
-  static constexpr bool kAliasOut = kKtProduct && kBulkOut;
-  static constexpr int kStagedBytes = kKtProduct && BasisA ? kStagedBasisBytes : 0;
-  static constexpr int kCtaThreads = Groups * kThreads + 32 * kProducerWarps;
+  static constexpr bool kWide = Groups > 4;
+  static constexpr bool kAliasOut =
+      kProduct && kBulkOut && (In == Input::kKt || Tiles == 128 || kWide);
+  // Producer warps: the register split's warpgroup shares each band's
+  // copies; the 16-tile band's four take the CTA's bands in turn
+  // (kProducers), each filling its own slots.
+  static constexpr int kProducerWarps = kRegSplit || kWide ? 4 : 1;
+  static constexpr int kProducers = kWide ? kProducerWarps : 1;
+  static constexpr int kGroupWarps = kWide ? 24 / Groups : 8;
+  static constexpr int kGroupThreads = 32 * kGroupWarps;
+  static constexpr int kStagedBytes =
+      (kKtProduct && BasisA) || kWide ? kStagedBasisBytes : 0;
+  static constexpr int kCtaThreads = Groups * kGroupThreads + 32 * kProducerWarps;
 
   static_assert(Tiles >= 16 && Tiles <= 128 && (Tiles & (Tiles - 1)) == 0,
                 "T is a power of two in [16, 128]: 2T groups fill whole rows");
@@ -154,13 +185,17 @@ struct Variant {
                 "the basis as A operand is a block-major product");
   static_assert(S != Stage::kSplit || (BlockMajor && Channels == 3),
                 "the split stage cuts the three segments of block-major rows");
-  static_assert(Groups >= 1 && Groups <= 4, "named barriers 1..Groups");
+  static_assert((Groups >= 1 && Groups <= 4) ||
+                    (Groups == 12 && In == Input::kRgb && Parts == 3 &&
+                     Channels == 3 && S == Stage::kSparse && BlockMajor),
+                "named barriers 1..Groups (at most 15); 12 groups of 2 warps "
+                "are the staged-basis frame of K1's arithmetic");
   // Registers a thread at launch: a scheduler's 16,384 over the warps of
   // the fullest of the 4 (warp w on scheduler w % 4), in steps of 8.
   static constexpr int kLaunchRegs =
       16384 / (32 * ((kCtaThreads / 32 + 3) / 4)) / 8 * 8;
   static_assert(!kRegSplit ||
-                    Groups * kThreads * kConsumerRegs +
+                    Groups * kGroupThreads * kConsumerRegs +
                             32 * kProducerWarps * kProducerRegs <=
                         kCtaThreads * kLaunchRegs,
                 "the consumers take no more registers than the producer "
@@ -194,9 +229,10 @@ struct alignas(16) RowsGroup {
   int16_t q[V::kQElems];
 };
 
-// A KT product group: the same, the output rows over the operands (out_rows).
+// A product group whose output rows lie over its operands (out_rows): the
+// KT products, the RGB T = 128 band and the 16-tile band's groups.
 template <class V>
-struct alignas(16) KtGroup {
+struct alignas(16) AliasGroup {
   Band band;
   uint16_t lum[V::kTiles * kLumStride];
   uint16_t chr[2][V::kTiles * kChrStride];
@@ -207,7 +243,7 @@ struct alignas(16) KtGroup {
 };
 
 template <class V>
-using Group = std::conditional_t<V::kAliasOut, KtGroup<V>, RowsGroup<V>>;
+using Group = std::conditional_t<V::kAliasOut, AliasGroup<V>, RowsGroup<V>>;
 
 // The group's unpadded output rows.
 template <class V>
@@ -221,20 +257,24 @@ __device__ __forceinline__ int16_t* out_rows(Group<V>& gr) {
 
 // The ring's slot count: as many band slots as fit beside the groups, at
 // most 5 (K1's 3 groups leave room for 5; a fifth slot gained over a
-// fourth, a sixth does not fit).
+// fourth, a sixth does not fit), or at most K1's bytes in the 16-tile
+// band's frame (kWide).
 template <class V>
 constexpr int ring_slots() {
   constexpr int kFixed =
       V::kGroups * static_cast<int>(sizeof(Group<V>)) + V::kStagedBytes;
   constexpr int kPerSlot = V::kBandBytes + static_cast<int>(sizeof(Band)) + 16;
   constexpr int kFit = (kSmemLimit - kFixed - 64) / kPerSlot;
-  return kFit < 5 ? kFit : 5;
+  constexpr int kCap = V::kWide ? kRingBytes / V::kBandBytes : 5;
+  return kFit < kCap ? kFit : kCap;
 }
 
 template <class V>
 struct Smem {
   static constexpr int kSlots = ring_slots<V>();
   static_assert(kSlots >= 2, "a ring of two slots at least");
+  static_assert(kSlots % V::kProducers == 0,
+                "each producer warp fills its own slots, in order");
   uint8_t raw[kSlots][V::kBandBytes];
   Group<V> group[V::kGroups];
   Band band[kSlots];
@@ -284,10 +324,12 @@ __device__ __forceinline__ void cp_async_arrive(uint64_t* bar) {
                : "memory");
 }
 
-// The group's own barrier: named barrier g + 1 over its kThreads threads
-// (barrier 0 is __syncthreads').
+// The group's own barrier: named barrier g + 1 over its threads (barrier 0
+// is __syncthreads').
+template <class V>
 __device__ __forceinline__ void group_sync(int g) {
-  asm volatile("bar.sync %0, %1;" ::"r"(g + 1), "n"(kThreads) : "memory");
+  asm volatile("bar.sync %0, %1;" ::"r"(g + 1), "n"(V::kGroupThreads)
+               : "memory");
 }
 
 __device__ __forceinline__ void ldmatrix_x4(uint32_t (&a)[4], const void* p) {
@@ -444,13 +486,15 @@ __device__ __forceinline__ uint32_t bf16_pair_of(uint32_t first,
 
 // A quad is (row r, tile t, half h): pixels 8t + 4h .. + 3 of image row r,
 // 12 bytes R0 G0 B0 R1 | G1 B1 R2 G2 | B2 R3 G3 B3.  Group thread i takes
-// quads (t, h) = (i/2 % T, i % 2) of rows i / (2T) + (kThreads / 2T)·j,
-// the same cells in every band: T/16 quads per thread.
+// quads (t, h) = (i/2 % T, i % 2) of rows i / (2T) + (threads / 2T)·j,
+// the same cells in every band: 16T / threads quads per thread (T/16 in a
+// group of 8 warps).
 template <class V>
 struct Quads {
-  static constexpr int kPerThread = V::kTiles / 16;
-  static constexpr int kRowStep = kThreads / (2 * V::kTiles);
-  static_assert(8 * 2 * V::kTiles == kPerThread * kThreads, "whole quads");
+  static constexpr int kPerThread = 16 * V::kTiles / V::kGroupThreads;
+  static constexpr int kRowStep = V::kGroupThreads / (2 * V::kTiles);
+  static_assert(8 * 2 * V::kTiles == kPerThread * V::kGroupThreads,
+                "whole quads");
 };
 
 // Colour of four pixels per thread → bf16 operands in shared memory: luma
@@ -689,6 +733,83 @@ __device__ __forceinline__ void product(const Group<V>& gr, int mt, int ch,
   if constexpr (kChroma) put_block<V>(cs, cl, q, row, chr_col + 2 * (lane & 3));
 }
 
+// One m-tile of the product for a warp of a group of W = 4 or 2 warps
+// (kWide): its 64/W luma lanes at (64/W)·gw and as many of the 64 chroma
+// lanes, of one channel, in pieces of 8 lanes, each summed in product()'s
+// order (lo then mid into one chain, hi into the other, luma and chroma
+// interleaved).  The basis fragments come by ldmatrix from the basis
+// staged in shared memory (stage_basis: rows are output lanes, the B
+// operand's "col" layout): one x4 gives a luma part two k-steps, or a
+// chroma part both; lo and hi first, then mid, so that at most 24 fragment
+// registers are live.
+template <class V>
+__device__ __forceinline__ void product_staged(Group<V>& gr,
+                                               const uint16_t* basis, int mt,
+                                               int gw) {
+  constexpr int kWarpLanes = 64 / V::kGroupWarps;  // luma (chroma) lanes
+  const int lane = threadIdx.x & 31;
+  const int first = kWarpLanes * gw;  // luma lane, and of the chroma lanes
+  const int ch = first >> 5;
+  uint32_t al[4][4], ac[2][4];
+#pragma unroll
+  for (int ks = 0; ks < 4; ++ks) {
+    ldmatrix_x4(al[ks], gr.lum + (16 * mt + (lane & 15)) * kLumStride +
+                            16 * ks + (lane >> 4) * 8);
+  }
+#pragma unroll
+  for (int ks = 0; ks < 2; ++ks) {
+    ldmatrix_x4(ac[ks], gr.chr[ch] + (16 * mt + (lane & 15)) * kChrStride +
+                            16 * ks + (lane >> 4) * 8);
+  }
+  const int row = 16 * mt + (lane >> 2);
+#pragma unroll
+  for (int j = 0; j < kWarpLanes / 8; ++j) {
+    const int ln = first + 8 * j;         // the piece's first luma lane
+    const int cn = (first & 31) + 8 * j;  // and chroma lane of channel ch
+    // Part p of the piece's 8 basis rows: luma k-steps 2m, 2m + 1; chroma 0, 1.
+    const auto lum_b = [&](int p, int m, uint32_t (&r)[4]) {
+      ldmatrix_x4(r, basis + (p * 64 + ln + (lane & 7)) * kLumStride + 32 * m +
+                         8 * (lane >> 3));
+    };
+    const auto chr_b = [&](int p, uint32_t (&r)[4]) {
+      ldmatrix_x4(r, basis + kLumBasis + (p * 32 + cn + (lane & 7)) * kChrStride +
+                         8 * (lane >> 3));
+    };
+    float ls[4] = {}, ll[4] = {}, cs[4] = {}, cl[4] = {};
+    {
+      uint32_t lo[2][4], hi[2][4], clo[4], chi[4];
+      lum_b(2, 0, lo[0]);
+      lum_b(2, 1, lo[1]);
+      lum_b(0, 0, hi[0]);
+      lum_b(0, 1, hi[1]);
+      chr_b(2, clo);
+      chr_b(0, chi);
+#pragma unroll
+      for (int ks = 0; ks < 4; ++ks) {
+        const int m = ks >> 1, k = 2 * (ks & 1);
+        mma_bf16(ls, al[ks], lo[m][k], lo[m][k + 1]);
+        mma_bf16(ll, al[ks], hi[m][k], hi[m][k + 1]);
+        if (ks < 2) {
+          mma_bf16(cs, ac[ks], clo[2 * ks], clo[2 * ks + 1]);
+          mma_bf16(cl, ac[ks], chi[2 * ks], chi[2 * ks + 1]);
+        }
+      }
+    }
+    uint32_t mid[2][4], cmid[4];
+    lum_b(1, 0, mid[0]);
+    lum_b(1, 1, mid[1]);
+    chr_b(1, cmid);
+#pragma unroll
+    for (int ks = 0; ks < 4; ++ks) {
+      const int m = ks >> 1, k = 2 * (ks & 1);
+      mma_bf16(ls, al[ks], mid[m][k], mid[m][k + 1]);
+      if (ks < 2) mma_bf16(cs, ac[ks], cmid[2 * ks], cmid[2 * ks + 1]);
+    }
+    put_block<V>(ls, ll, gr.q, row, ln + 2 * (lane & 3));
+    put_block<V>(cs, cl, gr.q, row, 64 + 32 * ch + cn + 2 * (lane & 3));
+  }
+}
+
 // The sparse deltas of the 8 staged lanes at qr, segment-local (the lane
 // before the first is one 2-byte shared read, none at a segment's start),
 // plus kBias where a run starts and 0 elsewhere; they wrap modulo 2^16 like
@@ -716,7 +837,7 @@ __device__ __forceinline__ uint4 sparse_deltas(const int16_t* qr,
 }
 
 // Block-major rows into the group's unpadded `out`: thread i takes lanes
-// 8c..8c+7 (c = i % (lanes/8)) of staged rows i/(lanes/8), + kThreads /
+// 8c..8c+7 (c = i % (lanes/8)) of staged rows i/(lanes/8), + threads /
 // (lanes/8), ... as one 16-byte read and one 16-byte write; the sparse
 // stage forms the segment-local deltas on the way (segments start at lanes
 // 0, 64 and 96).  Rows past the band's tiles are formed too and never
@@ -727,7 +848,7 @@ __device__ __forceinline__ void store_rows(Group<V>& gr,
                                            int16_t* __restrict__ out, int g,
                                            int tid) {
   constexpr int kPerRow = V::kLanes / 8;  // threads per output row
-  constexpr int kRowsPerPass = kThreads / kPerRow;
+  constexpr int kRowsPerPass = V::kGroupThreads / kPerRow;
   const int c = tid & (kPerRow - 1);
   const bool seg_first =
       V::kChannels == 3 ? c == 0 || c == 8 || c == 12 : c == 0;
@@ -735,7 +856,7 @@ __device__ __forceinline__ void store_rows(Group<V>& gr,
   const int16_t* src = gr.q + r0 * kQStride + 8 * c;
   uint4* dst = reinterpret_cast<uint4*>(out_rows<V>(gr)) + r0 * kPerRow + c;
 #pragma unroll
-  for (int j = 0; j < V::kTiles * kPerRow / kThreads; ++j) {
+  for (int j = 0; j < V::kTiles * kPerRow / V::kGroupThreads; ++j) {
     const int16_t* qr = src + j * kRowsPerPass * kQStride;
     if constexpr (V::kStage == Stage::kSparse) {
       dst[j * kRowsPerPass * kPerRow] = sparse_deltas(qr, seg_first);
@@ -744,7 +865,7 @@ __device__ __forceinline__ void store_rows(Group<V>& gr,
     }
   }
   fence_proxy_async();  // these writes before the bulk store's reads
-  group_sync(g);
+  group_sync<V>(g);
   if (tid == 0) {
     bulk_store(out + gr.band.out_row * V::kLanes, out_rows<V>(gr),
                static_cast<uint32_t>(gr.band.tiles) * V::kLanes * 2);
@@ -1280,7 +1401,7 @@ struct KtBands {
 // S and to consumer group i % G.  The producer warp (the CTA's last) waits
 // for a slot to be empty (parity ((i / S) & 1) ^ 1), writes the band's
 // geometry beside it and fills it (src.produce); the group waits for it to
-// be full (parity (i / S) & 1), converts it, and its 8 warps release it.
+// be full (parity (i / S) & 1), converts it, and its warps release it.
 // Then, on the group's named barrier only: product, the store pass into
 // the group's unpadded rows and one bulk store of the band (block-major),
 // or thread stores (the split stage, coefficient-major).  `out` is the
@@ -1288,7 +1409,8 @@ struct KtBands {
 // stride of coefficient-major output.  In the KT products' register split
 // the producer is the last warpgroup, its four warps sharing the copies
 // (producer lane pl of 128), and the two setmaxnreg sit on the two sides of
-// the producer branch, which returns.
+// the producer branch, which returns; in the 16-tile band's frame the
+// last warpgroup's four warps each fill every fourth band.
 template <class V, class Bands, class Out>
 __device__ __forceinline__ void band_loop(const Bands& src, Out out,
                                           const uint16_t* __restrict__ parts,
@@ -1305,23 +1427,27 @@ __device__ __forceinline__ void band_loop(const Bands& src, Out out,
   if (threadIdx.x == 0) {
     for (int s = 0; s < S::kSlots; ++s) {
       mbar_init(&sm.full[s], Bands::kFullCount);
-      mbar_init(&sm.empty[s], kGroupWarps);
+      mbar_init(&sm.empty[s], V::kGroupWarps);
       sm.band[s].index = ~0u;  // no band (n_bands < 2^30)
     }
     asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
   }
   __syncthreads();
 
-  if (V::kProducerWarps == 1 ? warp == V::kGroups * kGroupWarps
-                              : warp >= V::kGroups * kGroupWarps) {
+  if (V::kProducerWarps == 1 ? warp == V::kGroups * V::kGroupWarps
+                              : warp >= V::kGroups * V::kGroupWarps) {
     if constexpr (V::kRegSplit) {
       asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;" ::"n"(kProducerRegs));
     }
-    const int pl = V::kProducerWarps == 1
+    const int pl = V::kProducerWarps == 1 || V::kProducers > 1
                        ? lane
-                       : static_cast<int>(threadIdx.x) - V::kGroups * kThreads;
-    uint32_t i = 0;
-    for (uint32_t band = blockIdx.x; band < n_bands; band += step, ++i) {
+                       : static_cast<int>(threadIdx.x) -
+                             V::kGroups * V::kGroupThreads;
+    // Producer warp p of kProducers takes the CTA's bands i ≡ p.
+    const int first = V::kProducers > 1 ? warp - V::kGroups * V::kGroupWarps : 0;
+    uint32_t i = first;
+    for (uint32_t band = blockIdx.x + first * step; band < n_bands;
+         band += V::kProducers * step, i += V::kProducers) {
       const int s = static_cast<int>(i % S::kSlots);
       mbar_wait(&sm.empty[s], ((i / S::kSlots) & 1) ^ 1);
       const Band b = src.at(band);
@@ -1334,13 +1460,13 @@ __device__ __forceinline__ void band_loop(const Bands& src, Out out,
     asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;" ::"n"(kConsumerRegs));
   }
 
-  const int g = warp / kGroupWarps;
-  const int tid = threadIdx.x - g * kThreads;
-  const int gw = warp - g * kGroupWarps;  // warp within the group
+  const int g = warp / V::kGroupWarps;
+  const int tid = threadIdx.x - g * V::kGroupThreads;
+  const int gw = warp - g * V::kGroupWarps;  // warp within the group
   Group<V>& gr = sm.group[g];
-  constexpr int kBParts = V::kBasisA ? 1 : V::kParts;
+  constexpr int kBParts = V::kBasisA || V::kWide ? 1 : V::kParts;
   uint32_t bl[kBParts][4][2], bc[kBParts][2][2];
-  if constexpr (V::kProduct && !V::kBasisA) {
+  if constexpr (V::kProduct && !V::kBasisA && !V::kWide) {
     load_basis_b<V>(parts, gw, lane, bl, bc);
   }
   const int ch = gw >> 2;
@@ -1362,27 +1488,34 @@ __device__ __forceinline__ void band_loop(const Bands& src, Out out,
       bulk_wait_read();     // the last band's store has read `out`
       gr.band = sm.band[s];  // only this thread stores the band
     }
-    if constexpr (V::kAliasOut) group_sync(g);  // ... before convert writes it
+    if constexpr (V::kAliasOut) group_sync<V>(g);  // ... before convert writes it
     if constexpr (V::kProduct) {
       src.convert(gr, sm.raw[s], b, tid);
     } else {
-      group_sync(g);  // the last band's store pass has read q
+      group_sync<V>(g);  // the last band's store pass has read q
       src.bare(gr, sm.raw[s], tid);
     }
     __syncwarp();
     if (lane == 0) mbar_arrive(&sm.empty[s]);  // the slot's reads are done
-    group_sync(g);
+    group_sync<V>(g);
     if constexpr (V::kProduct) {
       if constexpr (V::kBasisA) {
         basis_a_band<V>(
             gr, reinterpret_cast<const uint16_t*>(smem_bytes + sizeof(S)), gw);
+      } else if constexpr (V::kWide) {
+#pragma unroll 1
+        for (int mt = 0; mt < V::kTiles / 16; ++mt) {
+          product_staged<V>(
+              gr, reinterpret_cast<const uint16_t*>(smem_bytes + sizeof(S)),
+              mt, gw);
+        }
       } else {
 #pragma unroll 1
         for (int mt = 0; mt < V::kTiles / 16; ++mt) {
           product<V>(gr, mt, ch, bl, bc, gr.q, lum_col, chr_col);
         }
       }
-      group_sync(g);
+      group_sync<V>(g);
     }
     if constexpr (V::kStage == Stage::kSplit) {
       store_split<V>(gr, b, out, tid);
@@ -1450,7 +1583,7 @@ cudaError_t persistent_grid(K kernel, int64_t n_bands, Launch* p) {
     err = cudaFuncGetAttributes(&attr, kernel);
     if (err != cudaSuccess) return err;
     if (attr.numRegs * V::kCtaThreads <
-        V::kGroups * kThreads * kConsumerRegs +
+        V::kGroups * V::kGroupThreads * kConsumerRegs +
             32 * V::kProducerWarps * kProducerRegs) {
       return cudaErrorInvalidConfiguration;
     }

@@ -40,8 +40,13 @@
 // named barriers, one CTA an SM), so a difference of two rows is the work
 // of the part that differs.  K1's three groups leave 72 registers a
 // thread; the coefficient-major products need more without spilling and
-// take two groups, and the RGB T = 128 band takes one (a group needs 106
-// KB there): their rows differ from K1's in occupancy too.  The KT
+// take two groups: their rows differ from K1's in occupancy too.  The
+// chunk sweep's bands keep K1's arithmetic in frames that fit their T: at
+// T = 128 two groups with their output rows over their operands (a group
+// needs 106 KB with rows of its own), at T = 16 twelve groups of 2 warps on
+// a staged basis, four producer warps and a ring of K1's bytes (20 slots),
+// so that a row's time is its band's size and not an occupancy or a
+// producer's pace that the size forces.  The KT
 // products run three groups at 80 registers a thread, handed over by a
 // producer warpgroup (setmaxnreg), with their output rows over their
 // operands; T = 128 fits two groups so (the template's header); the
@@ -64,8 +69,8 @@ using CoefficientMajor = Variant<64, 3, kYCbCr, 3, Stage::kSparse, true, false, 
 using NoSparse = Variant<64, 3, kYCbCr, 3, Stage::kTrunc, true, true>;
 using NoColour = Variant<64, 3, kR, 3, Stage::kSparse, true, true>;
 using LumaOnly = Variant<64, 3, kYCbCr, 1, Stage::kSparse, true, true>;
-using Band128 = Variant<128, 3, kYCbCr, 3, Stage::kSparse, true, true, 1>;
-using Band16 = Variant<16, 3, kYCbCr, 3, Stage::kSparse, true, true>;
+using Band128 = Variant<128, 3, kYCbCr, 3, Stage::kSparse, true, true, 2>;
+using Band16 = Variant<16, 3, kYCbCr, 3, Stage::kSparse, true, true, 12>;
 using Band32 = Variant<32, 3, kYCbCr, 3, Stage::kSparse, true, true>;
 using Bare = Variant<64, 1, kR, 3, Stage::kTrunc, true, false>;
 // The ladder (probe_megakernel_dma.py:167-174): raw samples, no offset.

@@ -590,12 +590,15 @@ class K1Plan:
     smem: int
     slot_bytes: int
     tiles: int
+    producers: int = 1  # producer warps taking the CTA's bands in turn
 
 
-def _blocks_of(batch: int, h: int, w: int) -> Tuple[int, int, int]:
-    """(bpc, bpr, bands a block row) of a (batch, h, w) image batch."""
+def _blocks_of(batch: int, h: int, w: int,
+               tiles: int = K1_TILES) -> Tuple[int, int, int]:
+    """(bpc, bpr, bands a block row) of a (batch, h, w) image batch in
+    bands of ``tiles`` tiles."""
     bpc, bpr = -(-h // 8), -(-w // 8)
-    return bpc, bpr, -(-bpr // K1_TILES)
+    return bpc, bpr, -(-bpr // tiles)
 
 
 def k1_plan(batch: int, h: int, w: int, resident: int) -> K1Plan:
@@ -605,6 +608,18 @@ def k1_plan(batch: int, h: int, w: int, resident: int) -> K1Plan:
     n_bands = batch * bpc * per_row
     return K1Plan(n_bands, resident, min(n_bands, resident), K1_GROUPS,
                   K1_SLOTS, K1_THREADS, K1_SMEM, K1_SLOT_BYTES, K1_TILES)
+
+
+def band_plan(name: str, batch: int, h: int, w: int, resident: int) -> K1Plan:
+    """The plan of RGB variant ``name`` (its frame, ``rgb_frame``) for a
+    (batch, h, w) batch on a card where ``resident`` CTAs fit, as
+    ``persistent_grid`` reports it."""
+    v, f = _variant(name), rgb_frame(name)
+    bpc, _, per_row = _blocks_of(batch, h, w, v.tiles)
+    n_bands = batch * bpc * per_row
+    return K1Plan(n_bands, resident, min(n_bands, resident), f["groups"],
+                  f["slots"], f["threads"], f["smem"], 8 * v.tiles * 24,
+                  v.tiles, f["producers"])
 
 
 def band_schedule(plan: K1Plan) -> np.ndarray:
@@ -620,40 +635,43 @@ def band_schedule(plan: K1Plan) -> np.ndarray:
     return np.concatenate(rows) if rows else np.zeros((0, 6), np.int64)
 
 
-def band_geometry(batch: int, h: int, w: int) -> np.ndarray:
+def band_geometry(batch: int, h: int, w: int,
+                  tiles: int = K1_TILES) -> np.ndarray:
     """(n_bands, 5) int64 rows (source byte offset, out_row, rows, cols,
-    tiles) of ``band_at``: the band's first pixel in the batch, the output
-    row of its first tile, its image rows and pixel columns inside the
-    frame, its tiles."""
-    bpc, bpr, per_row = _blocks_of(batch, h, w)
+    tiles) of ``band_at`` for bands of ``tiles`` tiles: the band's first
+    pixel in the batch, the output row of its first tile, its image rows
+    and pixel columns inside the frame, its tiles."""
+    bpc, bpr, per_row = _blocks_of(batch, h, w, tiles)
     band = np.arange(batch * bpc * per_row, dtype=np.int64)
-    row_id, bx0 = band // per_row, (band % per_row) * K1_TILES
+    row_id, bx0 = band // per_row, (band % per_row) * tiles
     f, by = row_id // bpc, row_id % bpc
     src = (f * h + by * 8) * (w * 3) + bx0 * 24
     return np.stack([src, row_id * bpr + bx0, np.minimum(8, h - by * 8),
-                     w - bx0 * 8, np.minimum(K1_TILES, bpr - bx0)], 1)
+                     w - bx0 * 8, np.minimum(tiles, bpr - bx0)], 1)
 
 
-def bulk_copies(batch: int, h: int, w: int) -> np.ndarray:
+def bulk_copies(batch: int, h: int, w: int,
+                tiles: int = K1_TILES) -> np.ndarray:
     """(copies, 4) int64 rows (band, slot byte offset, source byte offset,
     bytes) of the staged route: one copy a band row inside the frame, of
     min(T·8, cols)·3 bytes at stride W·3, into row r of the slot."""
-    geo = band_geometry(batch, h, w)
+    geo = band_geometry(batch, h, w, tiles)
     out = []
     for r in range(8):
         sel = np.nonzero(geo[:, 2] > r)[0]
         g = geo[sel]
-        out.append(np.stack([sel, np.full_like(sel, r * K1_TILES * 24),
+        out.append(np.stack([sel, np.full_like(sel, r * tiles * 24),
                              g[:, 0] + r * w * 3,
-                             np.minimum(K1_TILES * 8, g[:, 3]) * 3], 1))
+                             np.minimum(tiles * 8, g[:, 3]) * 3], 1))
     rows = np.concatenate(out)
     return rows[np.lexsort((rows[:, 1], rows[:, 0]))]
 
 
-def bulk_stores(batch: int, h: int, w: int) -> np.ndarray:
+def bulk_stores(batch: int, h: int, w: int,
+                tiles: int = K1_TILES) -> np.ndarray:
     """(n_bands, 2) int64 rows (output byte offset, bytes): each band's
     b.tiles rows of 256 bytes at out_row · 256."""
-    geo = band_geometry(batch, h, w)
+    geo = band_geometry(batch, h, w, tiles)
     return np.stack([geo[:, 1] * K1_ROW_BYTES, geo[:, 4] * K1_ROW_BYTES], 1)
 
 
@@ -661,6 +679,7 @@ def ring_events(plan: K1Plan, seed: int = 0) -> Dict[str, list]:
     """Run the CTAs' producers and groups in a random interleaving on a model
     of the ring's mbarriers, each wait passing only when the barrier's
     completed phases have the other parity (``mbarrier.try_wait.parity``).
+    Producer p of ``plan.producers`` fills the CTA's bands i ≡ p in order.
     A fill writes the band's number beside the slot when it starts (the
     producer's header) and completes the slot's "full" phase when it lands;
     a group waits for the number to be its band's, then for the parity.
@@ -679,14 +698,17 @@ def ring_events(plan: K1Plan, seed: int = 0) -> Dict[str, list]:
         tag = [None] * plan.slots  # the band number beside each slot
         holds = [None] * plan.slots  # the band whose bytes a slot holds
         landing = {}               # slot: band started, not landed
-        nxt = {"p": 0, **{g: g for g in range(plan.groups)}}
+        producers = [("p", p) for p in range(plan.producers)]
+        nxt = {**{p: p[1] for p in producers},
+               **{g: g for g in range(plan.groups)}}
         while True:
             ready = []
-            ip = nxt["p"]
-            if ip < len(mine):
-                s, par = int(mine[ip, 4]), int(mine[ip, 5]) ^ 1
-                if empty[s] & 1 != par and s not in landing:
-                    ready.append("p")
+            for p in producers:
+                ip = nxt[p]
+                if ip < len(mine):
+                    s, par = int(mine[ip, 4]), int(mine[ip, 5]) ^ 1
+                    if empty[s] & 1 != par and s not in landing:
+                        ready.append(p)
             ready += [("land", s) for s in landing]
             for g in range(plan.groups):
                 i = nxt[g]
@@ -705,21 +727,21 @@ def ring_events(plan: K1Plan, seed: int = 0) -> Dict[str, list]:
                 assert not left, f"CTA {cta}: deadlock, {left} waiting"
                 break
             who = ready[rng.integers(len(ready))]
-            if isinstance(who, tuple):  # a fill lands
+            if isinstance(who, tuple) and who[0] == "land":  # a fill lands
                 s = who[1]
                 holds[s] = landing.pop(s)
                 full[s] += 1
                 continue
             i = nxt[who]
             band, s = int(mine[i, 0]), int(mine[i, 4])
-            if who == "p":
+            if isinstance(who, tuple):  # a producer's fill starts
                 assert holds[s] is None, (
                     f"CTA {cta}: slot {s} refilled with band {band} while "
                     f"band {holds[s]} is unread")
                 tag[s] = band
                 landing[s] = band
                 log["fills"].append((cta, band, s))
-                nxt["p"] += 1
+                nxt[who] += plan.producers
             else:
                 assert holds[s] == band, (
                     f"CTA {cta}: group {who} read band {holds[s]} for {band}")
@@ -790,36 +812,61 @@ def _kt_key(v: Variant) -> Tuple[int, int, int]:
     return v.tiles, STAGES.index(v.stage), int(v.basis_a)
 
 
+# P-abl's chunk sweep: K1's arithmetic in bands of T = 16, 32 and 128 tiles.
+BAND_ROWS = ("band_16", "band_32", "band_128")
+_K1_ARITHMETIC = (3, 0, 3, 0, 1, 1)  # parts, YCbCr, channels, sparse, ...
+
+
+def _rgb_path(ins, tiles: int, groups: int) -> Dict:
+    """``sass_loops.band_path`` of an RGB build over T = ``tiles`` (T/16
+    m-tiles a band): the consumer warps that take a band (8, or 24 / groups
+    past 4 groups) and a producer warp's pass, a tile."""
+    path = sass_loops.band_path(ins, tiles // 16)
+    path["groups"] = groups
+    path["warps"] = 24 // groups if groups > 4 else 8
+    path["per_tile"] = (path["warps"] * path["consumer"]
+                        + path["producer"]) / tiles
+    return path
+
+
 def band_sass_counts(root=None,
-                     keys: Sequence[str] = ("k1", *KT_PRODUCTS)
+                     keys: Sequence[str] = ("k1", *KT_PRODUCTS, *BAND_ROWS)
                      ) -> Dict[str, Dict]:
-    """Warp instructions a tile of K1 (``csrc/fwd_megakernel.cu``) and of
-    the KT variants (``csrc/fwd_probe_kernel.cu``) in the checkout at
-    ``root`` (this one by default), from their SASS; ``keys`` picks which
-    ("k1" or KT variant names, the products by default).  K1:
-    ``sass_loops.band_path``, the band loop's path on the aligned route for
-    each of the warps that take a band (8) and the producer's pass, over
-    the band's T = 64 tiles, with the per-warp counts and the stretches
-    between barriers.  A KT variant: ``sass_loops.kt_band_path``, split by
-    warp role (the basis-A variant's luma and chroma warps; the producer
-    warps), with the consumer groups the build has (``groups``).  Needs
-    the CUDA toolkit, not a card."""
+    """Warp instructions a tile of K1 (``csrc/fwd_megakernel.cu``), of the
+    KT variants and of the chunk sweep's band rows (``BAND_ROWS``,
+    ``csrc/fwd_probe_kernel.cu``) in the checkout at ``root`` (this one by
+    default), from their SASS; ``keys`` picks which ("k1", KT variant or
+    band row names; the KT products and the band rows by default).  K1
+    and a band row: ``sass_loops.band_path``, the band loop's path on the
+    aligned route for each of the warps that take a band (8; 2 in the
+    16-tile band's groups) and a producer's pass, over the band's T tiles (T/16
+    m-tiles), with the per-warp counts and the stretches between barriers,
+    and the build's ``groups``.  A KT variant: ``sass_loops.kt_band_path``,
+    split by warp role (the basis-A variant's luma and chroma warps; the
+    producer warps), with the consumer groups the build has (``groups``).
+    Needs the CUDA toolkit, not a card."""
     sd = sass_loops._sass_diff()
     root = Path(root) if root else sass_loops.REPO
     counts = {}
-    kt = {_kt_key(BY_NAME[k]): k for k in keys if k in BY_NAME}
+    kt = {_kt_key(BY_NAME[k]): k for k in keys
+          if k in BY_NAME and BY_NAME[k].input == "kt"}
+    rgb = {BY_NAME[k].tiles: k for k in keys if k in BAND_ROWS}
     with tempfile.TemporaryDirectory() as tmp:
         if "k1" in keys:  # the file's one kernel
             ins = next(iter(sd.sass(root, "fwd_megakernel", Path(tmp)).values()))
-            path = sass_loops.band_path(ins, 64 // 16)
-            path["per_tile"] = (8 * path["consumer"] + path["producer"]) / 64
-            counts["k1"] = path
-        if kt:
+            counts["k1"] = _rgb_path(ins, 64, 3)
+        if kt or rgb:
             functions = sd.sass(root, "fwd_probe_kernel", Path(tmp))
             for name, ins in zip(sd.demangle(list(functions)),
                                  functions.values()):
                 args = variant_args(name)
-                if args is None or args[8] != 1:
+                if args is None:
+                    continue
+                if args[8] == 0:  # an RGB build: a band row or no key
+                    key = (rgb.get(args[0])
+                           if args[1:7] == _K1_ARITHMETIC else None)
+                    if key is not None:
+                        counts[key] = _rgb_path(ins, args[0], args[7])
                     continue
                 key = kt.get((args[0], args[4], args[9]))
                 if key is not None:  # chunks: 192 or 128 pieces × T/16
@@ -830,21 +877,27 @@ def band_sass_counts(root=None,
     return counts
 
 
-def kt_ptxas(root=None, usage=None) -> Dict[str, Dict[str, int]]:
-    """{KT variant: ptxas's registers and spill bytes, the build's groups}
-    of the checkout at ``root`` (``sass_loops.ptxas_usage`` of its probe
-    library, or ``usage``, that call's result); needs the toolkit."""
+def probe_ptxas(root=None, usage=None) -> Dict[str, Dict[str, int]]:
+    """{KT variant or band row: ptxas's registers and spill bytes, the
+    build's groups} of the checkout at ``root`` (``sass_loops.ptxas_usage``
+    of its probe library, or ``usage``, that call's result); needs the
+    toolkit."""
     root = Path(root) if root else sass_loops.REPO
     kt = {_kt_key(v): v.name for v in KT_VARIANTS}
+    rgb = {BY_NAME[k].tiles: k for k in BAND_ROWS}
     if usage is None:
         usage = sass_loops.ptxas_usage("fwd_probe_kernel", root)
     out = {}
     for name, use in usage.items():
         args = variant_args(name)
-        if args is not None and args[8] == 1:
+        if args is None:
+            continue
+        if args[8] == 1:
             key = kt.get((args[0], args[4], args[9]))
-            if key is not None:
-                out[key] = {**use, "groups": args[7]}
+        else:
+            key = rgb.get(args[0]) if args[1:7] == _K1_ARITHMETIC else None
+        if key is not None:
+            out[key] = {**use, "groups": args[7]}
     return out
 
 
@@ -858,7 +911,7 @@ def issue_floor_ms(per_tile: float, n_blocks: int,
 
 
 # ---------------------------------------------------------------------------
-# The KT products' frame, mirrored in numpy
+# The frames of the variants, mirrored in numpy
 # ---------------------------------------------------------------------------
 #
 # ``csrc/fwd_megakernel.cuh``'s KT products (``KT_PRODUCTS``): at three
@@ -866,50 +919,88 @@ def issue_floor_ms(per_tile: float, n_blocks: int,
 # registers) drops to ``KT_PRODUCER_REGS`` and the consumers rise to
 # ``KT_CONSUMER_REGS`` (setmaxnreg); a product group's output rows alias its
 # bf16 operands; the basis-A product stages the basis once a CTA and splits
-# its 72 mma per 8 tiles over the 8 warps, 9 each.  ``KT_GROUPS`` holds the
-# groups of each KT variant (``csrc/fwd_probe_kernel.cu``'s
-# instantiations).
+# its 72 mma per 8 tiles over the 8 warps, 9 each.  The RGB variants keep
+# K1's frame (one producer warp, groups of 8 warps), but at T = 128 their
+# product's rows alias its operands too (two groups fit), and the 16-tile
+# band runs 12 groups of 2 warps (``kWide``) on a staged basis under four
+# producer warps that take its bands in turn, its rows over its operands,
+# its ring sized by K1's bytes (``RING_BYTES``) instead of a count of 5.
+# ``KT_GROUPS`` and ``RGB_GROUPS`` hold each variant's groups
+# (``csrc/fwd_probe_kernel.cu``'s instantiations).
 
 KT_GROUPS = {"kt_split_runs": 2, "kt_full": 3, "kt_full_32": 3,
              "kt_full_128": 2, "kt_basis_a": 3, "kt_dct": 3, "kt_copy_32": 3,
              "kt_copy": 3, "kt_copy_128": 1}
+RGB_GROUPS = {**{v.name: 3 for v in RGB_VARIANTS}, "coefficient_major": 2,
+              "dots_three_parts": 2, "band_128": 2, "band_16": 12}
 KT_CONSUMER_REGS = 80
 KT_PRODUCER_REGS = 24
 SMEM_LIMIT = 232_448
 LUM_STRIDE, CHR_STRIDE, Q_STRIDE = 64 + 8, 32 + 8, 128 + 8  # padded rows
 BAND_BYTES = 32  # sizeof(Band)
 STAGED_BASIS_BYTES = (3 * 64 * LUM_STRIDE + 3 * 32 * CHR_STRIDE) * 2
+RING_BYTES = 5 * K1_SLOT_BYTES  # kRingBytes: K1's 5 slots of T = 64
+NAMED_BARRIERS = 16  # bar.sync ids 0-15; 0 is __syncthreads'
+
+
+def _frame(v: Variant, groups: int) -> Dict[str, int]:
+    """Variant ``v``'s frame at ``groups`` consumer groups (``kt_frame``)."""
+    t, wide = v.tiles, groups > 4
+    split_regs = v.input == "kt" and v.product and groups == 3
+    producer_warps = 4 if split_regs or wide else 1
+    group_warps = 24 // groups if wide else 8
+    threads = groups * 32 * group_warps + 32 * producer_warps
+    operands = t * LUM_STRIDE * 2 + 2 * t * CHR_STRIDE * 2
+    if v.block_major:
+        staging = t * Q_STRIDE * 2
+    else:  # a row of T outputs (+ 16 B) a lane, as int16 elements
+        item = 1 if v.stage == "copy_u8" else 2
+        staging = (v.lanes * (t + 16 // item) * item + 1) // 2 * 2
+    bulk_out = v.block_major and v.stage != "split"
+    alias = (v.product and bulk_out
+             and (v.input == "kt" or t == 128 or wide))  # AliasGroup
+    rows = 0 if alias else (t * v.lanes * 2 if bulk_out else 16)
+    group = -(-(rows + BAND_BYTES + operands + staging) // 16) * 16
+    staged = (STAGED_BASIS_BYTES
+              if (v.input == "kt" and v.product and v.basis_a) or wide else 0)
+    slot_bytes = 8 * t * 24
+    per_slot = slot_bytes + BAND_BYTES + 16  # bytes, geometry, 2 mbarriers
+    cap = RING_BYTES // slot_bytes if wide else 5
+    slots = min(cap, (SMEM_LIMIT - groups * group - staged - 64) // per_slot)
+    per_scheduler = -(-threads // 32 // 4)  # warps on the fullest of 4
+    return {"groups": groups, "group_warps": group_warps,
+            "producer_warps": producer_warps,
+            "producers": producer_warps if wide else 1, "threads": threads,
+            "launch_registers": 16384 // (32 * per_scheduler) // 8 * 8,
+            "slots": slots, "group_bytes": group, "aliased": int(alias),
+            "staged_bytes": staged,
+            "smem": slots * per_slot + groups * group + staged}
 
 
 def kt_frame(name: str) -> Dict[str, int]:
-    """The frame of KT variant ``name``: consumer groups, producer warps,
-    threads a CTA, the registers it launches at (what a scheduler's 16,384
-    leave each thread of its warps, in steps of 8), ring slots, bytes a group, the staged basis and
-    the dynamic shared memory a CTA (``Smem<V>`` and the staged basis), as
-    ``ring_slots``, ``Group`` and ``dynamic_smem`` lay them out."""
+    """The frame of KT variant ``name``: consumer groups, warps a group,
+    producer warps, threads a CTA, the registers it launches at (what a
+    scheduler's 16,384 leave each thread of its warps, in steps of 8), ring
+    slots, bytes a group, whether its output rows lie over its operands,
+    the staged basis and the dynamic shared memory a CTA (``Smem<V>`` and
+    the staged basis), as ``ring_slots``, ``Group`` and ``dynamic_smem``
+    lay them out."""
     v = _variant(name)
     if v.input != "kt":
         raise ValueError(f"{name} is no KT variant")
-    t, groups = v.tiles, KT_GROUPS[name]
-    split_regs = v.product and groups == 3
-    warps = 4 if split_regs else 1
-    threads = groups * 256 + 32 * warps
-    operands = t * LUM_STRIDE * 2 + 2 * t * CHR_STRIDE * 2
-    staging = t * Q_STRIDE * 2
-    if v.product and v.stage != "split":  # KtGroup: rows over the operands
-        group = BAND_BYTES + operands + staging
-    else:  # RowsGroup: its own rows (8 elements for the split stage)
-        rows = 16 if v.stage == "split" else t * 128 * 2
-        group = rows + BAND_BYTES + operands + staging
-    staged = STAGED_BASIS_BYTES if v.basis_a else 0
-    per_slot = 8 * t * 24 + BAND_BYTES + 16  # bytes, geometry, 2 mbarriers
-    slots = min(5, (SMEM_LIMIT - groups * group - staged - 64) // per_slot)
-    per_scheduler = -(-threads // 32 // 4)  # warps on the fullest of 4
-    return {"groups": groups, "producer_warps": warps, "threads": threads,
-            "launch_registers": 16384 // (32 * per_scheduler) // 8 * 8,
-            "slots": slots,
-            "group_bytes": group, "staged_bytes": staged,
-            "smem": slots * per_slot + groups * group + staged}
+    return _frame(v, KT_GROUPS[name])
+
+
+def rgb_frame(name: str) -> Dict[str, int]:
+    """The frame of RGB variant ``name``, as ``kt_frame``'s: K1's
+    ``(3, 25 warps, 5 slots, 221,520 B)`` for most; two groups with their
+    rows over their operands at T = 128; 12 groups of 2 warps on the staged
+    basis, 4 producer warps, rows over the operands and K1's bytes of ring
+    at T = 16."""
+    v = _variant(name)
+    if v.input != "rgb":
+        raise ValueError(f"{name} is no RGB variant")
+    return _frame(v, RGB_GROUPS[name])
 
 
 def basis_a_plan(tiles: int) -> np.ndarray:
@@ -1075,56 +1166,63 @@ def kt_copy_plan(tiles: int, producer_warps: int) -> np.ndarray:
 
 
 def alias_events(bands: int, seed: int, threads: int = 3,
-                 barrier: bool = True) -> Dict[str, int]:
-    """A KT product group's ``bands`` bands on a model of its aliased rows
+                 barrier: bool = True, groups: int = 1) -> Dict[str, int]:
+    """``groups`` product groups whose output rows alias their operands
+    (``AliasGroup``), ``bands`` bands each, on a model of their rows
     (``band_loop``): each thread converts (writes the operand bytes, which
     are the rows), passes the product's barrier, writes the rows in the
     store pass and passes the store's barrier; thread 0 then issues the
     bulk store, whose read of the rows lands at a random later step.  At
     the next band thread 0 first waits for its reads (``bulk_wait_read``),
     then with ``barrier`` every thread passes the group's barrier before it
-    converts.  Random interleavings of the threads and the landings;
-    returns the count of writes made while a read was in flight
-    (``violations``) and of bulk stores issued."""
+    converts.  Each group has its own rows, its own named barrier and its
+    storing thread's bulk groups.  Random interleavings of every group's
+    threads and the landings; returns the count of writes made while a
+    read of the same group's rows was in flight (``violations``) and of
+    bulk stores issued."""
     rng = np.random.default_rng(seed)
     head = (["wait", "bar"] if barrier else ["wait"])
-    progs = [[op for _ in range(bands) for op in
-              ((head if k == 0 else (["bar"] if barrier else []))
-               + ["write", "bar", "write", "bar"]
-               + (["store"] if k == 0 else []))] for k in range(threads)]
-    pc = [0] * threads
-    arrived = set()  # threads waiting at the barrier
-    flight = 0       # bulk reads not landed
+    prog = [[op for _ in range(bands) for op in
+             ((head if k == 0 else (["bar"] if barrier else []))
+              + ["write", "bar", "write", "bar"]
+              + (["store"] if k == 0 else []))] for k in range(threads)]
+    live = [(g, k) for g in range(groups) for k in range(threads)]
+    pc = {t: 0 for t in live}
+    arrived = [set() for _ in range(groups)]  # threads at a group's barrier
+    flight = [0] * groups  # a group's bulk reads not landed
     out = {"violations": 0, "stores": 0}
-    while any(pc[k] < len(progs[k]) for k in range(threads)) or flight:
-        ready = [("land",)] if flight else []
-        for k in range(threads):
-            if pc[k] >= len(progs[k]) or k in arrived:
+    while any(pc[g, k] < len(prog[k]) for g, k in live) or any(flight):
+        ready = [("land", g) for g in range(groups) if flight[g]]
+        for g in range(groups):  # every live thread at the barrier: it opens
+            if arrived[g] and all(k in arrived[g] or pc[g, k] >= len(prog[k])
+                                  for k in range(threads)):
+                ready.append(("open", g))
+        for g, k in live:
+            if pc[g, k] >= len(prog[k]) or k in arrived[g]:
                 continue
-            op = progs[k][pc[k]]
-            if op != "wait" or flight == 0:
-                ready.append(("run", k))
-        if not ready:  # every live thread at the barrier: it opens
-            assert arrived, "deadlock"
-            for k in arrived:
-                pc[k] += 1
-            arrived.clear()
-            continue
+            if prog[k][pc[g, k]] != "wait" or flight[g] == 0:
+                ready.append(("run", g, k))
+        assert ready, "deadlock"
         who = ready[rng.integers(len(ready))]
         if who[0] == "land":
-            flight -= 1
+            flight[who[1]] -= 1
             continue
-        k = who[1]
-        op = progs[k][pc[k]]
+        if who[0] == "open":
+            for k in arrived[who[1]]:
+                pc[who[1], k] += 1
+            arrived[who[1]].clear()
+            continue
+        _, g, k = who
+        op = prog[k][pc[g, k]]
         if op == "bar":
-            arrived.add(k)
+            arrived[g].add(k)
             continue
-        if op == "write" and flight:
+        if op == "write" and flight[g]:
             out["violations"] += 1
         if op == "store":
-            flight += 1
+            flight[g] += 1
             out["stores"] += 1
-        pc[k] += 1
+        pc[g, k] += 1
     return out
 
 

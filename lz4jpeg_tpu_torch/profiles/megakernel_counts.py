@@ -1,6 +1,6 @@
-"""The forward megakernel's KT product variants counted in their build: warp
-instructions a tile by warp role, the issue floor at that count, registers
-and spill bytes.
+"""The forward megakernel's KT product variants and its chunk sweep's band
+rows counted in their build: warp instructions a tile by warp role, the
+issue floor at that count, registers and spill bytes.
 
     python -m lz4jpeg_tpu_torch.profiles.megakernel_counts [--root DIR]
         [--kt-groups G] [--output F.json]
@@ -8,7 +8,9 @@ and spill bytes.
 ``DIR`` is the root of a checkout (this one by default).  Its
 ``csrc/fwd_probe_kernel.cu`` is compiled with the toolkit (``nvcc -cubin``,
 ``cuobjdump -sass``, ``ptxas -v``; no card), and for each KT product
-variant (``megakernel.KT_PRODUCTS``) it prints the consumer groups of the
+variant (``megakernel.KT_PRODUCTS``) and each band row of the chunk sweep
+(``megakernel.BAND_ROWS``: K1's arithmetic at T = 16, 32 and 128, whose
+consumer warps all take one role) it prints the consumer groups of the
 build, ptxas's registers and spill bytes, and
 ``megakernel.band_sass_counts``' warp instructions a band of each warp
 role (the basis-A variant's luma and chroma warps; the producer warps) and
@@ -52,13 +54,15 @@ def regrouped(root: Path, groups: int, work: Path) -> Path:
 
 
 def kt_counts(root: Optional[Path] = None) -> Dict[str, Dict]:
-    """{KT product variant: groups, registers, spill bytes, the counts of
-    ``band_sass_counts`` and the issue floor at 32 frames of 2048²}."""
+    """{KT product variant or band row: groups, registers, spill bytes, the
+    counts of ``band_sass_counts`` and the issue floor at 32 frames of
+    2048²}."""
     root = Path(root) if root else sass_loops.REPO
-    usage = mk.kt_ptxas(root)
-    sass = mk.band_sass_counts(root, mk.KT_PRODUCTS)
+    usage = mk.probe_ptxas(root)
+    names = (*mk.KT_PRODUCTS, *mk.BAND_ROWS)
+    sass = mk.band_sass_counts(root, names)
     out = {}
-    for name in mk.KT_PRODUCTS:
+    for name in names:
         rec = {**usage[name], **sass[name]}
         rec["issue_floor_ms"] = mk.issue_floor_ms(rec["per_tile"], TILES)
         out[name] = rec
@@ -72,6 +76,10 @@ def report(counts: Dict[str, Dict]) -> None:
             + (f" ({r['segments']} between barriers)" if "segments" in r
                else "")
             for role, r in rec.items() if isinstance(r, dict))
+        if name in mk.BAND_ROWS:  # band_path's record: one consumer role
+            roles = (f"consumer {rec['consumer']} x {rec['warps']} warps "
+                     f"({rec['segments']} between barriers); producer "
+                     f"{rec['producer']} x 1 warps")
         print(f"{name}: {rec['groups']} groups, {rec['registers']} registers, "
               f"{rec['spill_stores']} B spill stores, {rec['spill_loads']} B "
               f"spill loads; a band: {roles}; {rec['per_tile']:.2f} warp "

@@ -197,23 +197,37 @@ def band_path(instructions: List[str], trips: int) -> Dict:
         return not any(o != sp and sp[0] <= o[0] and o[1] <= sp[1]
                        for o in spans)
 
-    hmma = [sp for sp in spans if innermost(sp) and any(
-        opcode(x) == "HMMA" for x in instructions[sp[0]:sp[1] + 1])]
-    if not hmma:
+    def has_hmma(sp):
+        return any(opcode(x) == "HMMA" for x in instructions[sp[0]:sp[1] + 1])
+
+    hmma = [sp for sp in spans if innermost(sp) and has_hmma(sp)]
+    if hmma:
+        inner = hmma[0]
+        outer = min((sp for sp in spans if sp != inner and sp[0] <= inner[0]
+                     and inner[1] <= sp[1]), key=lambda sp: sp[1] - sp[0])
+    elif trips == 1 and any(has_hmma(sp) for sp in spans):
+        # One m-tile a band (T = 16): ptxas drops the loop, and the band
+        # loop holds the product itself.
+        inner = None
+        outer = min((sp for sp in spans if has_hmma(sp)),
+                    key=lambda sp: sp[1] - sp[0])
+    else:
         return None
-    inner = hmma[0]
-    outer = min((sp for sp in spans if sp != inner and sp[0] <= inner[0]
-                 and inner[1] <= sp[1]), key=lambda sp: sp[1] - sp[0])
     consumer = loop_path(instructions, outer, inner, trips)
+    # ptxas may move a wait's retry loop past the function's end, with a
+    # jump back to the loop: a "span" holding an EXIT is such a jump.
     copies = [sp for sp in spans if not (outer[0] <= sp[0] <= outer[1])
               and any(opcode(x) in ("UBLKCP", "LDGSTS")
-                      for x in instructions[sp[0]:sp[1] + 1])]
+                      for x in instructions[sp[0]:sp[1] + 1])
+              and not any(opcode(x) == "EXIT"
+                          for x in instructions[sp[0]:sp[1] + 1])]
     producer = 0
     if copies:
         loop = max(copies, key=lambda sp: sp[1] - sp[0])
         producer = loop_path(instructions, loop)["count"]
     return {"consumer": consumer["count"], "segments": consumer["segments"],
-            "hmma_loop": inner[1] - inner[0] + 1, "producer": producer}
+            "hmma_loop": inner[1] - inner[0] + 1 if inner else 0,
+            "producer": producer}
 
 
 def _hmma(instructions: List[str], span) -> int:

@@ -858,7 +858,17 @@ def test_megakernel_variant_attributes(cuda):
     assert attrs["full"]["ctas_per_sm"] == 1
     assert attrs["full"]["shared_bytes"] == mk.K1_SMEM
     assert attrs["full"] == mk.k1_attributes(cuda)
+    # the chunk sweep's frames: T = 128 at 2 groups, rows over the operands
+    # (17 warps, 96 registers at most); T = 16 at 6 groups of 4 warps and 4
+    # producer warps (28 warps, 72 registers)
+    assert mk.rgb_frame("band_128")["groups"] == 2
     assert attrs["band_128"]["ctas_per_sm"] == 1
+    assert attrs["band_128"]["registers"] <= 96
+    assert mk.rgb_frame("band_16")["threads"] == 896
+    assert attrs["band_16"]["registers"] <= 72
+    for v in mk.RGB_VARIANTS:  # the frame's mirror
+        assert attrs[v.name]["shared_bytes"] == mk.rgb_frame(v.name)["smem"], \
+            v.name
     for name, a in attrs.items():
         assert 0 < a["registers"] <= 255 and a["ctas_per_sm"] >= 1, name
 

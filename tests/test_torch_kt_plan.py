@@ -177,13 +177,13 @@ def test_the_frame_mirror_constants_are_the_sources():
             "static_cast<int>(sizeof(Band)) + 16;") in HEADER
     assert "constexpr int kFit = (kSmemLimit - kFixed - 64) / kPerSlot;" in HEADER
     # the aliased group: the geometry, the operands, the staging
-    kt_group = HEADER[HEADER.index("struct alignas(16) KtGroup {"):]
+    kt_group = HEADER[HEADER.index("struct alignas(16) AliasGroup {"):]
     kt_group = kt_group[:kt_group.index("};")]
     assert re.findall(r"^\s+(?:Band|uint16_t|int16_t) (\w+)", kt_group,
                       re.M) == ["band", "lum", "chr", "q"]
     assert "return reinterpret_cast<int16_t*>(gr.lum);" in HEADER
-    assert ("static constexpr bool kAliasOut = kKtProduct && kBulkOut;"
-            in HEADER)
+    assert ("static constexpr bool kAliasOut = kProduct && kBulkOut && "
+            "(In == Input::kKt || Tiles == 128 || kWide);" in " ".join(HEADER.split()))
 
 
 # -- the register split ---------------------------------------------------------
@@ -238,7 +238,7 @@ def test_the_alias_order_is_the_band_loops():
     loop = " ".join(HEADER[HEADER.index("void band_loop("):].split())
     wait = loop.index("bulk_wait_read(); // the last band's store has read "
                       "`out`")
-    barrier = loop.index("if constexpr (V::kAliasOut) group_sync(g);")
+    barrier = loop.index("if constexpr (V::kAliasOut) group_sync<V>(g);")
     convert = loop.index("src.convert(gr, sm.raw[s], b, tid);")
     assert wait < barrier < convert
 

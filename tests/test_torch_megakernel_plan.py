@@ -162,7 +162,11 @@ def test_band_geometry_at_the_edges():
 def test_the_mirror_constants_are_the_source_constants():
     src = SOURCE.read_text()
     assert re.search(r"constexpr int kThreads = 256;", src)
-    assert re.search(r"return kFit < 5 \? kFit : 5;", src)  # K1_SLOTS
+    # K1_SLOTS: at most 5 slots outside the 16-tile band's frame
+    assert re.search(r"constexpr int kCap = V::kWide \? kRingBytes / "
+                     r"V::kBandBytes : 5;", src)
+    assert re.search(r"return kFit < kCap \? kFit : kCap;", src)
+    assert mk.rgb_frame("full")["slots"] == mk.K1_SLOTS
     assert re.search(r"using K1Variant = Variant<64, 3, Colour::kYCbCr, 3, "
                      r"Stage::kSparse, true, true>;", src)
     assert re.search(r"int Groups = 3,", src)
