@@ -2,14 +2,14 @@
 """Smoke run of the PyTorch port (lz4jpeg_tpu_torch) on one CUDA card.
 
 Run from the repository root with no arguments: ``python3 chip_smoke.py``.
-It needs one card.  At first use it builds the thirty-three Hopper
-kernels (one nvcc per source file, twenty-two files, all started together,
+It needs one card.  At first use it builds the thirty-four Hopper
+kernels (one nvcc per source file, twenty-three files, all started together,
 sm_90a; the five megakernel probes are one file of twenty-six
 instantiations of K1's template, K7's phase variants one file of eight
 instantiations of K7's, the casts one template of seven instantiations,
 the one-hot gathers one template of nine)
 and the native runtime (g++) into ``lz4jpeg_tpu_torch/_build/``, then runs
-twenty-eight phases and fails (non-zero exit, no result line) if any of
+twenty-nine phases and fails (non-zero exit, no result line) if any of
 them fails.  ``ab_kernels.py`` times K1, K2 and K4-K7 in turns with
 another checkout's; ``sass_diff.py`` compares a source's machine code with
 another checkout's.
@@ -29,7 +29,8 @@ another checkout's.
    of the coefficients;
 3. the JPEG main path: ``JPEGPipeline(JPEGConfig(), device="cuda")``,
    ``encode_batch`` of four 2048² frames, ``pack_container``,
-   ``unpack_container``, ``decode_batch``.  The kernel must have launched;
+   ``unpack_container``, ``decode_batch``.  K1 must have launched, and the
+   decode must have launched the inverse megakernel K9 once;
    the containers must equal the CPU path's byte for byte (or differ only
    by phase 2's flips); the decoded RGB must stay within the fast-path
    envelope of the CPU path's decode (max |Δ| ≤ 3 on ≤ 2e-3 of pixels);
@@ -135,8 +136,8 @@ another checkout's.
     of four shards of cuda:0, each kernel's count reset before a step and
     held to one launch per shard after it: ``ShardedSparseJPEG`` forward of
     one 2048² noise frame (K1 per band) identical to the pipeline's encode,
-    its inverse identical to the pipeline's decode or within max |Δ| ≤ 1 on
-    < 2e-3 of pixels (the differing pixels counted); ``ShardedJPEGForward``,
+    its inverse (K9 per band) identical to the pipeline's decode or within
+    max |Δ| ≤ 1 on < 2e-3 of pixels (the differing pixels counted); ``ShardedJPEGForward``,
     fast and exact, at 512²: stages against the card pipeline's
     ``forward_stages`` (fast: up to phase 2's flips), the inverse in the
     pair layout and in packed16 (K6 per shard and channel) against the
@@ -172,8 +173,10 @@ another checkout's.
     ``runs=3`` on 4 MiB of generated text: lz4-device at 64 and 1,024
     blocks (K2 128 times), lz4t-decode at 1, 4, 16 MB (K3 15 times),
     jpeg-inverse at 512², 1024², 2048² (batch 256 each; peak device memory
-    printed), jpeg-perblock at 64²–256², entropy-ab at 1024²; both
-    rooflines at their defaults; every artifact naming the device and the
+    printed; K9 60 times, once a dispatch), jpeg-perblock at 64²–256²,
+    entropy-ab at 1024²; both rooflines at their defaults (the inverse's
+    three stages the plain chain, its ``full_inverse`` K9, guarded by its
+    launches); every artifact naming the device and the
     card; ``python -m lz4jpeg_tpu_torch bench headline --device cuda`` in a
     process of its own; the wall time of each suite;
 21. the kernel candidates (``lz4jpeg_tpu_torch/profiles/``), a few
@@ -357,7 +360,20 @@ another checkout's.
     (``MXU_GATHER_RUN``: 4 MiB of generated text, 64 KiB blocks; every
     full row equal to ``torch.gather`` and the text; each row's time with
     its torch code and the kernel's alone printed), the gather's and K3's
-    counts set to 0 just before and read just after.
+    counts set to 0 just before and read just after;
+29. the inverse megakernel K9 (``csrc/inv_megakernel.cu``,
+    ``ops/inv_megakernel.py``), about 20 s: against its plain version
+    (the torch chain on cuBLAS) on K1's buffers of noise frames at
+    ``INV_CASES`` (2048² b8, 2047×1531 and 37×53 on the byte store route,
+    8×8, 1×1, 2×512×1040 with a last unit of 2 tiles, 4×48×528 at quality
+    75, a 256² input view off 16 bytes on the word load route), each
+    launch's C plan held to ``inverse_plan``'s mirror, every differing
+    pixel explained by one-step plane flips at summation ties
+    (``utils/parity.py::decode_flips``; the count printed) and every decode
+    within max |Δ| ≤ 3 on ≤ 2e-3 of pixels; words 0, 1024, -512, -32768
+    and 32767 at every lane identical to the plain version; registers,
+    shared memory, CTAs an SM and ptxas's spill stores (none allowed); K9
+    and plain timed at 2048² b64 (phase 4's method), K9 at b256.
 
 The line before the last is the kernels' JSON record: per kernel (the
 packed16 kernels once per timed channel and input dtype) its launches on
@@ -379,6 +395,10 @@ their plain version, which is that call; none for the phase variants;
 phase 26's: none for the sublane RLE, ``x.to(dst)`` for the casts (also
 their plain version), cuBLAS fp32 for the basis product, ``.transpose(1,
 2).contiguous()`` for the transpose, ``Tensor.copy_`` for the split).
+K9's record (phase 29) bounds it by the larger of its bytes and the FMA
+its non-zero deltas need at 132 SMs × 128 lanes × 1.98 GHz (fp32 outside
+the tensor cores), and adds the FMA bound of every term as K9 issues them
+(``ffma_bound_ms``), the bytes bound and its time at b256; no library call.
 The probe runners' times (phases 22-25, ``profiles/timing.py``) are
 queued behind a spin on the card, so that the host's issue of each call
 drops out.  Phase 24's
@@ -592,9 +612,24 @@ GATHER_SYNTHETIC = ((2, 4096), (3, 16_384), (1, 2048), (3, 2048),
 COLOR_PROBE_RUN = {}  # the runners' defaults: 32 × 2048² and the cube,
 COLORSPLIT_RUN = {}  # 32 noise frames of 2048²,
 MXU_GATHER_RUN = {}  # 4 MiB of generated text, 64 KiB blocks
+INV_SOURCE = "lz4jpeg_tpu_torch/csrc/inv_megakernel.cu"
+INV_REPLACES = "lz4jpeg_tpu/models/jpeg.py:408"
+# Phase 29's K9 checks: (label, (frames, H, W), quality); the timed batches.
+INV_CASES = (("2048x2048 b8", (8, 2048, 2048), None),
+             ("2047x1531", (1, 2047, 1531), None),
+             ("37x53", (1, 37, 53), None),
+             ("8x8", (1, 8, 8), None),
+             ("1x1", (1, 1, 1), None),
+             ("2x512x1040, last unit 2 tiles", (2, 512, 1040), None),
+             ("4x48x528 quality 75", (4, 48, 528), 75),
+             ("256x256 unaligned input view", (1, 256, 256), None))
+INV_WORDS = (0, 1024, -512, -32768, 32767)  # crafted words at every lane
+INV_TIME_FRAMES = (64, 256)
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3 (NVIDIA data sheet)
 BF16_FLOP_PER_S = 989e12  # H100 SXM dense bf16 tensor cores (data sheet)
 INT8_OP_PER_S = 1979e12  # H100 SXM dense int8 tensor cores (data sheet)
+# fp32 FMA outside the tensor cores: 132 SMs × 128 lanes at 1.98 GHz.
+FFMA_PER_S = 132 * 128 * 1.98e9
 # K1's tensor-core work per 8x8 tile: three bf16 passes of a 64-deep luma
 # and two 32-deep chroma products, 2 operations per multiply-add.
 K1_FLOP_PER_TILE = 3 * 2 * (64 * 64 + 2 * 32 * 32)
@@ -752,6 +787,7 @@ def build_all():
     from lz4jpeg_tpu_torch.ops import (
         fused_match,
         fwd_megakernel,
+        inv_megakernel,
         lz4t_decode,
         pack16,
         stream,
@@ -775,6 +811,7 @@ def build_all():
 
     builds = {
         "nvcc fwd_megakernel": fwd_megakernel.load_kernel,
+        "nvcc inv_megakernel": inv_megakernel.load_kernel,
         "nvcc match_kernel": fused_match.load_kernel,
         "nvcc resolve_kernel": lz4t_decode.load_kernel,
         "nvcc pack16_kernel": pack16.load_pack_kernels,
@@ -2184,6 +2221,7 @@ def parallel_phase(dev, card: str, data: bytes, lz4_frame: bytes):
         match_candidates,
     )
     from lz4jpeg_tpu_torch.ops.fwd_megakernel import forward_combined
+    from lz4jpeg_tpu_torch.ops.inv_megakernel import inverse_combined
     from lz4jpeg_tpu_torch.ops.lz4_fast import TPU_BLOCK_LOG, pad_blocks_fast
     from lz4jpeg_tpu_torch.ops.lz4t_decode import resolve_rooted
     from lz4jpeg_tpu_torch.ops.match import greedy_parse, match_tables, pad_blocks
@@ -2234,10 +2272,11 @@ def parallel_phase(dev, card: str, data: bytes, lz4_frame: bytes):
                        mesh.size, lambda: ssj.forward(frame))
         check(np.array_equal(comb, enc.rle_combined),
               f"phase 19: ShardedSparseJPEG on {name} differs from encode")
-        rec = ssj.inverse(comb, nb, nb, SIDE, SIDE)
+        rec = counted(inverse_combined, f"K9 ShardedSparseJPEG.inverse, {name}",
+                      mesh.size, lambda: ssj.inverse(comb, nb, nb, SIDE, SIDE))
         print(f"phase 19: ShardedSparseJPEG {SIDE}x{SIDE} on {name}: forward "
               f"identical to the pipeline's encode (K1 x{mesh.size}); inverse "
-              f"vs the pipeline's decode: "
+              f"(K9 x{mesh.size}) vs the pipeline's decode: "
               + band_envelope(f"sparse inverse on {name}", rec, ref_dec))
 
     # ---- JPEG staged forward and its inverse (pairs; packed16 with K6) --
@@ -2484,6 +2523,7 @@ def bench_phase(dev):
     from lz4jpeg_tpu_torch.ops.fused_match import match_candidates
     from lz4jpeg_tpu_torch.ops.fwd_megakernel import forward_combined
     from lz4jpeg_tpu_torch.ops import stream
+    from lz4jpeg_tpu_torch.ops.inv_megakernel import inverse_combined
     from lz4jpeg_tpu_torch.ops.lz4t_decode import resolve_rooted
     from lz4jpeg_tpu_torch.ops.stream import stream_copy, stream_copy_ref
     from lz4jpeg_tpu_torch.profiles import rle_expand
@@ -2622,9 +2662,14 @@ def bench_phase(dev):
         want = len(BENCH_LZ4T_MB) * (2 + runs)
         check(resolve_rooted.launches == want,
               f"lz4t-decode launched K3 {resolve_rooted.launches} times, not {want}")
+        inverse_combined.launches = 0
         suite("jpeg-inverse", lambda: experiments.run_jpeg_inverse_device_experiment(
             sizes=list(BENCH_INVERSE_SIZES), runs=runs, device=dev,
             output=str(tmp / "jpeg_inverse.json")))
+        want = len(BENCH_INVERSE_SIZES) * (2 + runs) * 4
+        check(inverse_combined.launches == want,
+              f"jpeg-inverse launched K9 {inverse_combined.launches} times, "
+              f"not {want}")
         suite("jpeg-perblock", lambda: experiments.run_jpeg_perblock_experiment(
             sizes=list(BENCH_PERBLOCK_SIZES), runs=runs, device=dev,
             output=str(tmp / "jpeg_perblock.json")))
@@ -2635,9 +2680,13 @@ def bench_phase(dev):
         fwd = suite("roofline", lambda: roofline.run_jpeg_forward_roofline(
             **ROOFLINE_FORWARD, device=dev, output=str(tmp / "roofline.json")))
         check(forward_combined.launches > 0, "the roofline never launched K1")
-        suite("roofline-inverse", lambda: roofline.run_jpeg_inverse_roofline(
+        inverse_combined.launches = 0
+        inv = suite("roofline-inverse", lambda: roofline.run_jpeg_inverse_roofline(
             **ROOFLINE_INVERSE, device=dev,
             output=str(tmp / "roofline_inverse.json")))
+        check(inv["stages"]["full_inverse"]["route"] == "K9"
+              and inverse_combined.launches > 0,
+              "the inverse roofline's full_inverse never launched K9")
         for path in sorted(tmp.iterdir()):
             art = json.loads(path.read_text())
             entries = art if isinstance(art, list) else [art]
@@ -2650,6 +2699,10 @@ def bench_phase(dev):
           f"{k1['measured_s'] * 1e3:.4f} ms, {k1['sol_fraction']:.1%} of the "
           f"data sheet's bound, {k1['sol_fraction_measured']:.1%} of the "
           f"measured ceiling's")
+    print("phase 20: inverse roofline: " + ", ".join(
+        f"{k} ({st['route']}) {st['measured_s'] * 1e3:.4f} ms"
+        for k, st in inv["stages"].items())
+          + f"; K9 launches {inverse_combined.launches}")
 
     # -- the CLI's bench headline, in a process of its own --------------------
     gc.collect()
@@ -4298,6 +4351,162 @@ def gather_phase(dev):
     return records
 
 
+def inverse_phase(dev, main_launches: int):
+    """Phase 29: the inverse megakernel K9 (``ops/inv_megakernel.py``)
+    against its plain version on ``INV_CASES`` (K1's buffers of noise
+    frames) and on crafted words, each launch's plan held to the mirror,
+    every differing pixel explained by plane flips (``decode_flips``) and
+    every decode within the envelope; K9 and plain timed at 2048² b64 and
+    K9 at b256; returns K9's record, ``launches`` the main path's
+    (phase 3's ``decode_batch``)."""
+    import gc
+
+    import torch
+
+    from lz4jpeg_tpu_torch.models.jpeg import scaled_tables
+    from lz4jpeg_tpu_torch.ops import inv_megakernel as inv
+    from lz4jpeg_tpu_torch.ops.fwd_megakernel import forward_combined
+    from lz4jpeg_tpu_torch.profiles.sass_loops import source_loops, spill_stores
+    from lz4jpeg_tpu_torch.utils.parity import decode_flips
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    t_phase = time.perf_counter()
+    gen = torch.Generator(device=dev).manual_seed(SEED + 29)
+
+    def encoded(b, h, w, tables):
+        x = torch.randint(0, 256, (b, h, w, 3), dtype=torch.uint8, device=dev,
+                          generator=gen)
+        return forward_combined(x, tables["lum"], tables["r"]).reshape(
+            b, -1, 128)
+
+    err, n_pix, n_flips = 0, 0, 0
+    for label, (b, h, w), quality in INV_CASES:
+        tables = scaled_tables(quality)
+        bpc, bpr = -(-h // 8), -(-w // 8)
+        comb = encoded(b, h, w, tables)
+        if "unaligned" in label:
+            comb = offset_view(comb)
+        got = inv.inverse_combined(comb, tables, bpc, bpr, h, w)
+        want = inv.inverse_combined_ref(comb, tables, bpc, bpr, h, w)
+        torch.cuda.synchronize()
+        plan = inv.launch_plan(b, bpc, bpr, h, w, comb.data_ptr(),
+                               got.data_ptr())
+        mirror = inv.inverse_plan(b, bpc, bpr, h, w, comb.data_ptr() % 16,
+                                  got.data_ptr() % 16, plan.resident)
+        check(plan == mirror, f"phase 29: {label}: the C plan {plan} is not "
+                              f"the mirror's {mirror}")
+        flips = decode_flips(comb, got, want, tables, bpc, bpr)
+        diff = (got.int() - want.int()).abs()
+        d = int(diff.max()) if diff.numel() else 0
+        share = flips / (b * h * w)
+        err = max(err, d)
+        n_pix += b * h * w
+        n_flips += flips
+        print(f"phase 29: {label}: K9 vs plain "
+              f"{'identical' if flips == 0 else f'{flips} pixels at plane flips'}"
+              f" (max |d| {d}, share {share:.3g}); {plan.units} units on "
+              f"{plan.ctas} CTAs, loads {'16-byte' if plan.vec_in else 'word'}"
+              f", stores {'16-byte' if plan.vec_out else 'byte'}")
+        check(d <= 3 and share <= 2e-3,
+              f"phase 29: {label}: max |d| {d}, share {share:.3g}")
+        del comb, got, want, diff
+    tables = scaled_tables(None)
+    for word in INV_WORDS:
+        comb = torch.full((2, 5 * 7, 128), word, dtype=torch.int16, device=dev)
+        same = torch.equal(inv.inverse_combined(comb, tables, 5, 7, 37, 53),
+                           inv.inverse_combined_ref(comb, tables, 5, 7, 37, 53))
+        print(f"phase 29: word {word} at every lane: "
+              f"{'identical' if same else 'DIFFERS'}")
+        check(same, f"phase 29: word {word} differs from the plain version")
+    attrs = inv.kernel_attributes(dev)
+    spills = spill_stores("inv_megakernel")
+    (loops,) = source_loops("inv_megakernel").values()
+    print("phase 29: K9's innermost SASS loops: " + "; ".join(
+        f"{lp['length']} instructions (FFMA {lp['mix'].get('FFMA', 0)}, "
+        f"LDS {lp['LDS']}, STS {lp['STS']}, LDG {lp['LDG']})"
+        for lp in loops))
+    print(f"phase 29: K9 {attrs['registers']} registers, "
+          f"{attrs['shared_bytes']} B shared memory, {attrs['ctas_per_sm']} "
+          f"CTAs an SM, spill stores {spills}; {n_flips} flips in {n_pix} "
+          f"pixels")
+    check(set(spills.values()) == {0}, f"phase 29: K9 spills {spills}")
+
+    # -- times: K9 against plain at b64, K9 alone at b256 ----------------------
+    comb = encoded(INV_TIME_FRAMES[0], SIDE, SIDE, tables)
+    nb = SIDE // 8
+
+    def kernel(x):
+        return inv.inverse_combined(x, tables, nb, nb, SIDE, SIDE)
+
+    def plain(x):
+        return inv.inverse_combined_ref(x, tables, nb, nb, SIDE, SIDE)
+
+    def bounds(x):
+        """(bytes bound, by) of this input's work: its words read once, the
+        RGB written once, and the FMA its non-zero deltas need; and the
+        dense FMA bound (every term, as K9 issues them)."""
+        nz = (x != 0).sum(dim=(0, 1))
+        ffma = 64 * int(nz[:64].sum()) + 32 * int(nz[64:].sum())
+        n_tiles = x.shape[0] * x.shape[1]
+        n_bytes = x.numel() * 2 + x.shape[0] * SIDE * SIDE * 3
+        by_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+        by_ops = ffma / FFMA_PER_S * 1e3
+        dense = n_tiles * (64 * 64 + 2 * 32 * 32) / FFMA_PER_S * 1e3
+        top = (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops,
+                                                              "operations")
+        return top, by_bytes, by_ops, dense
+
+    times = {}
+    t = time_versions(f"phase 29: inverse {SIDE}x{SIDE} b{INV_TIME_FRAMES[0]}",
+                      {"plain": plain, "kernel": kernel}, comb, identical=False)
+    times[INV_TIME_FRAMES[0]] = t
+    b64 = bounds(comb)
+    big = comb.repeat(INV_TIME_FRAMES[1] // INV_TIME_FRAMES[0], 1, 1)
+    del comb
+    gc.collect()
+    torch.cuda.empty_cache()
+    times[INV_TIME_FRAMES[1]] = time_versions(
+        f"phase 29: inverse {SIDE}x{SIDE} b{INV_TIME_FRAMES[1]}",
+        {"kernel": kernel}, big, identical=False)
+    b256 = bounds(big)
+    del big
+    for frames, (top, by_bytes, by_ops, dense) in zip(INV_TIME_FRAMES,
+                                                      (b64, b256)):
+        ms = times[frames]["kernel"]
+        mpix = frames * SIDE * SIDE / 1e6
+        plain_ms = times[frames].get("plain")
+        print(f"phase 29: K9 {SIDE}x{SIDE} b{frames}: {ms:.4f} ms "
+              f"({mpix / ms * 1e3:.1f} MPix/s)"
+              + (f", plain {plain_ms:.4f} ms ({plain_ms / ms:.2f}x)"
+                 if plain_ms else "")
+              + f"; bytes bound {by_bytes:.4f} ms ({by_bytes / ms:.1%}), "
+              f"FFMA of the non-zero deltas {by_ops:.4f} ms, every FFMA "
+              f"{dense:.4f} ms ({dense / ms:.1%}); bound {top[0]:.4f} ms "
+              f"({top[1]})")
+    print(f"phase 29: {time.perf_counter() - t_phase:.2f} s")
+    top, by_bytes, by_ops, dense = b64
+    return {
+        "name": "inv_megakernel",
+        "route": "cuda",
+        "source": INV_SOURCE,
+        "replaces": INV_REPLACES,
+        "launches": main_launches,
+        "max_abs_err": float(err),
+        "ms": times[INV_TIME_FRAMES[0]]["kernel"],
+        "plain_ms": times[INV_TIME_FRAMES[0]]["plain"],
+        "bound_ms": top[0],
+        "bound_by": top[1],
+        "library_ms": None,
+        "bytes_bound_ms": by_bytes,
+        "ffma_bound_ms": dense,
+        "ms_b256": times[INV_TIME_FRAMES[1]]["kernel"],
+        "flips": n_flips,
+        "registers": attrs["registers"],
+        "ctas_per_sm": attrs["ctas_per_sm"],
+    }
+
+
 def main() -> int:
     import torch
 
@@ -4316,6 +4525,7 @@ def main() -> int:
         forward_combined,
         forward_combined_ref,
     )
+    from lz4jpeg_tpu_torch.ops.inv_megakernel import inverse_combined
     from lz4jpeg_tpu_torch.ops.quantize import (
         CHROMINANCE_QUANTIZATION_TABLE as CHR,
         LUMINANCE_QUANTIZATION_TABLE as LUM,
@@ -4389,10 +4599,16 @@ def main() -> int:
     pipe = JPEGPipeline(JPEGConfig(), device="cuda")
     encs = pipe.encode_batch(frames)
     containers = [pack_container(e) for e in encs]
-    decoded = pipe.decode_batch([unpack_container(c) for c in containers])
+    unpacked = [unpack_container(c) for c in containers]
+    inverse_combined.launches = 0
+    decoded = pipe.decode_batch(unpacked)
     torch.cuda.synchronize()
+    inv_launches = inverse_combined.launches
+    del unpacked
     launches = forward_combined.launches
     check(launches > 0, "the main path never launched the forward kernel")
+    check(inv_launches == 1,
+          f"decode_batch launched K9 {inv_launches} times, not once")
     check(torch.backends.cuda.matmul.allow_tf32 is False
           and torch.backends.cudnn.allow_tf32 is False, "TF32 is on")
     for out in decoded:
@@ -4412,7 +4628,8 @@ def main() -> int:
           f"{path_flips} flips between the card's and the CPU's containers")
     same = "byte-identical" if path_flips == 0 else (
         f"equal up to {path_flips} admissible flips")
-    print(f"phase 3: launches {launches}; containers {same} to the CPU path "
+    print(f"phase 3: launches K1 {launches}, K9 {inv_launches}; containers "
+          f"{same} to the CPU path "
           f"({sum(map(len, containers))} bytes for 4 frames)")
     cpu_decoded = cpu.decode_batch([unpack_container(c) for c in containers])
     worst, differing = 0, 0.0
@@ -4518,6 +4735,7 @@ def main() -> int:
     gates = gates_phase(dev)
     colours = colour_phase(dev)
     gathers = gather_phase(dev)
+    inverse = inverse_phase(dev, inv_launches)
 
     records = [{
         "name": "fwd_megakernel",
@@ -4532,7 +4750,7 @@ def main() -> int:
         "bound_by": k1_bound[1],
         "library_ms": None,
     }, *lz4, *pairs, wide, copy, *candidates, *probes, *layouts, *matchers,
-       *expands, *gates, *colours, *gathers]
+       *expands, *gates, *colours, *gathers, inverse]
     for r in records:
         if r["bound_by"] == "bytes":  # the same bytes over the measured rate
             measured = r["bound_ms"] * HBM_BYTES_PER_S / (ceiling * 1e9)

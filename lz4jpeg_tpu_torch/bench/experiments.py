@@ -382,8 +382,10 @@ def run_jpeg_inverse_device_experiment(
     device="cuda",
 ) -> List[BenchResult]:
     """Batched device-side JPEG decode throughput: device-resident sparse16
-    combined buffers → the folded inverse einsum → YCbCr→RGB
-    (``JPEGPipeline._inverse_sparse``, as ``decode_batch`` runs it).
+    combined buffers → RGB (``JPEGPipeline._inverse_sparse``, as
+    ``decode_batch`` runs it: the inverse megakernel K9 on CUDA, guarded by
+    its launch count, every timed run launching it once a dispatch; the
+    folded einsum and the merge in torch ops on the CPU).
 
     The decode-side twin of the forward headline: per size up to 1 GiPix
     and at most 256 frames per dispatch, 4 chained dispatches per run with
@@ -392,6 +394,7 @@ def run_jpeg_inverse_device_experiment(
     On CUDA it prints the peak device memory of each size."""
     from lz4jpeg_tpu_torch.config import JPEGConfig
     from lz4jpeg_tpu_torch.models.jpeg import JPEGPipeline
+    from lz4jpeg_tpu_torch.ops.inv_megakernel import inverse_combined
 
     dev = bench_device(device)
     rng = np.random.default_rng(seed)
@@ -418,10 +421,16 @@ def run_jpeg_inverse_device_experiment(
             return carry + device_checksum(rgb)
 
         def step():
+            before = inverse_combined.launches
             s = torch.zeros((), dtype=torch.float32, device=dev)
             for _ in range(chain):
                 s = inverse_fenced(comb, s)
             float(s)
+            if dev.type == "cuda" and inverse_combined.launches - before != chain:
+                raise RuntimeError(
+                    f"launch guard: inverse_combined launched "
+                    f"{inverse_combined.launches - before} times in a chain "
+                    f"of {chain}; the decode no longer runs K9")
 
         r = run_timed(
             f"jpeg_inverse_device_{size}", step, scale=size, runs=runs,

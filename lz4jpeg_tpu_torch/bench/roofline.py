@@ -418,17 +418,18 @@ def run_jpeg_inverse_roofline(
     output: Optional[str] = None,
     device="cuda",
 ) -> Dict:
-    """Per-stage roofline of the device decode of the sparse16 buffer:
-    per-channel delta extraction + KT relayout (``unbias_kt``) → the folded
-    suffix-basis einsum (``folded_einsum``; the RLE prefix sum and the 4:2:2
-    upsample ride the same product) → the plane YCbCr merge
-    (``color_merge``), and the whole chain (``full_inverse``,
-    ``JPEGPipeline._inverse_sparse``).  Every stage is data-oblivious, so
-    the carry XOR-perturbs the input words.
-
-    The inverse has no hand-written kernel and needs no guard: PyTorch runs
-    each op as it is called and removes no work, and every stage's
-    checksum reads its full output."""
+    """Per-stage roofline of the device decode of the sparse16 buffer.
+    Three stages time the plain chain, K9's plain version, in torch ops
+    (``"route": "plain chain"``): per-channel delta extraction + KT relayout
+    (``unbias_kt``) → the folded suffix-basis einsum (``folded_einsum``; the
+    RLE prefix sum and the 4:2:2 upsample ride the same product) → the
+    plane YCbCr merge (``color_merge``).  ``full_inverse`` times the whole
+    decode as the pipeline runs it (``JPEGPipeline._inverse_sparse``): on a
+    CUDA device the inverse megakernel K9 (``"route": "K9"``), guarded by
+    its launch count (every timed chain must launch it ``chain`` times);
+    on the CPU the plain chain.  Every stage is data-oblivious, so the carry
+    XOR-perturbs the input words; every stage's checksum reads its full
+    output."""
     from lz4jpeg_tpu_torch.config import JPEGConfig
     from lz4jpeg_tpu_torch.models.jpeg import (
         _CHANNEL_SHAPES,
@@ -438,6 +439,7 @@ def run_jpeg_inverse_roofline(
     from lz4jpeg_tpu_torch.ops.color import ycbcr_planes_to_rgb
     from lz4jpeg_tpu_torch.ops.fused import fused_inverse_plane_sparse
     from lz4jpeg_tpu_torch.ops.fwd_megakernel import CHANNEL_SLICES
+    from lz4jpeg_tpu_torch.ops.inv_megakernel import inverse_combined
     from lz4jpeg_tpu_torch.ops.rle import SPARSE16_DELTA_BIAS
     from lz4jpeg_tpu_torch.utils.inputs import generate_noise_image
 
@@ -445,6 +447,7 @@ def run_jpeg_inverse_roofline(
     pipeline = JPEGPipeline(JPEGConfig(precision="fast", entropy="shared"), dev)
     if not pipeline.sparse16:
         raise RuntimeError("inverse roofline measures the sparse16 path")
+    guard = inverse_combined if dev.type == "cuda" else None
     rng = np.random.default_rng(0)
     img = generate_noise_image(size, size, rng)
     slim = pipeline._forward_rle(pipeline._image(img))
@@ -475,6 +478,7 @@ def run_jpeg_inverse_roofline(
 
     print("timing unbias_kt ...", flush=True)
     stages["unbias_kt"] = {
+        "route": "plain chain",
         "measured_s": _chain_bench(unbias_body, comb, chain, torch.int16),
         "flops": 0,
         "bytes": 4 * npix + 8 * npix,  # 16-bit combined in, i32 kt deltas out
@@ -498,6 +502,7 @@ def run_jpeg_inverse_roofline(
 
     print("timing folded_einsum ...", flush=True)
     stages["folded_einsum"] = {
+        "route": "plain chain",
         "measured_s": _chain_bench(einsum_body, d0, chain, torch.int16),
         # luma: npix outputs × 64-deep dots; chroma: 2 channels × npix
         # full-width outputs (upsample folded) × 32-deep dots.
@@ -519,6 +524,7 @@ def run_jpeg_inverse_roofline(
 
     print("timing color_merge ...", flush=True)
     stages["color_merge"] = {
+        "route": "plain chain",
         "measured_s": _chain_bench(merge_body, planes0, chain, torch.int16),
         "flops": 10 * npix,
         "bytes": 3 * npix + 3 * npix,  # u8 planes in, RGB u8 out
@@ -532,7 +538,9 @@ def run_jpeg_inverse_roofline(
 
     print("timing full_inverse ...", flush=True)
     stages["full_inverse"] = {
-        "measured_s": _chain_bench(full_body, comb, chain, torch.int16),
+        "route": "K9" if guard is not None else "plain chain",
+        "measured_s": _chain_bench(full_body, comb, chain, torch.int16,
+                                   kernel=guard),
         "flops": sum(
             stages[k]["flops"]
             for k in ("unbias_kt", "folded_einsum", "color_merge")
@@ -588,6 +596,8 @@ def run_jpeg_inverse_roofline(
     print(f"measured stream ceiling: {measured_gbs:.0f} GB/s "
           f"({hbm_probe['ceiling_variant']}; data sheet {HBM_PEAK_GBS:.0f})")
     _print_stages(stages, (*device_stages, "full_inverse"))
+    print(", ".join(f"{k}: {stages[k]['route']}"
+                    for k in (*device_stages, "full_inverse")))
     print(f"limiting stage: {limiter}; "
           f"fusion gap {result['fusion_gap_s']*1e3:+.2f} ms; "
           f"inverse {result['full_inverse_mpix_s']:.0f} MPix/s")

@@ -6,11 +6,11 @@
 // :55), the TPU candidate that upsampled the chroma columns with
 // pltpu.repeat in VMEM and wrote three planar channels.  The arithmetic is
 // the reference's assemble_image (JPEG.c:598-604) as ops/color.py runs it in
-// float32: each chroma term is one IEEE fp32 product of (float)c - 128.0f by
-// the fp32 constant (1.402, 0.344136, 0.714136, 1.772), truncated toward
-// zero to an int; R = y + cr_term, G = y - g_cb - g_cr, B = y + cb_term, each
-// clamped to [0, 255].  The products are __fmul_rn, never contracted, so the
-// kernel is bit-identical to its plain torch version.
+// float32, from csrc/color_merge.cuh (shared with the inverse megakernel):
+// each chroma term is one IEEE fp32 product of (float)c - 128.0f by the fp32
+// constant, truncated toward zero; R = y + cr_term, G = y - g_cb - g_cr, B =
+// y + cb_term, each clamped to [0, 255].  The products are __fmul_rn, never
+// contracted, so the kernel is bit-identical to its plain torch version.
 //
 // Design.  With w even, pixel i of the flattened (n, w) luma takes chroma
 // sample i / 2 of the flattened (n, w / 2) planes, across rows too, so the
@@ -31,28 +31,15 @@
 
 #include <cuda_runtime.h>
 
+#include "color_merge.cuh"
+
 namespace {
 
+using color_merge::clamp255;
+using color_merge::Terms;
+using color_merge::terms;
+
 constexpr int kThreads = 256;
-
-struct Terms {
-  int cr, g, cb;  // cr_term, g_cb + g_cr, cb_term
-};
-
-__device__ __forceinline__ Terms terms(uint32_t cr, uint32_t cb) {
-  const float fr = static_cast<float>(cr) - 128.0f;
-  const float fb = static_cast<float>(cb) - 128.0f;
-  Terms t;
-  t.cr = static_cast<int>(truncf(__fmul_rn(1.402f, fr)));
-  t.g = static_cast<int>(truncf(__fmul_rn(0.344136f, fb))) +
-        static_cast<int>(truncf(__fmul_rn(0.714136f, fr)));
-  t.cb = static_cast<int>(truncf(__fmul_rn(1.772f, fb)));
-  return t;
-}
-
-__device__ __forceinline__ uint32_t clamp255(int v) {
-  return static_cast<uint32_t>(min(max(v, 0), 255));
-}
 
 __global__ void __launch_bounds__(kThreads)
     plane_color_kernel(const uint8_t* __restrict__ y,

@@ -12,9 +12,11 @@ RLE layouts (``ops/rle.py``):
   ``pack_container``.  ``encode`` of one frame of at least
   ``_OVERLAP_MIN_BLOCKS`` blocks overlaps the copy to the host, in bands,
   with the native histogram walk (``_encode_overlapped``).  Decode: native
-  ``huff_unpack_sparse16`` → the folded inverse einsum
-  (``fused_inverse_plane_sparse``; the RLE prefix sum and the 4:2:2
-  upsample live in the basis) → ``ycbcr_planes_to_rgb``.
+  ``huff_unpack_sparse16`` → ``inverse_combined`` (the Hopper kernel K9
+  on a CUDA device: the un-bias, the folded suffix-basis product, in which
+  the RLE prefix sum and the 4:2:2 upsample live, and the colour merge in
+  one pass; on the CPU its plain version, ``fused_inverse_plane_sparse``
+  per channel → ``ycbcr_planes_to_rgb``).
 * int16 pairs, for every other pipeline: exact precision, per-block
   entropy, or a table entry below 3 (quality 80–100).  Encode: color,
   4:2:2, ``split_mcus``, ``forward_channel`` per channel (fused float32
@@ -58,7 +60,6 @@ from lz4jpeg_tpu_torch.ops.color import (
     chroma_subsample_422,
     rgb_to_ycbcr,
     split_mcus,
-    ycbcr_planes_to_rgb,
     ycbcr_to_rgb_mcus,
 )
 from lz4jpeg_tpu_torch.ops.dct import dct2_batched, idct2_batched
@@ -67,7 +68,6 @@ from lz4jpeg_tpu_torch.ops.fused import (
     forward_basis,
     fused_forward,
     fused_inverse,
-    fused_inverse_plane_sparse,
     inverse_basis,
     inverse_suffix_basis,
 )
@@ -77,6 +77,7 @@ from lz4jpeg_tpu_torch.ops.fwd_megakernel import (
     forward_combined,
     kt_bases,
 )
+from lz4jpeg_tpu_torch.ops.inv_megakernel import inverse_combined
 from lz4jpeg_tpu_torch.ops.huffman import (
     CanonicalCodebook,
     build_canonical_codebook_from_counts,
@@ -768,27 +769,12 @@ class JPEGPipeline:
         self, combined: torch.Tensor, bpc: int, bpr: int,
         height: int, width: int,
     ) -> torch.Tensor:
-        """(B, N, 128) sparse deltas → (B, height, width, 3) uint8 RGB: per
-        channel one folded-basis einsum, then the color merge."""
-        b = combined.shape[0]
-        # One name for both int32 buffers, and freed before the merge, so
-        # that at most one 4-byte copy of the batch lives at a time (a
-        # 1-GiPix batch holds 8 GiB in each).
-        d = combined.to(torch.int32)
-        d = torch.where(d != 0, d - SPARSE16_DELTA_BIAS, 0)
-        planes = {}
-        for name in CHANNELS:
-            tw = _CHANNEL_SHAPES[name][1]
-            d_kt = d[..., CHANNEL_SLICES[name]].reshape(b * bpc, bpr, 8 * tw)
-            plane = fused_inverse_plane_sparse(
-                d_kt.transpose(1, 2), self._tables[name], tw,
-                upsample_cols=(name != "lum"),
-            )
-            planes[name] = plane.reshape(b, 8 * bpc, 8 * bpr)
-        del d, d_kt
-        return ycbcr_planes_to_rgb(
-            planes["lum"], planes["r"], planes["b"], height, width
-        )
+        """(B, N, 128) sparse deltas → (B, height, width, 3) uint8 RGB:
+        ``inverse_combined`` (K9 on a CUDA device; on the CPU its plain
+        version, per channel one folded-basis einsum, then the color
+        merge)."""
+        return inverse_combined(combined, self._tables, bpc, bpr, height,
+                                width)
 
     def _inverse_tiles(
         self, rle: Dict[str, torch.Tensor], lengths: Dict[str, torch.Tensor],

@@ -26,6 +26,10 @@ directly: a forward coefficient one step apart where the float64 ratio is
 within ``eps`` of an integer, an inverse pixel one step apart where the
 float64 pixel value is within the float32 summation error of a round-half
 tie.
+
+The sparse16 decode (K9 against its plain version): ``decode_flips``
+explains each differing RGB pixel by such one-step flips of the Y, Cr or
+Cb plane value it takes, over the suffix basis and the un-biased deltas.
 """
 
 from __future__ import annotations
@@ -37,9 +41,11 @@ from lz4jpeg_tpu_torch.ops.color import (
     chroma_subsample_422,
     rgb_to_ycbcr,
     split_mcus,
+    ycbcr_planes_to_rgb,
 )
 from lz4jpeg_tpu_torch.ops.fused import _table_key, forward_basis, inverse_basis
 from lz4jpeg_tpu_torch.ops.fwd_megakernel import CHANNEL_SLICES
+from lz4jpeg_tpu_torch.ops.inv_megakernel import basis_arrays, table_keys
 from lz4jpeg_tpu_torch.ops.rle import (
     rle_decode_batched,
     rle_decode_packed16,
@@ -129,7 +135,7 @@ def transform_flips(
     pixel value ``v = z · Minv[p] + 128`` lies within
     2⁻²⁴·(2·HW·Σ|z_k·Minv[p,k]| + 2|v|) of a half-integer (the float32 error
     bound of two summation orders and of the + 128).
-    ``basis`` and ``offset`` ("forward" only) replace ``forward_basis``'s
+    ``basis`` and ``offset`` ("forward") replace ``forward_basis``'s
     (HW, HW) basis and (HW,) offset with those the results were computed
     with: the hi bf16 part of a one-pass product
     (``ops/fwd_megakernel.py::split_basis``) with its own centring offset
@@ -137,7 +143,10 @@ def transform_flips(
     (``profiles/megakernel.py``).  With an explicit basis a difference of 1
     is admissible also within 2⁻²⁴·2·HW·Σ|x_k·M[k]| of an integer, the
     float32 error bound of two summation orders: raw samples make larger
-    sums than centred ones.
+    sums than centred ones.  ``basis`` ("inverse") replaces
+    ``inverse_basis``'s (HW, K) basis: the suffix basis of the sparse16
+    decode (``ops/inv_megakernel.py::basis_arrays``), whose ``inputs`` are
+    the (N, K) un-biased deltas; the window then counts K terms.
     Only the rows that differ leave the device."""
     if kind not in ("forward", "inverse"):
         raise ValueError(f"kind must be 'forward' or 'inverse', not {kind!r}")
@@ -168,7 +177,8 @@ def transform_flips(
                 x[r_idx] * m[k_idx]).sum(axis=1))
         near = np.abs(value - np.round(value)) <= window
     else:
-        minv = inverse_basis(width, height, key)
+        minv = (inverse_basis(width, height, key) if basis is None
+                else np.asarray(basis, dtype=np.float64))
         terms = x[r_idx] * minv[k_idx]
         value = terms.sum(axis=1) + 128.0
         window = 2.0**-24 * (2 * x.shape[1] * np.abs(terms).sum(axis=1)
@@ -184,6 +194,79 @@ def transform_flips(
             f"value {float(value[i])!r} is not at a tie: not a sum-order flip"
         )
     return int(r_idx.size)
+
+
+def merge_rgb(y, cr, cb) -> np.ndarray:
+    """(..., 3) uint8 RGB of integer Y, Cr, Cb values in [0, 255] of one
+    shape: ``ops/color.py::ycbcr_planes_to_rgb`` on them as (n, 1) planes."""
+    planes = [torch.from_numpy(np.asarray(v, dtype=np.uint8).reshape(-1, 1))
+              for v in (y, cr, cb)]
+    rgb = ycbcr_planes_to_rgb(*planes, planes[0].shape[0], 1)[:, 0].numpy()
+    return rgb.reshape(*np.shape(y), 3)
+
+
+def decode_flips(
+    combined, got_rgb, want_rgb, tables, bpc: int, bpr: int,
+) -> int:
+    """Count the pixels of two sparse16 decodes of ``combined`` ((B, bpc ·
+    bpr, 128) int16) that differ, each explained by admissible plane flips;
+    raise AssertionError on any other difference.
+
+    A decoded pixel takes its plane values Y (its own), Cr and Cb (the
+    sample of its column pair), each sign(x) · floor(|x| + 0.5) clamped to
+    [0, 255], x = Σ_m Δ_m·S[p, m] + 128 over the suffix basis ``S`` (the
+    float32 values of ``ops/inv_megakernel.py::basis_arrays``, summed in
+    float64).  A plane value may round to either neighbour where x lies
+    within 2⁻²⁴·(2·K·Σ_m|Δ_m·S[p,m]| + 2|x|) of a half-integer (K = 64 or
+    32: two float32 summation orders and the + 128), else only to its own
+    round.  A differing pixel is admissible when both results are among
+    ``merge_rgb`` of those choices.  ``got_rgb`` and ``want_rgb`` are
+    (B, H, W, 3) uint8 arrays or tensors."""
+    got = np.asarray(got_rgb.cpu() if isinstance(got_rgb, torch.Tensor)
+                     else got_rgb)
+    want = np.asarray(want_rgb.cpu() if isinstance(want_rgb, torch.Tensor)
+                      else want_rgb)
+    if got.shape != want.shape:
+        raise AssertionError(f"shapes differ: {got.shape} vs {want.shape}")
+    frame, row, col = np.nonzero((got != want).any(axis=-1))
+    if frame.size == 0:
+        return 0
+    comb = combined.cpu().numpy() if isinstance(combined, torch.Tensor) \
+        else np.asarray(combined)
+    comb = comb.astype(np.int64).reshape(got.shape[0], bpc * bpr, -1)
+    words = comb[frame, (row // 8) * bpr + col // 8]
+    delta = np.where(words != 0, words - 1024, 0).astype(np.float64)
+    bases = basis_arrays(table_keys(tables))
+    u, v = row % 8, col % 8
+    choices = []  # per plane: (value rounded down, rounded up) per pixel
+    for name, p in (("lum", 8 * u + v), ("r", 4 * u + v // 2),
+                    ("b", 4 * u + v // 2)):
+        terms = delta[:, CHANNEL_SLICES[name]] * bases[name].astype(
+            np.float64)[p]
+        x = terms.sum(axis=1) + 128.0
+        window = 2.0**-24 * (2 * terms.shape[1] * np.abs(terms).sum(axis=1)
+                             + 2 * np.abs(x))
+        own = np.clip(np.sign(x) * np.floor(np.abs(x) + 0.5), 0, 255)
+        near = np.abs(x - np.floor(x) - 0.5) <= window
+        down = np.where(near, np.clip(np.floor(x), 0, 255), own)
+        up = np.where(near, np.clip(np.floor(x) + 1, 0, 255), own)
+        choices.append((down, up))
+    g, w = got[frame, row, col], want[frame, row, col]
+    has_got = np.zeros(frame.size, bool)
+    has_want = np.zeros(frame.size, bool)
+    for pick in range(8):
+        y, cr, cb = (choices[i][(pick >> i) & 1] for i in range(3))
+        rgb = merge_rgb(y, cr, cb)
+        has_got |= (rgb == g).all(axis=1)
+        has_want |= (rgb == w).all(axis=1)
+    bad = ~(has_got & has_want)
+    if bad.any():
+        i = int(np.argmax(bad))
+        raise AssertionError(
+            f"decode: frame {int(frame[i])} pixel ({int(row[i])}, "
+            f"{int(col[i])}) is {g[i].tolist()} against {w[i].tolist()}: "
+            "no admissible plane flip explains it")
+    return int(frame.size)
 
 
 def quantization_tie_mask(

@@ -18,6 +18,10 @@ frame of a CUDA codec must equal the CPU codec's byte for byte; the packed16
 containers of a CUDA pipeline equal the CPU pipeline's; quality 90 (int16
 pairs, cuBLAS forward) equals it up to the sum-order flips above; decoded
 RGB stays within max |Δ| ≤ 3 on ≤ 2e-3 of pixels of the CPU decode.
+The inverse megakernel (K9) against its plain version: every differing
+pixel explained by one-step plane flips at summation ties
+(``utils/parity.py::decode_flips``), within the same envelope; crafted
+words at every lane identical.
 Parity frames of a CUDA codec (torch ops, no kernel) equal the CPU codec's
 and the native encoder's byte for byte; the CLI on the card writes what its
 ``--device cpu`` run writes, by the same rules.
@@ -1974,3 +1978,140 @@ def test_minor_transpose_vector_route_attributes(cuda):
         assert a["shared_bytes"] == 0
     with pytest.raises(RuntimeError):
         dg.attributes(dg.TRANSPOSE_VEC, 3, cuda)
+
+
+# The inverse megakernel (K9, ops/inv_megakernel.py): against its plain
+# version (the torch chain on cuBLAS), every differing pixel explained by
+# one-step plane flips at summation ties (utils/parity.py::decode_flips),
+# every decode within max |Δ| ≤ 3 on ≤ 2e-3 of pixels.
+K9_CASES = [
+    ("aligned", (2, 256, 256), None),
+    ("byte route", (1, 2047, 1531), None),  # W·3 % 16 != 0
+    ("ragged", (3, 37, 53), None),
+    ("one tile", (1, 8, 8), None),
+    ("one pixel", (1, 1, 1), None),
+    ("last unit 2 tiles", (2, 512, 1040), None),  # 130 tiles a block row
+    ("quality 75", (4, 48, 528), 75),
+    ("unaligned input view", (1, 64, 64), None),
+]
+
+
+def _k9_input(cuda, shape, quality, seed):
+    from lz4jpeg_tpu_torch.models.jpeg import scaled_tables
+
+    b, h, w = shape
+    tables = scaled_tables(quality)
+    x = torch.from_numpy(np.random.default_rng(seed).integers(
+        0, 256, size=(b, h, w, 3), dtype=np.uint8)).to(cuda)
+    comb = forward_combined(x, tables["lum"], tables["r"]).reshape(b, -1, 128)
+    return comb, tables, -(-h // 8), -(-w // 8)
+
+
+@pytest.mark.parametrize("case,shape,quality", K9_CASES)
+def test_inverse_megakernel_matches_plain_version(cuda, case, shape, quality):
+    from lz4jpeg_tpu_torch.ops import inv_megakernel as inv
+    from lz4jpeg_tpu_torch.utils.parity import decode_flips
+
+    comb, tables, bpc, bpr = _k9_input(cuda, shape, quality, sum(shape))
+    if case.startswith("unaligned"):
+        comb = _offset_view(comb)
+    b, h, w = shape
+    before = inv.inverse_combined.launches
+    got = inv.inverse_combined(comb, tables, bpc, bpr, h, w)
+    torch.cuda.synchronize()
+    assert inv.inverse_combined.launches == before + 1
+    want = inv.inverse_combined_ref(comb, tables, bpc, bpr, h, w)
+    assert got.shape == want.shape == (b, h, w, 3) and got.is_contiguous()
+    flips = decode_flips(comb, got, want, tables, bpc, bpr)
+    diff = (got.int() - want.int()).abs()
+    assert int(diff.max()) <= 3 and flips <= 2e-3 * b * h * w
+    plan = inv.launch_plan(b, bpc, bpr, h, w, comb.data_ptr(), got.data_ptr())
+    assert plan == inv.inverse_plan(b, bpc, bpr, h, w, comb.data_ptr() % 16,
+                                    got.data_ptr() % 16, plan.resident)
+
+
+@pytest.mark.parametrize("word", [0, 1024, -512, -32768, 32767])
+def test_inverse_megakernel_on_crafted_words(cuda, word):
+    """A word at every lane of every tile: K9 identical to the plain
+    version; a random mix of the five within the flip rule."""
+    from lz4jpeg_tpu_torch.models.jpeg import scaled_tables
+    from lz4jpeg_tpu_torch.ops import inv_megakernel as inv
+    from lz4jpeg_tpu_torch.utils.parity import decode_flips
+
+    tables = scaled_tables(None)
+    comb = torch.full((2, 5 * 7, 128), word, dtype=torch.int16, device=cuda)
+    got = inv.inverse_combined(comb, tables, 5, 7, 37, 53)
+    assert torch.equal(got, inv.inverse_combined_ref(comb, tables, 5, 7, 37, 53))
+    words = torch.tensor([0, 1024, -512, -32768, 32767], dtype=torch.int16)
+    mix = words[torch.from_numpy(np.random.default_rng(word & 0xff).integers(
+        0, 5, size=(2, 5 * 7, 128)))].to(cuda)
+    got = inv.inverse_combined(mix, tables, 5, 7, 37, 53)
+    decode_flips(mix, got, inv.inverse_combined_ref(mix, tables, 5, 7, 37, 53),
+                 tables, 5, 7)
+
+
+def test_inverse_megakernel_refusals_and_attributes(cuda):
+    from lz4jpeg_tpu_torch.models.jpeg import scaled_tables
+    from lz4jpeg_tpu_torch.ops import inv_megakernel as inv
+
+    tables = scaled_tables(None)
+    comb = torch.zeros((1, 4, 128), dtype=torch.int16, device=cuda)
+    before = inv.inverse_combined.launches
+    for args in ((comb, tables, 2, 3, 16, 16), (comb, tables, 2, 2, 17, 16),
+                 (comb[:, :, :64], tables, 2, 2, 16, 16)):
+        with pytest.raises(ValueError):
+            inv.inverse_combined(*args)
+    with pytest.raises(TypeError):
+        inv.inverse_combined(comb.int(), tables, 2, 2, 16, 16)
+    assert inv.inverse_combined.launches == before
+    out = torch.empty((1, 17, 16, 3), dtype=torch.uint8, device=cuda)
+    lib = inv.load_kernel()
+    bases = inv._device_bases(inv.table_keys(tables), cuda)
+    rc = lib.inv_megakernel_launch(comb.data_ptr(), out.data_ptr(),
+                                   bases.data_ptr(), 1, 2, 2, 17, 16,
+                                   torch.cuda.current_stream().cuda_stream)
+    assert rc != 0 and lib.inv_megakernel_error_string(rc)
+    a = inv.kernel_attributes(cuda)
+    assert a["registers"] > 0 and a["ctas_per_sm"] >= 1
+    assert a["shared_bytes"] == 47_616
+
+
+def test_inverse_megakernel_spills_nothing(cuda):
+    from lz4jpeg_tpu_torch.profiles.sass_loops import spill_stores
+
+    spills = spill_stores("inv_megakernel")
+    assert len(spills) == 1 and set(spills.values()) == {0}, spills
+
+
+def test_decode_batch_launches_k9_once(cuda):
+    from lz4jpeg_tpu_torch.ops.inv_megakernel import inverse_combined
+
+    rgbs = _batch(3, 96, 80, seed=2)
+    pipe = JPEGPipeline(JPEGConfig(), device=cuda)
+    containers = [unpack_container(pack_container(e))
+                  for e in pipe.encode_batch(rgbs)]
+    before = inverse_combined.launches
+    got = pipe.decode_batch(containers)
+    assert inverse_combined.launches == before + 1
+    want = JPEGPipeline(JPEGConfig(), device="cpu").decode_batch(containers)
+    for a, b in zip(got, want):
+        diff = np.abs(a.astype(np.int32) - b.astype(np.int32))
+        assert diff.max() <= 3 and (diff != 0).mean() <= 2e-3
+
+
+def test_sharded_sparse_inverse_launches_k9_per_shard(cuda):
+    from lz4jpeg_tpu_torch.ops.inv_megakernel import inverse_combined
+    from lz4jpeg_tpu_torch.parallel import ShardedSparseJPEG
+
+    rgb = _batch(1, 200, 96, seed=23)[0]
+    sharded = ShardedSparseJPEG(_card_mesh(cuda))
+    comb = sharded.forward(rgb)
+    before = inverse_combined.launches
+    got = sharded.inverse(comb, 25, 12, 200, 96)
+    assert inverse_combined.launches == before + 4
+    want = JPEGPipeline(JPEGConfig(), device="cpu").decode(
+        JPEGPipeline(JPEGConfig(), device="cpu")._wrap_sparse(comb, 200, 96,
+                                                              25, 12),
+        from_entropy=False)
+    diff = np.abs(got.astype(np.int32) - want.astype(np.int32))
+    assert diff.max() <= 3 and (diff != 0).mean() <= 2e-3
