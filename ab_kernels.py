@@ -2,7 +2,7 @@
 """Time this checkout's kernels in turns with another checkout's, on one
 CUDA card.
 
-    python3 ab_kernels.py --other DIR [--only megakernel]
+    python3 ab_kernels.py --other DIR [--only megakernel|inverse]
 
 DIR is the root of another checkout of this repository, for example an
 earlier commit unpacked into a git-ignored directory with
@@ -32,7 +32,14 @@ frames of 2048² noise; P-kt's kt_split_runs, P-t's
 kt_basis_a and P-v2's product and copy rows on its ``rgb_to_kt``) through
 each checkout's ``profiles/megakernel.py::megakernel_variant``, outputs
 identical, each product row with the issue floor of
-each checkout's SASS count; ``--only megakernel`` stops there.  Then the
+each checkout's SASS count; ``--only megakernel`` stops there.  Then K9,
+the sparse16 decode, through each checkout's
+``ops/inv_megakernel.py::inverse_combined`` in the same turns as K1, on
+phase 29's 2048² noise (K1's buffer) at batch 64 and 256 and on a
+quality-100 buffer at batch 64, outputs identical between the checkouts,
+with each build's registers, shared memory, CTAs an SM and ptxas's spill
+bytes, and the bound of the part products this checkout's warps issue
+(``--only inverse`` runs this alone, loading only K1 and K9).  Then the
 probe kernels
 of ``profiles/casts.py::cast`` (P-cast, the seven pairs at 134,217,728
 random source words, ``casts.run_casts``' size) and
@@ -106,45 +113,44 @@ PROBE_ROWS = (  # (the row of PERF.md's table, variant)
 )
 
 
-def load_checkout(root: Path):
-    """The kernel modules (fwd_megakernel, fused_match, pack16, stream, and
-    the probes' casts, dct_gates, bitonic_sort, rle_decode, mcu,
-    bucket_partition and megakernel, and sass_loops) of the
-    checkout at ``root``, with every kernel built and loaded.  Drops any other checkout's modules from
-    ``sys.modules`` first; the modules stay alive through the returned
-    references."""
+MODULES = ("ops.fwd_megakernel", "ops.fused_match", "ops.pack16",
+           "ops.stream", "profiles.casts", "profiles.dct_gates",
+           "profiles.bitonic_sort", "profiles.rle_decode", "profiles.mcu",
+           "profiles.bucket_partition", "profiles.megakernel",
+           "profiles.sass_loops", "ops.inv_megakernel")
+INVERSE_MODULES = ("ops.fwd_megakernel", "ops.inv_megakernel",
+                   "profiles.sass_loops")
+
+
+def load_checkout(root: Path, names=MODULES):
+    """The kernel modules ``names`` of the checkout at ``root`` (by default
+    fwd_megakernel, fused_match, pack16, stream, and the probes' casts,
+    dct_gates, bitonic_sort, rle_decode, mcu, bucket_partition and
+    megakernel, sass_loops and inv_megakernel), with every kernel built and
+    loaded.  Drops any other checkout's modules from ``sys.modules``
+    first; the modules stay alive through the returned references."""
     for name in [m for m in sys.modules
                  if m == PACKAGE or m.startswith(PACKAGE + ".")]:
         del sys.modules[name]
     sys.path.insert(0, str(root))
     try:
         mods = [importlib.import_module(f"{PACKAGE}.{name}")
-                for name in ("ops.fwd_megakernel", "ops.fused_match",
-                             "ops.pack16", "ops.stream", "profiles.casts",
-                             "profiles.dct_gates", "profiles.bitonic_sort",
-                             "profiles.rle_decode", "profiles.mcu",
-                             "profiles.bucket_partition",
-                             "profiles.megakernel", "profiles.sass_loops")]
+                for name in names]
     finally:
         sys.path.remove(str(root))
     for mod in mods:
         if not Path(mod.__file__).resolve().is_relative_to(root):
             raise RuntimeError(f"{mod.__name__} came from {mod.__file__}, "
                                f"not from {root}")
+    for mod in mods:
+        if hasattr(mod, "load_kernel"):
+            mod.load_kernel()
+    if names != MODULES:
+        return mods
     (fwd, match, pack16, stream, casts, gates, sort, member, mcu,
-     stages, probes, _) = mods
-    fwd.load_kernel()
-    match.load_kernel()
+     stages, probes, _, _) = mods
     pack16.load_pack_kernels()
     pack16.load_expand_kernels()
-    stream.load_kernel()
-    casts.load_kernel()
-    gates.load_kernel()
-    sort.load_kernel()
-    member.load_kernel()
-    mcu.load_kernel()
-    stages.load_kernel()
-    probes.load_kernel()
     return mods
 
 
@@ -152,8 +158,9 @@ def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--other", required=True, type=Path,
                         help="root of the checkout to time against this one")
-    parser.add_argument("--only", choices=("megakernel",),
-                        help="time K1 and the megakernel's probe rows only")
+    parser.add_argument("--only", choices=("megakernel", "inverse"),
+                        help="time K1 and the megakernel's probe rows, or "
+                        "K9, only")
     args = parser.parse_args()
 
     import torch
@@ -181,8 +188,9 @@ def main() -> int:
         capture_output=True, text=True, check=True, timeout=60,
     ).stdout.strip().splitlines()[0]
     print(f"card: {card}")
-    other = load_checkout(args.other.resolve())
-    this = load_checkout(HERE)
+    names = INVERSE_MODULES if args.only == "inverse" else MODULES
+    other = load_checkout(args.other.resolve(), names)
+    this = load_checkout(HERE, names)
     from lz4jpeg_tpu_torch.ops.fwd_megakernel import CHANNEL_SLICES
     from lz4jpeg_tpu_torch.ops.lz4_fast import pad_blocks_fast
     from lz4jpeg_tpu_torch.ops.quantize import (
@@ -240,6 +248,60 @@ def main() -> int:
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(SEED)
     from lz4jpeg_tpu_torch.profiles import timing
+
+    def inverse_ab():
+        """K9 through each checkout's ``inverse_combined`` in turns, on K1's
+        buffer of 2048² noise at b64 and b256 and at quality 100 (b64), the
+        outputs identical; each build's resources."""
+        from lz4jpeg_tpu_torch.models.jpeg import scaled_tables
+
+        def inv(mods):
+            return next(m for m in mods
+                        if m.__name__.endswith(".ops.inv_megakernel"))
+
+        def fwd(mods):
+            return next(m for m in mods
+                        if m.__name__.endswith(".ops.fwd_megakernel"))
+
+        loops = next(m for m in this
+                     if m.__name__.endswith(".profiles.sass_loops"))
+        for side, mods, root in (("other", other, args.other.resolve()),
+                                 ("this", this, HERE)):
+            attrs = inv(mods).kernel_attributes(dev)
+            use = loops.ptxas_usage("inv_megakernel", root)
+            print(f"K9 {side}: {attrs['registers']} registers, "
+                  f"{attrs['shared_bytes']} B shared memory, "
+                  f"{attrs['ctas_per_sm']} CTAs an SM, "
+                  f"{sum(u['spill_stores'] for u in use.values())} B spill "
+                  f"stores", flush=True)
+        nb = SIDE // 8
+        for quality, batches in ((None, (64, 256)), (100, (64,))):
+            tables = scaled_tables(quality)
+            x = torch.randint(0, 256, (64, SIDE, SIDE, 3), dtype=torch.uint8,
+                              device=dev, generator=gen)
+            comb = fwd(this).forward_combined(
+                x, tables["lum"], tables["r"]).reshape(64, -1, 128)
+            del x
+            for batch in batches:
+                big = comb.repeat(batch // 64, 1, 1)
+                label = (f"K9 {SIDE}x{SIDE} b{batch}"
+                         + ("" if quality is None else f" quality {quality}"))
+                check(torch.equal(
+                    inv(this).inverse_combined(big, tables, nb, nb, SIDE, SIDE),
+                    inv(other).inverse_combined(big, tables, nb, nb, SIDE,
+                                                SIDE)),
+                      f"{label}: the checkouts' outputs differ")
+                ab(label, lambda m, a: inv(m).inverse_combined(
+                    a, tables, nb, nb, SIDE, SIDE), big,
+                   big.numel() * 2 + batch * SIDE * SIDE * 3,
+                   inv(this).part_products(big, nb, nb))
+                del big
+            del comb
+            torch.cuda.empty_cache()
+
+    if args.only == "inverse":
+        inverse_ab()
+        return 0
 
     # Each checkout's K1 and KT product builds: warp instructions a tile in
     # their SASS (by warp role), registers and spill bytes (ptxas), from the
@@ -342,6 +404,7 @@ def main() -> int:
     del x, probe_inputs
     if args.only == "megakernel":
         return 0
+    inverse_ab()
 
     # K4-K7 on phase 12's values: luma and Cr chroma of the b64 frames.
     bw = SIDE // 8

@@ -366,14 +366,18 @@ another checkout's.
     (the torch chain on cuBLAS) on K1's buffers of noise frames at
     ``INV_CASES`` (2048² b8, 2047×1531 and 37×53 on the byte store route,
     8×8, 1×1, 2×512×1040 with a last unit of 2 tiles, 4×48×528 at quality
-    75, a 256² input view off 16 bytes on the word load route), each
-    launch's C plan held to ``inverse_plan``'s mirror, every differing
-    pixel explained by one-step plane flips at summation ties
-    (``utils/parity.py::decode_flips``; the count printed) and every decode
-    within max |Δ| ≤ 3 on ≤ 2e-3 of pixels; words 0, 1024, -512, -32768
-    and 32767 at every lane identical to the plain version; registers,
-    shared memory, CTAs an SM and ptxas's spill stores (none allowed); K9
-    and plain timed at 2048² b64 (phase 4's method), K9 at b256.
+    75, 2048² b4 at quality 90 and 100, whose deltas issue the mid part's
+    products, a 256² input view off 16 bytes on the word load route), each
+    launch's C plan held to ``inverse_plan``'s mirror, its tie pass's count
+    of recomputed plane values printed, every differing pixel explained by
+    one-step plane flips at summation ties (``utils/parity.py::
+    decode_flips``; the count printed, at most ``INV_MAX_FLIPS`` = 1e-5 of
+    the pixels) and every decode within max |Δ| ≤ 3 on ≤ 2e-3 of pixels;
+    words 0, 1024, -512, -32768 and 32767 at every lane identical to the
+    plain version; the innermost SASS loops and the innermost loop holding
+    K9's HMMA (one at least), registers, shared memory, CTAs an SM and ptxas's
+    spill stores (none allowed); K9 and plain timed at 2048² b64 (phase
+    4's method), K9 at b256.
 
 The line before the last is the kernels' JSON record: per kernel (the
 packed16 kernels once per timed channel and input dtype) its launches on
@@ -395,10 +399,15 @@ their plain version, which is that call; none for the phase variants;
 phase 26's: none for the sublane RLE, ``x.to(dst)`` for the casts (also
 their plain version), cuBLAS fp32 for the basis product, ``.transpose(1,
 2).contiguous()`` for the transpose, ``Tensor.copy_`` for the split).
-K9's record (phase 29) bounds it by the larger of its bytes and the FMA
-its non-zero deltas need at 132 SMs × 128 lanes × 1.98 GHz (fp32 outside
-the tensor cores), and adds the FMA bound of every term as K9 issues them
-(``ffma_bound_ms``), the bytes bound and its time at b256; no library call.
+K9's record (phase 29) bounds it by the larger of its bytes and the bf16
+tensor work of the part products the timed buffer's warp fragments issue
+(``ops/inv_megakernel.py::part_products``: 3 a channel and unit, 6 where
+the vote finds a mid part), adds each alone (``bytes_bound_ms``,
+``tensor_bound_ms``), the FMA bound of every term at 132 SMs × 128 lanes ×
+1.98 GHz (fp32 outside the tensor cores, the parent's design:
+``ffma_bound_ms``; phase 29 prints it and the non-zero deltas' FMA bound
+as the parent's yardstick), its time at b256, its flips and its tie
+share; no library call.
 The probe runners' times (phases 22-25, ``profiles/timing.py``) are
 queued behind a spin on the card, so that the host's issue of each call
 drops out.  Phase 24's
@@ -622,7 +631,10 @@ INV_CASES = (("2048x2048 b8", (8, 2048, 2048), None),
              ("1x1", (1, 1, 1), None),
              ("2x512x1040, last unit 2 tiles", (2, 512, 1040), None),
              ("4x48x528 quality 75", (4, 48, 528), 75),
+             ("2048x2048 b4 quality 90", (4, 2048, 2048), 90),
+             ("2048x2048 b4 quality 100", (4, 2048, 2048), 100),
              ("256x256 unaligned input view", (1, 256, 256), None))
+INV_MAX_FLIPS = 1e-5  # flips against plain, a share of the pixels
 INV_WORDS = (0, 1024, -512, -32768, 32767)  # crafted words at every lane
 INV_TIME_FRAMES = (64, 256)
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3 (NVIDIA data sheet)
@@ -4355,10 +4367,11 @@ def inverse_phase(dev, main_launches: int):
     """Phase 29: the inverse megakernel K9 (``ops/inv_megakernel.py``)
     against its plain version on ``INV_CASES`` (K1's buffers of noise
     frames) and on crafted words, each launch's plan held to the mirror,
-    every differing pixel explained by plane flips (``decode_flips``) and
+    its tie-pass count printed, every differing pixel explained by plane
+    flips (``decode_flips``, at most ``INV_MAX_FLIPS`` of the pixels) and
     every decode within the envelope; K9 and plain timed at 2048² b64 and
-    K9 at b256; returns K9's record, ``launches`` the main path's
-    (phase 3's ``decode_batch``)."""
+    K9 at b256; returns K9's record, ``launches`` the main path's (phase
+    3's ``decode_batch``)."""
     import gc
 
     import torch
@@ -4380,14 +4393,15 @@ def inverse_phase(dev, main_launches: int):
         return forward_combined(x, tables["lum"], tables["r"]).reshape(
             b, -1, 128)
 
-    err, n_pix, n_flips = 0, 0, 0
+    err, n_pix, n_flips, n_ties, n_values = 0, 0, 0, 0, 0
     for label, (b, h, w), quality in INV_CASES:
         tables = scaled_tables(quality)
         bpc, bpr = -(-h // 8), -(-w // 8)
         comb = encoded(b, h, w, tables)
         if "unaligned" in label:
             comb = offset_view(comb)
-        got = inv.inverse_combined(comb, tables, bpc, bpr, h, w)
+        ties = torch.zeros(1, dtype=torch.int64, device=dev)
+        got = inv.inverse_combined(comb, tables, bpc, bpr, h, w, ties=ties)
         want = inv.inverse_combined_ref(comb, tables, bpc, bpr, h, w)
         torch.cuda.synchronize()
         plan = inv.launch_plan(b, bpc, bpr, h, w, comb.data_ptr(),
@@ -4400,16 +4414,23 @@ def inverse_phase(dev, main_launches: int):
         diff = (got.int() - want.int()).abs()
         d = int(diff.max()) if diff.numel() else 0
         share = flips / (b * h * w)
+        values = b * bpc * bpr * 192
         err = max(err, d)
         n_pix += b * h * w
         n_flips += flips
+        n_ties += int(ties[0])
+        n_values += values
         print(f"phase 29: {label}: K9 vs plain "
               f"{'identical' if flips == 0 else f'{flips} pixels at plane flips'}"
-              f" (max |d| {d}, share {share:.3g}); {plan.units} units on "
-              f"{plan.ctas} CTAs, loads {'16-byte' if plan.vec_in else 'word'}"
-              f", stores {'16-byte' if plan.vec_out else 'byte'}")
+              f" (max |d| {d}, share {share:.3g}); tie pass {int(ties[0])} of "
+              f"{values} plane values ({int(ties[0]) / values:.3%}); "
+              f"{plan.units} units in {plan.chunks} chunks on {plan.ctas} "
+              f"CTAs, input {'bulk copies' if plan.vec_in else 'words'}, "
+              f"stores {'16-byte' if plan.vec_out else 'byte'}")
         check(d <= 3 and share <= 2e-3,
               f"phase 29: {label}: max |d| {d}, share {share:.3g}")
+        check(flips <= INV_MAX_FLIPS * b * h * w,
+              f"phase 29: {label}: {flips} flips in {b * h * w} pixels")
         del comb, got, want, diff
     tables = scaled_tables(None)
     for word in INV_WORDS:
@@ -4421,15 +4442,23 @@ def inverse_phase(dev, main_launches: int):
         check(same, f"phase 29: word {word} differs from the plain version")
     attrs = inv.kernel_attributes(dev)
     spills = spill_stores("inv_megakernel")
-    (loops,) = source_loops("inv_megakernel").values()
+    (inner,) = source_loops("inv_megakernel").values()
+    (every,) = source_loops("inv_megakernel", innermost=False).values()
     print("phase 29: K9's innermost SASS loops: " + "; ".join(
-        f"{lp['length']} instructions (FFMA {lp['mix'].get('FFMA', 0)}, "
-        f"LDS {lp['LDS']}, STS {lp['STS']}, LDG {lp['LDG']})"
-        for lp in loops))
+        f"{lp['length']} instructions (HMMA {lp['HMMA']}, FFMA "
+        f"{lp['mix'].get('FFMA', 0)}, LDSM {lp['LDSM']}, LDS {lp['LDS']}, "
+        f"STS {lp['STS']})" for lp in inner))
+    mma = [lp for lp in every if lp["HMMA"]]
+    check(bool(mma), "phase 29: no SASS loop of K9 holds an HMMA")
+    unit = min(mma, key=lambda lp: lp["length"])
+    print(f"phase 29: K9's innermost SASS loop holding HMMA (the chunk "
+          f"loop): {unit['length']} instructions (HMMA {unit['HMMA']}, LDSM "
+          f"{unit['LDSM']}, FFMA {unit['mix'].get('FFMA', 0)}, LDS "
+          f"{unit['LDS']}, STS {unit['STS']})")
     print(f"phase 29: K9 {attrs['registers']} registers, "
           f"{attrs['shared_bytes']} B shared memory, {attrs['ctas_per_sm']} "
           f"CTAs an SM, spill stores {spills}; {n_flips} flips in {n_pix} "
-          f"pixels")
+          f"pixels; tie pass {n_ties} of {n_values} plane values")
     check(set(spills.values()) == {0}, f"phase 29: K9 spills {spills}")
 
     # -- times: K9 against plain at b64, K9 alone at b256 ----------------------
@@ -4443,19 +4472,23 @@ def inverse_phase(dev, main_launches: int):
         return inv.inverse_combined_ref(x, tables, nb, nb, SIDE, SIDE)
 
     def bounds(x):
-        """(bytes bound, by) of this input's work: its words read once, the
-        RGB written once, and the FMA its non-zero deltas need; and the
-        dense FMA bound (every term, as K9 issues them)."""
+        """(bound, by) of this input's work, the larger of its bytes (its
+        words read once, the RGB written once) and the bf16 tensor work of
+        the part products its warps' fragments issue
+        (``inv.part_products``); and each alone, with the FMA bounds of
+        the parent's design (fp32 outside the tensor cores: the non-zero
+        deltas' FMA, and every FMA)."""
         nz = (x != 0).sum(dim=(0, 1))
         ffma = 64 * int(nz[:64].sum()) + 32 * int(nz[64:].sum())
         n_tiles = x.shape[0] * x.shape[1]
         n_bytes = x.numel() * 2 + x.shape[0] * SIDE * SIDE * 3
         by_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
-        by_ops = ffma / FFMA_PER_S * 1e3
-        dense = n_tiles * (64 * 64 + 2 * 32 * 32) / FFMA_PER_S * 1e3
-        top = (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops,
-                                                              "operations")
-        return top, by_bytes, by_ops, dense
+        by_tensor = inv.part_products(x, nb, nb) / BF16_FLOP_PER_S * 1e3
+        top = (by_bytes, "bytes") if by_bytes >= by_tensor else (
+            by_tensor, "operations")
+        return {"top": top, "bytes": by_bytes, "tensor": by_tensor,
+                "ffma_nonzero": ffma / FFMA_PER_S * 1e3,
+                "ffma": n_tiles * (64 * 64 + 2 * 32 * 32) / FFMA_PER_S * 1e3}
 
     times = {}
     t = time_versions(f"phase 29: inverse {SIDE}x{SIDE} b{INV_TIME_FRAMES[0]}",
@@ -4471,8 +4504,7 @@ def inverse_phase(dev, main_launches: int):
         {"kernel": kernel}, big, identical=False)
     b256 = bounds(big)
     del big
-    for frames, (top, by_bytes, by_ops, dense) in zip(INV_TIME_FRAMES,
-                                                      (b64, b256)):
+    for frames, bd in zip(INV_TIME_FRAMES, (b64, b256)):
         ms = times[frames]["kernel"]
         mpix = frames * SIDE * SIDE / 1e6
         plain_ms = times[frames].get("plain")
@@ -4480,12 +4512,13 @@ def inverse_phase(dev, main_launches: int):
               f"({mpix / ms * 1e3:.1f} MPix/s)"
               + (f", plain {plain_ms:.4f} ms ({plain_ms / ms:.2f}x)"
                  if plain_ms else "")
-              + f"; bytes bound {by_bytes:.4f} ms ({by_bytes / ms:.1%}), "
-              f"FFMA of the non-zero deltas {by_ops:.4f} ms, every FFMA "
-              f"{dense:.4f} ms ({dense / ms:.1%}); bound {top[0]:.4f} ms "
-              f"({top[1]})")
+              + f"; bytes bound {bd['bytes']:.4f} ms ({bd['bytes'] / ms:.1%}),"
+              f" tensor work of the part products issued {bd['tensor']:.4f} "
+              f"ms ({bd['tensor'] / ms:.1%}); the parent's FFMA bounds: the "
+              f"non-zero deltas {bd['ffma_nonzero']:.4f} ms, every FFMA "
+              f"{bd['ffma']:.4f} ms; bound {bd['top'][0]:.4f} ms "
+              f"({bd['top'][1]})")
     print(f"phase 29: {time.perf_counter() - t_phase:.2f} s")
-    top, by_bytes, by_ops, dense = b64
     return {
         "name": "inv_megakernel",
         "route": "cuda",
@@ -4495,13 +4528,15 @@ def inverse_phase(dev, main_launches: int):
         "max_abs_err": float(err),
         "ms": times[INV_TIME_FRAMES[0]]["kernel"],
         "plain_ms": times[INV_TIME_FRAMES[0]]["plain"],
-        "bound_ms": top[0],
-        "bound_by": top[1],
+        "bound_ms": b64["top"][0],
+        "bound_by": b64["top"][1],
         "library_ms": None,
-        "bytes_bound_ms": by_bytes,
-        "ffma_bound_ms": dense,
+        "bytes_bound_ms": b64["bytes"],
+        "tensor_bound_ms": b64["tensor"],
+        "ffma_bound_ms": b64["ffma"],
         "ms_b256": times[INV_TIME_FRAMES[1]]["kernel"],
         "flips": n_flips,
+        "tie_share": n_ties / n_values,
         "registers": attrs["registers"],
         "ctas_per_sm": attrs["ctas_per_sm"],
     }

@@ -18,15 +18,19 @@ struct Terms {
   int cr, g, cb;  // cr_term, g_cb + g_cr, cb_term
 };
 
-__device__ __forceinline__ Terms terms(uint32_t cr, uint32_t cb) {
-  const float fr = static_cast<float>(cr) - 128.0f;
-  const float fb = static_cast<float>(cb) - 128.0f;
+// The terms of chroma values given as fr = (float)cr - 128.0f and fb.
+__device__ __forceinline__ Terms terms_of(float fr, float fb) {
   Terms t;
   t.cr = static_cast<int>(truncf(__fmul_rn(1.402f, fr)));
   t.g = static_cast<int>(truncf(__fmul_rn(0.344136f, fb))) +
         static_cast<int>(truncf(__fmul_rn(0.714136f, fr)));
   t.cb = static_cast<int>(truncf(__fmul_rn(1.772f, fb)));
   return t;
+}
+
+__device__ __forceinline__ Terms terms(uint32_t cr, uint32_t cb) {
+  return terms_of(static_cast<float>(cr) - 128.0f,
+                  static_cast<float>(cb) - 128.0f);
 }
 
 __device__ __forceinline__ uint32_t clamp255(int v) {

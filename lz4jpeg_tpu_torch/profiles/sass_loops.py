@@ -50,16 +50,16 @@ def opcode(instruction: str) -> str:
     return words[0].split(".")[0] if words else ""
 
 
-def loops(instructions: List[str]) -> List[Dict]:
-    """The innermost loops of a function's instructions: each as its first
-    and last index, its length, the count of every opcode of ``COUNTED``
-    and of every opcode (``mix``), all over the instructions that can
-    execute (ptxas pads each ``LDGSTS`` with ``@!PT LDS``, never
-    executed)."""
+def loops(instructions: List[str], innermost: bool = True) -> List[Dict]:
+    """The innermost loops (every loop, if not ``innermost``) of a
+    function's instructions: each as its first and last index, its length,
+    the count of every opcode of ``COUNTED`` and of every opcode (``mix``),
+    all over the instructions that can execute (ptxas pads each ``LDGSTS``
+    with ``@!PT LDS``, never executed)."""
     spans = _spans(instructions)
     inner = [s for s in spans
-             if not any(o != s and s[0] <= o[0] and o[1] <= s[1]
-                        for o in spans)]
+             if not innermost or not any(o != s and s[0] <= o[0]
+                                         and o[1] <= s[1] for o in spans)]
     result = []
     for first, last in sorted(set(inner)):
         ops = [opcode(x) for x in instructions[first:last + 1]
@@ -370,14 +370,16 @@ def _sass_diff():
     return module
 
 
-def source_loops(source: str, root: Path = REPO) -> Dict[str, List[Dict]]:
-    """{demangled kernel: its innermost loops} of ``csrc/{source}.cu`` in
-    the checkout at ``root``."""
+def source_loops(source: str, root: Path = REPO,
+                 innermost: bool = True) -> Dict[str, List[Dict]]:
+    """{demangled kernel: its innermost loops (every loop, if not
+    ``innermost``)} of ``csrc/{source}.cu`` in the checkout at ``root``."""
     sd = _sass_diff()
     with tempfile.TemporaryDirectory() as tmp:
         functions = sd.sass(Path(root), source, Path(tmp))
     names = sd.demangle(list(functions))
-    return {name: loops(ins) for name, ins in zip(names, functions.values())}
+    return {name: loops(ins, innermost)
+            for name, ins in zip(names, functions.values())}
 
 
 def spill_stores(source: str) -> Dict[str, int]:

@@ -2064,16 +2064,38 @@ def test_inverse_megakernel_refusals_and_attributes(cuda):
     with pytest.raises(TypeError):
         inv.inverse_combined(comb.int(), tables, 2, 2, 16, 16)
     assert inv.inverse_combined.launches == before
+    with pytest.raises(ValueError):  # the tie count on another device
+        inv.inverse_combined(comb, tables, 2, 2, 16, 16,
+                             ties=torch.zeros(1, dtype=torch.int64))
     out = torch.empty((1, 17, 16, 3), dtype=torch.uint8, device=cuda)
     lib = inv.load_kernel()
-    bases = inv._device_bases(inv.table_keys(tables), cuda)
+    keys = inv.table_keys(tables)
+    bases = inv._device_bases(keys, cuda)
+    parts = inv._device_parts(keys, cuda)
     rc = lib.inv_megakernel_launch(comb.data_ptr(), out.data_ptr(),
-                                   bases.data_ptr(), 1, 2, 2, 17, 16,
+                                   parts.data_ptr(), bases.data_ptr(), 1, 2,
+                                   2, 17, 16, None,
                                    torch.cuda.current_stream().cuda_stream)
     assert rc != 0 and lib.inv_megakernel_error_string(rc)
     a = inv.kernel_attributes(cuda)
     assert a["registers"] > 0 and a["ctas_per_sm"] >= 1
-    assert a["shared_bytes"] == 47_616
+    assert a["shared_bytes"] == inv.smem_bytes()
+
+
+@pytest.mark.parametrize("quality", [None, 75, 90, 100])
+def test_inverse_megakernel_takes_the_chains_bytes(cuda, quality):
+    """K9 equal to the fp32 chain's bytes (its parent's, the numpy mirror
+    ``parent_decode``) on 2 × 512² noise at each quality; the tie pass's
+    count between none and a hundredth of the plane values."""
+    from lz4jpeg_tpu_torch.ops import inv_megakernel as inv
+
+    comb, tables, bpc, bpr = _k9_input(cuda, (2, 512, 512), quality,
+                                       seed=quality or 50)
+    ties = torch.zeros(1, dtype=torch.int64, device=cuda)
+    got = inv.inverse_combined(comb, tables, bpc, bpr, 512, 512, ties=ties)
+    want = inv.parent_decode(comb.cpu().numpy(), tables, bpc, bpr, 512, 512)
+    assert np.array_equal(got.cpu().numpy(), want)
+    assert 0 < int(ties[0]) < 0.01 * comb.shape[0] * comb.shape[1] * 192
 
 
 def test_inverse_megakernel_spills_nothing(cuda):

@@ -155,9 +155,10 @@ PLAN_CASES = [(BATCH, h, w, 0) for h, w in SHAPES] + [
 def test_plan_writes_every_byte_once(b, h, w, out_offset):
     bpc, bpr = _blocks(h, w)
     plan = inv.inverse_plan(b, bpc, bpr, h, w, out_offset=out_offset,
-                            resident=528)
-    assert plan.units == b * bpc * -(-bpr // inv.BAND_TILES)
-    assert plan.ctas == min(plan.units, 528) and plan.tiles == inv.BAND_TILES
+                            resident=264)
+    assert plan.units == b * bpc * -(-bpr // inv.UNIT_TILES)
+    assert plan.chunks == -(-plan.units // inv.WARPS)
+    assert plan.ctas == min(plan.chunks, 264) and plan.tiles == inv.UNIT_TILES
     assert plan.vec_out == (out_offset == 0 and (3 * w) % 16 == 0)
     stores = inv.inverse_stores(plan, bpc, bpr, h, w)
     hits = np.zeros(b * h * w * 3, np.int64)
@@ -170,7 +171,7 @@ def test_plan_writes_every_byte_once(b, h, w, out_offset):
         hits[start:end] += 1
     assert (hits == 1).all()
     # a store covers the tiles its unit holds, and no more than its row
-    assert (stores["tiles"] >= 1).all() and (stores["tiles"] <= 32).all()
+    assert (stores["tiles"] >= 1).all() and (stores["tiles"] <= 16).all()
     assert (16 * stores["n_vec"] + stores["n_bytes"]
             <= 24 * stores["tiles"]).all()
     if not plan.vec_out:
