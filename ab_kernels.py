@@ -2,7 +2,7 @@
 """Time this checkout's kernels in turns with another checkout's, on one
 CUDA card.
 
-    python3 ab_kernels.py --other DIR [--only megakernel|inverse]
+    python3 ab_kernels.py --other DIR [--only megakernel|inverse|lz4_parse]
 
 DIR is the root of another checkout of this repository, for example an
 earlier commit unpacked into a git-ignored directory with
@@ -74,6 +74,16 @@ probe's blocks, the outputs identical between the checkouts, each share
 taken of the issue floor at ``INSTRUCTIONS`` lane instructions per
 stage-element and of each checkout's own floor at the count of its SASS
 loop (``bucket_partition.stage_sass_counts``, which needs the toolkit).
+Then LZ4's greedy parses through each checkout's wrappers: K10 by
+``ops/fused_match.py::parse_candidates`` on this checkout's K2 words of
+phase 8's 2048 blocks of 16 KiB (stride 1, lcp 4), and the fused matcher
+``fast_match_blocks_fused`` (K2 and the parse) on the same blocks, in
+``time_versions``' turns; K11 by the checkout's parity matcher
+(``ops/lz4_parse.py::parity_parse`` where the checkout has it, else
+``greedy_parse(*match_tables(x))`` of ``ops/match.py``) on phase 17's
+76,500 B of text (255 blocks of 300 B) and on 30 blocks of 1,024 B, in
+``ab_queued``'s turns; outputs identical between the checkouts (``--only
+lz4_parse`` runs this alone).
 Prints the card's name and power limit, each block of runs, and one line
 per kernel and shape with both times, the ratio, the bound and its share.
 """
@@ -117,16 +127,18 @@ MODULES = ("ops.fwd_megakernel", "ops.fused_match", "ops.pack16",
            "ops.stream", "profiles.casts", "profiles.dct_gates",
            "profiles.bitonic_sort", "profiles.rle_decode", "profiles.mcu",
            "profiles.bucket_partition", "profiles.megakernel",
-           "profiles.sass_loops", "ops.inv_megakernel")
+           "profiles.sass_loops", "ops.inv_megakernel", "ops.match")
 INVERSE_MODULES = ("ops.fwd_megakernel", "ops.inv_megakernel",
                    "profiles.sass_loops")
+LZ4_PARSE_MODULES = ("ops.fused_match", "ops.match")
+PARITY_SHAPES = ((76_500, 300), (30_000, 1024))  # chip_smoke.py phase 17's
 
 
 def load_checkout(root: Path, names=MODULES):
     """The kernel modules ``names`` of the checkout at ``root`` (by default
     fwd_megakernel, fused_match, pack16, stream, and the probes' casts,
     dct_gates, bitonic_sort, rle_decode, mcu, bucket_partition and
-    megakernel, sass_loops and inv_megakernel), with every kernel built and
+    megakernel, sass_loops, inv_megakernel and match), with every kernel built and
     loaded.  Drops any other checkout's modules from ``sys.modules``
     first; the modules stay alive through the returned references."""
     for name in [m for m in sys.modules
@@ -148,7 +160,7 @@ def load_checkout(root: Path, names=MODULES):
     if names != MODULES:
         return mods
     (fwd, match, pack16, stream, casts, gates, sort, member, mcu,
-     stages, probes, _, _) = mods
+     stages, probes, _, _, _) = mods
     pack16.load_pack_kernels()
     pack16.load_expand_kernels()
     return mods
@@ -158,9 +170,10 @@ def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--other", required=True, type=Path,
                         help="root of the checkout to time against this one")
-    parser.add_argument("--only", choices=("megakernel", "inverse"),
-                        help="time K1 and the megakernel's probe rows, or "
-                        "K9, only")
+    parser.add_argument("--only", choices=("megakernel", "inverse",
+                                           "lz4_parse"),
+                        help="time K1 and the megakernel's probe rows, K9, "
+                        "or K10 and K11, only")
     args = parser.parse_args()
 
     import torch
@@ -188,7 +201,8 @@ def main() -> int:
         capture_output=True, text=True, check=True, timeout=60,
     ).stdout.strip().splitlines()[0]
     print(f"card: {card}")
-    names = INVERSE_MODULES if args.only == "inverse" else MODULES
+    names = {"inverse": INVERSE_MODULES,
+             "lz4_parse": LZ4_PARSE_MODULES}.get(args.only, MODULES)
     other = load_checkout(args.other.resolve(), names)
     this = load_checkout(HERE, names)
     from lz4jpeg_tpu_torch.ops.fwd_megakernel import CHANNEL_SLICES
@@ -299,8 +313,58 @@ def main() -> int:
             del comb
             torch.cuda.empty_cache()
 
+    def lz4_parse_ab():
+        """K10 and K11 through each checkout's wrappers in turns, outputs
+        identical between the checkouts."""
+        from lz4jpeg_tpu_torch.ops.match import pad_blocks
+
+        def mod(mods, suffix):
+            return next(m for m in mods if m.__name__.endswith(suffix))
+
+        def parity(mods):
+            """The checkout's parity matcher: K11 where it has one."""
+            scope = mod(mods, ".ops.fused_match").parse_candidates.__globals__
+            if "parity_parse" in scope:
+                return scope["parity_parse"]
+            match = mod(mods, ".ops.match")
+            return lambda x: match.greedy_parse(*match.match_tables(x))
+
+        text = generate_text(MAIN_BYTES, np.random.default_rng(SEED))
+        padded, lengths = pad_blocks_fast(text)
+        blocks = torch.from_numpy(padded.astype(np.uint8)).to(dev)
+        lens = torch.from_numpy(lengths).to(dev)
+        b, p = blocks.shape
+        packed = mod(this, ".ops.fused_match").match_candidates(blocks, lens, 1, 4)
+        fields = [m.parse_candidates(packed, lens, p)
+                  for m in (mod(other, ".ops.fused_match"),
+                            mod(this, ".ops.fused_match"))]
+        check(all(torch.equal(x, y) for x, y in zip(*fields)),
+              "K10: the checkouts' fields differ")
+        del fields
+        ab(f"K10 {b}x16KiB stride 1 lcp 4",
+           lambda m, a: mod(m, ".ops.fused_match").parse_candidates(
+               a[0], a[1], p), (packed, lens), packed.numel() * 4 + b * 4
+           + 3 * b * p * 4)
+        ab(f"K2 + K10 (fast_match_blocks_fused) {b}x16KiB stride 1 lcp 4",
+           lambda m, a: mod(m, ".ops.fused_match").fast_match_blocks_fused(
+               a[0], a[1], lcp_words=4), (blocks, lens),
+           blocks.numel() + b * 4 + 3 * b * p * 4)
+        del packed, blocks, lens
+        for n, block_length in PARITY_SHAPES:
+            pb, _ = pad_blocks(text[:n], block_length)
+            x = torch.from_numpy(pb).to(dev)
+            ab_queued(f"K11 parity {n} B ({pb.shape[0]} x {block_length})",
+                      {"other": parity(other), "this": parity(this)}, x,
+                      x.numel() * (4 + 1 + 4 + 4),
+                      lambda _, a, c: all(torch.equal(u, v)
+                                          for u, v in zip(a, c)))
+        torch.cuda.empty_cache()
+
     if args.only == "inverse":
         inverse_ab()
+        return 0
+    if args.only == "lz4_parse":
+        lz4_parse_ab()
         return 0
 
     # Each checkout's K1 and KT product builds: warp instructions a tile in
@@ -587,6 +651,7 @@ def main() -> int:
             print(f"{label} {side}: {counts[side][kind]:.4f} lane "
                   f"instructions per stage-element in its SASS loop, floor "
                   f"{floor:.4f} ms, {floor / mean[side]:.1%} of it")
+    lz4_parse_ab()
     return 0
 
 

@@ -2,14 +2,14 @@
 """Smoke run of the PyTorch port (lz4jpeg_tpu_torch) on one CUDA card.
 
 Run from the repository root with no arguments: ``python3 chip_smoke.py``.
-It needs one card.  At first use it builds the thirty-four Hopper
-kernels (one nvcc per source file, twenty-three files, all started together,
+It needs one card.  At first use it builds the thirty-seven Hopper
+kernels (one nvcc per source file, twenty-four files, all started together,
 sm_90a; the five megakernel probes are one file of twenty-six
 instantiations of K1's template, K7's phase variants one file of eight
 instantiations of K7's, the casts one template of seven instantiations,
 the one-hot gathers one template of nine)
 and the native runtime (g++) into ``lz4jpeg_tpu_torch/_build/``, then runs
-twenty-nine phases and fails (non-zero exit, no result line) if any of
+thirty phases and fails (non-zero exit, no result line) if any of
 them fails.  ``ab_kernels.py`` times K1, K2 and K4-K7 in turns with
 another checkout's; ``sass_diff.py`` compares a source's machine code with
 another checkout's.
@@ -53,7 +53,8 @@ another checkout's.
    word by word); the packed int32 words must be identical;
 6. the LZ4T main path: ``LZ4Codec(LZ4Config(mode="fast"), device="cuda")``
    ``.encode(data, engine="device")`` of 32 MiB of generated text, then
-   ``.decode(frame, engine="device")``.  Both kernels must have launched;
+   ``.decode(frame, engine="device")``.  K2, K3 and the parse kernel K10
+   must have launched, K10 once (one ``_device_fast_encode``);
    the frame must equal the CPU codec's (plain K2) byte for byte; the
    device decode and the native decoder must return the input;
 7. the rooted-resolve kernel (K3) against its plain version on the card:
@@ -62,7 +63,8 @@ another checkout's.
    bytes must be identical;
 8. LZ4T times on the card: K2 at 2048 × 16 KiB (stride 1, lcp 4) and K3 at
    128 MiB, kernel against plain as in phase 4; encode and decode MB/s of
-   the main path, each with a staged split;
+   the main path, each with a staged split (the encode's: K2, then K10
+   once);
 9. the packed16 kernels K4-K7 against their plain versions on the card:
    each channel's zigzag values of eight 2048² frames with duplicated
    columns (from the K1 buffer), their plane (KT) views, and crafted rows
@@ -112,8 +114,9 @@ another checkout's.
     ``encode``/``decode`` at 2048², 1000×1500 and 37×53 (admissible flips
     counted; decodes within the envelope); ``warmup``, after which an
     encode builds no library;
-17. LZ4 parity mode on the card (``match_tables``, ``greedy_parse`` and the
-    pointer-doubling ``resolve_copies`` as torch ops, no kernel):
+17. LZ4 parity mode on the card (``match_tables`` and ``greedy_parse`` as
+    K11, launched once a batch chunk, its count zeroed before each encode
+    and read after; the pointer-doubling ``resolve_copies`` as torch ops):
     ``LZ4Codec(LZ4Config(mode="parity"), device="cuda")`` on generated text
     (seed 0) of 350, 2,000, 20,000 and 30,000 B (the reference experiment's
     lengths), 76,500 B (255 blocks, the largest frame the format holds) and
@@ -142,9 +145,10 @@ another checkout's.
     ``forward_stages`` (fast: up to phase 2's flips), the inverse in the
     pair layout and in packed16 (K6 per shard and channel) against the
     card's decode of the same streams; ``sharded_fast_parse`` of phase 6's
-    32 MiB (K2 per shard, 2 lcp words) identical to the unsharded kernel,
-    its frame decoding to the input; ``sharded_fast_decode`` of phase 6's
-    frame (K3 per shard); ``sharded_block_parse`` of 76,500 B of parity
+    32 MiB (K2 and K10 per shard, 2 lcp words) identical to the unsharded
+    kernels, its frame decoding to the input; ``sharded_fast_decode`` of
+    phase 6's frame (K3 per shard); ``sharded_block_parse`` (K11 per shard)
+    of 76,500 B of parity
     blocks identical to the unsharded card parse, its psum the match
     count; an NCCL group of one process in-process: ``multihost_fast_encode``
     of the 32 MiB (K2 once, through the codec's ``block_payloads``) equal to
@@ -171,7 +175,8 @@ another checkout's.
     of copy-kernel launches is the kernel's record); the headline at 2048²,
     batch 256 (K1 launched 48 times); the sweeps at small scale with
     ``runs=3`` on 4 MiB of generated text: lz4-device at 64 and 1,024
-    blocks (K2 128 times), lz4t-decode at 1, 4, 16 MB (K3 15 times),
+    blocks (K2 and K10 128 times, K10's field entry 64 times in the sort
+    series), lz4t-decode at 1, 4, 16 MB (K3 15 times),
     jpeg-inverse at 512², 1024², 2048² (batch 256 each; peak device memory
     printed; K9 60 times, once a dispatch), jpeg-perblock at 64²–256²,
     entropy-ab at 1024²; both rooflines at their defaults (the inverse's
@@ -377,7 +382,30 @@ another checkout's.
     plain version; the innermost SASS loops and the innermost loop holding
     K9's HMMA (one at least), registers, shared memory, CTAs an SM and ptxas's
     spill stores (none allowed); K9 and plain timed at 2048² b64 (phase
-    4's method), K9 at b256.
+    4's method), K9 at b256;
+30. LZ4's greedy parses (``csrc/lz4_parse_kernel.cu``,
+    ``ops/lz4_parse.py``) against their plain versions, bit for bit,
+    dtypes included: K10's candidate entry (``parse_candidates``) on
+    phase 5's kind of text, 2048 blocks of 16 KiB with a ragged last one,
+    at strides 1, 2, 4 and lcp words 2, 4 on K2's words, also (lcp 4)
+    at a segment past its tile (16,384 bytes), at 64 bytes and at
+    ``max_dist`` 3,000 and 9, on the crafted blocks of
+    ``utils/inputs.py::crafted_match_blocks`` and on
+    ``segment_end_candidates`` (matches ending on every segment's end,
+    ragged lengths, distance caps; every segment's last match held to end
+    on it); K10's field entry (``greedy_parse``) inside the sort matcher
+    at 2048 × 16 KiB (against the same matcher with the plain walk) and
+    on int32 and int64 inputs at ``FIELD_CASES``, values that wrap
+    included, then a sort-matcher encode of 4 MiB with its count zeroed
+    before and read after (one launch; frame equal to the CPU codec's);
+    K11 (``parity_tables``: best_len, best_dist, is_match, emit_len,
+    emit_dist) on 76,500 B at block length 300 (255 blocks), 30,000 B at
+    1,024 and 17,000 B at 9,000 (two tiles of positions), all-equal bytes,
+    255 random blocks and the truncation and tie rows of
+    ``crafted_parity_bytes`` at 300 and 1,024, each at max_match 1,024 and
+    100; K10's entries timed against plain at 2048 × 16 KiB (phase 4's
+    method), K11 at 255 × 300 and 30 × 1,024 queued (``timing.time_ms``,
+    plain, kernel, kernel, plain), each with its bytes bound.
 
 The line before the last is the kernels' JSON record: per kernel (the
 packed16 kernels once per timed channel and input dtype) its launches on
@@ -438,7 +466,11 @@ largest |kernel − plain| of the phase's checks) and phase 28's four (one
 per probe: g1, g2's full row, g3 at T = 512, g4 at (32, bf16), each with
 a ``variants`` list of its rows, bound by the product's operations over
 989 TFLOP/s bf16 or 1,979 TOPS int8 (``bound``), ``torch.gather`` the
-library call, K3's and the pointer doubling's times beside it).  Before
+library call, K3's and the pointer doubling's times beside it); phase
+30's three (K10's candidate and field entries, K11) bound by their bytes,
+with no library call, K10's launches from phase 6's encode, K11's from
+phase 17's 76,500 B encode, the field entry's from phase 30's
+sort-matcher encode.  Before
 it, one line per
 bytes-bound kernel gives its share of the data sheet's bound and of the
 same bytes over the stream ceiling phase 20 measured.  The last line is
@@ -637,6 +669,22 @@ INV_CASES = (("2048x2048 b8", (8, 2048, 2048), None),
 INV_MAX_FLIPS = 1e-5  # flips against plain, a share of the pixels
 INV_WORDS = (0, 1024, -512, -32768, 32767)  # crafted words at every lane
 INV_TIME_FRAMES = (64, 256)
+PARSE_SOURCE = "lz4jpeg_tpu_torch/csrc/lz4_parse_kernel.cu"
+# The XLA stages K10 and K11 replace: the Pallas matcher's post-pass scan,
+# the sort matcher's scan, parity mode's match tables (and greedy_parse).
+PARSE_REPLACES = "lz4jpeg_tpu/ops/pallas_match.py:320"
+FIELDS_REPLACES = "lz4jpeg_tpu/ops/lz4_fast.py:223"
+PARITY_REPLACES = "lz4jpeg_tpu/ops/match.py:56"
+# Phase 30: K10 at phase 5's 2048 x 16 KiB, (seg, max_dist) beside the
+# codec's (512, 65535): a segment past K10's tile, one below the walk's
+# batch, and two distance caps; the field entry's (seg, stride) and the
+# sort-matcher encode's bytes; K11's (bytes of text, block length) and
+# crafted blocks, each at max_match 1,024 and 100.
+PARSE_SEGMENTS = ((16384, 65535), (64, 65535), (512, 3000), (512, 9))
+FIELD_CASES = ((512, 1), (16384, 1), (100, 3), (7, 2))
+SORT_ENCODE_BYTES = 4 * MIB
+PARITY_CASES = ((76_500, 300), (30_000, 1024), (17_000, 9000))
+PARITY_MAX_MATCH = (1024, 100)
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3 (NVIDIA data sheet)
 BF16_FLOP_PER_S = 989e12  # H100 SXM dense bf16 tensor cores (data sheet)
 INT8_OP_PER_S = 1979e12  # H100 SXM dense int8 tensor cores (data sheet)
@@ -800,6 +848,7 @@ def build_all():
         fused_match,
         fwd_megakernel,
         inv_megakernel,
+        lz4_parse,
         lz4t_decode,
         pack16,
         stream,
@@ -825,6 +874,7 @@ def build_all():
         "nvcc fwd_megakernel": fwd_megakernel.load_kernel,
         "nvcc inv_megakernel": inv_megakernel.load_kernel,
         "nvcc match_kernel": fused_match.load_kernel,
+        "nvcc lz4_parse_kernel": lz4_parse.load_kernel,
         "nvcc resolve_kernel": lz4t_decode.load_kernel,
         "nvcc pack16_kernel": pack16.load_pack_kernels,
         "nvcc expand16_kernel": pack16.load_expand_kernels,
@@ -860,7 +910,8 @@ def build_all():
 
 def lz4_phases(dev):
     """Phases 5-8 (the LZ4T codec); returns the K2 and K3 kernel records,
-    phase 6's 32 MiB input and its frame."""
+    phase 6's 32 MiB input and its frame, and K10's launches in phase
+    6's encode."""
     import torch
 
     from lz4jpeg_tpu_torch import LZ4Codec, LZ4Config
@@ -963,13 +1014,18 @@ def lz4_phases(dev):
     data = text[:MAIN_BYTES]
     codec = LZ4Codec(LZ4Config(mode="fast"), device=dev)
     match_candidates.launches = 0
+    parse_candidates.launches = 0
     resolve_rooted.launches = 0
     frame = codec.encode(data, engine="device")
     decoded = codec.decode(frame, engine="device")
     torch.cuda.synchronize()
     k2_launches = match_candidates.launches
+    k10_launches = parse_candidates.launches
     k3_launches = resolve_rooted.launches
     check(k2_launches > 0, "the LZ4T encode never launched the match kernel")
+    check(k10_launches == 1,
+          f"the LZ4T encode launched the parse kernel K10 {k10_launches} "
+          "times, not once (one _device_fast_encode)")
     check(k3_launches > 0, "the LZ4T decode never launched the resolve kernel")
     check(decoded == data, "device decode does not return the input")
     check(codec.decode(frame, engine="native") == data,
@@ -979,7 +1035,8 @@ def lz4_phases(dev):
         data, engine="device")
     cpu_s = time.perf_counter() - t
     check(frame == cpu_frame, "the card's LZ4T frame differs from the CPU's")
-    print(f"phase 6: launches K2 {k2_launches}, K3 {k3_launches}; frame "
+    print(f"phase 6: launches K2 {k2_launches}, K10 {k10_launches}, K3 "
+          f"{k3_launches}; frame "
           f"byte-identical to the CPU codec's (plain K2, {cpu_s:.2f} s); "
           f"device and native decode return the input; {len(data)} B -> "
           f"{len(frame)} B (ratio {len(frame) / len(data):.4f}; native "
@@ -1067,8 +1124,11 @@ def lz4_phases(dev):
     split.mark("H2D")
     packed = match_candidates(blocks_d, lens_d, 1, 4)
     split.mark("K2")
+    before = parse_candidates.launches
     fields = parse_candidates(packed, lens_d, p)
-    split.mark("parse scan")
+    split.mark("K10 parse")
+    check(parse_candidates.launches == before + 1,
+          "the staged parse did not launch K10 once")
     records = fetch_records(*compact_parse(*fields), p)
     split.mark("compact + D2H")
     raws = [data_u8[i, : int(n)].tobytes() for i, n in enumerate(lengths)]
@@ -1121,7 +1181,7 @@ def lz4_phases(dev):
         "bound_ms": k3_bound[0],
         "bound_by": k3_bound[1],
         "library_ms": k3_lib_ms,
-    }], data, frame
+    }], data, frame, k10_launches
 
 
 def envelope(label: str, got, want):
@@ -1901,8 +1961,10 @@ def entry_phase(dev, frame):
 
 
 def parity_phase(dev):
-    """Phase 17: LZ4 parity mode on the card (match tables, greedy parse
-    and the pointer-doubling decode as torch ops; no kernel)."""
+    """Phase 17: LZ4 parity mode on the card (the match tables and the
+    greedy parse as K11, the pointer-doubling decode as torch ops).
+    Returns K11's launches in the encode of the largest frame (76,500 B,
+    255 blocks)."""
     import torch
 
     from lz4jpeg_tpu_torch import LZ4Codec, LZ4Config
@@ -1914,7 +1976,8 @@ def parity_phase(dev):
         doubling_steps,
         resolve_copies,
     )
-    from lz4jpeg_tpu_torch.ops.match import greedy_parse, match_tables, pad_blocks
+    from lz4jpeg_tpu_torch.ops.lz4_parse import parity_parse
+    from lz4jpeg_tpu_torch.ops.match import pad_blocks
     from lz4jpeg_tpu_torch.oracle import lz4_encode_oracle
     from lz4jpeg_tpu_torch.utils.inputs import generate_text
 
@@ -1927,10 +1990,8 @@ def parity_phase(dev):
         padded, lengths = pad_blocks(data, block_length)
         x = torch.from_numpy(padded).to(dev)
         watch.mark("pad + H2D")
-        best_len, best_dist = match_tables(x)
-        watch.mark("match_tables")
-        is_match, emit_len, emit_dist = greedy_parse(best_len, best_dist)
-        watch.mark("greedy_parse")
+        is_match, emit_len, emit_dist = parity_parse(x)
+        watch.mark("K11 (match tables + greedy parse)")
         fields = torch.stack([is_match.int(), emit_len, emit_dist]).cpu().numpy()
         watch.mark("D2H")
         blocks = [_build_sequences(data[i * block_length : (i + 1) * block_length],
@@ -1958,11 +2019,21 @@ def parity_phase(dev):
         spans = {k: float(np.median([r[1][k] for r in runs])) for k in runs[0][1]}
         return runs[0][0], spans
 
+    main_launches = 0
     for n, block_length in PARITY_SIZES:
         data = text[:n]
         cfg = LZ4Config(mode="parity", block_length=block_length)
         codec = LZ4Codec(cfg, dev)
+        parity_parse.launches = 0
         frame = codec.encode(data)
+        torch.cuda.synchronize()
+        launches = parity_parse.launches
+        chunks = -(-(-(-n // block_length)) // codec.batch_blocks)
+        check(launches == chunks,
+              f"parity {n} B: K11 launched {launches} times, not once per "
+              f"batch chunk ({chunks})")
+        if n == max(m for m, _ in PARITY_SIZES):
+            main_launches = launches
         check(frame == LZ4Codec(cfg, "cpu").encode(data),
               f"parity {n} B: the card's frame differs from the CPU port's")
         check(frame == native.encode_parity(data, block_length),
@@ -1983,7 +2054,8 @@ def parity_phase(dev):
         check(back == data, f"parity {n} B: staged decode differs")
         same = "CPU port, native" + (", oracle" if n <= ORACLE_MAX_BYTES else "")
         print(f"phase 17: parity {n} B, block length {block_length} "
-              f"({frame[0]} blocks): frame byte-identical to the {same} "
+              f"({frame[0]} blocks): K11 launched {launches} times (once a "
+              f"batch chunk); frame byte-identical to the {same} "
               f"({len(frame)} B, ratio {len(frame) / n:.4f}); device decode "
               "returns the input")
         print(f"phase 17: parity {n} B/{block_length}: encode median "
@@ -1997,6 +2069,7 @@ def parity_phase(dev):
                   f"{PARITY_RUNS}, synchronised marks): " + ", ".join(
                       f"{k} {v:.3f}" for k, v in spans.items())
                   + f"; sum {sum(spans.values()):.3f}")
+    return main_launches
 
 
 def cli_phase(dev):
@@ -2235,6 +2308,7 @@ def parallel_phase(dev, card: str, data: bytes, lz4_frame: bytes):
     from lz4jpeg_tpu_torch.ops.fwd_megakernel import forward_combined
     from lz4jpeg_tpu_torch.ops.inv_megakernel import inverse_combined
     from lz4jpeg_tpu_torch.ops.lz4_fast import TPU_BLOCK_LOG, pad_blocks_fast
+    from lz4jpeg_tpu_torch.ops.lz4_parse import parity_parse, parse_candidates
     from lz4jpeg_tpu_torch.ops.lz4t_decode import resolve_rooted
     from lz4jpeg_tpu_torch.ops.match import greedy_parse, match_tables, pad_blocks
     from lz4jpeg_tpu_torch.ops.rle import rle_encode_sparse16
@@ -2351,9 +2425,11 @@ def parallel_phase(dev, card: str, data: bytes, lz4_frame: bytes):
         lcp_words=plz4.FUSED_LCP_WORDS)]
     native = native_backend()
     for name, mesh in meshes.items():
-        fields = counted(match_candidates, f"K2 sharded_fast_parse, {name}",
-                         mesh.size,
-                         lambda: plz4.sharded_fast_parse(padded, lengths, mesh))
+        fields = counted(
+            parse_candidates, f"K10 sharded_fast_parse, {name}", mesh.size,
+            lambda: counted(match_candidates, f"K2 sharded_fast_parse, {name}",
+                            mesh.size, lambda: plz4.sharded_fast_parse(
+                                padded, lengths, mesh)))
         check(all(np.array_equal(g, w) for g, w in zip(fields, want)),
               f"phase 19: sharded_fast_parse on {name} differs from K2")
         sframe = assemble_frame(native.emit_blocks(data_u8, lengths, *fields),
@@ -2375,7 +2451,8 @@ def parallel_phase(dev, card: str, data: bytes, lz4_frame: bytes):
     want = [t.cpu().numpy() for t in greedy_parse(
         *match_tables(torch.from_numpy(pblocks).to(dev)))]
     for name, mesh in meshes.items():
-        got = sharded_block_parse(pblocks, mesh)
+        got = counted(parity_parse, f"K11 sharded_block_parse, {name}",
+                      mesh.size, lambda: sharded_block_parse(pblocks, mesh))
         check(all(np.array_equal(g, w) for g, w in zip(got, want)),
               f"phase 19: sharded_block_parse on {name} differs")
         total = int(plz4.sharded_compressed_sizes(got[1], got[0], mesh))
@@ -2534,7 +2611,7 @@ def bench_phase(dev):
     )
     from lz4jpeg_tpu_torch.ops.fused_match import match_candidates
     from lz4jpeg_tpu_torch.ops.fwd_megakernel import forward_combined
-    from lz4jpeg_tpu_torch.ops import stream
+    from lz4jpeg_tpu_torch.ops import lz4_parse, stream
     from lz4jpeg_tpu_torch.ops.inv_megakernel import inverse_combined
     from lz4jpeg_tpu_torch.ops.lz4t_decode import resolve_rooted
     from lz4jpeg_tpu_torch.ops.stream import stream_copy, stream_copy_ref
@@ -2660,6 +2737,8 @@ def bench_phase(dev):
     with tempfile.TemporaryDirectory() as tmp:
         tmp = Path(tmp)
         match_candidates.launches = 0
+        lz4_parse.parse_candidates.launches = 0
+        lz4_parse.greedy_parse.launches = 0
         got = suite("lz4-device", lambda: experiments.run_lz4_device_experiment(
             batches=list(BENCH_LZ4_BATCHES), runs=runs, corpus=corpus,
             device=dev, output=str(tmp / "lz4_device.json")))
@@ -2667,6 +2746,15 @@ def bench_phase(dev):
         want = 4 * len(BENCH_LZ4_BATCHES) * (1 + runs) * 4
         check(match_candidates.launches == want,
               f"lz4-device launched K2 {match_candidates.launches} times, not {want}")
+        # K10 once a fused match (4 series) and its field entry once a sort
+        # match (the 2 sort series), 4 chained matches a run.
+        check(lz4_parse.parse_candidates.launches == want,
+              f"lz4-device launched K10 {lz4_parse.parse_candidates.launches} "
+              f"times, not {want}")
+        sort_want = 2 * len(BENCH_LZ4_BATCHES) * (1 + runs) * 4
+        check(lz4_parse.greedy_parse.launches == sort_want,
+              f"lz4-device launched K10's field entry "
+              f"{lz4_parse.greedy_parse.launches} times, not {sort_want}")
         resolve_rooted.launches = 0
         suite("lz4t-decode", lambda: experiments.run_lz4t_decode_device_experiment(
             sizes_mb=list(BENCH_LZ4T_MB), runs=runs, corpus=corpus, device=dev,
@@ -4542,6 +4630,210 @@ def inverse_phase(dev, main_launches: int):
     }
 
 
+def parse_phase(dev, k10_launches: int, k11_launches: int):
+    """Phase 30: LZ4's greedy parses, K10 and K11 (``csrc/lz4_parse_kernel.
+    cu``), against their plain versions, bit for bit, and timed; returns
+    their three records (K10's launches from phase 6's encode, K11's from
+    phase 17's largest frame, the field entry's from this phase's
+    sort-matcher encode)."""
+    import torch
+
+    from lz4jpeg_tpu_torch import LZ4Codec, LZ4Config
+    from lz4jpeg_tpu_torch.ops import lz4_fast, lz4_parse
+    from lz4jpeg_tpu_torch.ops.fused_match import match_candidates
+    from lz4jpeg_tpu_torch.ops.lz4_fast import fast_match_blocks, pad_blocks_fast
+    from lz4jpeg_tpu_torch.ops.match import pad_blocks
+    from lz4jpeg_tpu_torch.profiles import timing
+    from lz4jpeg_tpu_torch.utils.inputs import (
+        crafted_match_blocks,
+        crafted_parity_bytes,
+        generate_text,
+        segment_end_candidates,
+    )
+
+    t_phase = time.perf_counter()
+
+    def err(got, want):
+        """The largest |kernel − plain| over the fields; checks dtypes."""
+        check(all(g.dtype == w.dtype and g.shape == w.shape
+                  for g, w in zip(got, want)), "dtypes or shapes differ")
+        return max(int((g.long() - w.long()).abs().max()) if g.numel() else 0
+                   for g, w in zip(got, want))
+
+    def held(label, got, want, errs):
+        torch.cuda.synchronize()
+        e = err(got, want)
+        errs.append(e)
+        print(f"phase 30: {label}: {'identical' if e == 0 else 'DIFFERENT'} "
+              f"(max |d| {e})")
+        check(e == 0, f"phase 30: {label} differs from its plain version")
+
+    rng = np.random.default_rng(SEED + 30)
+    text = generate_text(MATCH_BLOCKS * 16384 - 7000, rng)
+    padded, lengths = pad_blocks_fast(text)
+    x = torch.from_numpy(padded.astype(np.uint8)).to(dev)
+    lens = torch.from_numpy(lengths).to(dev)
+    b, p = x.shape
+
+    # ---- K10, candidate entry ------------------------------------------
+    k10_errs = []
+    for stride in (1, 2, 4):
+        for words in (2, 4):
+            packed = match_candidates(x, lens, stride, words)
+            cases = ((512, 65535),) + (PARSE_SEGMENTS if words == 4 else ())
+            for seg, max_dist in cases:
+                held(f"K10 {b}x16KiB stride {stride} lcp {words} seg {seg} "
+                     f"max_dist {max_dist}",
+                     lz4_parse.parse_candidates(packed, lens, p, max_dist,
+                                                stride, seg),
+                     lz4_parse.parse_candidates_ref(packed, lens, p, max_dist,
+                                                    stride, seg), k10_errs)
+        crafted, c_lens = crafted_match_blocks(p, np.random.default_rng(SEED + 31))
+        cx, cl = torch.from_numpy(crafted).to(dev), torch.from_numpy(c_lens).to(dev)
+        packed = match_candidates(cx, cl, stride, 4)
+        held(f"K10 crafted blocks stride {stride}",
+             lz4_parse.parse_candidates(packed, cl, p, 65535, stride),
+             lz4_parse.parse_candidates_ref(packed, cl, p, 65535, stride),
+             k10_errs)
+        ends, e_lens = segment_end_candidates(p, stride,
+                                              np.random.default_rng(SEED + 32))
+        ends, e_lens = torch.from_numpy(ends).to(dev), torch.from_numpy(e_lens).to(dev)
+        for max_dist in (65535, 3000, 4 * stride):
+            got = lz4_parse.parse_candidates(ends, e_lens, p, max_dist, stride)
+            held(f"K10 segment-end candidates stride {stride} max_dist "
+                 f"{max_dist}", got,
+                 lz4_parse.parse_candidates_ref(ends, e_lens, p, max_dist,
+                                                stride), k10_errs)
+        starts = torch.nonzero(got[0][0]).flatten()
+        on_end = int(((starts + got[1][0][starts]) % 512 == 0).sum())
+        check(on_end == p // 512, f"phase 30: {on_end} matches end on a "
+              f"segment end at stride {stride}, not {p // 512}")
+    del cx, cl, ends, e_lens
+
+    # ---- K10, field entry (the sort matcher's parse) ---------------------
+    fields_errs = []
+    captured = []
+    real = lz4_fast.greedy_parse
+    try:
+        lz4_fast.greedy_parse = lambda *a, **k: captured.append(a) or real(*a, **k)
+        kernel_fields = fast_match_blocks(x, lens, lcp_words=4)
+        lz4_fast.greedy_parse = lz4_parse.greedy_parse_ref
+        plain_fields = fast_match_blocks(x, lens, lcp_words=4)
+    finally:
+        lz4_fast.greedy_parse = real
+    held(f"K10 field entry in the sort matcher, {b}x16KiB lcp 4", kernel_fields,
+         plain_fields, fields_errs)
+    sort_len, sort_dist, sort_seg = captured[0]
+    del kernel_fields, plain_fields, captured
+    frng = np.random.default_rng(SEED + 33)
+    for dtype in (torch.int32, torch.int64):
+        for seg, stride in FIELD_CASES:
+            cols = p - p % seg
+            ml = frng.integers(-5, 600, (64, cols))
+            ml[0, 5], ml[1, 7] = torch.iinfo(dtype).max, torch.iinfo(dtype).max - 1
+            ml = torch.from_numpy(ml).to(dtype).to(dev)
+            md = torch.from_numpy(frng.integers(0, 1 << 20, (64, cols))).to(dtype).to(dev)
+            held(f"K10 field entry {str(dtype)[6:]} seg {seg} stride {stride}",
+                 lz4_parse.greedy_parse(ml, md, seg, stride),
+                 lz4_parse.greedy_parse_ref(ml, md, seg, stride), fields_errs)
+    data = text[:SORT_ENCODE_BYTES]
+    sort_cfg = LZ4Config(mode="fast", matcher="sort")
+    lz4_parse.greedy_parse.launches = 0
+    frame = LZ4Codec(sort_cfg, dev).encode(data, engine="device")
+    torch.cuda.synchronize()
+    fields_launches = lz4_parse.greedy_parse.launches
+    check(fields_launches == 1, f"phase 30: the sort matcher's encode launched "
+          f"K10's field entry {fields_launches} times, not once")
+    check(frame == LZ4Codec(sort_cfg, "cpu").encode(data, engine="device"),
+          "phase 30: the sort matcher's frame differs from the CPU codec's")
+    print(f"phase 30: LZ4T sort-matcher encode of {len(data)} B: K10 field "
+          f"entry launched {fields_launches} time; frame byte-identical to "
+          "the CPU codec's")
+
+    # ---- K11 ---------------------------------------------------------------
+    k11_errs = []
+    parity_inputs = {}
+    for n, block_length in PARITY_CASES:
+        pb, _ = pad_blocks(text[:n], block_length)
+        parity_inputs[n, block_length] = torch.from_numpy(pb).to(dev)
+    crng = np.random.default_rng(SEED + 34)
+    crafted = {
+        "all-equal 3x2000": np.full((3, 2000), 97, np.int32),
+        "random 255x300": crng.integers(0, 256, (255, 300)).astype(np.int32),
+        "truncation and ties P 1024": pad_blocks(crafted_parity_bytes(1024),
+                                                 1024)[0],
+        "truncation and ties P 300": pad_blocks(crafted_parity_bytes(300),
+                                                300)[0],
+    }
+    cases = [(f"text {n} B ({t.shape[0]} x {bl})", t)
+             for (n, bl), t in parity_inputs.items()]
+    cases += [(k, torch.from_numpy(v).to(dev)) for k, v in crafted.items()]
+    for label, xb in cases:
+        for max_match in PARITY_MAX_MATCH:
+            held(f"K11 {label} max_match {max_match} (with the tables)",
+                 lz4_parse.parity_tables(xb, max_match),
+                 lz4_parse.parity_tables_ref(xb, max_match), k11_errs)
+
+    # ---- times ---------------------------------------------------------------
+    packed = match_candidates(x, lens, 1, 4)
+    t = time_versions(
+        f"phase 30: K10 {b}x16KiB stride 1 lcp 4",
+        {"plain": lambda a: lz4_parse.parse_candidates_ref(a[0], a[1], p),
+         "kernel": lambda a: lz4_parse.parse_candidates(a[0], a[1], p)},
+        (packed, lens))
+    k10_ms, k10_plain = t["kernel"], t["plain"]
+    k10_bound = bound(packed.numel() * 4 + b * 4 + 3 * b * p * 4)
+    t = time_versions(
+        f"phase 30: K10 field entry {b}x16KiB (the sort matcher's, int64)",
+        {"plain": lambda a: lz4_parse.greedy_parse_ref(*a, sort_seg),
+         "kernel": lambda a: lz4_parse.greedy_parse(*a, sort_seg)},
+        (sort_len, sort_dist))
+    fields_ms, fields_plain = t["kernel"], t["plain"]
+    fields_bound = bound(sort_len.numel() * (8 + 8 + 3 * 4))
+    del packed, sort_len, sort_dist, x, lens
+    torch.cuda.empty_cache()
+    k11 = {}
+    for (n, block_length), xb in parity_inputs.items():
+        if block_length > 1024:
+            continue
+        fns = {"plain": lz4_parse.parity_parse_ref,
+               "kernel": lz4_parse.parity_parse}
+        ms = {}
+        for name in [*fns, *reversed(list(fns))]:  # plain, kernel, kernel, plain
+            kernel = lz4_parse.parity_parse if name == "kernel" else None
+            ms.setdefault(name, []).append(timing.time_ms(
+                fns[name], xb, dev, kernel=kernel))
+        mean = {k: sum(v) / 2 for k, v in ms.items()}
+        k11_bound = bound(xb.numel() * (4 + 1 + 4 + 4))
+        print(f"phase 30: K11 {n} B ({xb.shape[0]} x {block_length}): kernel "
+              f"{ms['kernel'][0]:.4f}, {ms['kernel'][1]:.4f} ms, plain "
+              f"{ms['plain'][0]:.4f}, {ms['plain'][1]:.4f} ms (queued, best of "
+              f"4 runs of 8); bound {k11_bound[0]:.6f} ms ({k11_bound[1]})")
+        k11[n, block_length] = (mean["kernel"], mean["plain"], k11_bound)
+    k11_ms, k11_plain, k11_bound = k11[76_500, 300]
+    print(f"phase 30: K10 {k10_ms:.4f} ms against plain {k10_plain:.4f} "
+          f"({k10_plain / k10_ms:.1f}x); bound {k10_bound[0]:.4f} ms "
+          f"({k10_bound[1]}), {k10_bound[0] / k10_ms:.1%} of it; field entry "
+          f"{fields_ms:.4f} against {fields_plain:.4f}, bound "
+          f"{fields_bound[0]:.4f}, {fields_bound[0] / fields_ms:.1%}; K11 "
+          f"{k11_ms:.4f} against {k11_plain:.4f} at 255 x 300; launches on "
+          f"their paths K10 {k10_launches}, field entry {fields_launches}, "
+          f"K11 {k11_launches}; {time.perf_counter() - t_phase:.1f} s")
+
+    def record(name, replaces, launches, errs, ms, plain, bnd):
+        return {"name": name, "route": "cuda", "source": PARSE_SOURCE,
+                "replaces": replaces, "launches": launches,
+                "max_abs_err": max(errs), "ms": ms, "plain_ms": plain,
+                "bound_ms": bnd[0], "bound_by": bnd[1], "library_ms": None}
+
+    return [record("lz4_parse_candidates", PARSE_REPLACES, k10_launches,
+                   k10_errs, k10_ms, k10_plain, k10_bound),
+            record("lz4_parse_fields", FIELDS_REPLACES, fields_launches,
+                   fields_errs, fields_ms, fields_plain, fields_bound),
+            record("parity_parse", PARITY_REPLACES, k11_launches, k11_errs,
+                   k11_ms, k11_plain, k11_bound)]
+
+
 def main() -> int:
     import torch
 
@@ -4746,7 +5038,7 @@ def main() -> int:
           f"{trips[len(trips) // 2]:.3f} ms, min {trips[0]:.3f} ms "
           f"(runs {[round(t, 3) for t in trips]})")
 
-    lz4, lz4_data, lz4_frame = lz4_phases(dev)
+    lz4, lz4_data, lz4_frame, k10_launches = lz4_phases(dev)
     pairs, packed, p_decoded = pair_phases(dev, frames, containers, decoded)
     wide = wide_phase(dev, packed, p_decoded)
     p10_words = {c: (np.concatenate([e.rle[c] for e in packed]).view(np.int16),
@@ -4756,7 +5048,7 @@ def main() -> int:
     exact_phase(dev, frames[0])
     per_block_phase(dev, frames[0])
     entry_phase(dev, frames[0])
-    parity_phase(dev)
+    k11_launches = parity_phase(dev)
     cli_phase(dev)
     parallel_phase(dev, card, lz4_data, lz4_frame)
     del lz4_data, lz4_frame
@@ -4771,6 +5063,7 @@ def main() -> int:
     colours = colour_phase(dev)
     gathers = gather_phase(dev)
     inverse = inverse_phase(dev, inv_launches)
+    parses = parse_phase(dev, k10_launches, k11_launches)
 
     records = [{
         "name": "fwd_megakernel",
@@ -4785,7 +5078,7 @@ def main() -> int:
         "bound_by": k1_bound[1],
         "library_ms": None,
     }, *lz4, *pairs, wide, copy, *candidates, *probes, *layouts, *matchers,
-       *expands, *gates, *colours, *gathers, inverse]
+       *expands, *gates, *colours, *gathers, inverse, *parses]
     for r in records:
         if r["bound_by"] == "bytes":  # the same bytes over the measured rate
             measured = r["bound_ms"] * HBM_BYTES_PER_S / (ceiling * 1e9)

@@ -5,8 +5,10 @@ Port of ``lz4jpeg_tpu/models/lz4.py``.  ``LZ4Config(mode="parity")``:
 
 * encode (every ``engine`` alike, as in JAX): blocks of ``block_length``
   bytes padded by ``ops/match.py::pad_blocks`` → per chunk of
-  ``batch_blocks`` blocks, ``match_tables`` and ``greedy_parse`` on the
-  codec's ``device`` → one copy of the three parse fields to the host →
+  ``batch_blocks`` blocks, ``ops/lz4_parse.py::parity_parse`` on the
+  codec's ``device`` (K11 on a CUDA device; ``match_tables`` and
+  ``greedy_parse`` as torch ops on the CPU) → one copy of the three parse
+  fields to the host →
   ``_build_sequences`` → ``formats/lz4_frame.py::pack_frame``; the frame is
   byte-identical to the reference encoder's;
 * decode of a parity frame, ``"device"``: ``ops/lz4_decode.py``'s pointer
@@ -17,9 +19,10 @@ Port of ``lz4jpeg_tpu/models/lz4.py``.  ``LZ4Config(mode="parity")``:
 
 * encode, ``engine="device"`` (the JAX package's ``"tpu"`` engine; it runs
   on the codec's ``device``): 16 KiB blocks go up as uint8 → the matcher
-  (``matcher="fused"``: ``ops/fused_match.py``, the Hopper kernel on a CUDA
-  device and its plain version on the CPU; ``"sort"``:
-  ``ops/lz4_fast.py::fast_match_blocks``) → ``compact_parse`` → only the
+  (``matcher="fused"``: ``ops/fused_match.py``, the Hopper kernels K2 and
+  K10 on a CUDA device and their plain versions on the CPU; ``"sort"``:
+  ``ops/lz4_fast.py::fast_match_blocks``, whose parse is K10 on a CUDA
+  device) → ``compact_parse`` → only the
   ``max(counts)`` compacted match records come back → the native batched
   emitter → ``assemble_frame``;
 * encode, ``"native"`` / ``"python"``: the C++ host encoder or the Python
@@ -73,7 +76,8 @@ from lz4jpeg_tpu_torch.ops.lz4_fast import (
 )
 from lz4jpeg_tpu_torch.ops.lz4_decode import decode_frame_device
 from lz4jpeg_tpu_torch.ops.lz4t_decode import decode_fast_device
-from lz4jpeg_tpu_torch.ops.match import greedy_parse, match_tables, pad_blocks
+from lz4jpeg_tpu_torch.ops.lz4_parse import parity_parse
+from lz4jpeg_tpu_torch.ops.match import pad_blocks
 from lz4jpeg_tpu_torch.utils.io import EncodingLog
 
 ENGINES = ("auto", "device", "native", "python")
@@ -147,8 +151,9 @@ class LZ4Codec:
 
     def _encode_parity(self, data: bytes) -> bytes:
         """Parity frame: device match tables and greedy parse per chunk of
-        ``batch_blocks`` blocks, one copy of the parse fields to the host,
-        host sequence building and framing."""
+        ``batch_blocks`` blocks (``parity_parse``: K11 once a chunk on a
+        CUDA device), one copy of the parse fields to the host, host
+        sequence building and framing."""
         block_length = self.config.block_length
         if len(data) < block_length:
             raise ValueError("default block length is too high for this input")
@@ -157,10 +162,9 @@ class LZ4Codec:
         for start in range(0, padded.shape[0], self.batch_blocks):
             chunk = torch.from_numpy(
                 padded[start : start + self.batch_blocks]).to(self.device)
-            best_len, best_dist = match_tables(
+            is_match, emit_len, emit_dist = parity_parse(
                 chunk, max_match=self.config.max_match_length
             )
-            is_match, emit_len, emit_dist = greedy_parse(best_len, best_dist)
             fields = torch.stack(
                 [is_match.int(), emit_len, emit_dist]).cpu().numpy()
             for bi in range(chunk.shape[0]):
@@ -179,8 +183,9 @@ class LZ4Codec:
         """Matcher + compactor: (B, P) uint8 blocks + (B,) int32 lengths on
         the device → the compacted ``(positions, len << pos_bits | dist,
         counts)`` records.  ``matcher="fused"`` runs ``match_candidates``
-        (K2 on a CUDA device, its plain version on the CPU); ``"sort"``
-        the sort matcher."""
+        and ``parse_candidates`` (K2 and K10 on a CUDA device, their plain
+        versions on the CPU); ``"sort"`` the sort matcher (its parse K10
+        on a CUDA device)."""
         cfg = self.config
         if cfg.matcher == "fused":
             fields = fast_match_blocks_fused(

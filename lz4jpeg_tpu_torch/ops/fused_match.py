@@ -11,8 +11,9 @@ between the two: a CUDA call launches the kernel or raises.
 
 ``fast_match_blocks_fused`` wraps it with the Pallas wrapper's post-pass
 (distance, segment and block-end caps; the greedy parse on the anchor grid;
-stride expansion to the byte grid) and returns byte-level ``(is_match,
-emit_len, emit_dist)`` fields, as ``ops/lz4_fast.py::fast_match_blocks``.
+stride expansion to the byte grid), ``ops/lz4_parse.py::parse_candidates``
+(K10 on a CUDA tensor), and returns byte-level ``(is_match, emit_len,
+emit_dist)`` fields, as ``ops/lz4_fast.py::fast_match_blocks``.
 """
 
 from __future__ import annotations
@@ -27,9 +28,9 @@ from lz4jpeg_tpu_torch.ops.lz4_fast import (
     INVALID_BUCKET,
     _lcp_from_payloads,
     _shift_back,
-    greedy_parse,
     hash16,
 )
+from lz4jpeg_tpu_torch.ops.lz4_parse import parse_candidates
 
 
 def _geometry(p: int, stride: int, lcp_words: int):
@@ -182,46 +183,3 @@ def fast_match_blocks_fused(
     )
     return parse_candidates(packed, lengths, blocks.shape[1], max_dist,
                             stride, seg)
-
-
-def parse_candidates(
-    packed: torch.Tensor,
-    lengths: torch.Tensor,
-    p: int,
-    max_dist: int = 65535,
-    stride: int = 1,
-    seg: int = 512,
-):
-    """The Pallas wrapper's post-pass (``pallas_match.py:285-338``): (B, Pa)
-    packed candidates → distance, segment and block-end caps → greedy parse
-    on the anchor grid → (B, P) byte-grid ``(is_match, emit_len,
-    emit_dist)`` int32."""
-    b, pa = packed.shape
-    pos_bits = (pa - 1).bit_length()
-    packed = packed.to(torch.int64)
-    match_len = packed >> pos_bits
-    match_dist = (packed & ((1 << pos_bits) - 1)) * stride  # bytes
-    match_dist = torch.where(match_dist <= max_dist, match_dist, 0)
-    match_len = torch.where(match_dist > 0, match_len, 0)
-
-    # Segment/block-end caps on the byte grid (anchors at byte a·stride).
-    byte_pos = torch.arange(pa, dtype=torch.int64, device=packed.device) * stride
-    seg_left = seg - (byte_pos & (seg - 1))
-    limit = torch.minimum(lengths.to(torch.int64)[:, None] - byte_pos[None, :],
-                          seg_left[None, :])
-    match_len = torch.minimum(match_len, limit.clamp(min=0))
-    match_len = torch.where(match_len >= 4, match_len, 0)
-    match_dist = torch.where(match_len > 0, match_dist, 0)
-
-    # Greedy parse over the anchor grid: seg/stride lockstep steps; a match
-    # of L bytes frees the next anchor ceil(L/stride) steps ahead.
-    fields = greedy_parse(match_len, match_dist, seg // stride, stride)
-    if stride == 1:
-        return fields
-    # Expand anchor-grid fields to the byte grid (zeros between anchors).
-    out = []
-    for v in fields:
-        wide = torch.zeros((b, pa, stride), dtype=v.dtype, device=v.device)
-        wide[:, :, 0] = v
-        out.append(wide.reshape(b, p))
-    return tuple(out)

@@ -14,8 +14,9 @@ formulation the fused matcher (``ops/fused_match.py``) is held against:
 3. **Un-sort** by a scatter to the sorted positions (the JAX package pays a
    second sort; the result is the same permutation).
 4. **Greedy parse, segment-anchored**: matches never cross a ``seg``-byte
-   boundary, so the parse is ``seg`` lockstep steps over every segment of
-   every block (a Python loop over torch ops in place of ``lax.scan``).
+   boundary, so segments parse independently: ``ops/lz4_parse.py::
+   greedy_parse``, K10's field entry on a CUDA tensor (its plain version,
+   ``seg`` lockstep steps of torch ops, on the CPU).
 
 Integer note: torch has no uint32 arithmetic, so words live in int64 and
 the hash's low 32 bits come from 16-bit halves (no signed overflow).
@@ -25,6 +26,8 @@ from __future__ import annotations
 
 import numpy as np
 import torch
+
+from lz4jpeg_tpu_torch.ops.lz4_parse import greedy_parse
 
 TPU_BLOCK_LOG = 14  # 16 KiB blocks: dist fits the 64 KiB window trivially
 HASH_MULT = 2654435761
@@ -92,33 +95,6 @@ def _pack32(x: torch.Tensor, k: int) -> torch.Tensor:
         if k + j < p:
             out[:, : p - k - j] |= x[:, k + j :] << (8 * j)
     return out
-
-
-def greedy_parse(match_len, match_dist, seg: int, stride: int = 1):
-    """Segment-anchored greedy parse: ``seg`` lockstep steps over every
-    (row, segment) at once.  A taken match of L bytes frees the next start
-    ``ceil(L / stride)`` slots ahead.  Returns ``(is_match, emit_len,
-    emit_dist)`` int32 in the input's shape."""
-    shape = match_len.shape
-    if shape[-1] % seg:
-        raise ValueError(f"rows of {shape[-1]} do not split into {seg}-segments")
-    nseg = match_len.numel() // seg
-    seg_len = match_len.reshape(nseg, seg)
-    seg_dist = match_dist.reshape(nseg, seg)
-    skip = torch.zeros(nseg, dtype=torch.int32, device=match_len.device)
-    is_match = torch.zeros((nseg, seg), dtype=torch.int32, device=match_len.device)
-    for k in range(seg):
-        ml = seg_len[:, k]
-        is_m = (skip <= k) & (ml > 0)
-        consumed = (ml + stride - 1) // stride
-        skip = torch.where(is_m, k + consumed, skip)
-        is_match[:, k] = is_m
-    taken = is_match > 0
-    return (
-        is_match.reshape(shape),
-        torch.where(taken, seg_len, 0).to(torch.int32).reshape(shape),
-        torch.where(taken, seg_dist, 0).to(torch.int32).reshape(shape),
-    )
 
 
 def fast_match_blocks(

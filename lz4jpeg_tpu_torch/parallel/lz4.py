@@ -10,9 +10,10 @@ lock, :495-514) is the in-order concatenation of the shards
 
 Per shard, on a CUDA mesh:
 
-* ``sharded_block_parse``: ``ops/match.py`` (``match_tables``,
-  ``greedy_parse``) as torch ops;
-* ``sharded_fast_parse``: the Hopper match kernel K2
+* ``sharded_block_parse``: ``ops/lz4_parse.py::parity_parse``, the
+  parity matcher K11 (``match_tables`` and ``greedy_parse`` as torch ops
+  on a CPU mesh);
+* ``sharded_fast_parse``: the Hopper kernels K2 and K10
   (``ops/fused_match.py::fast_match_blocks_fused``, stride 1 and 2 lcp
   words, the defaults of the JAX package's TPU route); on a CPU mesh the
   sort matcher with ``LCP_WORDS`` (4) words, as JAX runs off a TPU, so the
@@ -55,7 +56,7 @@ from lz4jpeg_tpu_torch.ops.lz4t_decode import (
     device_depth_cap,
     resolve_on_device,
 )
-from lz4jpeg_tpu_torch.ops.match import greedy_parse, match_tables
+from lz4jpeg_tpu_torch.ops.lz4_parse import parity_parse
 from lz4jpeg_tpu_torch.parallel.mesh import (
     CodecMesh,
     gather_shards,
@@ -93,8 +94,7 @@ def sharded_block_parse(
     (shards,) = shard_leading_axis([np.asarray(blocks, np.int32)], mesh)
     parts = []
     for shard in shards:
-        best_len, best_dist = match_tables(shard, max_match=max_match)
-        parts.append(_stack_fields(*greedy_parse(best_len, best_dist)))
+        parts.append(_stack_fields(*parity_parse(shard, max_match=max_match)))
     return _split_fields(gather_shards(parts))
 
 
@@ -104,7 +104,7 @@ def sharded_fast_parse(
     """Fast-mode (LZ4T) match finding with the block axis sharded: (B, P)
     blocks of byte values and (B,) lengths → byte-level ``(is_match,
     emit_len, emit_dist)``.  The row count must be a multiple of the mesh
-    size.  A CUDA mesh launches K2 once per shard."""
+    size.  A CUDA mesh launches K2 and K10 once per shard."""
     use_fused = mesh.device_type == "cuda"
     block_shards, length_shards = shard_leading_axis(
         [np.asarray(blocks).astype(np.uint8), np.asarray(lengths, np.int32)],

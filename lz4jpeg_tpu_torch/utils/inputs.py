@@ -180,6 +180,50 @@ def crafted_match_blocks(p: int, rng: np.random.Generator):
     return blocks, lengths
 
 
+def crafted_parity_bytes(p: int) -> bytes:
+    """Rows of ``p`` bytes for the parity matcher: a run of c equal bytes
+    after one distinct byte for c in 256, 257, 260, 261, 512 and 513 where
+    it fits (best lengths 256, 257, 260, 512 at the run's second byte:
+    the uint8 truncation makes 256 and 512 literals and 257 a match of 1),
+    a row of ties between distances, and a periodic row."""
+    rows = []
+    for run in (256, 257, 260, 261, 512, 513):
+        if run + 2 > p:
+            continue
+        row = bytearray(range(1, p + 1)) if p <= 255 else bytearray(
+            (i * 7 + 3) % 251 for i in range(p))
+        row[1 : 1 + run] = b"a" * run
+        rows.append(bytes(row))
+    tie = (b"abcdX" + b"abcdY" + b"abcdZ" + b"abcdabcd" + b"xyzw") * p
+    rows.append(tie[:p])
+    rows.append((b"0123456789" * p)[:p])
+    return b"".join(rows)
+
+
+def segment_end_candidates(p: int, stride: int, rng: np.random.Generator):
+    """(4, p / stride) int32 packed match candidates, as K2 writes them
+    (``(lcp << pos_bits) | distance in anchors``), and (4,) int32 lengths,
+    for the LZ4T parse's edge cases with 512-byte segments: row 0's every
+    anchor reaches exactly its segment's end (lcp 16, or the bytes left
+    where fewer), so chains of matches end on each segment's end; row 1
+    random words, every seventh without a candidate, and a ragged length;
+    row 2 lcp 16 at the largest distance (past low ``max_dist`` caps) and
+    a length that ends mid-segment; row 3 random words and a length of 3."""
+    pa = p // stride
+    pos_bits = (pa - 1).bit_length()
+    lcp = rng.integers(0, 17, (4, pa))
+    dist = rng.integers(0, pa, (4, pa))
+    left = 512 - (np.arange(pa) * stride) % 512
+    lcp[0] = np.minimum(left, 16)
+    dist[0] = 1
+    dist[1, ::7] = 0
+    lcp[2] = 16
+    dist[2] = pa - 1
+    packed = ((lcp << pos_bits) | dist).astype(np.int32)
+    lengths = np.array([p, p - 13, p - 700, 3], np.int32)
+    return packed, lengths
+
+
 def smooth_tiles(n: int, width: int, rng: np.random.Generator) -> np.ndarray:
     """(n, 8, width) uint8 tiles, each a ramp (a level in [16, 240], a slope
     of up to ±6 a pixel down and across) plus integer noise in [-3, 3],

@@ -22,9 +22,10 @@ The inverse megakernel (K9) against its plain version: every differing
 pixel explained by one-step plane flips at summation ties
 (``utils/parity.py::decode_flips``), within the same envelope; crafted
 words at every lane identical.
-Parity frames of a CUDA codec (torch ops, no kernel) equal the CPU codec's
-and the native encoder's byte for byte; the CLI on the card writes what its
-``--device cpu`` run writes, by the same rules.
+Parity frames of a CUDA codec (K11) equal the CPU codec's and the native
+encoder's byte for byte; the CLI on the card writes what its ``--device
+cpu`` run writes, by the same rules.  K10 and K11, LZ4's greedy parses,
+compute on integers: identity with their plain versions, dtypes included.
 """
 
 import numpy as np
@@ -2137,3 +2138,177 @@ def test_sharded_sparse_inverse_launches_k9_per_shard(cuda):
         from_entropy=False)
     diff = np.abs(got.astype(np.int32) - want.astype(np.int32))
     assert diff.max() <= 3 and (diff != 0).mean() <= 2e-3
+
+
+# ---------------------------------------------------------------------------
+# K10 and K11: LZ4's greedy parses (csrc/lz4_parse_kernel.cu); integers,
+# identity with the plain versions.
+# ---------------------------------------------------------------------------
+
+
+def _same(got, want):
+    return all(g.dtype == w.dtype and torch.equal(g, w)
+               for g, w in zip(got, want))
+
+
+@pytest.mark.parametrize("stride", [1, 2, 4])
+@pytest.mark.parametrize("lcp_words", [2, 4])
+def test_segment_parse_matches_plain_version(cuda, stride, lcp_words):
+    """K10's candidate entry on K2's words of text (a ragged block, a noise
+    block) at the codec's segment, at a segment past a tile and below 512,
+    and at lower ``max_dist`` caps: fields identical, one launch a call."""
+    from lz4jpeg_tpu_torch.ops import lz4_parse
+
+    blocks, lengths = _text_blocks(3, seed=31 + stride)
+    x = torch.from_numpy(blocks).to(cuda)
+    lens = torch.from_numpy(lengths).to(cuda)
+    packed = match_candidates(x, lens, stride, lcp_words)
+    for seg, max_dist in ((512, 65535), (16384, 65535), (64, 65535),
+                          (512, 3000), (512, 9)):
+        before = lz4_parse.parse_candidates.launches
+        got = lz4_parse.parse_candidates(packed, lens, 16384, max_dist, stride,
+                                         seg)
+        torch.cuda.synchronize()
+        assert lz4_parse.parse_candidates.launches == before + 1
+        want = lz4_parse.parse_candidates_ref(packed, lens, 16384, max_dist,
+                                              stride, seg)
+        assert _same(got, want), (seg, max_dist)
+
+
+def test_segment_parse_units_match_the_mirror(cuda):
+    """K10's C plan launches one CTA a unit of ``segment_plan``."""
+    from lz4jpeg_tpu_torch.ops import lz4_parse
+
+    lib = lz4_parse.load_kernel()
+    for n, seg_a in ((2048 * 16384, 512), (2048 * 4096, 128), (4096, 1),
+                     (3 * 4096, 4096), (15000, 5000), (7 * 40, 7)):
+        assert lib.segment_parse_units(n, seg_a) == len(
+            lz4_parse.segment_plan(n, seg_a)), (n, seg_a)
+
+
+@pytest.mark.parametrize("dtype", [torch.int32, torch.int64])
+@pytest.mark.parametrize("seg,stride", [(512, 1), (16384, 1), (100, 3),
+                                        (7, 2)])
+def test_segment_parse_fields_match_plain_version(cuda, dtype, seg, stride):
+    """K10's field entry (the sort matcher's parse) on random lengths and
+    on values whose arithmetic wraps in the input's type."""
+    from lz4jpeg_tpu_torch.ops import lz4_parse
+
+    rng = np.random.default_rng(seg + stride)
+    cols = 16384 - 16384 % seg
+    ml = rng.integers(-5, 600, (9, cols))
+    md = rng.integers(0, 1 << 20, (9, cols))
+    big = torch.iinfo(dtype).max
+    ml[0, 5], ml[1, 7], ml[2, 3] = big, big // 2, big - 1
+    ml_d = torch.from_numpy(ml).to(dtype).to(cuda)
+    md_d = torch.from_numpy(md).to(dtype).to(cuda)
+    before = lz4_parse.greedy_parse.launches
+    got = lz4_parse.greedy_parse(ml_d, md_d, seg, stride)
+    torch.cuda.synchronize()
+    assert lz4_parse.greedy_parse.launches == before + 1
+    assert _same(got, lz4_parse.greedy_parse_ref(ml_d, md_d, seg, stride))
+
+
+@pytest.mark.parametrize("p,n_blocks", [(300, 255), (1024, 30), (4096, 3),
+                                        (9000, 2)])
+@pytest.mark.parametrize("max_match", [1024, 100])
+def test_parity_parse_matches_plain_version(cuda, p, n_blocks, max_match):
+    """K11 on text blocks (a ragged last one), with its tables: best_len
+    and best_dist, is_match (bool), emit_len, emit_dist identical; 9,000
+    positions take two tiles, the runs carried between them."""
+    from lz4jpeg_tpu_torch.ops import lz4_parse
+    from lz4jpeg_tpu_torch.ops.match import pad_blocks
+
+    data = generate_text(p * n_blocks - p // 3, np.random.default_rng(p))
+    x = torch.from_numpy(pad_blocks(data, p)[0]).to(cuda)
+    before = lz4_parse.parity_parse.launches
+    got = lz4_parse.parity_tables(x, max_match)
+    torch.cuda.synchronize()
+    assert lz4_parse.parity_parse.launches == before + 1
+    want = lz4_parse.parity_tables_ref(x, max_match)
+    assert _same(got, want)
+    assert _same(lz4_parse.parity_parse(x, max_match), want[2:])
+
+
+@pytest.mark.parametrize("kind", ["equal", "random", "crafted"])
+def test_parity_parse_on_crafted_blocks(cuda, kind):
+    """All-equal bytes (runs to the block's end, ties at every distance),
+    random bytes, and runs whose true lengths are 256, 257, 260 and 512
+    (the uint8 truncation), at max_match 1,024 and 100."""
+    from lz4jpeg_tpu_torch.ops import lz4_parse
+
+    rng = np.random.default_rng(3)
+    if kind == "equal":
+        blocks = np.full((3, 2000), 97, np.int32)
+    elif kind == "random":
+        blocks = rng.integers(0, 256, (255, 300)).astype(np.int32)
+    else:
+        rows = []
+        for run in (256, 257, 260, 261, 512, 513):
+            row = np.array([(i * 7 + 3) % 251 for i in range(1024)], np.int32)
+            row[1 : 1 + run] = ord("a")
+            rows.append(row)
+        blocks = np.stack(rows)
+    x = torch.from_numpy(blocks).to(cuda)
+    for max_match in (1024, 100):
+        assert _same(lz4_parse.parity_tables(x, max_match),
+                     lz4_parse.parity_tables_ref(x, max_match))
+
+
+def test_parity_parse_refuses_blocks_past_16_bit_sizes(cuda):
+    from lz4jpeg_tpu_torch.ops import lz4_parse
+
+    with pytest.raises(ValueError):
+        lz4_parse.parity_parse(torch.zeros((1, 65537), dtype=torch.int32,
+                                           device=cuda))
+
+
+@pytest.mark.parametrize("matcher", ["fused", "sort"])
+def test_lz4t_encode_launches_k10_once(cuda, matcher):
+    """A device encode runs one K10 launch (the candidate entry after K2,
+    or the field entry in the sort matcher); frame identical to the CPU
+    codec's."""
+    from lz4jpeg_tpu_torch.ops import lz4_parse
+
+    data = generate_text(5 * 16384 + 999, np.random.default_rng(41))
+    cfg = LZ4Config(mode="fast", matcher=matcher)
+    counter = (lz4_parse.parse_candidates if matcher == "fused"
+               else lz4_parse.greedy_parse)
+    before = counter.launches
+    frame = LZ4Codec(cfg, device=cuda).encode(data, engine="device")
+    assert counter.launches == before + 1
+    assert frame == LZ4Codec(cfg, device="cpu").encode(data, engine="device")
+
+
+def test_parity_encode_launches_k11_per_chunk(cuda):
+    from lz4jpeg_tpu_torch.ops import lz4_parse
+
+    data = generate_text(76_500, np.random.default_rng(43))
+    cfg = LZ4Config(mode="parity")
+    before = lz4_parse.parity_parse.launches
+    frame = LZ4Codec(cfg, device=cuda, batch_blocks=100).encode(data)
+    assert lz4_parse.parity_parse.launches == before + 3  # 255 blocks
+    assert frame == native_backend().encode_parity(data, 300)
+
+
+def test_sharded_parses_launch_k10_and_k11_per_shard(cuda):
+    from lz4jpeg_tpu_torch.ops import lz4_parse
+    from lz4jpeg_tpu_torch.ops.match import pad_blocks
+    from lz4jpeg_tpu_torch.parallel.lz4 import (
+        sharded_block_parse,
+        sharded_fast_parse,
+    )
+
+    mesh = _card_mesh(cuda)
+    padded, lengths = pad_blocks_fast(
+        generate_text(8 * 16384 - 999, np.random.default_rng(47)))
+    before = lz4_parse.parse_candidates.launches
+    sharded_fast_parse(padded, lengths, mesh)
+    assert lz4_parse.parse_candidates.launches == before + 4
+    blocks, _ = pad_blocks(generate_text(12_000, np.random.default_rng(48)), 300)
+    before = lz4_parse.parity_parse.launches
+    got = sharded_block_parse(blocks, mesh)
+    assert lz4_parse.parity_parse.launches == before + 4
+    want = lz4_parse.parity_parse_ref(torch.from_numpy(blocks))
+    for g, w in zip(got, want):
+        assert np.array_equal(g, w.numpy())

@@ -6,7 +6,8 @@
 * K2's plain version: ``match_candidates_ref`` is identical to the packed
   words of the interpret-mode Pallas kernel, and ``fast_match_blocks_fused``
   to interpret-mode ``fast_match_blocks_pallas``, at (stride 2, lcp 2) and
-  (stride 4, lcp 4), block_log 12.  At stride 1 (block_log 14, lcp 4) the
+  (stride 4, lcp 4), block_log 12, on text and on blocks whose matches end
+  on a segment's end.  At stride 1 (block_log 14, lcp 4) the
   fused matcher is identical to the JAX sort matcher, as the two JAX
   matchers are to each other.
 * The hash's low 32 bits come out right without uint32 (all-0xFF windows).
@@ -124,10 +125,33 @@ def test_fused_stride1_matches_jax_sort_matcher_on_crafted_blocks(kind):
         assert int(got[0].sum()) == 0
 
 
-@pytest.mark.parametrize("stride,lcp_words", [(2, 2), (4, 4)])
-def test_fused_matches_interpret_mode_pallas(monkeypatch, stride, lcp_words):
+def _segment_end_data(seed=4):
+    """Three 4 KiB blocks of 512-byte segments, each a few random bytes and
+    then a 23-byte period (which no stride divides), and a ragged fourth
+    block: chains of matches whose last match is capped to end on its
+    segment's end."""
+    rng = np.random.default_rng(seed)
+    out = bytearray()
+    period = b"abcdefghijklmnopqrstuvw"
+    for s in range(8 * 3):
+        head = rng.integers(0, 256, 2 + s % 5, dtype=np.uint8).tobytes()
+        out += head + (period * 40)[: 512 - len(head)]
+    return bytes(out) + period * 20
+
+
+MATCHER_DATA = {"text": DATA, "segment_ends": _segment_end_data()}
+
+
+@pytest.mark.parametrize("stride,lcp_words,data", [
+    (2, 2, "text"), (4, 4, "text"),
+    (2, 2, "segment_ends"), (4, 4, "segment_ends"),
+], ids=["2-2", "4-4", "segment_ends-2-2", "segment_ends-4-4"])
+def test_fused_matches_interpret_mode_pallas(monkeypatch, stride, lcp_words,
+                                             data):
     """One interpret-mode run gives both references: the kernel's packed
-    words (captured at ``_match_call``) and the wrapper's parse fields."""
+    words (captured at ``_match_call``) and the wrapper's parse fields.
+    The segment-end blocks hold matches ending on a segment's end, capped
+    there, at strides 2 and 4."""
     captured = []
     real_call = jax_pallas_match._match_call
 
@@ -137,7 +161,7 @@ def test_fused_matches_interpret_mode_pallas(monkeypatch, stride, lcp_words):
         return out
 
     monkeypatch.setattr(jax_pallas_match, "_match_call", spy)
-    padded, lengths = jax_fast.pad_blocks_fast(DATA, block_log=12)
+    padded, lengths = jax_fast.pad_blocks_fast(MATCHER_DATA[data], block_log=12)
     want = jax_pallas_match.fast_match_blocks_pallas(
         jnp.asarray(padded), jnp.asarray(lengths), stride=stride,
         lcp_words=lcp_words, interpret=True,
@@ -149,6 +173,10 @@ def test_fused_matches_interpret_mode_pallas(monkeypatch, stride, lcp_words):
                                   lcp_words=lcp_words)
     _assert_identical(got, want)
     assert int(got[0].sum()) > 300
+    if data == "segment_ends":
+        b, k = np.nonzero(got[0].numpy())
+        ends = k + got[1].numpy()[b, k]
+        assert int((ends % 512 == 0).sum()) >= 16
 
 
 @pytest.mark.parametrize("p,stride,words", [

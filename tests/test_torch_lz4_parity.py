@@ -5,8 +5,9 @@ against the JAX package on the CPU.
   ``greedy_parse`` (torch) identical to JAX's on seeded random blocks with
   ragged last blocks and on crafted blocks: runs whose best length is 256,
   260 or 512 (uint8-truncated to 0, 4, 0: a length ≡ 0 mod 256 becomes a
-  literal), ties between distances (the largest distance wins), P = 300
-  and 1,024, a lowered ``max_match``.  Tolerance: exact, dtypes included.
+  literal), ties between distances (the largest distance wins), P = 300,
+  1,024 and 4,096 (two blocks), all-equal bytes, a lowered ``max_match``
+  at P = 300 and 1,024.  Tolerance: exact, dtypes included.
 * ``LZ4Codec(LZ4Config(mode="parity"), device="cpu")`` frames
   byte-identical to the JAX codec's, to ``lz4_encode_oracle`` and to the
   native ``encode_parity`` (the port's binding and JAX's); the JAX codec's
@@ -105,6 +106,9 @@ MATCH_CASES = {
     "crafted_p1024": (_crafted_blocks(1024), 1024, 1024),
     "max_match_100": (_crafted_blocks(300), 300, 100),
     "text_p300": (_text(3000 + 17), 300, 1024),
+    "random_p4096_two_blocks": (_random_data(3, 4096 + 1500), 4096, 1024),
+    "all_equal_p300": (b"z" * (300 * 3 + 77), 300, 1024),
+    "max_match_100_p1024": (_crafted_blocks(1024), 1024, 100),
 }
 
 
